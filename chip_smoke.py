@@ -1,0 +1,287 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch + CUDA port on one GPU: ``python3 chip_smoke.py``.
+
+Drives the port's main path — the flagship DP VAE online-training experiment
+(``vae_equalizer_tpu_torch.train.train_vae_dp``, DpConfig() defaults:
+64-QAM, M = 25, bl = 100, 170 frames x 10,000 symbols, 8 runs) — through
+its hand-written CUDA kernels, after building them from ``csrc/`` and
+holding each against its plain PyTorch version at the main path's shapes.
+One line per phase:
+
+  1. device    card name and power limit (nvidia-smi)
+  2. build     nvcc build of kernels A and B, seconds, ptxas resource use
+  3. kernel A  vs plain (one minibatch), errors and CUDA-event times
+  4. kernel B  vs plain: (a) a 3-minibatch frame, R = 8, across the lr
+               halving; (b) a full 100-step frame; times
+  5. main path the full experiment; launch count, soft SER band, MI, speed
+  6. breakdown per-frame channel / kernel B / eval times
+
+then the kernels' JSON line, the card line, and as the last line
+``{"ok": true, "device": {...}}``. Any failed phase raises (non-zero exit,
+no result line); without a CUDA device it exits non-zero at once.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+DEVICE = "cuda"
+SER_BAND = (0.029, 0.034)  # bench.py:196, last-20-frame mean soft SER of the flagship
+MI_MIN = 5.0  # bits, every run's final MI (tests/test_train.py:167-168)
+WARM_FRAMES = 20  # frames of training before the 100-step comparison
+
+
+def _line(phase: str, **kv) -> None:
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()), flush=True)
+
+
+def _check(name, got, want, rtol, atol, errs):
+    """Elementwise |got - want| <= atol + rtol |want|; records max abs/rel errors."""
+    g, w = got.double(), want.double()
+    diff = (g - w).abs()
+    max_abs = float(diff.max())
+    max_rel = float((diff / w.abs().clamp_min(1e-30)).max())
+    errs[name] = (max_abs, max_rel)
+    bad = diff > atol + rtol * w.abs()
+    if bool(bad.any()):
+        raise AssertionError(f"{name}: {int(bad.sum())} elements beyond rtol={rtol} atol={atol}; "
+                             f"max abs {max_abs:.3e}, max rel {max_rel:.3e}")
+
+
+def _fmt(errs):
+    return ",".join(f"{k}:{a:.2e}/{r:.2e}" for k, (a, r) in errs.items())
+
+
+def _time_ms(fn, reps: int = 5) -> float:
+    """Median CUDA-event time of fn() over reps runs, after one warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _dec_ties_only(dec, dec_ref, out, amps, var, nu_sc, tol=1e-4):
+    """Decision mismatches must sit where the two smallest demapper metrics
+    are within `tol` (relative) — a tie to float32 rounding."""
+    import torch
+
+    mism = dec != dec_ref
+    if not bool(mism.any()):
+        return 0, 0
+    met = (out[..., None, :] - amps[:, None]) ** 2 / (2 * var[:, None, None, None]) \
+        + nu_sc * (amps * amps)[:, None]
+    two = met.topk(2, dim=-2, largest=False).values
+    gap = (two[..., 1, :] - two[..., 0, :]) / two[..., 0, :].abs().clamp_min(1.0)
+    non_tie = mism & (gap > tol)
+    if bool(non_tie.any()):
+        raise AssertionError(f"dec: {int(non_tie.sum())} mismatches away from ties")
+    return int(mism.sum()), int(mism.numel())
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 1
+    import numpy as np
+
+    from vae_equalizer_tpu_torch.models import butterfly_init, dirac_taps_dp
+    from vae_equalizer_tpu_torch.ops import _build
+    from vae_equalizer_tpu_torch.ops.elbo_kernel import vae_dp_loss_and_grad, vae_dp_loss_and_grad_plain
+    from vae_equalizer_tpu_torch.ops.frame_kernel import (
+        frame_opt_init,
+        vae_dp_frame_train,
+        vae_dp_frame_train_plain,
+    )
+    from vae_equalizer_tpu_torch.train import dp as train_dp
+    from vae_equalizer_tpu_torch.utils import DpConfig
+
+    # the plain versions are the reference: full float32 everywhere
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(DEVICE)
+
+    # ---- 1. device
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    _line("1 device", card=repr(card), torch=torch.__version__, cuda=torch.version.cuda,
+          count=torch.cuda.device_count())
+
+    # ---- 2. build
+    _, build_s, log = _build.build()
+    _build.load()
+    ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "Compiling entry" in ln]
+    _line("2 build", seconds=f"{build_s:.1f}", ptxas=repr(" | ".join(ptxas)))
+
+    # flagship inputs: one frame of the DP channel, w/h near Dirac
+    cfg = DpConfig()
+    m_max = cfg.n_frame_max // cfg.batch_len
+    n_sym_frame = m_max * cfg.batch_len
+    const, var, sim, amps, P = train_dp._setup(cfg, n_sym_frame, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1234)
+    R = 8
+    rx, _, _ = sim(gen, float(np.float32(cfg.theta)), R)
+    rng = torch.Generator(device=dev)
+    rng.manual_seed(99)
+    M = cfg.m_est
+    w0 = butterfly_init(M, dev) + 0.01 * torch.randn((R, 2, 4, M), generator=rng, device=dev)
+    h0 = dirac_taps_dp(M, dev) + 0.01 * torch.randn((R, 2, 2, 2, M), generator=rng, device=dev)
+    nu_sc, lr = const.nu_sc, cfg.lr
+    bl = cfg.batch_len
+
+    # ---- 3. kernel A vs plain (rtol 1e-4: float32 sums in another order)
+    x1 = rx[0, ..., : 2 * bl].contiguous()
+    a_args = (w0[0].contiguous(), h0[0].contiguous(), x1, amps, var, nu_sc, P)
+    got = vae_dp_loss_and_grad(*a_args)
+    torch.cuda.synchronize()
+    want = vae_dp_loss_and_grad_plain(*a_args)
+    errs_a: dict = {}
+    for name, g, w in zip(("loss", "var_est", "gw", "gh", "q", "out"), got, want):
+        _check(name, g, w, 1e-4, 1e-4 * float(w.abs().max()), errs_a)
+    ms_a = _time_ms(lambda: vae_dp_loss_and_grad(*a_args))
+    ms_a_plain = _time_ms(lambda: vae_dp_loss_and_grad_plain(*a_args))
+    _line("3 kernel A", ok=True, errs_abs_rel=_fmt(errs_a), ms=f"{ms_a:.4f}", plain_ms=f"{ms_a_plain:.4f}")
+
+    # ---- 4a. kernel B vs plain: 3 minibatches, R = 8, w lr halves at the 2nd
+    opt0 = frame_opt_init({"w": w0, "h": h0})
+    rx3 = rx[..., : 3 * 2 * bl].contiguous()
+    b_args = (w0, h0, opt0, rx3, amps, var, nu_sc, P, lr, 40, 41.0)
+    got = vae_dp_frame_train(*b_args, bl_sym=bl)
+    torch.cuda.synchronize()
+    want = vae_dp_frame_train_plain(*b_args, bl_sym=bl)
+    names = ("w", "h", "opt", "losses", "var_est", "out", "dec", "eq", "mm", "s1")
+    g, w = dict(zip(names, got)), dict(zip(names, want))
+    errs_b: dict = {}
+    for k in ("w", "h", "losses", "var_est"):
+        _check(k, g[k], w[k], 1e-4, 3e-7, errs_b)
+    # the moments are raw gradients of scale ~1e1-1e2: an absolute 3e-7 floor
+    # is below one float32 ulp there, so their floor is 1e-5 of their scale
+    for k in ("mw", "vw", "mh", "vh"):
+        _check(k, g["opt"][k], w["opt"][k], 1e-4, 1e-5 * float(w["opt"][k].abs().max()), errs_b)
+    for k in ("out", "eq", "s1"):
+        _check(k, g[k], w[k], 1e-4, 1e-6, errs_b)
+    # mm = min_l (out - a_l)^2 / (2 var): near-zero minima carry the output's
+    # absolute error times the 1/(2 var) gain
+    _check("mm", g["mm"], w["mm"], 1e-4, 1e-4, errs_b)
+    dec_mis = _dec_ties_only(g["dec"], w["dec"], w["out"], amps, var, nu_sc)
+    b_err = max(errs_b["w"][0], errs_b["h"][0])
+    _line("4a kernel B 3 steps", ok=True, R=R, errs_abs_rel=_fmt(errs_b), dec_tie_mismatch=dec_mis)
+
+    # ---- 4b. one full 100-step frame at flagship lr, from the state after 20
+    # frames of training (from a cold start, Adam's first steps amplify
+    # rounding chaotically: zero moments turn sign flips of ~0 gradients into
+    # +-lr updates); times
+    warm = WARM_FRAMES
+    thetas = train_dp._frame_inputs(dataclasses.replace(cfg, num_frames=warm + 1), dev)
+    wk = butterfly_init(M, dev).expand(R, 2, 4, M).contiguous()
+    hk = dirac_taps_dp(M, dev).expand(R, 2, 2, 2, M).contiguous()
+    optk, thresh = frame_opt_init({"w": wk, "h": hk}), float(cfg.n_lrhalf * m_max)
+    for f in range(warm):
+        rx_f, _, _ = sim(gen, thetas[f], R)
+        wk, hk, optk = vae_dp_frame_train(wk, hk, optk, rx_f, amps, var, nu_sc, P, lr, f * m_max,
+                                          thresh, bl_sym=bl)[:3]
+    rx_f, _, _ = sim(gen, thetas[warm], R)
+    f_args = (wk, hk, optk, rx_f, amps, var, nu_sc, P, lr, warm * m_max, thresh)
+    got = vae_dp_frame_train(*f_args, bl_sym=bl)
+    torch.cuda.synchronize()
+    want = vae_dp_frame_train_plain(*f_args, bl_sym=bl)
+    errs_f: dict = {}
+    # Adam amplifies per-step rounding over 100 dependent steps
+    # (tests/test_frame_kernel.py:169-174): losses at rtol 1e-3
+    _check("losses", got[3], want[3], 1e-3, 0.0, errs_f)
+    agree = float((got[6] == want[6]).float().mean())
+    if agree < 0.999:
+        raise AssertionError(f"100-step frame: dec agreement {agree:.5f} < 0.999")
+    ms_b = _time_ms(lambda: vae_dp_frame_train(*f_args, bl_sym=bl))
+    ms_b_plain = _time_ms(lambda: vae_dp_frame_train_plain(*f_args, bl_sym=bl))
+    _line("4b kernel B 100 steps", ok=True, R=R, errs_abs_rel=_fmt(errs_f), dec_agree=f"{agree:.6f}",
+          ms=f"{ms_b:.3f}", plain_ms=f"{ms_b_plain:.3f}")
+
+    # ---- 5. the main path, counted
+    vae_dp_frame_train.launches = 0
+    vae_dp_loss_and_grad.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = train_dp.train_vae_dp(cfg, seed=0, device=DEVICE, use_pallas="frame", runs=R)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_b = vae_dp_frame_train.launches
+    if launches_b != cfg.num_frames:
+        raise AssertionError(f"kernel B launched {launches_b} times, expected {cfg.num_frames}")
+    for k in ("ser", "mi", "var_est"):
+        if not np.all(np.isfinite(res[k])):
+            raise AssertionError(f"non-finite {k}")
+    if res["ser"].shape != (R, 4, cfg.num_frames) or res["mi"].shape != (R, 2, cfg.num_frames):
+        raise AssertionError(f"result shapes {res['ser'].shape} {res['mi'].shape}")
+    soft = float(res["ser"][:, 2:, -20:].mean())
+    if not SER_BAND[0] <= soft <= SER_BAND[1]:
+        raise AssertionError(f"last-20-frame soft SER {soft:.5f} outside {SER_BAND}")
+    mi_last = res["mi"][:, :, -1]
+    if not np.all(mi_last > MI_MIN):
+        raise AssertionError(f"final MI {mi_last.min():.3f} <= {MI_MIN} bits")
+    sym_s = R * cfg.num_frames * n_sym_frame / wall
+    _line("5 main path", ok=True, runs=R, frames=cfg.num_frames, kernel_b_launches=launches_b,
+          soft_ser_last20=f"{soft:.5f}", const_ser_last20=f"{float(res['ser'][:, :2, -20:].mean()):.5f}",
+          mi_final_min=f"{mi_last.min():.4f}", wall_s=f"{wall:.3f}", sym_per_s=f"{sym_s:.0f}",
+          card=repr(card))
+
+    # ---- 6. per-frame breakdown at the main path's shapes (CUDA events)
+    opt = frame_opt_init({"w": w0, "h": h0})
+    wfn = lambda s0, ms, t=None: train_dp.batch_cut_weight(m_max, bl, s0, ms, cfg.n_cut, t=t)
+    state = {}
+
+    def channel():
+        state["ch"] = sim(gen, thetas[0], R)
+
+    def kernel():
+        state["k"] = vae_dp_frame_train(w0, h0, opt, state["ch"][0], amps, var, nu_sc, P, lr, 0,
+                                        1e9, bl_sym=bl)
+
+    def evaluate():
+        k = state["k"]
+        train_dp._finish_vae_frame(k[3], k[5], k[4], state["ch"][1], const, amps, P, var, wfn,
+                                   state["ch"][2], k[6], k[7], k[8], k[9])
+
+    ms_ch, ms_k, ms_ev = _time_ms(channel), _time_ms(kernel), _time_ms(evaluate)
+    _line("6 breakdown", runs=R, channel_ms=f"{ms_ch:.3f}", kernel_b_ms=f"{ms_k:.3f}",
+          eval_ms=f"{ms_ev:.3f}", frame_wall_ms=f"{1e3 * wall / cfg.num_frames:.3f}")
+
+    kernels = {"kernels": [
+        {"name": "vae_dp_frame_train", "route": "cuda",
+         "source": "vae_equalizer_tpu_torch/csrc/dp_kernels.cu",
+         "replaces": "vae_equalizer_tpu/ops/frame_kernel.py:1024", "launches": launches_b,
+         "max_abs_err": b_err, "ms": ms_b, "plain_ms": ms_b_plain},
+    ], "step_body_checked": [
+        {"name": "vae_dp_loss_and_grad", "route": "cuda",
+         "source": "vae_equalizer_tpu_torch/csrc/dp_kernels.cu",
+         "replaces": "vae_equalizer_tpu/ops/elbo_kernel.py:361",
+         "launches": vae_dp_loss_and_grad.launches,
+         "max_abs_err": max(errs_a["gw"][0], errs_a["gh"][0]), "ms": ms_a, "plain_ms": ms_a_plain},
+    ]}
+    print(json.dumps(kernels), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,95 @@
+// Kernels A and B for NVIDIA Hopper (sm_90a), behind a plain C interface
+// loaded with ctypes (vae_equalizer_tpu_torch/ops/_build.py).
+//
+// A (vae_dp_step_kernel) replaces vae_equalizer_tpu/ops/elbo_kernel.py:
+//   vae_dp_loss_and_grad_pallas — one DP minibatch: loss, var_est, gw, gh,
+//   q, out. One block.
+// B (vae_dp_frame_kernel) replaces vae_equalizer_tpu/ops/frame_kernel.py:
+//   vae_dp_frame_train_pallas_rb — one frame of online training for R runs:
+//   grid = R, one block per run; a loop over the m_max minibatches inside
+//   the block takes the place of the TPU's sequential grid, with w, h and
+//   the four Adam moments resident in shared memory for the whole frame and
+//   each minibatch read straight from rx in device memory. The step count
+//   is an integer (step0 + mb), so no float32 step-counter limit applies.
+//
+// Both run the shared step body of dp_step.cuh. Each launcher returns
+// cudaGetLastError() so the wrapper can raise on a refused launch.
+#include <cuda_runtime.h>
+
+#include "dp_step.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__global__ void __launch_bounds__(kThreads)
+vae_dp_step_kernel(const float* x, const float* w, const float* h, const float* amps,
+                   const float* P, const float* var, float nu_sc, int n_sym, int m, int n_lev,
+                   float* stats, float* gw, float* gh, float* q, float* out) {
+  extern __shared__ float smem[];
+  dp::step_block(smem, threadIdx.x, blockDim.x, x, w, h, amps, P, var, nu_sc, n_sym, m, n_lev,
+                 stats, gw, gh, q, out);
+}
+
+__global__ void __launch_bounds__(kThreads)
+vae_dp_frame_kernel(int R, int m_max, int n_sym, int m, int n_lev, long long n_total,
+                    const float* rx, const float* w_in, const float* h_in, const float* mw_in,
+                    const float* vw_in, const float* mh_in, const float* vh_in, float* w_out,
+                    float* h_out, float* mw_out, float* vw_out, float* mh_out, float* vh_out,
+                    float* losses, float* var_est, float* out, int* dec, float* eq, float* mm,
+                    float* s1, const float* amps, const float* P, const float* var,
+                    float nu_sc, float lr, long long step0, double lr_half_step) {
+  extern __shared__ float smem[];
+  dp::frame_block(smem, threadIdx.x, blockDim.x, blockIdx.x, R, m_max, n_sym, m, n_lev, n_total,
+                  rx, w_in, h_in, mw_in, vw_in, mh_in, vh_in, w_out, h_out, mw_out, vw_out,
+                  mh_out, vh_out, losses, var_est, out, dec, eq, mm, s1, amps, P, var, nu_sc,
+                  lr, step0, lr_half_step);
+}
+
+// Dynamic shared memory for one block, with the opt-in above 48 KB.
+template <typename K>
+cudaError_t prepare(K kernel, int n_sym, int m, int n_lev, size_t* bytes) {
+  if (n_lev < 1 || n_lev > dp::MAX_LEV || m % 2 != 1 || 2 * n_sym <= m) return cudaErrorInvalidValue;
+  const dp::Layout L = dp::make_layout(dp::make_dims(n_sym, m, n_lev), kThreads);
+  *bytes = sizeof(float) * (size_t)L.total;
+  if (*bytes > 48 * 1024)
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*bytes);
+  return cudaSuccess;
+}
+
+}  // namespace
+
+extern "C" {
+
+int vae_dp_step_launch(const float* x, const float* w, const float* h, const float* amps,
+                       const float* P, const float* var, float nu_sc, int n_sym, int m,
+                       int n_lev, float* stats, float* gw, float* gh, float* q, float* out,
+                       void* stream) {
+  size_t bytes = 0;
+  cudaError_t err = prepare(vae_dp_step_kernel, n_sym, m, n_lev, &bytes);
+  if (err != cudaSuccess) return (int)err;
+  vae_dp_step_kernel<<<1, kThreads, bytes, (cudaStream_t)stream>>>(
+      x, w, h, amps, P, var, nu_sc, n_sym, m, n_lev, stats, gw, gh, q, out);
+  return (int)cudaGetLastError();
+}
+
+int vae_dp_frame_launch(int R, int m_max, int n_sym, int m, int n_lev, long long n_total,
+                        const float* rx, const float* w_in, const float* h_in, const float* mw_in,
+                        const float* vw_in, const float* mh_in, const float* vh_in, float* w_out,
+                        float* h_out, float* mw_out, float* vw_out, float* mh_out, float* vh_out,
+                        float* losses, float* var_est, float* out, int* dec, float* eq, float* mm,
+                        float* s1, const float* amps, const float* P, const float* var,
+                        float nu_sc, float lr, long long step0, double lr_half_step,
+                        void* stream) {
+  if (R < 1 || m_max < 1 || n_total < (long long)m_max * 2 * n_sym) return (int)cudaErrorInvalidValue;
+  size_t bytes = 0;
+  cudaError_t err = prepare(vae_dp_frame_kernel, n_sym, m, n_lev, &bytes);
+  if (err != cudaSuccess) return (int)err;
+  vae_dp_frame_kernel<<<R, kThreads, bytes, (cudaStream_t)stream>>>(
+      R, m_max, n_sym, m, n_lev, n_total, rx, w_in, h_in, mw_in, vw_in, mh_in, vh_in, w_out, h_out,
+      mw_out, vw_out, mh_out, vh_out, losses, var_est, out, dec, eq, mm, s1, amps, P, var, nu_sc,
+      lr, step0, lr_half_step);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

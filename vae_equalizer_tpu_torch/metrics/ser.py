@@ -1,0 +1,95 @@
+"""Symbol-error rates robust to the blind-equalization ambiguities (DP).
+
+Port of the level-index paths of ``vae_equalizer_tpu/metrics/ser.py``
+(``_decode_levels``, ``_wmean``, ``ser_iqflip_from_dec``,
+``ser_constell_shaping``) with any leading batch dims. Every estimator
+evaluates the 4 rotations x 2 IQ-flips and returns the minimum per
+polarization; ``weight`` masks emulate the reference's data-dependent
+slicing (optical_DP_channel/shared_funcs.py:188-287).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+__all__ = ["ser_iqflip_from_dec", "ser_constell_shaping"]
+
+
+def _wmean(err: torch.Tensor, weight: torch.Tensor | None, dim) -> torch.Tensor:
+    err = err.to(torch.float32)
+    if weight is None:
+        return torch.mean(err, dim=dim)
+    w = torch.broadcast_to(weight.to(torch.float32), err.shape)
+    return torch.sum(err * w, dim=dim) / torch.sum(w, dim=dim)
+
+
+def _decode_levels(tx: torch.Tensor, num_lev: int) -> torch.Tensor:
+    """Normalized amplitude levels -> integer indices 0..num_lev-1 (exact for
+    every L: index = round(sqrt((L^2-1)/6) a + (L-1)/2))."""
+    half = (num_lev - 1) / 2
+    inv_step = math.sqrt((num_lev**2 - 1) / 6)
+    return torch.round(inv_step * tx.to(torch.float32) + half).to(torch.int32)
+
+
+def _indices(tx, tx_idx, num_lev):
+    return (_decode_levels(tx, num_lev) if tx_idx is None else tx_idx).to(torch.int64)
+
+
+def ser_iqflip_from_dec(dec: torch.Tensor, tx: torch.Tensor | None, num_lev: int,
+                        weight: torch.Tensor | None = None,
+                        tx_idx: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-pol SER from integer decisions, min over IQ-flip x 4 rotations.
+
+    dec (..., 2 pol, 2 I/Q, N); tx (..., 2, 2, N) levels or tx_idx the
+    level indices; weight broadcastable to (..., 2, N). Returns (..., 2).
+    """
+    dec = dec.to(torch.int64)
+    data = _indices(tx, tx_idx, num_lev)
+    inv = lambda a: (num_lev - 1) - a
+    d_i, d_q = dec[..., 0, :], dec[..., 1, :]
+    variants = ((d_i, d_q), (inv(d_i), inv(d_q)), (inv(d_q), d_i), (d_q, inv(d_i)))
+    data_i = data[..., 0, :]
+    data_q = (data[..., 1, :], inv(data[..., 1, :]))
+    sers = [_wmean((vi != data_i) | (vq != dq), weight, -1) for vi, vq in variants for dq in data_q]
+    return torch.stack(sers).min(dim=0).values
+
+
+def ser_constell_shaping(rx: torch.Tensor, tx: torch.Tensor | None, amps: torch.Tensor,
+                         nu_sc: float, var: torch.Tensor, weight: torch.Tensor | None = None,
+                         tx_idx: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-pol SER from the constellation output with PCS decision boundaries.
+
+    rx (..., 2, 2, N) equalized symbols; tx levels or tx_idx indices
+    (..., 2, 2, N); var (2,) demapper noise variance. The MAP boundary
+    between shaped neighbours moves inward: d = (1 + 2 nu_sc var) (a_i +
+    a_{i+1}) / 2. Non-finite outputs always count as errors.
+    """
+    num_lev = amps.shape[0]
+    data = _indices(tx, tx_idx, num_lev)
+    tx_i, tx_q = amps[data[..., 0, :]], amps[data[..., 1, :]]
+    data_i, data_q = data[..., 0, :], data[..., 1, :]
+    data_q_inv = (num_lev - 1) - data_q
+
+    d_vec = (1 + 2 * nu_sc * var[0]) * (amps[:-1] + amps[1:]) / 2
+
+    mag_tx = _wmean(torch.sqrt(tx_i**2 + tx_q**2), weight, (-2, -1))
+    mag_rx = _wmean(torch.sqrt(rx[..., 0, :] ** 2 + rx[..., 1, :] ** 2), weight, (-2, -1))
+    rx = rx * (mag_tx / mag_rx)[..., None, None, None]
+
+    dec_pos = torch.zeros(rx.shape, dtype=torch.int64, device=rx.device)  # bin(+rx)
+    dec_neg = torch.zeros(rx.shape, dtype=torch.int64, device=rx.device)  # bin(-rx)
+    for lev in range(num_lev - 1):
+        dec_pos = dec_pos + (rx >= d_vec[lev])
+        dec_neg = dec_neg + (rx <= -d_vec[lev])
+    p0, p1 = dec_pos[..., 0, :], dec_pos[..., 1, :]
+    n0, n1 = dec_neg[..., 0, :], dec_neg[..., 1, :]
+    i_src = (p0, n0, n1, p1)
+    q_src = (p1, n1, p0, n0)
+    bad = torch.any(~torch.isfinite(rx), dim=-2)  # (..., 2, N)
+    err = torch.stack(
+        [(i_src[v] != data_i) | (q_src[v] != data_q) | bad for v in range(4)]
+        + [(i_src[v] != data_i) | (q_src[v] != data_q_inv) | bad for v in range(4)]
+    )
+    return _wmean(err, weight, -1).min(dim=0).values

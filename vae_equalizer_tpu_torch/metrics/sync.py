@@ -1,0 +1,52 @@
+"""Time-shift and polarization-assignment search by correlation (DP).
+
+Port of ``vae_equalizer_tpu/metrics/sync.py: _roll_stack, _dp_shift_core,
+find_shift_symb_dp`` with any leading batch dims (the runs axis). The
+equalizer output (E_q[x^I] or the in-phase constellation output) is
+correlated against the known transmitted symbols over ``n_shift`` cyclic
+shifts of the first ``corr_len`` symbols; argmaxes take the first maximum and
+the XY/YX tie goes to XY (``>=``), as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["find_shift_symb_dp"]
+
+
+def _roll_stack(e: torch.Tensor, n_shift: int) -> torch.Tensor:
+    """(..., L) -> (..., n_shift, L) where [..., i, :] = roll(e, i - n_shift//2)."""
+    return torch.stack(
+        [torch.roll(e, s, dims=-1) for s in range(-(n_shift // 2), n_shift - n_shift // 2)], dim=-2
+    )
+
+
+def _dp_shift_core(e: torch.Tensor, tx: torch.Tensor, n_shift: int, corr_len: int | None = None):
+    """e (..., 2, L) correlation signal per equalizer pol; tx (..., 2, 2, L).
+
+    Returns (shift (..., 2) int32, r (...) int32), r = 0 for the XY
+    assignment, 1 for YX.
+    """
+    if corr_len is not None and corr_len < e.shape[-1]:
+        e = e[..., :corr_len]
+        tx = tx[..., :corr_len]
+    e_mat = _roll_stack(e, n_shift)  # (..., b, s, L)
+    corr = torch.einsum("...icl,...bsl->...cbis", tx.to(torch.float32), e_mat).abs()
+    corr_max_c = corr.max(dim=-1).values  # (..., comp, b, i)
+    corr_ind_c = torch.argmax(corr, dim=-1)
+    ind_max = torch.argmax(corr_max_c, dim=-3)  # (..., b, i) best component
+    corr_max = corr_max_c.max(dim=-3).values
+    pick = torch.gather(corr_ind_c, -3, ind_max.unsqueeze(-3)).squeeze(-3)  # (..., b, i)
+    ind_xy = torch.stack([pick[..., 0, 0], pick[..., 1, 1]], dim=-1)
+    ind_yx = torch.stack([pick[..., 0, 1], pick[..., 1, 0]], dim=-1)
+    use_xy = corr_max[..., 0, 0] + corr_max[..., 1, 1] >= corr_max[..., 0, 1] + corr_max[..., 1, 0]
+    shift = torch.where(use_xy[..., None], n_shift // 2 - ind_xy, n_shift // 2 - ind_yx)
+    r = torch.where(use_xy, 0, 1)
+    return shift.to(torch.int32), r.to(torch.int32)
+
+
+def find_shift_symb_dp(rx: torch.Tensor, tx: torch.Tensor, n_shift: int,
+                       corr_len: int | None = None):
+    """Pol assignment + time shift from DP constellation output rx (..., 2, 2, L)."""
+    return _dp_shift_core(rx[..., :, 0, :], tx, n_shift, corr_len)

@@ -1,0 +1,16 @@
+"""Equalizer models and the ELBO (the VAE-LE DP path)."""
+
+from .cma import dirac_taps_dp
+from .losses import elbo_dp, posterior_moments
+from .vae_le import VaeLeDp, butterfly_apply, butterfly_init, soft_demap_dp, vae_le_dp_forward
+
+__all__ = [
+    "VaeLeDp",
+    "butterfly_apply",
+    "butterfly_init",
+    "dirac_taps_dp",
+    "elbo_dp",
+    "posterior_moments",
+    "soft_demap_dp",
+    "vae_le_dp_forward",
+]

@@ -1,0 +1,220 @@
+"""Optical dual-pol VAE online training: the flagship ``Eval_run_DP`` path.
+
+Port of ``vae_equalizer_tpu/train/dp.py: train_vae_dp(use_pallas="frame")``
+(``_setup``, ``_frame_inputs``, the sufficient-statistics branch of
+``_dp_frame_eval_mb``, ``_finish_vae_frame``, ``_run_frame_kernel_experiment``).
+Frame semantics follow the reference (func_VAELE_DP_MQAM_shaping.py:17-95):
+every frame draws fresh channel data with the polarization angle advanced by
+theta_diff, trains online on all of its minibatches (one kernel B launch for
+all R runs, ``ops/frame_kernel.py``), and measures SER/MI on the training
+outputs themselves.
+
+SER layout matches the reference: rows 0:2 per-pol SER of the constellation
+output (PCS decision boundaries), rows 2:4 per-pol soft SER (IQ-flip family).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..channels import channel_ir, make_dp_simulator
+from ..core import demapper_noise_var, make_constellation
+from ..metrics import (
+    find_shift_symb_dp,
+    mutual_information_ambiguity_mb_stats,
+    ser_constell_shaping,
+    ser_iqflip_from_dec,
+)
+from ..metrics.ser import _decode_levels
+from ..metrics.sync import _dp_shift_core
+from ..models import butterfly_init, dirac_taps_dp
+from ..ops.frame_kernel import frame_opt_init, vae_dp_frame_train
+from ..utils.config import DpConfig
+from .eval_utils import align_idx_dp, batch_cut_weight
+from .harness import Progress, pack_metrics, run_frame_loop
+
+__all__ = ["train_vae_dp"]
+
+# Correlation window of the per-frame sync searches (train/dp.py:76 of the
+# JAX package): a contiguous 2000-symbol prefix finds the global delay with
+# a ~45:1 peak margin.
+_SYNC_CORR_LEN = 2000
+
+_VAE_FIELDS = (("loss", 1), ("ser_const", 2), ("ser_soft", 2), ("mi", 2),
+               ("var_est", 2), ("snr_est_db", 1), ("shift", 2), ("r", 1), ("sigma_n", 1))
+
+
+def _setup(cfg: DpConfig, n_frame: int, device):
+    """Constellation, demapper variance (2,), the channel simulator, amps, P."""
+    const = make_constellation(cfg.mod, cfg.nu)
+    h_up, _ = channel_ir(cfg.channel, cfg.sps)
+    # float64 on the host, then float32 — as the JAX package folds it
+    var = torch.full((2,), float(np.float32(demapper_noise_var(const, cfg.snr_db))),
+                     dtype=torch.float32, device=device)
+    gen = make_dp_simulator(const, cfg.snr_db, h_up, n_frame, cfg.sps, cfg.symb_rate, cfg.tau_cd,
+                            cfg.tau_pmd, np.asarray(cfg.phi_iq), device=device)
+    amps = torch.from_numpy(const.amps).to(device)
+    P = torch.from_numpy(np.asarray(const.P, np.float32)).to(device)
+    return const, var, gen, amps, P
+
+
+def _frame_inputs(cfg: DpConfig, device) -> torch.Tensor:
+    """Per-frame polarization angles (theta drift), float32 as in JAX."""
+    return torch.tensor(np.float32(cfg.theta), device=device) + torch.tensor(
+        np.float32(cfg.theta_diff), device=device) * torch.arange(
+        cfg.num_frames, dtype=torch.float32, device=device)
+
+
+def _roll_pol(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """jnp.roll over the size-2 pol axis by r in {0, 1}, per run."""
+    return torch.where(r[..., None] != 0, x.flip(-1), x)
+
+
+def _dp_frame_eval_mb(out_const, tx, amps, P, nu_sc, var, weight_fn, dec, eq, out_mb, mm_mb,
+                      s1_mb):
+    """Sync -> align tx level indices -> masked SER (+ MI) from the kernel's
+    eval streams (the JAX stats branch, train/dp.py:187-214).
+
+    out_const/dec (R, 2, 2, N); eq (R, 2, N); out_mb/mm_mb/s1_mb
+    (R, n_mb, 2, 2, bl); tx (R, 2, 2, N). Returns per-run
+    (ser_const, ser_soft, mi) (R, 2) and (shift (R, 2), r (R,)).
+    """
+    num_lev = amps.shape[0]
+    shift, r = _dp_shift_core(eq, tx, 21, corr_len=_SYNC_CORR_LEN)
+    shift_c, r_c = find_shift_symb_dp(out_const, tx, 21, corr_len=_SYNC_CORR_LEN)
+    idx = _decode_levels(tx, num_lev).to(torch.int8)
+
+    def aligned(sh, rr):
+        s0 = sh[..., 0, None, None]
+        ms = sh.abs().max(dim=-1).values[..., None, None]
+        return align_idx_dp(idx, sh, rr, lambda t: weight_fn(s0, ms, t=t))
+
+    idx_al, w_al = aligned(shift, r)
+    ser_soft = _roll_pol(ser_iqflip_from_dec(dec, None, num_lev, weight=w_al, tx_idx=idx_al), r)
+    mi = _roll_pol(mutual_information_ambiguity_mb_stats(
+        out_mb, mm_mb, s1_mb, None, amps, P, nu_sc, var, weight=w_al, tx_idx=idx_al), r)
+    idx_al_c, w_al_c = aligned(shift_c, r_c)
+    ser_const = _roll_pol(ser_constell_shaping(out_const, None, amps, nu_sc, var, weight=w_al_c,
+                                               tx_idx=idx_al_c), r_c)
+    return ser_const, ser_soft, mi, shift, r
+
+
+def _finish_vae_frame(losses, out_mb, var_est, tx, const, amps, P, var, weight_fn, sigma,
+                      dec_mb, eq_mb, mm_mb, s1_mb):
+    """Kernel streams (m_max, R, ...) -> evaluate -> packed metrics (R, n_tot)."""
+    runs_first = lambda a: a.movedim(0, 1)  # (m_max, R, ...) -> (R, m_max, ...)
+    out_mb, dec_mb, eq_mb, mm_mb, s1_mb, var_est = map(
+        runs_first, (out_mb, dec_mb, eq_mb, mm_mb, s1_mb, var_est))
+    time_major = lambda a: a.movedim(-4, -2).flatten(-2)  # (R, m, 2, 2, bl) -> (R, 2, 2, N)
+    out_const, dec = time_major(out_mb), time_major(dec_mb)
+    eq = eq_mb.movedim(-3, -2).flatten(-2)  # (R, m, 2, bl) -> (R, 2, N)
+    ser_const, ser_soft, mi, shift, r = _dp_frame_eval_mb(
+        out_const, tx, amps, P, const.nu_sc, var, weight_fn, dec, eq, out_mb, mm_mb, s1_mb)
+    snr_est = const.pow_mean / var_est.mean(dim=(-2, -1))
+    metrics = {
+        "loss": losses[-1],
+        "ser_const": ser_const,
+        "ser_soft": ser_soft,
+        "mi": mi,
+        "var_est": var_est.mean(dim=-2),
+        "snr_est_db": 10 * torch.log10(snr_est),
+        "shift": shift.to(torch.float32),
+        "r": r,
+        "sigma_n": sigma,
+    }
+    return pack_metrics(metrics, _VAE_FIELDS, batch_ndim=1)
+
+
+def _dp_result(hist: dict, var, **extra) -> dict:
+    return {
+        "ser": np.concatenate([hist["ser_const"], hist["ser_soft"]], axis=-2),
+        "var_est": hist["var_est"],
+        "mi": hist["mi"],
+        "var": var.cpu().numpy(),
+        **extra,
+    }
+
+
+def _run_frame_kernel_experiment(cfg, gen, const, amps, P, var, draws, *, steps_per_frame,
+                                 weight_fn, params, runs, progress):
+    """One kernel B launch per frame for all runs; the carry is (params, Adam
+    moments, global step count), so the lr schedule and bias correction
+    continue across frames."""
+    R = 1 if runs is None else runs
+    thresh = float(cfg.n_lrhalf) * steps_per_frame
+    tail = {"w": 3, "h": 4}  # w (2, 4, M), h (2, 2, 2, M), with or without a runs axis
+    params = {k: v.expand((R,) + v.shape[-tail[k]:]).contiguous() for k, v in params.items()}
+    carry = (params, frame_opt_init(params), 0)
+
+    def frame_step(carry, frame, theta):
+        params, opt, count = carry
+        levels, noise = draws(frame, R)
+        rx, tx, sigma = gen.physics(theta, levels, noise)
+        (w, h, opt, losses, var_est, out_mb, dec_mb, eq_mb, mm_mb, s1_mb) = vae_dp_frame_train(
+            params["w"], params["h"], opt, rx, amps, var, const.nu_sc, P, cfg.lr, count, thresh,
+            bl_sym=cfg.batch_len)
+        packed = _finish_vae_frame(losses, out_mb, var_est, tx, const, amps, P, var, weight_fn,
+                                   sigma, dec_mb, eq_mb, mm_mb, s1_mb)
+        if runs is None:
+            packed = packed[0]
+        return ({"w": w, "h": h}, opt, count + steps_per_frame), packed
+
+    (params, _, _), hist = run_frame_loop(
+        frame_step, carry, (range(cfg.num_frames), _frame_inputs(cfg, var.device)), _VAE_FIELDS,
+        runs=runs, progress=progress)
+    if runs is None:
+        params = {k: v[0] for k, v in params.items()}
+    return _dp_result(hist, var, params=params)
+
+
+_DEFERRED = "not ported yet (ROADMAP.md, queue 1: 'Deferred train_vae_dp options')"
+
+
+def train_vae_dp(cfg: DpConfig, seed: int, device="cpu", progress: Progress = None,
+                 runs: int | None = None, mesh=None, params_init=None, compiled: bool = False,
+                 use_pallas="frame", checkpoint=None, checkpoint_every: int = 0,
+                 chunk_frames: int = 1, stream_bf16: bool = False, lr_vec=None, snr_vec=None,
+                 nu_vec=None, draws=None) -> dict:
+    """VAE-LE butterfly, online frame training on the optical DP channel.
+
+    ``use_pallas="frame"``: all of a frame's minibatch steps (incl. Adam)
+    run as one kernel B launch for all ``runs`` (``ops/frame_kernel.py``) —
+    the CUDA kernel for a CUDA ``device``, its plain version on the CPU.
+    The channel draws come from a ``torch.Generator`` seeded with ``seed``,
+    or from ``draws(frame, runs) -> (levels (R, 4, n_conv), noise
+    (R, 2, 2, sig_len))`` where given (how tests feed the JAX package's
+    draws). sps = 2 and odd M.
+
+    Returns {"ser" (..., 4, F), "mi" (..., 2, F), "var_est" (..., 2, F),
+    "var" (2,), "params" {"w", "h"}} with a leading runs axis iff ``runs``.
+    """
+    deferred = {
+        "checkpoint": checkpoint is not None or checkpoint_every != 0,
+        f"use_pallas={use_pallas!r} (the per-step modes)": use_pallas != "frame",
+        "stream_bf16": stream_bf16,
+        "lr_vec/snr_vec/nu_vec": lr_vec is not None or snr_vec is not None or nu_vec is not None,
+        "mesh": mesh is not None,
+        "compiled/chunk_frames": compiled or chunk_frames != 1,
+    }
+    for name, is_set in deferred.items():
+        if is_set:
+            raise NotImplementedError(f"{name}: {_DEFERRED}")
+    if cfg.sps != 2 or cfg.m_est % 2 == 0:
+        raise ValueError('use_pallas="frame" requires sps=2 and odd M_est')
+
+    device = torch.device(device)
+    m_max = cfg.n_frame_max // cfg.batch_len
+    n_frame = m_max * cfg.batch_len
+    const, var, gen, amps, P = _setup(cfg, n_frame, device)
+    params = params_init or {"w": butterfly_init(cfg.m_est, device), "h": dirac_taps_dp(cfg.m_est, device)}
+    params = {k: torch.as_tensor(v, dtype=torch.float32).to(device) for k, v in params.items()}
+    if draws is None:
+        rng = torch.Generator(device=device)
+        rng.manual_seed(seed)
+        draws = lambda frame, R: gen.draws(rng, R)
+
+    return _run_frame_kernel_experiment(
+        cfg, gen, const, amps, P, var, draws, steps_per_frame=m_max,
+        weight_fn=lambda s0, ms, t=None: batch_cut_weight(m_max, cfg.batch_len, s0, ms, cfg.n_cut, t=t),
+        params=params, runs=runs, progress=progress)

@@ -1,0 +1,62 @@
+"""Eval masks and alignment for the DP frame evaluation.
+
+Port of ``vae_equalizer_tpu/train/eval_utils.py: align_idx_dp,
+batch_cut_weight, margin_weight_maxshift`` with any leading batch dims. The
+reference's data-dependent slices become a roll + boolean weight over the
+full array; the masks are evaluated at the shifted positions t directly
+(not rolled), exactly as in the JAX package. The JAX package's gather-free
+``roll_bits`` was a TPU workaround; here the per-run roll is one
+``torch.gather`` on ``(arange - s) % n``, so every run may have its own shift.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["MARGIN", "align_idx_dp", "batch_cut_weight", "margin_weight_maxshift"]
+
+MARGIN = 11  # the reference's fixed edge trim (func_VAELE_MQAM_shaping.py:318)
+
+
+def align_idx_dp(idx: torch.Tensor, shift: torch.Tensor, r: torch.Tensor, weight_fn_t):
+    """Roll tx level indices + eval weight into the equalizer's frame.
+
+    idx (..., 2, 2, N) tx level indices; shift (..., 2); r (...) pol swap;
+    weight_fn_t(t) -> (..., 2, N) builds the mask at positions t (..., 2, N).
+    Returns (idx_al (..., 2, 2, N), w_al (..., 2, N)): per equalizer pol j,
+    the tx pol (j + r) % 2 rolled by its shift.
+    """
+    n = idx.shape[-1]
+    swap = r != 0
+    idx_p = torch.where(swap[..., None, None, None], idx.flip(-3), idx)
+    s_p = torch.where(swap[..., None], shift.flip(-1), shift).to(torch.int64)
+    t = torch.remainder(torch.arange(n, device=idx.device) - s_p[..., None], n)  # (..., 2, N)
+    idx_al = torch.gather(idx_p, -1, t[..., None, :].expand(idx_p.shape))
+    return idx_al, weight_fn_t(t)
+
+
+def margin_weight_maxshift(n: int, max_shift, margin: int = MARGIN, t=None) -> torch.Tensor:
+    """Weight for the flex/CMA eval trim ``[..., margin : -margin - max|shift|]``,
+    over ``arange(n)`` or evaluated at positions ``t``."""
+    if t is None:
+        t = torch.arange(n)
+    return ((t >= margin) & (t < n - margin - max_shift)).to(torch.float32)
+
+
+def batch_cut_weight(m_max: int, batch_len: int, shift0, max_shift, n_cut: int,
+                     margin: int = MARGIN, t=None) -> torch.Tensor:
+    """Weight of the DP VAE eval bookkeeping (func_VAELE_DP_MQAM_shaping.py:73-79).
+
+    Per batch keep the first batch_len - shift0 - n_cut symbols, flatten,
+    then trim [margin : -margin - max_shift]; returned over the flat
+    (m_max * batch_len,) symbol order, or evaluated at positions ``t``.
+    ``shift0``/``max_shift`` may be tensors broadcastable against ``t``.
+    """
+    if t is None:
+        t = torch.arange(m_max * batch_len)
+    j = t % batch_len
+    mb = t // batch_len
+    keep_len = batch_len - shift0 - n_cut
+    pos = mb * keep_len + j
+    w = (j < keep_len) & (pos >= margin) & (pos < m_max * keep_len - margin - max_shift)
+    return w.to(torch.float32)
