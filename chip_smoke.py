@@ -1,20 +1,27 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port on one GPU: ``python3 chip_smoke.py``.
 
-Drives the port's main path — the flagship DP VAE online-training experiment
-(``vae_equalizer_tpu_torch.train.train_vae_dp``, DpConfig() defaults:
-64-QAM, M = 25, bl = 100, 170 frames x 10,000 symbols, 8 runs) — through
-its hand-written CUDA kernels, after building them from ``csrc/`` and
-holding each against its plain PyTorch version at the main path's shapes.
-One line per phase:
+Drives the port's two paths through their hand-written CUDA kernels, after
+building them from ``csrc/`` and holding each kernel against its plain
+PyTorch version at its path's shapes: the flagship DP VAE online-training
+experiment (``vae_equalizer_tpu_torch.train.train_vae_dp``, DpConfig()
+defaults: 64-QAM, M = 25, bl = 100, 170 frames x 10,000 symbols, 8 runs)
+and the CMA / CMAbatch / CMAflex baselines on the same channel
+(``run_cma_dp``, 5 runs). One line per phase:
 
   1. device    card name and power limit (nvidia-smi)
-  2. build     nvcc build of kernels A and B, seconds, ptxas resource use
+  2. build     nvcc build of kernels A-D (one nvcc per source, in parallel),
+               seconds, ptxas resource use
   3. kernel A  vs plain (one minibatch), errors and CUDA-event times
   4. kernel B  vs plain: (a) a 3-minibatch frame, R = 8, across the lr
                halving; (b) a full 100-step frame; times
-  5. main path the full experiment; launch count, soft SER band, MI, speed
+  5. main path the full VAE experiment; launch count, soft SER band, MI, speed
   6. breakdown per-frame channel / kernel B / eval times
+  7. kernel C  vs plain: a whole 10,000-symbol CMA frame, R = 5; times
+  8. kernel D  vs plain: a whole CMAbatch and a whole CMAflex frame, R = 5
+  9. CMA path  the three 170-frame CMA experiments, R = 5: launch counts,
+               constellation SER band, speed; per-frame channel / kernel /
+               eval times
 
 then the kernels' JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises (non-zero exit,
@@ -34,6 +41,16 @@ DEVICE = "cuda"
 SER_BAND = (0.029, 0.034)  # bench.py:196, last-20-frame mean soft SER of the flagship
 MI_MIN = 5.0  # bits, every run's final MI (tests/test_train.py:167-168)
 WARM_FRAMES = 20  # frames of training before the 100-step comparison
+CMA_RUNS = 5  # the reference's DP CMA repeats (Eval_run_DP.py: iter=5)
+# per CMA variant: (use_pallas, lr, last-20-frame constellation SER band).
+# lr and band from the JAX package's run_cma_dp on the CPU at this config
+# (64-QAM, M 25, SNR 23 dB, 170 x 10,000, runs 2, keys 0 and 1): the spread
+# of its 4 per-run values widened by 0.003 on each side (PERF.md)
+CMA_VARIANTS = {
+    "CMA": (True, 1e-4, (0.0634, 0.0711)),
+    "CMAbatch": ("frame", 1e-4, (0.0650, 0.0724)),
+    "CMAflex": ("frame", 1e-5, (0.0647, 0.0724)),
+}
 
 
 def _line(phase: str, **kv) -> None:
@@ -57,11 +74,12 @@ def _fmt(errs):
     return ",".join(f"{k}:{a:.2e}/{r:.2e}" for k, (a, r) in errs.items())
 
 
-def _time_ms(fn, reps: int = 5) -> float:
+def _time_ms(fn, reps: int = 5, warmup: bool = True) -> float:
     """Median CUDA-event time of fn() over reps runs, after one warm-up."""
     import torch
 
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -102,6 +120,8 @@ def main() -> int:
 
     from vae_equalizer_tpu_torch.models import butterfly_init, dirac_taps_dp
     from vae_equalizer_tpu_torch.ops import _build
+    from vae_equalizer_tpu_torch.ops.cma_frame_kernel import cma_chunked_frame, cma_chunked_frame_plain
+    from vae_equalizer_tpu_torch.ops.cma_kernel import cma_dp_kernel, cma_dp_plain
     from vae_equalizer_tpu_torch.ops.elbo_kernel import vae_dp_loss_and_grad, vae_dp_loss_and_grad_plain
     from vae_equalizer_tpu_torch.ops.frame_kernel import (
         frame_opt_init,
@@ -264,11 +284,117 @@ def main() -> int:
     _line("6 breakdown", runs=R, channel_ms=f"{ms_ch:.3f}", kernel_b_ms=f"{ms_k:.3f}",
           eval_ms=f"{ms_ev:.3f}", frame_wall_ms=f"{1e3 * wall / cfg.num_frames:.3f}")
 
+    # ---- 7. kernel C vs plain: one whole CMA frame (10,000 symbols), R = 5
+    # (rtol 1e-4 with an absolute floor of 1e-6 of each tensor's scale:
+    # float32 sums in another order; CMA has no Adam to amplify them)
+    Rc = CMA_RUNS
+    rx_c = sim(gen, thetas[0], Rc)[0]
+    h_c = dirac_taps_dp(M, dev) + 0.01 * torch.randn((Rc, 2, 2, 2, M), generator=rng, device=dev)
+    lr_c = CMA_VARIANTS["CMA"][1]
+    got = cma_dp_kernel(rx_c, cfg.R, h_c, lr_c, cfg.sps)
+    torch.cuda.synchronize()
+    want = cma_dp_plain(rx_c, cfg.R, h_c, lr_c, cfg.sps)
+    errs_c: dict = {}
+    for name, g_, w_ in zip(("out", "h", "e"), got, want):
+        _check(name, g_, w_, 1e-4, 1e-6 * float(w_.abs().max()), errs_c)
+    ms_c = _time_ms(lambda: cma_dp_kernel(rx_c, cfg.R, h_c, lr_c, cfg.sps))
+    # the plain per-symbol loop is ~10^5 small launches: one timed frame
+    ms_c_plain = _time_ms(lambda: cma_dp_plain(rx_c, cfg.R, h_c, lr_c, cfg.sps), reps=1, warmup=False)
+    _line("7 kernel C", ok=True, R=Rc, errs_abs_rel=_fmt(errs_c), ms=f"{ms_c:.4f}",
+          plain_ms=f"{ms_c_plain:.3f}")
+
+    # ---- 8. kernel D vs plain: one whole CMAbatch and CMAflex frame, R = 5
+    d_res = {}
+    for v, S in (("CMAbatch", cfg.batch_len), ("CMAflex", cfg.flex_step)):
+        lr_v = CMA_VARIANTS[v][1]
+        d_args = (rx_c, cfg.R, h_c, lr_v, cfg.batch_len, S, cfg.sps)
+        got = cma_chunked_frame(*d_args)
+        torch.cuda.synchronize()
+        want = cma_chunked_frame_plain(*d_args)
+        errs_d: dict = {}
+        for name, g_, w_ in zip(("out", "h", "e"), got, want):
+            _check(name, g_, w_, 1e-4, 1e-6 * float(w_.abs().max()), errs_d)
+        ms_d = _time_ms(lambda: cma_chunked_frame(*d_args))
+        ms_d_plain = _time_ms(lambda: cma_chunked_frame_plain(*d_args), reps=1, warmup=False)
+        d_res[v] = (max(a for a, _ in errs_d.values()), ms_d, ms_d_plain)
+        _line(f"8 kernel D {v}", ok=True, R=Rc, B=cfg.batch_len, S=S, errs_abs_rel=_fmt(errs_d),
+              ms=f"{ms_d:.4f}", plain_ms=f"{ms_d_plain:.3f}")
+
+    # ---- 9. the CMA path: each variant's full experiment, counted
+    counters = (cma_dp_kernel, cma_chunked_frame, vae_dp_frame_train, vae_dp_loss_and_grad)
+    cma_launches = {}
+    n_cma = cfg.n_frame_max  # = the flagship frame, so `sim` serves both paths
+    n_eval = n_cma - 2 * cfg.n_cut
+    for v, (mode, lr_v, band) in CMA_VARIANTS.items():
+        cfg_v = dataclasses.replace(cfg, loss_type=v, lr=lr_v)
+        path_kernel = cma_dp_kernel if v == "CMA" else cma_chunked_frame
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = train_dp.run_cma_dp(cfg_v, seed=0, device=DEVICE, runs=Rc, use_pallas=mode)
+        torch.cuda.synchronize()
+        wall_v = time.perf_counter() - t0
+        counts = {c.__name__: c.launches for c in counters}
+        name_v = path_kernel.__name__
+        if counts[name_v] != cfg.num_frames or sum(counts.values()) != cfg.num_frames:
+            raise AssertionError(f"{v}: launches {counts}, expected {cfg.num_frames} of {name_v}")
+        cma_launches[v] = counts[name_v]
+        for k in ("ser", "mi", "var_est", "taps"):
+            if not np.all(np.isfinite(np.asarray(res[k].cpu() if k == "taps" else res[k]))):
+                raise AssertionError(f"{v}: non-finite {k}")
+        if res["ser"].shape != (Rc, 4, cfg.num_frames) or res["mi"].shape != (Rc, 2, cfg.num_frames):
+            raise AssertionError(f"{v}: result shapes {res['ser'].shape} {res['mi'].shape}")
+        const_ser = float(res["ser"][:, :2, -20:].mean())
+        if not band[0] <= const_ser <= band[1]:
+            raise AssertionError(f"{v}: last-20-frame constellation SER {const_ser:.5f} outside {band}")
+
+        # per-frame breakdown at this path's shapes (CUDA events)
+        st = {}
+        step_v = cfg.batch_len if v == "CMAbatch" else cfg.flex_step
+        wfn_v = train_dp._margin_weight_fn(n_eval, dev)
+
+        def channel_v():
+            st["ch"] = sim(gen, thetas[0], Rc)  # the flagship's 10,000-symbol channel
+
+        def kernel_v():
+            if v == "CMA":
+                st["k"] = cma_dp_kernel(st["ch"][0], cfg.R, h_c, lr_v, cfg.sps)
+            else:
+                st["k"] = cma_chunked_frame(st["ch"][0], cfg.R, h_c, lr_v, cfg.batch_len, step_v,
+                                            cfg.sps)
+
+        def evaluate_v():
+            train_dp._finish_cma_frame(st["k"][0], st["k"][2], st["ch"][1], st["ch"][2], const, amps,
+                                       P, var, cfg.n_cut, wfn_v)
+
+        ms_ch_v, ms_k_v, ms_ev_v = _time_ms(channel_v), _time_ms(kernel_v), _time_ms(evaluate_v)
+        sym_s_v = Rc * cfg.num_frames * n_cma / wall_v
+        _line(f"9 CMA path {v}", ok=True, runs=Rc, use_pallas=repr(mode), lr=lr_v,
+              frames=cfg.num_frames, launches=cma_launches[v], const_ser_last20=f"{const_ser:.5f}",
+              band=band, soft_ser_last20=f"{float(res['ser'][:, 2:, -20:].mean()):.5f}",
+              mi_last20=f"{float(res['mi'][:, :, -20:].mean()):.4f}", wall_s=f"{wall_v:.3f}",
+              sym_per_s=f"{sym_s_v:.0f}", channel_ms=f"{ms_ch_v:.3f}", kernel_ms=f"{ms_k_v:.3f}",
+              eval_ms=f"{ms_ev_v:.3f}", frame_wall_ms=f"{1e3 * wall_v / cfg.num_frames:.3f}",
+              card=repr(card))
+        for c in counters:
+            c.launches = 0
+
     kernels = {"kernels": [
         {"name": "vae_dp_frame_train", "route": "cuda",
          "source": "vae_equalizer_tpu_torch/csrc/dp_kernels.cu",
          "replaces": "vae_equalizer_tpu/ops/frame_kernel.py:1024", "launches": launches_b,
          "max_abs_err": b_err, "ms": ms_b, "plain_ms": ms_b_plain},
+        {"name": "cma_dp_kernel", "route": "cuda",
+         "source": "vae_equalizer_tpu_torch/csrc/cma_kernels.cu",
+         "replaces": "vae_equalizer_tpu/ops/cma_kernel.py:128", "launches": cma_launches["CMA"],
+         "max_abs_err": max(a for a, _ in errs_c.values()), "ms": ms_c, "plain_ms": ms_c_plain},
+    ] + [
+        {"name": f"cma_chunked_frame[{v}]", "route": "cuda",
+         "source": "vae_equalizer_tpu_torch/csrc/cma_kernels.cu",
+         "replaces": "vae_equalizer_tpu/ops/cma_frame_kernel.py:404", "launches": cma_launches[v],
+         "max_abs_err": d_res[v][0], "ms": d_res[v][1], "plain_ms": d_res[v][2]}
+        for v in ("CMAbatch", "CMAflex")
     ], "step_body_checked": [
         {"name": "vae_dp_loss_and_grad", "route": "cuda",
          "source": "vae_equalizer_tpu_torch/csrc/dp_kernels.cu",

@@ -1,9 +1,11 @@
-"""Port parity: the DP frame evaluation (sync, alignment, SER, MI statistics).
+"""Port parity: the DP frame evaluation (sync, alignment, SER, MI).
 
-Every function runs with a leading runs axis R = 2; each run is held
-against the JAX function on the same numpy inputs, and the sync and SER
-functions also against the torch reference fixtures (find_shift.npz,
-ser_dp.npz).
+Both eval branches: the VAE kernel's statistics streams and the CMA path's
+posteriors (``find_shift_dp``, ``align_tx_dp``, ``ser_iqflip``,
+``mutual_information_ambiguity``). Every function runs with a leading runs
+axis R = 2; each run is held against the JAX function on the same numpy
+inputs, and the sync and SER functions also against the torch reference
+fixtures (find_shift.npz, ser_dp.npz).
 """
 
 import jax.numpy as jnp
@@ -11,25 +13,39 @@ import numpy as np
 import pytest
 import torch
 
+from vae_equalizer_tpu.metrics.mi import mutual_information_ambiguity as j_mi_amb
 from vae_equalizer_tpu.metrics.mi import mutual_information_ambiguity_mb_stats as j_mi_stats
 from vae_equalizer_tpu.metrics.ser import _decode_levels as j_decode
 from vae_equalizer_tpu.metrics.ser import ser_constell_shaping as j_ser_const
+from vae_equalizer_tpu.metrics.ser import ser_iqflip as j_ser_iqflip
 from vae_equalizer_tpu.metrics.ser import ser_iqflip_from_dec as j_ser_dec
 from vae_equalizer_tpu.metrics.sync import _dp_shift_core as j_shift_core
+from vae_equalizer_tpu.metrics.sync import expectation_i as j_expectation_i
+from vae_equalizer_tpu.metrics.sync import find_shift_dp as j_find_shift_dp
 from vae_equalizer_tpu.metrics.sync import find_shift_symb_dp as j_find_symb
 from vae_equalizer_tpu.train.eval_utils import align_idx_dp as j_align_idx
+from vae_equalizer_tpu.train.eval_utils import align_tx_dp as j_align_tx
 from vae_equalizer_tpu.train.eval_utils import batch_cut_weight as j_batch_cut
 from vae_equalizer_tpu.train.eval_utils import margin_weight_maxshift as j_margin
 from vae_equalizer_tpu_torch.core import make_constellation
 from vae_equalizer_tpu_torch.metrics import (
+    expectation_i,
+    find_shift_dp,
     find_shift_symb_dp,
+    mutual_information_ambiguity,
     mutual_information_ambiguity_mb_stats,
     ser_constell_shaping,
+    ser_iqflip,
     ser_iqflip_from_dec,
 )
 from vae_equalizer_tpu_torch.metrics.ser import _decode_levels
 from vae_equalizer_tpu_torch.metrics.sync import _dp_shift_core
-from vae_equalizer_tpu_torch.train.eval_utils import align_idx_dp, batch_cut_weight, margin_weight_maxshift
+from vae_equalizer_tpu_torch.train.eval_utils import (
+    align_idx_dp,
+    align_tx_dp,
+    batch_cut_weight,
+    margin_weight_maxshift,
+)
 
 torch.set_num_threads(1)
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -65,6 +81,7 @@ def _frame(seed=0, shifts=((3, -2), (0, 4)), swaps=(0, 1), noise=0.08):
     eq = (q[:, :, 0] * amps[:, None]).sum(axis=-2).astype(np.float32)  # (R, 2, N)
     to_mb = lambda a: np.moveaxis(a.reshape(a.shape[:-1] + (N_MB, BL)), -2, 1)  # (R, n_mb, ..., bl)
     return dict(const=const, tx=tx.astype(np.float32), out=out, var=var, mm=mm.astype(np.float32),
+                q=q.reshape(R, 2, 16, N).astype(np.float32),
                 s1=s1.astype(np.float32), dec=dec, eq=eq, out_mb=to_mb(out),
                 mm_mb=to_mb(mm.astype(np.float32)), s1_mb=to_mb(s1.astype(np.float32)))
 
@@ -169,3 +186,43 @@ def test_ser_and_mi_stats_match_jax_per_run(noise):
                           weight=ja(w[run]), tx_idx=ij)
         # f32 sums of ~400 log2 terms in another order
         np.testing.assert_allclose(mi[run].numpy(), np.asarray(mi_j), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("noise", [0.08, 0.2])
+def test_posterior_eval_matches_jax_per_run(noise):
+    """The CMA path's eval chain: E_q sync, tx/weight alignment, soft SER and
+    MI from the posteriors q (R, 2, 2n, N)."""
+    f = _frame(5, noise=noise)
+    c = f["const"]
+    q, tx = T(f["q"]), T(f["tx"])
+    amps, P = T(c.amps), T(np.asarray(c.P, np.float32))
+    shift, r = find_shift_dp(q, tx, 21, amps, corr_len=300)
+    np.testing.assert_array_equal(shift.numpy(), [[3, -2], [4, 0]])
+    np.testing.assert_array_equal(r.numpy(), [0, 1])
+    ms = shift.abs().max(dim=-1).values
+    w = margin_weight_maxshift(N, ms[:, None], t=torch.arange(N))  # (R, N)
+    tx_al, w_al = align_tx_dp(tx, shift, r, w)
+    ser = ser_iqflip(q, tx_al, weight=w_al)
+    mi = mutual_information_ambiguity(q, tx_al, amps, P, weight=w_al)
+    mi_all = mutual_information_ambiguity(q, tx, amps, P)
+    assert ser.shape == mi.shape == mi_all.shape == (R, 2)
+    ja = lambda a: jnp.asarray(np.asarray(a))
+    for run in range(R):
+        qj, txj = ja(f["q"][run]), ja(f["tx"][run])
+        np.testing.assert_allclose(expectation_i(q, amps)[run].numpy(),
+                                   np.asarray(j_expectation_i(qj, ja(c.amps))), rtol=1e-6, atol=1e-7)
+        s_j, r_j = j_find_shift_dp(qj, txj, 21, ja(c.amps), corr_len=300)
+        np.testing.assert_array_equal(shift[run].numpy(), np.asarray(s_j))
+        assert int(r[run]) == int(r_j)
+        tx_al_j, w_al_j = j_align_tx(txj, s_j, r_j, j_margin(N, int(ms[run])))
+        np.testing.assert_array_equal(tx_al[run].numpy(), np.asarray(tx_al_j))
+        np.testing.assert_array_equal(w_al[run].numpy(), np.asarray(w_al_j))
+        np.testing.assert_allclose(ser[run].numpy(), np.asarray(j_ser_iqflip(qj, tx_al_j, weight=w_al_j)),
+                                   rtol=1e-6)
+        np.testing.assert_allclose(ser_iqflip(q, tx)[run].numpy(), np.asarray(j_ser_iqflip(qj, txj)),
+                                   rtol=1e-6)
+        # f32 sums of ~400 log2 terms in another order
+        mi_j = j_mi_amb(qj, tx_al_j, ja(c.amps), ja(np.asarray(c.P, np.float32)), weight=w_al_j)
+        np.testing.assert_allclose(mi[run].numpy(), np.asarray(mi_j), rtol=1e-5, atol=1e-5)
+        mi_j = j_mi_amb(qj, txj, ja(c.amps), ja(np.asarray(c.P, np.float32)))
+        np.testing.assert_allclose(mi_all[run].numpy(), np.asarray(mi_j), rtol=1e-5, atol=1e-5)

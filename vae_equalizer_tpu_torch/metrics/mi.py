@@ -1,15 +1,19 @@
-"""Mutual information from the demapper's sufficient statistics (DP).
+"""Mutual information over the blind ambiguities (DP).
 
-Port of ``vae_equalizer_tpu/metrics/mi.py:
+Port of ``vae_equalizer_tpu/metrics/mi.py: mutual_information_ambiguity,
 mutual_information_ambiguity_mb_stats`` with any leading batch dims. The
-PCS softmin demapper computes q[l] = exp(mm - met_l) / s1 with met_l =
-(out - a_l)^2 / (2 var) + nu_sc a_l^2, so (out, mm, s1) reconstruct the
-log-posterior at any level; the 8 blind-ambiguity traces each need it at
-one tx-derived level. Level selections are direct indexing (the JAX
-package's compare-select sweep ``_level_select_vec`` existed because TPU
-gathers were slow).
+mismatched-decoding estimate
 
-    MI = (1/N) sum_k log2(q_k(x_k) / P(x_k)), max over the 8 ambiguities.
+    MI = (1/N) sum_k log2(q_k(x_k) / P(x_k)), max over the 8 ambiguities
+
+is taken from the posteriors q (``mutual_information_ambiguity``, the CMA
+path's soft demapper output) or rebuilt from the demapper's sufficient
+statistics (``..._mb_stats``, the VAE kernel's streams): the PCS softmin
+demapper computes q[l] = exp(mm - met_l) / s1 with met_l = (out - a_l)^2 /
+(2 var) + nu_sc a_l^2, so (out, mm, s1) give the log-posterior at any
+level. Level selections are direct indexing (``_level_select`` for
+per-symbol tensors, plain indexing for level vectors): the JAX package's
+compare-select sweeps existed because TPU gathers were slow.
 """
 
 from __future__ import annotations
@@ -18,7 +22,50 @@ import torch
 
 from .ser import _decode_levels
 
-__all__ = ["mutual_information_ambiguity_mb_stats"]
+__all__ = ["mutual_information_ambiguity", "mutual_information_ambiguity_mb_stats"]
+
+
+def _level_select(lq: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """lq (..., n, N) picked at level indices idx (..., N) -> (..., N)."""
+    return torch.gather(lq, -2, idx.to(torch.int64).unsqueeze(-2)).squeeze(-2)
+
+
+def _best_of_ambiguities(a1, a2, a3, a4, b1, b2, b3, b4):
+    """The 8 ambiguity hypotheses (rotations x IQ-flip) as sums of the
+    selected traces, maximized (metrics/mi.py:118-130 of the JAX package)."""
+    return torch.stack(
+        [a1 + b1, a2 + b2, a4 + b3, a3 + b4, a1 + b2, a2 + b1, a3 + b3, a4 + b4]
+    ).max(dim=0).values
+
+
+def mutual_information_ambiguity(q, tx, amps, P, weight=None, eps: float = 1e-12):
+    """MI (bits per QAM symbol) maximized over the 8 blind phase/IQ ambiguities.
+
+    q (..., 2n, N) posteriors (I levels, then Q levels); tx (..., 2, N)
+    amplitude levels, aligned; weight broadcastable to (..., N), with
+    normalization per output element. Returns q's batch dims (per pol for
+    DP input).
+    """
+    n = amps.shape[0]
+    idx = _decode_levels(tx, n).to(torch.int64)
+    idx_i, idx_q = idx[..., 0, :], idx[..., 1, :]
+    idx_ir, idx_qr = (n - 1) - idx_i, (n - 1) - idx_q
+    lqi = torch.log2(q[..., :n, :] + eps)
+    lqq = torch.log2(q[..., n:, :] + eps)
+    lp = torch.log2(P.to(torch.float32))
+    if weight is None:
+        red = lambda trace: torch.sum(trace, dim=-1)
+    else:
+        w = weight.to(torch.float32)
+        red = lambda trace: torch.sum(trace * w, dim=-1)
+    sel = lambda lq, i: red(_level_select(lq, i))
+    best = _best_of_ambiguities(sel(lqi, idx_i), sel(lqi, idx_ir), sel(lqq, idx_i), sel(lqq, idx_ir),
+                                sel(lqq, idx_q), sel(lqq, idx_qr), sel(lqi, idx_q), sel(lqi, idx_qr))
+    prior = red(lp[idx_i] + lp[idx_q])
+    if weight is None:
+        return (best - prior) / tx.shape[-1]
+    wsum = torch.sum(torch.broadcast_to(weight.to(torch.float32), best.shape + (tx.shape[-1],)), dim=-1)
+    return (best - prior) / wsum
 
 
 def mutual_information_ambiguity_mb_stats(out_mb, mm_mb, s1_mb, tx, amps, P, nu_sc, var,
@@ -63,9 +110,7 @@ def mutual_information_ambiguity_mb_stats(out_mb, mm_mb, s1_mb, tx, amps, P, nu_
     b1, b2 = trace(1, a_q), trace(1, a_qr)
     b3, b4 = trace(0, a_q), trace(0, a_qr)
     prior = red(lp[idx_i] + lp[idx_q])
-    best = torch.stack(
-        [a1 + b1, a2 + b2, a4 + b3, a3 + b4, a1 + b2, a2 + b1, a3 + b3, a4 + b4]
-    ).max(dim=0).values
+    best = _best_of_ambiguities(a1, a2, a3, a4, b1, b2, b3, b4)
     if weight is None:
         return (best - prior) / (n_mb * bl)
     wsum = torch.sum(torch.broadcast_to(weight.to(torch.float32), idx.shape[:-3] + (2, n_mb * bl)), dim=-1)

@@ -1,7 +1,7 @@
 """Symbol-error rates robust to the blind-equalization ambiguities (DP).
 
-Port of the level-index paths of ``vae_equalizer_tpu/metrics/ser.py``
-(``_decode_levels``, ``_wmean``, ``ser_iqflip_from_dec``,
+Port of the DP estimators of ``vae_equalizer_tpu/metrics/ser.py``
+(``_decode_levels``, ``_wmean``, ``ser_iqflip``, ``ser_iqflip_from_dec``,
 ``ser_constell_shaping``) with any leading batch dims. Every estimator
 evaluates the 4 rotations x 2 IQ-flips and returns the minimum per
 polarization; ``weight`` masks emulate the reference's data-dependent
@@ -14,7 +14,7 @@ import math
 
 import torch
 
-__all__ = ["ser_iqflip_from_dec", "ser_constell_shaping"]
+__all__ = ["ser_iqflip", "ser_iqflip_from_dec", "ser_constell_shaping"]
 
 
 def _wmean(err: torch.Tensor, weight: torch.Tensor | None, dim) -> torch.Tensor:
@@ -54,6 +54,16 @@ def ser_iqflip_from_dec(dec: torch.Tensor, tx: torch.Tensor | None, num_lev: int
     data_q = (data[..., 1, :], inv(data[..., 1, :]))
     sers = [_wmean((vi != data_i) | (vq != dq), weight, -1) for vi, vq in variants for dq in data_q]
     return torch.stack(sers).min(dim=0).values
+
+
+def ser_iqflip(q: torch.Tensor, tx: torch.Tensor, weight: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-pol SER from posteriors q (..., 2 pol, 2 num_lev, N), min over
+    IQ-flip x 4 rotations (shared_funcs.py:188-222); tx (..., 2, 2, N)
+    levels. Returns (..., 2)."""
+    num_lev = q.shape[-2] // 2
+    dec = torch.stack([torch.argmax(q[..., :num_lev, :], dim=-2),
+                       torch.argmax(q[..., num_lev:, :], dim=-2)], dim=-2)
+    return ser_iqflip_from_dec(dec, tx, num_lev, weight)
 
 
 def ser_constell_shaping(rx: torch.Tensor, tx: torch.Tensor | None, amps: torch.Tensor,

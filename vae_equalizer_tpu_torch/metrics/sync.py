@@ -1,8 +1,9 @@
 """Time-shift and polarization-assignment search by correlation (DP).
 
-Port of ``vae_equalizer_tpu/metrics/sync.py: _roll_stack, _dp_shift_core,
-find_shift_symb_dp`` with any leading batch dims (the runs axis). The
-equalizer output (E_q[x^I] or the in-phase constellation output) is
+Port of ``vae_equalizer_tpu/metrics/sync.py: expectation_i, _roll_stack,
+_dp_shift_core, find_shift_dp, find_shift_symb_dp`` with any leading batch
+dims (the runs axis). The equalizer output (E_q[x^I] or the in-phase
+constellation output) is
 correlated against the known transmitted symbols over ``n_shift`` cyclic
 shifts of the first ``corr_len`` symbols; argmaxes take the first maximum and
 the XY/YX tie goes to XY (``>=``), as in the JAX package.
@@ -12,7 +13,14 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["find_shift_symb_dp"]
+__all__ = ["expectation_i", "find_shift_dp", "find_shift_symb_dp"]
+
+
+def expectation_i(q: torch.Tensor, amps: torch.Tensor) -> torch.Tensor:
+    """E_q[x^I], the posterior mean of the in-phase component:
+    q (..., 2 num_lev, N) -> (..., N)."""
+    num_lev = amps.shape[0]
+    return torch.sum(q[..., :num_lev, :] * amps[:, None], dim=-2)
 
 
 def _roll_stack(e: torch.Tensor, n_shift: int) -> torch.Tensor:
@@ -50,3 +58,9 @@ def find_shift_symb_dp(rx: torch.Tensor, tx: torch.Tensor, n_shift: int,
                        corr_len: int | None = None):
     """Pol assignment + time shift from DP constellation output rx (..., 2, 2, L)."""
     return _dp_shift_core(rx[..., :, 0, :], tx, n_shift, corr_len)
+
+
+def find_shift_dp(q: torch.Tensor, tx: torch.Tensor, n_shift: int, amps: torch.Tensor,
+                  corr_len: int | None = None):
+    """Pol assignment + per-pol time shift from DP posteriors q (..., 2, 2n, L)."""
+    return _dp_shift_core(expectation_i(q, amps), tx, n_shift, corr_len)

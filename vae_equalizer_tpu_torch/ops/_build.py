@@ -1,11 +1,17 @@
 """Build and load the port's CUDA kernels (``csrc/``) on first use.
 
-``nvcc`` compiles ``csrc/dp_kernels.cu`` (which includes the shared step body
-``csrc/dp_step.cuh``) for ``sm_90a`` into a shared library with a plain C
-interface, under ``build/kernels/`` at the repository root, named by a hash
-of the sources and flags so an edit rebuilds. The library is loaded with
-``ctypes`` with typed entry points (``c_void_p`` for every pointer and
-the stream, so ctypes passes tensor addresses as 64-bit values).
+Each library is one ``nvcc`` compile of one ``.cu`` source for ``sm_90a`` into
+a shared library with a plain C interface, under ``build/kernels/`` at the
+repository root, named by a hash of its sources and flags so an edit
+rebuilds:
+
+  * ``dp``  — ``csrc/dp_kernels.cu`` (+ ``dp_step.cuh``): kernels A and B;
+  * ``cma`` — ``csrc/cma_kernels.cu``: kernels C and D.
+
+The compiles of all libraries that need one start together and run in
+parallel. The libraries are loaded with ``ctypes`` with typed entry points
+(``c_void_p`` for every pointer and the stream, so ctypes passes tensor
+addresses as 64-bit values).
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine without ``nvcc``.
@@ -21,6 +27,7 @@ import pathlib
 import shutil
 import subprocess
 import time
+import types
 
 import torch
 
@@ -28,21 +35,35 @@ __all__ = ["CSRC", "BUILD_DIR", "build", "load", "check", "check_tensor", "strea
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
-SOURCES = ("dp_step.cuh", "dp_kernels.cu")
+# library -> (compiled source, headers it includes)
+LIBRARIES = {
+    "dp": ("dp_kernels.cu", ("dp_step.cuh",)),
+    "cma": ("cma_kernels.cu", ()),
+}
 # --fmad=false: no multiply-add contraction, so the kernels' elementwise math
-# (demapper metric, Adam) rounds op for op like the plain PyTorch versions
+# (demapper metric, Adam, CMA updates) rounds op for op like the plain
+# PyTorch versions
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--fmad=false",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _LL, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_double
 _SIGNATURES = {
-    # x, w, h, amps, P, var, nu_sc, n_sym, m, n_lev, stats, gw, gh, q, out, stream
-    "vae_dp_step_launch": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P],
-    # R, m_max, n_sym, m, n_lev, n_total, rx, w, h, mw, vw, mh, vh (in),
-    # w, h, mw, vw, mh, vh (out), losses, var_est, out, dec, eq, mm, s1,
-    # amps, P, var, nu_sc, lr, step0, lr_half_step, stream
-    "vae_dp_frame_launch": [_I, _I, _I, _I, _I, _LL] + [_P] * 7 + [_P] * 6 + [_P] * 7
-    + [_P, _P, _P, _F, _F, _LL, _D, _P],
+    "dp": {
+        # x, w, h, amps, P, var, nu_sc, n_sym, m, n_lev, stats, gw, gh, q, out, stream
+        "vae_dp_step_launch": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+        # R, m_max, n_sym, m, n_lev, n_total, rx, w, h, mw, vw, mh, vh (in),
+        # w, h, mw, vw, mh, vh (out), losses, var_est, out, dec, eq, mm, s1,
+        # amps, P, var, nu_sc, lr, step0, lr_half_step, stream
+        "vae_dp_frame_launch": [_I, _I, _I, _I, _I, _LL] + [_P] * 7 + [_P] * 6 + [_P] * 7
+        + [_P, _P, _P, _F, _F, _LL, _D, _P],
+    },
+    "cma": {
+        # R, n_sym, m, sps, lp, y, h_in, h_out, out, e, big_r, lr2, update, stream
+        "cma_dp_launch": [_I, _I, _I, _I, _LL, _P, _P, _P, _P, _P, _F, _F, _I, _P],
+        # R, m, sps, lp, j0, S, n_full, n_slots, y, h_in, ring_in, h_out,
+        # ring_out, out, e, big_r, lr2, stream
+        "cma_chunked_launch": [_I, _I, _I, _LL, _I, _I, _I, _I] + [_P] * 7 + [_F, _F, _P],
+    },
 }
 
 
@@ -53,45 +74,60 @@ def _nvcc() -> str:
     return path
 
 
-def _tag() -> str:
+def _lib_path(name: str) -> pathlib.Path:
+    src, headers = LIBRARIES[name]
     hsh = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        hsh.update((CSRC / name).read_bytes())
-    return hsh.hexdigest()[:16]
+    for f in (src, *headers):
+        hsh.update((CSRC / f).read_bytes())
+    return BUILD_DIR / f"libvae_{name}_{hsh.hexdigest()[:16]}.so"
 
 
-def build() -> tuple[pathlib.Path, float, str]:
-    """Compile the kernels if this source hash has no library yet.
+def build() -> tuple[dict[str, pathlib.Path], float, str]:
+    """Compile every library whose source hash has none yet, all in parallel.
 
-    Returns (library path, seconds spent compiling (0.0 if cached), ptxas log).
+    Returns ({library: path}, seconds spent compiling (0.0 if all cached),
+    the ptxas logs of all libraries).
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = BUILD_DIR / f"libvae_dp_{_tag()}.so"
-    log = lib.with_suffix(".log")
-    if lib.exists():
-        return lib, 0.0, log.read_text() if log.exists() else ""
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / "dp_kernels.cu")]
+    paths = {name: _lib_path(name) for name in LIBRARIES}
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    dt = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}\n{res.stdout}")
-    log.write_text(res.stderr + res.stdout)
-    os.replace(tmp, lib)
-    return lib, dt, res.stderr + res.stdout
+    jobs = {}
+    for name, lib in paths.items():
+        if not lib.exists():
+            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / LIBRARIES[name][0])]
+            jobs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                                text=True))
+    failed = []
+    for name, (tmp, proc) in jobs.items():
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{stderr}\n{stdout}")
+            continue
+        paths[name].with_suffix(".log").write_text(stderr + stdout)
+        os.replace(tmp, paths[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    dt = time.perf_counter() - t0 if jobs else 0.0
+    logs = [p.with_suffix(".log") for p in paths.values()]
+    return paths, dt, "".join(log.read_text() for log in logs if log.exists())
 
 
 @functools.lru_cache(maxsize=1)
-def load() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library, with typed entry points."""
-    path, _, _ = build()
-    lib = ctypes.CDLL(str(path))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+def load() -> types.SimpleNamespace:
+    """Build (if needed) and load every kernel library; returns their typed
+    entry points by name (the libraries stay referenced by the namespace)."""
+    paths, _, _ = build()
+    entry = {"libraries": {}}
+    for lib_name, path in paths.items():
+        lib = ctypes.CDLL(str(path))
+        entry["libraries"][lib_name] = lib
+        for name, argtypes in _SIGNATURES[lib_name].items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            entry[name] = fn
+    return types.SimpleNamespace(**entry)
 
 
 def check(rc: int, what: str) -> None:

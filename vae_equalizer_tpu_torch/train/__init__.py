@@ -1,5 +1,5 @@
-"""Training loops: the DP VAE online frame experiment."""
+"""Training loops: the DP VAE online frame experiment and the CMA baselines."""
 
-from .dp import train_vae_dp
+from .dp import run_cma_dp, train_vae_dp
 
-__all__ = ["train_vae_dp"]
+__all__ = ["run_cma_dp", "train_vae_dp"]

@@ -1,13 +1,15 @@
-"""Optical dual-pol VAE online training: the flagship ``Eval_run_DP`` path.
+"""Optical dual-pol processing loops: VAE online training (the flagship
+``Eval_run_DP`` path) and the CMA / CMAbatch / CMAflex baselines.
 
-Port of ``vae_equalizer_tpu/train/dp.py: train_vae_dp(use_pallas="frame")``
-(``_setup``, ``_frame_inputs``, the sufficient-statistics branch of
-``_dp_frame_eval_mb``, ``_finish_vae_frame``, ``_run_frame_kernel_experiment``).
-Frame semantics follow the reference (func_VAELE_DP_MQAM_shaping.py:17-95):
-every frame draws fresh channel data with the polarization angle advanced by
-theta_diff, trains online on all of its minibatches (one kernel B launch for
-all R runs, ``ops/frame_kernel.py``), and measures SER/MI on the training
-outputs themselves.
+Port of ``vae_equalizer_tpu/train/dp.py``: ``train_vae_dp(use_pallas=
+"frame")`` (``_setup``, ``_frame_inputs``, the sufficient-statistics branch
+of ``_dp_frame_eval_mb``, ``_finish_vae_frame``,
+``_run_frame_kernel_experiment``) and ``run_cma_dp`` (``_dp_frame_eval``).
+Frame semantics follow the reference (func_VAELE_DP_MQAM_shaping.py:17-95,
+func_CMA*_DP_MQAM_shaping.py): every frame draws fresh channel data with the
+polarization angle advanced by theta_diff, trains or adapts online (one
+kernel launch per frame for all R runs, ``ops/``), and measures SER/MI on
+the frame's own outputs.
 
 SER layout matches the reference: rows 0:2 per-pol SER of the constellation
 output (PCS decision boundaries), rows 2:4 per-pol soft SER (IQ-flip family).
@@ -21,20 +23,27 @@ import torch
 from ..channels import channel_ir, make_dp_simulator
 from ..core import demapper_noise_var, make_constellation
 from ..metrics import (
+    cpe_dp,
+    find_shift_dp,
     find_shift_symb_dp,
+    mutual_information_ambiguity,
     mutual_information_ambiguity_mb_stats,
     ser_constell_shaping,
+    ser_iqflip,
     ser_iqflip_from_dec,
 )
 from ..metrics.ser import _decode_levels
 from ..metrics.sync import _dp_shift_core
-from ..models import butterfly_init, dirac_taps_dp
+from ..models import butterfly_init, cma_batch_dp, cma_dp, cma_flex_dp, dirac_taps_dp, soft_demap_dp
+from ..ops.cma_frame_kernel import cma_chunked_frame
+from ..ops.cma_kernel import cma_dp_kernel
 from ..ops.frame_kernel import frame_opt_init, vae_dp_frame_train
 from ..utils.config import DpConfig
-from .eval_utils import align_idx_dp, batch_cut_weight
+from .eval_utils import align_idx_dp, align_tx_dp, batch_cut_weight, margin_weight_maxshift
 from .harness import Progress, pack_metrics, run_frame_loop
+from .modes import check_pallas_mode
 
-__all__ = ["train_vae_dp"]
+__all__ = ["run_cma_dp", "train_vae_dp"]
 
 # Correlation window of the per-frame sync searches (train/dp.py:76 of the
 # JAX package): a contiguous 2000-symbol prefix finds the global delay with
@@ -43,6 +52,8 @@ _SYNC_CORR_LEN = 2000
 
 _VAE_FIELDS = (("loss", 1), ("ser_const", 2), ("ser_soft", 2), ("mi", 2),
                ("var_est", 2), ("snr_est_db", 1), ("shift", 2), ("r", 1), ("sigma_n", 1))
+_CMA_FIELDS = (("loss", 1), ("ser_const", 2), ("ser_soft", 2), ("mi", 2),
+               ("shift", 2), ("r", 1), ("sigma_n", 1))
 
 
 def _setup(cfg: DpConfig, n_frame: int, device):
@@ -126,10 +137,63 @@ def _finish_vae_frame(losses, out_mb, var_est, tx, const, amps, P, var, weight_f
     return pack_metrics(metrics, _VAE_FIELDS, batch_ndim=1)
 
 
+def _dp_frame_eval(q, out_const, tx, amps, P, nu_sc, var, weight_fn):
+    """Sync -> align tx -> masked SER (+ MI) from the posteriors (the JAX
+    q-stream eval, train/dp.py:116-150).
+
+    q (R, 2, 2n, N); out_const/tx (R, 2, 2, N); weight_fn(shift0, max_shift)
+    -> (R, N) eval mask. Returns per-run (ser_const, ser_soft, mi) (R, 2),
+    the posterior sync (shift (R, 2), r (R,)) and the constellation sync
+    (shift_c, r_c).
+    """
+    def aligned(sh, rr):
+        return align_tx_dp(tx, sh, rr, weight_fn(sh[..., 0], sh.abs().max(dim=-1).values))
+
+    shift, r = find_shift_dp(q, tx, 21, amps, corr_len=_SYNC_CORR_LEN)
+    tx_al, w_al = aligned(shift, r)
+    # aligned metrics are per EQUALIZER pol j; report per tx pol i = (j + r) % 2
+    ser_soft = _roll_pol(ser_iqflip(q, tx_al, weight=w_al), r)
+    mi = _roll_pol(mutual_information_ambiguity(q, tx_al, amps, P, weight=w_al), r)
+    shift_c, r_c = find_shift_symb_dp(out_const, tx, 21, corr_len=_SYNC_CORR_LEN)
+    tx_al_c, w_al_c = aligned(shift_c, r_c)
+    ser_const = _roll_pol(ser_constell_shaping(out_const, tx_al_c, amps, nu_sc, var, weight=w_al_c),
+                          r_c)
+    return ser_const, ser_soft, mi, (shift, r), (shift_c, r_c)
+
+
+def _margin_weight_fn(n_eval: int, device):
+    """weight_fn(shift0, max_shift) of the CMA eval: the plain margin trim
+    [11 : n - 11 - max|shift|] per run, (R, n_eval)."""
+    t = torch.arange(n_eval, device=device)
+    return lambda s0, ms: margin_weight_maxshift(n_eval, ms[..., None], t=t)
+
+
+def _finish_cma_frame(out, e, tx, sigma, const, amps, P, var, n_cut: int, weight_fn):
+    """One CMA frame's equalizer streams -> CPE -> soft demapper -> eval ->
+    packed metrics (R, n_tot). out/tx (R, 2, 2, N); e (R, N, 2); sigma (R,)."""
+    cut = slice(n_cut, -n_cut)
+    out = cpe_dp(out[..., cut])
+    q = soft_demap_dp(out, amps, var, const.nu_sc)
+    ser_const, ser_soft, mi, _, (shift_c, r_c) = _dp_frame_eval(
+        q, out, tx[..., cut], amps, P, const.nu_sc, var, weight_fn)
+    metrics = {
+        "loss": e.sum(dim=(-2, -1)),
+        "ser_const": ser_const,
+        "ser_soft": ser_soft,
+        "mi": mi,
+        "shift": shift_c.to(torch.float32),
+        "r": r_c,
+        "sigma_n": sigma,
+    }
+    return pack_metrics(metrics, _CMA_FIELDS, batch_ndim=1)
+
+
 def _dp_result(hist: dict, var, **extra) -> dict:
+    """The runners' result; ``var_est`` is zeros (shaped like ``mi``) where
+    the history has none, as in the JAX package."""
     return {
         "ser": np.concatenate([hist["ser_const"], hist["ser_soft"]], axis=-2),
-        "var_est": hist["var_est"],
+        "var_est": hist.get("var_est", np.zeros_like(hist["mi"])),
         "mi": hist["mi"],
         "var": var.cpu().numpy(),
         **extra,
@@ -169,6 +233,19 @@ def _run_frame_kernel_experiment(cfg, gen, const, amps, P, var, draws, *, steps_
 
 
 _DEFERRED = "not ported yet (ROADMAP.md, queue 1: 'Deferred train_vae_dp options')"
+_DEFERRED_CMA = "not ported yet (ROADMAP.md, queue 1: 'Deferred run_cma_dp options')"
+
+
+def _raise_deferred(deferred: dict, where: str) -> None:
+    for name, is_set in deferred.items():
+        if is_set:
+            raise NotImplementedError(f"{name}: {where}")
+
+
+def _default_draws(gen, seed: int, device):
+    rng = torch.Generator(device=device)
+    rng.manual_seed(seed)
+    return lambda frame, R: gen.draws(rng, R)
 
 
 def train_vae_dp(cfg: DpConfig, seed: int, device="cpu", progress: Progress = None,
@@ -189,6 +266,7 @@ def train_vae_dp(cfg: DpConfig, seed: int, device="cpu", progress: Progress = No
     Returns {"ser" (..., 4, F), "mi" (..., 2, F), "var_est" (..., 2, F),
     "var" (2,), "params" {"w", "h"}} with a leading runs axis iff ``runs``.
     """
+    check_pallas_mode("VAE", use_pallas)
     deferred = {
         "checkpoint": checkpoint is not None or checkpoint_every != 0,
         f"use_pallas={use_pallas!r} (the per-step modes)": use_pallas != "frame",
@@ -197,9 +275,7 @@ def train_vae_dp(cfg: DpConfig, seed: int, device="cpu", progress: Progress = No
         "mesh": mesh is not None,
         "compiled/chunk_frames": compiled or chunk_frames != 1,
     }
-    for name, is_set in deferred.items():
-        if is_set:
-            raise NotImplementedError(f"{name}: {_DEFERRED}")
+    _raise_deferred(deferred, _DEFERRED)
     if cfg.sps != 2 or cfg.m_est % 2 == 0:
         raise ValueError('use_pallas="frame" requires sps=2 and odd M_est')
 
@@ -209,12 +285,85 @@ def train_vae_dp(cfg: DpConfig, seed: int, device="cpu", progress: Progress = No
     const, var, gen, amps, P = _setup(cfg, n_frame, device)
     params = params_init or {"w": butterfly_init(cfg.m_est, device), "h": dirac_taps_dp(cfg.m_est, device)}
     params = {k: torch.as_tensor(v, dtype=torch.float32).to(device) for k, v in params.items()}
-    if draws is None:
-        rng = torch.Generator(device=device)
-        rng.manual_seed(seed)
-        draws = lambda frame, R: gen.draws(rng, R)
+    draws = draws or _default_draws(gen, seed, device)
 
     return _run_frame_kernel_experiment(
         cfg, gen, const, amps, P, var, draws, steps_per_frame=m_max,
         weight_fn=lambda s0, ms, t=None: batch_cut_weight(m_max, cfg.batch_len, s0, ms, cfg.n_cut, t=t),
         params=params, runs=runs, progress=progress)
+
+
+def run_cma_dp(cfg: DpConfig, seed: int, device="cpu", progress: Progress = None,
+               runs: int | None = None, mesh=None, taps_init=None, use_pallas=False,
+               compiled: bool = False, checkpoint=None, checkpoint_every: int = 0,
+               chunk_frames: int = 1, timings: dict | None = None, runs_batch: int | None = None,
+               draws=None) -> dict:
+    """CMA / CMAbatch / CMAflex baseline on the optical DP channel (``cfg.loss_type``).
+
+    Per frame: adapt the taps online -> CPE -> sync -> constellation SER;
+    then soft demapper -> sync -> posterior SER and MI. The lr halves every
+    n_lrhalf frames (multiplicatively, unlike the VAE's one-time halving).
+
+    ``use_pallas`` (``train/modes.py``): False runs the plain PyTorch
+    equalizers (``models/cma.py``); True runs CMA's per-symbol recurrence as
+    kernel C (``ops/cma_kernel.py``); "frame" runs CMAbatch/CMAflex as
+    kernel D (``ops/cma_frame_kernel.py``). A kernel mode launches the CUDA
+    kernel for a CUDA ``device`` and takes its plain version on the CPU.
+    All ``runs`` go through one launch per frame, or one per group of
+    ``runs_batch``. The draws come from a ``torch.Generator`` seeded with
+    ``seed``, or from ``draws(frame, R)`` as in ``train_vae_dp``.
+    ``taps_init`` (2, 2, 2, M) or (runs, 2, 2, 2, M), numpy or torch.
+
+    Returns {"ser" (..., 4, F), "mi" (..., 2, F), "var_est" (zeros,
+    (..., 2, F)), "var" (2,), "taps" (..., 2, 2, 2, M)} with a leading runs
+    axis iff ``runs``.
+    """
+    check_pallas_mode(cfg.loss_type, use_pallas)
+    _raise_deferred({
+        "mesh": mesh is not None,
+        "compiled/chunk_frames": compiled or chunk_frames != 1,
+        "checkpoint": checkpoint is not None or checkpoint_every != 0,
+        "timings": timings is not None,
+    }, _DEFERRED_CMA)
+    step = cfg.batch_len if cfg.loss_type == "CMAbatch" else cfg.flex_step
+    if use_pallas == "frame":
+        equalize = lambda rx, h, lr: cma_chunked_frame(rx, cfg.R, h, lr, cfg.batch_len, step, cfg.sps)
+    elif cfg.loss_type == "CMA":
+        eq_fn = cma_dp_kernel if use_pallas else cma_dp
+        equalize = lambda rx, h, lr: eq_fn(rx, cfg.R, h, lr, cfg.sps, True)
+    elif cfg.loss_type == "CMAbatch":
+        equalize = lambda rx, h, lr: cma_batch_dp(rx, cfg.R, h, lr, cfg.batch_len, cfg.sps, True)
+    elif cfg.loss_type == "CMAflex":
+        equalize = lambda rx, h, lr: cma_flex_dp(rx, cfg.R, h, lr, cfg.batch_len, step, cfg.sps, True)
+    else:
+        raise ValueError(f"unknown CMA variant {cfg.loss_type!r}")
+
+    device = torch.device(device)
+    R = 1 if runs is None else runs
+    rb = runs_batch or R
+    if R % rb != 0:
+        raise ValueError(f"runs_batch={rb} must divide runs={R}")
+    n_frame = cfg.n_frame_max
+    n_eval = n_frame - 2 * cfg.n_cut  # symbols per frame after the edge cut
+    const, var, gen, amps, P = _setup(cfg, n_frame, device)
+    draws = draws or _default_draws(gen, seed, device)
+    h = dirac_taps_dp(cfg.m_est, device) if taps_init is None else taps_init
+    if not isinstance(h, torch.Tensor):
+        h = torch.from_numpy(np.array(h, np.float32))  # a copy: JAX arrays are read-only
+    h = h.to(device, torch.float32)
+    h = h.expand((R,) + h.shape[-4:]).contiguous()
+    weight_fn = _margin_weight_fn(n_eval, device)
+    lrs = (np.float32(cfg.lr) * 0.5 ** (np.arange(cfg.num_frames) // cfg.n_lrhalf)).astype(np.float32)
+
+    def frame_step(h, frame, theta, lr):
+        levels, noise = draws(frame, R)
+        rx, tx, sigma = gen.physics(theta, levels, noise)
+        groups = [equalize(rx[g : g + rb], h[g : g + rb], float(lr)) for g in range(0, R, rb)]
+        out, h, e = (torch.cat(parts) for parts in zip(*groups))
+        packed = _finish_cma_frame(out, e, tx, sigma, const, amps, P, var, cfg.n_cut, weight_fn)
+        return h, packed if runs is not None else packed[0]
+
+    h, hist = run_frame_loop(
+        frame_step, h, (range(cfg.num_frames), _frame_inputs(cfg, device), lrs), _CMA_FIELDS,
+        runs=runs, progress=progress)
+    return _dp_result(hist, var, taps=h if runs is not None else h[0])

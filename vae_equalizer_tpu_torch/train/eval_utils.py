@@ -1,6 +1,6 @@
 """Eval masks and alignment for the DP frame evaluation.
 
-Port of ``vae_equalizer_tpu/train/eval_utils.py: align_idx_dp,
+Port of ``vae_equalizer_tpu/train/eval_utils.py: align_idx_dp, align_tx_dp,
 batch_cut_weight, margin_weight_maxshift`` with any leading batch dims. The
 reference's data-dependent slices become a roll + boolean weight over the
 full array; the masks are evaluated at the shifted positions t directly
@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["MARGIN", "align_idx_dp", "batch_cut_weight", "margin_weight_maxshift"]
+__all__ = ["MARGIN", "align_idx_dp", "align_tx_dp", "batch_cut_weight", "margin_weight_maxshift"]
 
 MARGIN = 11  # the reference's fixed edge trim (func_VAELE_MQAM_shaping.py:318)
 
@@ -33,6 +33,20 @@ def align_idx_dp(idx: torch.Tensor, shift: torch.Tensor, r: torch.Tensor, weight
     t = torch.remainder(torch.arange(n, device=idx.device) - s_p[..., None], n)  # (..., 2, N)
     idx_al = torch.gather(idx_p, -1, t[..., None, :].expand(idx_p.shape))
     return idx_al, weight_fn_t(t)
+
+
+def align_tx_dp(tx: torch.Tensor, shift: torch.Tensor, r: torch.Tensor, weight: torch.Tensor):
+    """``align_idx_dp`` for tx amplitude levels and a precomputed weight.
+
+    tx (..., 2, 2, N); weight (..., N) (or (N,)). Returns (tx_al (..., 2,
+    2, N), w_al (..., 2, N)): per equalizer pol j, the tx pol (j + r) % 2 and
+    the weight rolled by that pol's shift.
+    """
+    def rolled_weight(t):
+        w = torch.broadcast_to(weight[..., None, :], t.shape[:-1] + weight.shape[-1:])
+        return torch.gather(w, -1, t)
+
+    return align_idx_dp(tx, shift, r, rolled_weight)
 
 
 def margin_weight_maxshift(n: int, max_shift, margin: int = MARGIN, t=None) -> torch.Tensor:

@@ -1,7 +1,8 @@
-"""Carry weights and optimizer state over from the JAX package.
+"""Carry weights, CMA taps and optimizer state over from the JAX package.
 
 The port keeps the JAX package's public layouts — ``w`` (..., 2, 4, M),
-``h`` (..., 2, 2, 2, M) and the Adam moments in the same shapes — so a
+``h`` and the CMA taps (..., 2, 2, 2, M), the Adam moments in the same
+shapes — so a
 conversion is a checked copy: float32, on the requested device, with the
 shapes the port expects.
 """
@@ -11,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "opt_from_jax"]
+__all__ = ["params_from_jax", "opt_from_jax", "taps_from_jax"]
 
 
 def _copy(name: str, a, tail: tuple[int, ...], device) -> torch.Tensor:
@@ -39,3 +40,9 @@ def opt_from_jax(opt: dict, device="cpu") -> dict[str, torch.Tensor]:
     out = {k: _copy(k, opt[k], (2, 4, m), device) for k in ("mw", "vw")}
     out.update({k: _copy(k, opt[k], (2, 2, 2, m), device) for k in ("mh", "vh")})
     return out
+
+
+def taps_from_jax(h, device="cpu") -> torch.Tensor:
+    """CMA taps (..., 2, 2, 2, M) float32 (e.g. ``run_cma_dp``'s "taps") ->
+    a torch tensor, to seed ``run_cma_dp(taps_init=...)``."""
+    return _copy("taps", h, (2, 2, 2, np.asarray(h).shape[-1]), device)
