@@ -6,11 +6,12 @@ building them from ``csrc/`` and holding each kernel against its plain
 PyTorch version at its path's shapes: the flagship DP VAE online-training
 experiment (``vae_equalizer_tpu_torch.train.train_vae_dp``, DpConfig()
 defaults: 64-QAM, M = 25, bl = 100, 170 frames x 10,000 symbols, 8 runs)
-and the CMA / CMAbatch / CMAflex baselines on the same channel
-(``run_cma_dp``, 5 runs). One line per phase:
+the CMA / CMAbatch / CMAflex baselines on the same channel (``run_cma_dp``,
+5 runs) and the AWGN VAE-LE experiment (``train_vae_le_awgn``, 20 runs).
+One line per phase:
 
   1. device    card name and power limit (nvidia-smi)
-  2. build     nvcc build of kernels A-D (one nvcc per source, in parallel),
+  2. build     nvcc build of kernels A-D, F, G (one nvcc per source, in parallel),
                seconds, ptxas resource use
   3. kernel A  vs plain (one minibatch), errors and CUDA-event times
   4. kernel B  vs plain: (a) a 3-minibatch frame, R = 8, across the lr
@@ -22,6 +23,15 @@ and the CMA / CMAbatch / CMAflex baselines on the same channel
   9. CMA path  the three 170-frame CMA experiments, R = 5: launch counts,
                constellation SER band, speed; per-frame channel / kernel /
                eval times
+ 10. kernel F  vs plain: one 350-symbol AWGN minibatch, 64-QAM, R = 20; times
+ 11. kernel G  vs plain: (a) 2 epochs from a near-Dirac start; (b) 10 epochs
+               from the state after 50 trained epochs; the whole 1,500-step
+               experiment timed against the plain engine
+ 12. AWGN path the full AWGN VAE-LE experiment (``train_vae_le_awgn``,
+               AwgnVaeLeConfig(): 64-QAM, h1, 24 dB, 500 epochs, 250 evals),
+               R = 20, with use_pallas="frame" (kernel G) and True (kernel F):
+               launch counts, last-25-evals SER band, final MI, speed;
+               channel / kernel / eval split
 
 then the kernels' JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises (non-zero exit,
@@ -51,6 +61,20 @@ CMA_VARIANTS = {
     "CMAbatch": ("frame", 1e-4, (0.0650, 0.0724)),
     "CMAflex": ("frame", 1e-5, (0.0647, 0.0724)),
 }
+AWGN_RUNS = 20  # Eval_run_shaping_vaele's default repeats (drivers/eval_run_shaping_vaele.py:36)
+# Per run, the mean SER of the last 25 evals. The JAX package at
+# AwgnVaeLeConfig() (runs 2 and 20, keys 0 and 1; 44 runs, PERF.md §6)
+# spans 0.00821-0.01063 in converged runs; the band is that spread widened 2x
+# about its middle and holds the reference's 0.009266. The VAE-LE from the
+# Dirac start sometimes settles in a wrong equalizer (last-25 SER ~0.87, MI
+# ~-34 bits; the JAX package too, 2 of 148 runs): a run above
+# AWGN_STUCK_SER counts as stuck, and at most AWGN_MAX_STUCK of the 20 may be.
+# The median over runs and the mean over converged runs must lie in the band.
+AWGN_SER_BAND = (0.00700, 0.01184)
+AWGN_STUCK_SER = 0.05
+AWGN_MAX_STUCK = 3
+AWGN_MI_MIN = 5.90  # bits, each converged run's final MI (JAX: 5.937-5.974)
+AWGN_WARM_EPOCHS = 50  # epochs of training before the 10-epoch comparison
 
 
 def _line(phase: str, **kv) -> None:
@@ -108,6 +132,220 @@ def _dec_ties_only(dec, dec_ref, out, amps, var, nu_sc, tol=1e-4):
     if bool(non_tie.any()):
         raise AssertionError(f"dec: {int(non_tie.sum())} mismatches away from ties")
     return int(mism.sum()), int(mism.numel())
+
+
+def _awgn_phases(card: str) -> list:
+    """Phases 10-12: kernels F and G against their plain versions, then the
+    AWGN VAE-LE path in both kernel modes, counted. Returns the kernels' JSON
+    entries."""
+    import numpy as np
+    import torch
+
+    from vae_equalizer_tpu_torch.models import dirac_taps_siso, siso_fir_init, vae_le_siso_forward
+    from vae_equalizer_tpu_torch.ops.cma_frame_kernel import cma_chunked_frame
+    from vae_equalizer_tpu_torch.ops.cma_kernel import cma_dp_kernel
+    from vae_equalizer_tpu_torch.ops.elbo_kernel import vae_dp_loss_and_grad
+    from vae_equalizer_tpu_torch.ops.elbo_siso_kernel import (
+        vae_siso_loss_and_grad,
+        vae_siso_loss_and_grad_plain,
+    )
+    from vae_equalizer_tpu_torch.ops.frame_kernel import vae_dp_frame_train
+    from vae_equalizer_tpu_torch.ops.siso_frame_kernel import (
+        amsgrad,
+        siso_frame_opt_init,
+        vae_siso_experiment_train,
+        vae_siso_experiment_train_plain,
+    )
+    from vae_equalizer_tpu_torch.train import awgn as train_awgn
+    from vae_equalizer_tpu_torch.utils import AwgnVaeLeConfig
+
+    dev = torch.device(DEVICE)
+    cfg = AwgnVaeLeConfig()
+    const, sims, amps, P, var = train_awgn._setup(cfg, dev)
+    R, M, bl = AWGN_RUNS, cfg.m_est, cfg.batch_len
+    nb = cfg.n_train // cfg.batch_len
+    amp_mean = const.amp_mean
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+    rng = torch.Generator(device=dev)
+    rng.manual_seed(77)
+    draws = lambda kind, index, runs: sims[kind].draws(gen, runs)
+    rx_epochs = lambda n_ep: train_awgn._frame_train_data(sims["train"], draws, R, n_ep)
+    w0 = siso_fir_init(M, dev) + 0.01 * torch.randn((R, 1, 2, M), generator=rng, device=dev)
+    h0 = dirac_taps_siso(M, dev) + 0.01 * torch.randn((R, 2, M), generator=rng, device=dev)
+    opt0 = siso_frame_opt_init({"w": w0, "h": h0})
+    g_kw = dict(bl_sym=bl, n_batches=nb, epe=cfg.epe)
+
+    # ---- 10. kernel F vs plain: one minibatch of a channel frame, R = 20
+    # (float32 sums in another order through the softmin's 1/var = 251 gain:
+    # rtol 1e-4 with a floor of 1e-4 of each tensor's scale; loss rtol 1e-5)
+    x = rx_epochs(1)[:, 0, :, : 2 * bl].contiguous()
+    f_args = (w0, h0, x, amps, amp_mean, var, P)
+    got = vae_siso_loss_and_grad(*f_args)
+    torch.cuda.synchronize()
+    want = vae_siso_loss_and_grad_plain(*f_args)
+    errs_f: dict = {}
+    _check("loss", got[0], want[0], 1e-5, 0.0, errs_f)
+    for name, g_, w_ in zip(("gw", "gh", "q", "out"), got[1:], want[1:]):
+        _check(name, g_, w_, 1e-4, 1e-4 * float(w_.abs().max()), errs_f)
+    ms_f = _time_ms(lambda: vae_siso_loss_and_grad(*f_args))
+    ms_f_plain = _time_ms(lambda: vae_siso_loss_and_grad_plain(*f_args))
+    _line("10 kernel F", ok=True, R=R, bl=bl, errs_abs_rel=_fmt(errs_f), ms=f"{ms_f:.4f}",
+          plain_ms=f"{ms_f_plain:.4f}")
+
+    # ---- 11a. kernel G vs plain: 2 epochs (6 steps) from the near-Dirac start
+    g_args = (w0, h0, opt0, rx_epochs(2), amps, amp_mean, var, P, cfg.lr)
+    got = vae_siso_experiment_train(*g_args, **g_kw)
+    torch.cuda.synchronize()
+    want = vae_siso_experiment_train_plain(*g_args, **g_kw)
+    errs_ga: dict = {}
+    _check("losses", got[3], want[3], 1e-4, 0.0, errs_ga)
+    # AMSGrad's first steps move each tap by ~lr whatever the gradient's size
+    # and amplify rounding (PERF.md §6): taps at rtol 1e-2, 1e-4
+    for i, name in ((0, "w"), (1, "h"), (4, "w_ev"), (5, "h_ev")):
+        _check(name, got[i], want[i], 1e-2, 1e-4, errs_ga)
+    g_err = max(errs_ga["w"][0], errs_ga["h"][0])
+    _line("11a kernel G 2 epochs", ok=True, R=R, errs_abs_rel=_fmt(errs_ga))
+
+    # ---- 11b. 10 epochs from the state after AWGN_WARM_EPOCHS trained epochs
+    warm = vae_siso_experiment_train(*(w0, h0, opt0, rx_epochs(AWGN_WARM_EPOCHS)), amps, amp_mean, var,
+                                     P, cfg.lr, **g_kw)
+    b_args = (*warm[:3], rx_epochs(10), amps, amp_mean, var, P, cfg.lr)
+    step0 = AWGN_WARM_EPOCHS * nb
+    got = vae_siso_experiment_train(*b_args, **g_kw, step0=step0)
+    torch.cuda.synchronize()
+    want = vae_siso_experiment_train_plain(*b_args, **g_kw, step0=step0)
+    errs_gb: dict = {}
+    _check("losses", got[3], want[3], 1e-3, 0.0, errs_gb)
+    rx_v, _, _ = sims["valid"](gen, R)
+    decide = lambda w: vae_le_siso_forward(w, rx_v, amps, amp_mean, var, 2)[0].unflatten(-2, (2, -1)).argmax(-2)
+    agree = min(float((decide(got[4][i]) == decide(want[4][i])).float().mean())
+                for i in range(got[4].shape[0]))
+    if agree < 0.999:
+        raise AssertionError(f"10-epoch G: eval-slot decision agreement {agree:.5f} < 0.999")
+
+    # the whole experiment: 500 epochs x 3 steps, R = 20
+    full_args = (w0, h0, opt0, rx_epochs(cfg.num_epochs), amps, amp_mean, var, P, cfg.lr)
+    ms_g = _time_ms(lambda: vae_siso_experiment_train(*full_args, **g_kw), reps=3)
+    ms_g_plain = _time_ms(lambda: vae_siso_experiment_train_plain(*full_args, **g_kw), reps=1,
+                          warmup=False)
+    _line("11b kernel G 10 epochs", ok=True, R=R, step0=step0, errs_abs_rel=_fmt(errs_gb),
+          slot_dec_agree=f"{agree:.6f}", experiment_ms=f"{ms_g:.3f}",
+          experiment_plain_ms=f"{ms_g_plain:.3f}", steps=cfg.num_epochs * nb)
+
+    # ---- 12. the AWGN path in both kernel modes, counted
+    counters = (vae_dp_frame_train, vae_dp_loss_and_grad, cma_dp_kernel, cma_chunked_frame,
+                vae_siso_loss_and_grad, vae_siso_experiment_train)
+    steps = cfg.num_epochs * nb
+    expect = {"frame": (vae_siso_experiment_train, 1), True: (vae_siso_loss_and_grad, steps)}
+    launches = {}
+    n_evals = cfg.num_epochs // cfg.epe
+    for mode, (kern, n_expect) in expect.items():
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = train_awgn.train_vae_le_awgn(cfg, seed=0, device=DEVICE, runs=R, use_pallas=mode)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {c.__name__: c.launches for c in counters}
+        if counts[kern.__name__] != n_expect or sum(counts.values()) != n_expect:
+            raise AssertionError(f"AWGN use_pallas={mode!r}: launches {counts}, expected {n_expect} "
+                                 f"of {kern.__name__}")
+        launches[kern.__name__] = n_expect
+        for k in ("ser", "mi"):
+            if res[k].shape != (R, n_evals) or not np.all(np.isfinite(res[k])):
+                raise AssertionError(f"AWGN {k}: shape {res[k].shape} or non-finite values")
+        ser25 = res["ser"][:, -25:].mean(-1)  # (R,) last-25-evals mean SER per run
+        ok = ser25 <= AWGN_STUCK_SER
+        stats = {"median": float(np.median(ser25)), "converged_mean": float(ser25[ok].mean()),
+                 "stuck": int((~ok).sum())}
+        mi_last = res["mi"][ok, -1]
+        lo, hi = AWGN_SER_BAND
+        if (stats["stuck"] > AWGN_MAX_STUCK or not lo <= stats["median"] <= hi
+                or not lo <= stats["converged_mean"] <= hi or not np.all(mi_last > AWGN_MI_MIN)):
+            raise AssertionError(f"AWGN use_pallas={mode!r}: last-25-evals SER {stats} (band "
+                                 f"{AWGN_SER_BAND}, at most {AWGN_MAX_STUCK} stuck), converged "
+                                 f"runs' final MI min {mi_last.min():.4f} (floor {AWGN_MI_MIN})")
+        split = _awgn_split(mode, cfg, train_awgn, sims, draws, amps, P, var, const, w0, h0,
+                            vae_siso_loss_and_grad, amsgrad, rx_epochs)
+        _line(f"12 AWGN path {mode!r}", ok=True, runs=R, epochs=cfg.num_epochs, evals=n_evals,
+              launches=counts[kern.__name__], ser_last25_median=f"{stats['median']:.6f}",
+              ser_last25_converged_mean=f"{stats['converged_mean']:.6f}",
+              ser_last25_mean_all=f"{ser25.mean():.6f}", stuck=stats["stuck"], band=AWGN_SER_BAND,
+              ser_last25_converged_min_max=f"{ser25[ok].min():.6f}/{ser25[ok].max():.6f}",
+              mi_final_min=f"{mi_last.min():.4f}", mi_final_mean=f"{mi_last.mean():.4f}",
+              wall_s=f"{wall:.3f}", train_sym_per_s=f"{R * cfg.num_epochs * cfg.n_train / wall:.0f}",
+              **split, card=repr(card))
+        for c in counters:
+            c.launches = 0
+
+    src = "vae_equalizer_tpu_torch/csrc/siso_kernels.cu"
+    return [
+        {"name": "vae_siso_loss_and_grad", "route": "cuda", "source": src,
+         "replaces": "vae_equalizer_tpu/ops/elbo_siso_kernel.py:283",
+         "launches": launches["vae_siso_loss_and_grad"],
+         "max_abs_err": max(errs_f["gw"][0], errs_f["gh"][0]), "ms": ms_f, "plain_ms": ms_f_plain},
+        {"name": "vae_siso_experiment_train", "route": "cuda", "source": src,
+         "replaces": "vae_equalizer_tpu/ops/siso_frame_kernel.py:842",
+         "launches": launches["vae_siso_experiment_train"], "max_abs_err": g_err, "ms": ms_g,
+         "plain_ms": ms_g_plain},
+    ]
+
+
+def _awgn_split(mode, cfg, train_awgn, sims, draws, amps, P, var, const, w0, h0, step_kernel,
+                amsgrad, rx_epochs) -> dict:
+    """Channel / kernel / eval time of one AWGN experiment (CUDA events), at
+    the main path's shapes. Frame mode: its three stages timed once each (the
+    eval stage draws its validation frames too). Loop modes: the units — a
+    training frame, a validation frame, one minibatch step (kernel F +
+    AMSGrad), one eval (forward, sync, SER, MI, one copy to the host) —
+    as medians, times their counts."""
+    import torch
+
+    from vae_equalizer_tpu_torch.models import vae_le_siso_forward
+    from vae_equalizer_tpu_torch.ops.siso_frame_kernel import siso_frame_opt_init
+
+    R = w0.shape[0]
+    n_evals = cfg.num_epochs // cfg.epe
+    st = {}
+    if mode == "frame":
+        def channel():
+            st["rx"] = rx_epochs(cfg.num_epochs)
+
+        def kernel():
+            st["w_ev"] = train_awgn._frame_train(cfg, {"w": w0, "h": h0}, st["rx"], amps, P, var,
+                                                 const.amp_mean, R)[1]
+
+        def evaluate():
+            train_awgn._frame_evals(cfg, st["w_ev"], draws, sims["valid"], const, amps, P, var)
+
+        ms = [_time_ms(f, reps=1, warmup=False) for f in (channel, kernel, evaluate)]
+        return dict(channel_ms=f"{ms[0]:.3f}", kernel_ms=f"{ms[1]:.3f}", eval_ms=f"{ms[2]:.3f}")
+
+    opt = siso_frame_opt_init({"w": w0, "h": h0})
+    x = rx_epochs(1)[:, 0, :, : 2 * cfg.batch_len].contiguous()
+
+    def channel_epoch():
+        sims["train"].physics(*draws("train", 0, R))
+
+    def channel_eval():
+        st["v"] = sims["valid"].physics(*draws("valid", 0, R))
+
+    def step():
+        _, gw, gh = step_kernel(w0, h0, x, amps, const.amp_mean, var, P)[:3]
+        amsgrad(w0, opt["mw"], opt["vw"], opt["xw"], gw, cfg.lr, 0)
+        amsgrad(h0, opt["mh"], opt["vh"], opt["xh"], gh, cfg.lr, 0)
+
+    def evaluate():
+        q, _ = vae_le_siso_forward(w0, st["v"][0], amps, const.amp_mean, var, cfg.sps)
+        train_awgn._siso_eval_pack(q, st["v"][1], cfg.n_valid, const, amps, P).cpu()
+
+    t_ch, t_chv, t_step, t_ev = (_time_ms(f) for f in (channel_epoch, channel_eval, step, evaluate))
+    nb = cfg.n_train // cfg.batch_len
+    return dict(channel_ms=f"{cfg.num_epochs * t_ch + n_evals * t_chv:.3f}",
+                kernel_ms=f"{cfg.num_epochs * nb * t_step:.3f}", eval_ms=f"{n_evals * t_ev:.3f}",
+                step_unit_ms=f"{t_step:.4f}", eval_unit_ms=f"{t_ev:.3f}")
 
 
 def main() -> int:
@@ -380,6 +618,8 @@ def main() -> int:
         for c in counters:
             c.launches = 0
 
+    awgn_kernels = _awgn_phases(card)
+
     kernels = {"kernels": [
         {"name": "vae_dp_frame_train", "route": "cuda",
          "source": "vae_equalizer_tpu_torch/csrc/dp_kernels.cu",
@@ -395,7 +635,7 @@ def main() -> int:
          "replaces": "vae_equalizer_tpu/ops/cma_frame_kernel.py:404", "launches": cma_launches[v],
          "max_abs_err": d_res[v][0], "ms": d_res[v][1], "plain_ms": d_res[v][2]}
         for v in ("CMAbatch", "CMAflex")
-    ], "step_body_checked": [
+    ] + awgn_kernels, "step_body_checked": [
         {"name": "vae_dp_loss_and_grad", "route": "cuda",
          "source": "vae_equalizer_tpu_torch/csrc/dp_kernels.cu",
          "replaces": "vae_equalizer_tpu/ops/elbo_kernel.py:361",

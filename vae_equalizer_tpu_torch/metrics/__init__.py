@@ -1,18 +1,20 @@
-"""Evaluation metrics of the DP paths: CPE, sync, SER and MI."""
+"""Evaluation metrics of the DP and AWGN paths: CPE, sync, SER and MI."""
 
 from .cpe import cpe_dp
 from .mi import mutual_information_ambiguity, mutual_information_ambiguity_mb_stats
-from .ser import ser_constell_shaping, ser_iqflip, ser_iqflip_from_dec
-from .sync import expectation_i, find_shift_dp, find_shift_symb_dp
+from .ser import ser_constell_shaping, ser_iqflip, ser_iqflip_from_dec, ser_q_siso
+from .sync import expectation_i, find_shift_dp, find_shift_siso, find_shift_symb_dp
 
 __all__ = [
     "cpe_dp",
     "expectation_i",
     "find_shift_dp",
+    "find_shift_siso",
     "find_shift_symb_dp",
     "mutual_information_ambiguity",
     "mutual_information_ambiguity_mb_stats",
     "ser_constell_shaping",
     "ser_iqflip",
     "ser_iqflip_from_dec",
+    "ser_q_siso",
 ]

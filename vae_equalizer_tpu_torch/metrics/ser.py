@@ -1,11 +1,13 @@
-"""Symbol-error rates robust to the blind-equalization ambiguities (DP).
+"""Symbol-error rates robust to the blind-equalization ambiguities.
 
-Port of the DP estimators of ``vae_equalizer_tpu/metrics/ser.py``
-(``_decode_levels``, ``_wmean``, ``ser_iqflip``, ``ser_iqflip_from_dec``,
-``ser_constell_shaping``) with any leading batch dims. Every estimator
-evaluates the 4 rotations x 2 IQ-flips and returns the minimum per
-polarization; ``weight`` masks emulate the reference's data-dependent
-slicing (optical_DP_channel/shared_funcs.py:188-287).
+Port of ``vae_equalizer_tpu/metrics/ser.py`` (``_decode_levels``,
+``_wmean``, ``_phase_variants``, ``ser_q_siso``, ``ser_iqflip``,
+``ser_iqflip_from_dec``, ``ser_constell_shaping``) with any leading batch
+dims. The DP estimators evaluate the 4 rotations x 2 IQ-flips and return
+the minimum per polarization, the SISO one the 4 phase rotations;
+``weight`` masks emulate the reference's data-dependent slicing
+(optical_DP_channel/shared_funcs.py:188-287,
+AWGN_channel/func_VAELE_MQAM_shaping.py:97-123).
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import math
 
 import torch
 
-__all__ = ["ser_iqflip", "ser_iqflip_from_dec", "ser_constell_shaping"]
+__all__ = ["ser_q_siso", "ser_iqflip", "ser_iqflip_from_dec", "ser_constell_shaping"]
 
 
 def _wmean(err: torch.Tensor, weight: torch.Tensor | None, dim) -> torch.Tensor:
@@ -35,6 +37,27 @@ def _decode_levels(tx: torch.Tensor, num_lev: int) -> torch.Tensor:
 
 def _indices(tx, tx_idx, num_lev):
     return (_decode_levels(tx, num_lev) if tx_idx is None else tx_idx).to(torch.int64)
+
+
+def _phase_variants(dec: torch.Tensor, num_lev: int) -> torch.Tensor:
+    """The 4 phase-rotation hypotheses (0, pi, pi/4, 3pi/4) of integer
+    decisions dec (..., 2 I/Q, N) -> (4, ..., 2, N)."""
+    inv = (num_lev - 1) - dec
+    d_i, d_q = dec[..., 0, :], dec[..., 1, :]
+    i_i, i_q = inv[..., 0, :], inv[..., 1, :]
+    return torch.stack([dec, inv, torch.stack([i_q, d_i], dim=-2), torch.stack([d_q, i_i], dim=-2)])
+
+
+def ser_q_siso(q: torch.Tensor, tx: torch.Tensor, num_lev: int,
+               weight: torch.Tensor | None = None) -> torch.Tensor:
+    """SER from SISO posteriors q (..., 2 num_lev, N) against tx (..., 2, N)
+    levels, min over the 4 phase rotations (func_VAELE_MQAM_shaping.py:97-123);
+    weight broadcastable to (..., N). Returns (...)."""
+    data = _decode_levels(tx, num_lev).to(torch.int64)
+    dec = torch.stack([torch.argmax(q[..., :num_lev, :], dim=-2),
+                       torch.argmax(q[..., num_lev:, :], dim=-2)], dim=-2)
+    err = torch.any(_phase_variants(dec, num_lev) != data, dim=-2)  # (4, ..., N)
+    return _wmean(err, weight, -1).min(dim=0).values
 
 
 def ser_iqflip_from_dec(dec: torch.Tensor, tx: torch.Tensor | None, num_lev: int,

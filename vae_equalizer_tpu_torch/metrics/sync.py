@@ -1,7 +1,7 @@
-"""Time-shift and polarization-assignment search by correlation (DP).
+"""Time-shift (and, for DP, polarization-assignment) search by correlation.
 
 Port of ``vae_equalizer_tpu/metrics/sync.py: expectation_i, _roll_stack,
-_dp_shift_core, find_shift_dp, find_shift_symb_dp`` with any leading batch
+find_shift_siso, _dp_shift_core, find_shift_dp, find_shift_symb_dp`` with any leading batch
 dims (the runs axis). The equalizer output (E_q[x^I] or the in-phase
 constellation output) is
 correlated against the known transmitted symbols over ``n_shift`` cyclic
@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["expectation_i", "find_shift_dp", "find_shift_symb_dp"]
+__all__ = ["expectation_i", "find_shift_dp", "find_shift_siso", "find_shift_symb_dp"]
 
 
 def expectation_i(q: torch.Tensor, amps: torch.Tensor) -> torch.Tensor:
@@ -28,6 +28,26 @@ def _roll_stack(e: torch.Tensor, n_shift: int) -> torch.Tensor:
     return torch.stack(
         [torch.roll(e, s, dims=-1) for s in range(-(n_shift // 2), n_shift - n_shift // 2)], dim=-2
     )
+
+
+def find_shift_siso(q: torch.Tensor, tx: torch.Tensor, n_shift: int, amps: torch.Tensor,
+                    corr_len: int = 1000) -> torch.Tensor:
+    """Time shift between SISO posteriors q (..., 2n, L) and tx (..., 2, L).
+
+    Correlates E_q[x^I] over the first ``corr_len`` symbols; falls back to
+    the Q component where the I correlation peak is weak (below 0.02 L).
+    Returns (...) int32.
+    """
+    e_mat = _roll_stack(expectation_i(q, amps)[..., :corr_len], n_shift)  # (..., s, l)
+    txc = tx[..., :corr_len].to(torch.float32)
+    corr_i = torch.einsum("...sl,...l->...s", e_mat, txc[..., 0, :]).abs()
+    corr_q = torch.einsum("...sl,...l->...s", e_mat, txc[..., 1, :]).abs()
+    s_i = n_shift // 2 - torch.argmax(corr_i, dim=-1)
+    s_q = n_shift // 2 - torch.argmax(corr_q, dim=-1)
+    max_i = corr_i.max(dim=-1).values
+    use_i = max_i >= 0.02 * q.shape[-1]
+    use_q = corr_q.max(dim=-1).values >= max_i
+    return torch.where(use_i, s_i, torch.where(use_q, s_q, s_i)).to(torch.int32)
 
 
 def _dp_shift_core(e: torch.Tensor, tx: torch.Tensor, n_shift: int, corr_len: int | None = None):

@@ -1,8 +1,17 @@
-"""Equalizer models and the ELBO (the DP VAE-LE and CMA paths)."""
+"""Equalizer models and the ELBO (the DP VAE-LE and CMA paths, the AWGN
+VAE-LE)."""
 
-from .cma import cma_batch_dp, cma_dp, cma_flex_dp, dirac_taps_dp
-from .losses import elbo_dp, posterior_moments
-from .vae_le import VaeLeDp, butterfly_apply, butterfly_init, soft_demap_dp, vae_le_dp_forward
+from .cma import cma_batch_dp, cma_dp, cma_flex_dp, dirac_taps_dp, dirac_taps_siso
+from .losses import elbo_dp, elbo_siso, posterior_moments
+from .vae_le import (
+    VaeLeDp,
+    butterfly_apply,
+    butterfly_init,
+    siso_fir_init,
+    soft_demap_dp,
+    vae_le_dp_forward,
+    vae_le_siso_forward,
+)
 
 __all__ = [
     "VaeLeDp",
@@ -12,8 +21,12 @@ __all__ = [
     "cma_dp",
     "cma_flex_dp",
     "dirac_taps_dp",
+    "dirac_taps_siso",
     "elbo_dp",
+    "elbo_siso",
     "posterior_moments",
+    "siso_fir_init",
     "soft_demap_dp",
     "vae_le_dp_forward",
+    "vae_le_siso_forward",
 ]

@@ -35,7 +35,15 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["dirac_taps_dp", "cma_dp", "cma_batch_dp", "cma_flex_dp"]
+__all__ = ["dirac_taps_siso", "dirac_taps_dp", "cma_dp", "cma_batch_dp", "cma_flex_dp"]
+
+
+def dirac_taps_siso(m_est: int, device="cpu") -> torch.Tensor:
+    """Dirac SISO complex taps (2 re/im, M): h[0, M//2] = 1 (the VAE-LE's
+    initial channel estimate)."""
+    h = torch.zeros((2, m_est), dtype=torch.float32, device=device)
+    h[0, m_est // 2] = 1.0
+    return h
 
 
 def dirac_taps_dp(m_est: int, device="cpu") -> torch.Tensor:

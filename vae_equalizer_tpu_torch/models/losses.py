@@ -1,4 +1,4 @@
-"""Dual-pol VAE ELBO with the PCS prior (port of ``models/losses.py``).
+"""VAE ELBO losses, dual-pol and SISO (port of ``models/losses.py``).
 
     loss = sum_pol (N - Mh) log C_pol - sum q log(q / P)
     C_pol = ||rx||^2 - 2 <rx, h (*) E_q[x]> + ||h (*) E_q[x]||^2
@@ -9,13 +9,15 @@ convolution written as ``unfold`` + ``einsum`` (full float32, any leading
 batch dims); the variance term uses the cumulative-sum window totals. The
 reference's convention quirks are kept: the KL slice indexes symbols with
 the sample-domain margin mh, and C aligns rx[mh + k] with D[Mh + k].
+``elbo_siso`` takes any leading batch dims (the runs axis) and returns one
+loss per run.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["posterior_moments", "elbo_dp"]
+__all__ = ["posterior_moments", "elbo_dp", "elbo_siso"]
 
 
 def posterior_moments(q: torch.Tensor, amps: torch.Tensor, sps: int):
@@ -98,3 +100,42 @@ def elbo_dp(q: torch.Tensor, rx: torch.Tensor, h_est: torch.Tensor, amps: torch.
     n_eff = n_samp - mh2
     loss = torch.sum(n_eff * torch.log(c)) - kl
     return loss, (c / n_eff).detach()
+
+
+def elbo_siso(q: torch.Tensor, rx: torch.Tensor, h_est: torch.Tensor, amps: torch.Tensor,
+              P: torch.Tensor | None = None, eps: float = 1e-12) -> torch.Tensor:
+    """SISO ELBO. q (..., 2n, N_sym); rx (..., 2, N); h_est (..., 2, M) -> loss (...).
+
+    With ``P`` the entropy term is the KL against the PCS prior
+    (func_VAELE_MQAM_shaping.py:63-95); with ``P=None`` it is the plain
+    posterior entropy (uniform prior, func_VAENN_MQAM.py:60-91).
+    """
+    n_samp = rx.shape[-1]
+    sps = n_samp // q.shape[-1]
+    mh = h_est.shape[-1] // 2
+    mh2 = 2 * mh
+
+    eq, eq2 = posterior_moments(q, amps, sps)  # (..., 2, N)
+    var = eq2 - eq * eq
+
+    h = h_est[..., : mh2 + 1]
+    hr, hi = h[..., 0, :], h[..., 1, :]
+    # flipped 'valid' conv bank: out rows (re, im), in rows (I, Q)
+    w = torch.stack([torch.stack([hr, -hi], dim=-2), torch.stack([hi, hr], dim=-2)], dim=-3).flip(-1)
+    d = torch.einsum("...oij,...inj->...on", w, eq.unfold(-1, mh2 + 1, 1))  # (..., 2, N - Mh)
+    d_re, d_im = d[..., 0, :], d[..., 1, :]
+
+    s = _windowed_sums(torch.sum(var, dim=-2), mh, n_samp)  # (..., taps)
+    e_term = torch.sum((hr * hr + hi * hi) * s, dim=-1)
+
+    rx_w = rx[..., mh : n_samp - mh]
+    c = torch.sum(rx_w * rx_w, dim=(-2, -1))
+    c = c - 2.0 * torch.sum(rx_w[..., 0, :] * d_re + rx_w[..., 1, :] * d_im, dim=-1)
+    c = c + torch.sum(d_re * d_re + d_im * d_im, dim=-1) + e_term
+
+    q_c = q[..., mh : q.shape[-1] - mh]
+    if P is None:
+        ent = torch.sum(-q_c * torch.log(q_c + eps), dim=(-2, -1))
+    else:
+        ent = torch.sum(-q_c * torch.log(q_c / P.repeat(2)[:, None] + eps), dim=(-2, -1))
+    return (n_samp - mh2) * torch.log(c) - ent

@@ -1,6 +1,7 @@
-"""VAE-LE 2x2 MIMO butterfly equalizer + PCS soft demapper (DP).
+"""VAE-LE equalizers: the 2x2 MIMO butterfly + PCS soft demapper (DP) and
+the complex FIR + normalized soft demapper (SISO, the AWGN experiment).
 
-Port of the DP half of ``vae_equalizer_tpu/models/vae_le.py``. The butterfly
+Port of ``vae_equalizer_tpu/models/vae_le.py``. The butterfly
 is the reference twoXtwoFIR (shared_funcs.py:490-527): a stride-``sps``
 cross-correlation with 4 -> 2 channels, where the I output consumes
 (x_I^x, x_I^y, -x_Q^x, -x_Q^y) and the Q output (x_Q^x, x_Q^y, x_I^x, x_I^y),
@@ -10,6 +11,14 @@ in full float32 (no cuDNN, so no TF32).
 
 The demapper is softmin((out - a)^2 / (2 var_pol) + nu_sc a^2) over the
 levels, with the PCS correction term (Cho & Winzer).
+
+The SISO filter is the reference twoFIR (func_VAELE_MQAM_shaping.py:206-231):
+2 -> 1 channels applied to (x_I, x_Q) and (x_Q, -x_I), padding (M-1)//2,
+stride ``sps``; each output component is normalized to mean magnitude
+``amp_mean`` and demapped with softmin((norm - a)^2 / var) (no PCS term, and
+var, not 2 var). The same ``unfold`` + ``einsum`` form takes a leading runs
+axis with per-run taps, at any sps and M (the JAX runs-batched form was
+sps 2 only).
 """
 
 from __future__ import annotations
@@ -19,7 +28,15 @@ from torch import nn
 
 from .cma import dirac_taps_dp
 
-__all__ = ["VaeLeDp", "butterfly_init", "butterfly_apply", "soft_demap_dp", "vae_le_dp_forward"]
+__all__ = [
+    "VaeLeDp",
+    "butterfly_init",
+    "butterfly_apply",
+    "siso_fir_init",
+    "soft_demap_dp",
+    "vae_le_dp_forward",
+    "vae_le_siso_forward",
+]
 
 
 def butterfly_init(m_est: int, device="cpu") -> torch.Tensor:
@@ -89,3 +106,40 @@ class VaeLeDp(nn.Module):
     def forward(self, x: torch.Tensor, amps: torch.Tensor, var: torch.Tensor, nu_sc: float,
                 sps: int = 2) -> tuple[torch.Tensor, torch.Tensor]:
         return vae_le_dp_forward(self.w, x, amps, var, nu_sc, sps)
+
+
+def siso_fir_init(m_est: int, device="cpu") -> torch.Tensor:
+    """Dirac-initialized SISO kernel (1, 2, M): w[0, 0, M//2] = 1."""
+    w = torch.zeros((1, 2, m_est), dtype=torch.float32, device=device)
+    w[0, 0, m_est // 2] = 1.0
+    return w
+
+
+def siso_arrangements(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., 2 I/Q, L) -> the inputs of the I and Q outputs: (x_I, x_Q) and (x_Q, -x_I)."""
+    return x, torch.stack([x[..., 1, :], -x[..., 0, :]], dim=-2)
+
+
+def siso_windows(x: torch.Tensor, m: int, sps: int) -> torch.Tensor:
+    """(..., C, L) zero-padded by (m-1)//2 -> windows (..., C, N, m), a strided view."""
+    pad = (m - 1) // 2
+    return torch.nn.functional.pad(x, (pad, pad)).unfold(-1, m, sps)
+
+
+def vae_le_siso_forward(w: torch.Tensor, x: torch.Tensor, amps: torch.Tensor, amp_mean: float,
+                        var, sps: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Complex FIR equalizer + normalized soft demapper, SISO.
+
+    w (..., 1, 2, M); x (..., 2, L) -> (q (..., 2*num_lev, N), out (..., 2, N)).
+    The demapper input is per-component normalized to mean magnitude
+    ``amp_mean``; ``out`` is the unnormalized filter output (as in the
+    reference).
+    """
+    m = w.shape[-1]
+    taps = w[..., 0, :, :]  # (..., 2 in, M)
+    out = torch.stack([torch.einsum("...ck,...cnk->...n", taps, siso_windows(xa, m, sps))
+                       for xa in siso_arrangements(x)], dim=-2)  # (..., 2, N)
+    norm = out / out.abs().mean(dim=-1, keepdim=True) * amp_mean
+    d = norm[..., None, :] - amps[:, None]  # (..., 2, n, N)
+    q = torch.softmax(-(d * d) / var, dim=-2)
+    return q.flatten(-3, -2), out

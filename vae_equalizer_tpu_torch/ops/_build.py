@@ -6,7 +6,8 @@ repository root, named by a hash of its sources and flags so an edit
 rebuilds:
 
   * ``dp``  — ``csrc/dp_kernels.cu`` (+ ``dp_step.cuh``): kernels A and B;
-  * ``cma`` — ``csrc/cma_kernels.cu``: kernels C and D.
+  * ``cma`` — ``csrc/cma_kernels.cu``: kernels C and D;
+  * ``siso`` — ``csrc/siso_kernels.cu`` (+ ``siso_step.cuh``): kernels F and G.
 
 The compiles of all libraries that need one start together and run in
 parallel. The libraries are loaded with ``ctypes`` with typed entry points
@@ -39,9 +40,10 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent.parent / "build" / "k
 LIBRARIES = {
     "dp": ("dp_kernels.cu", ("dp_step.cuh",)),
     "cma": ("cma_kernels.cu", ()),
+    "siso": ("siso_kernels.cu", ("siso_step.cuh",)),
 }
 # --fmad=false: no multiply-add contraction, so the kernels' elementwise math
-# (demapper metric, Adam, CMA updates) rounds op for op like the plain
+# (demapper metric, Adam / AMSGrad, CMA updates) rounds op for op like the plain
 # PyTorch versions
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--fmad=false",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -63,6 +65,15 @@ _SIGNATURES = {
         # R, m, sps, lp, j0, S, n_full, n_slots, y, h_in, ring_in, h_out,
         # ring_out, out, e, big_r, lr2, stream
         "cma_chunked_launch": [_I, _I, _I, _LL, _I, _I, _I, _I] + [_P] * 7 + [_F, _F, _P],
+    },
+    "siso": {
+        # R, n_sym, m, n_lev, x, w, h, amps, P, amp_mean, var, loss, gw, gh, q, out, stream
+        "vae_siso_step_launch": [_I, _I, _I, _I] + [_P] * 5 + [_F, _F] + [_P] * 6,
+        # R, n_epochs, n_batches, n_sym, m, n_lev, n_total, epe, n_evals, rx, w, h,
+        # mw, vw, xw, mh, vh, xh (in), w, h, mw, vw, xw, mh, vh, xh (out), losses,
+        # w_ev, h_ev, amps, P, amp_mean, var, lr, step0, stream
+        "vae_siso_experiment_launch": [_I] * 6 + [_LL, _I, _I] + [_P] * 9 + [_P] * 8
+        + [_P] * 3 + [_P, _P, _F, _F, _F, _LL, _P],
     },
 }
 

@@ -1,5 +1,7 @@
-"""Training loops: the DP VAE online frame experiment and the CMA baselines."""
+"""Training loops: the DP VAE online frame experiment, the CMA baselines and
+the AWGN VAE-LE experiment."""
 
+from .awgn import train_vae_le_awgn
 from .dp import run_cma_dp, train_vae_dp
 
-__all__ = ["run_cma_dp", "train_vae_dp"]
+__all__ = ["run_cma_dp", "train_vae_dp", "train_vae_le_awgn"]

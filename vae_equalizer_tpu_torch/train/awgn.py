@@ -1,0 +1,213 @@
+"""The AWGN VAE-LE experiment (the reference's ``Eval_run_shaping_vaele``).
+
+Port of ``vae_equalizer_tpu/train/awgn.py: train_vae_le_awgn`` (with
+``_run_epochs`` in loop mode, ``_siso_eval_pack`` and
+``_run_siso_frame_experiment``). Semantics follow the reference
+(func_VAELE_MQAM_shaping.py:235-324): every epoch draws a fresh training
+frame of ``n_train`` symbols and trains its ``n_train // batch_len``
+minibatches with AMSGrad; every ``epe`` epochs a fresh ``n_valid``-symbol
+frame measures SER and MI of the posteriors (train epoch k*epe, evaluate,
+train the remaining epe - 1 epochs).
+
+Modes (``use_pallas``, the JAX package's names):
+  False    — autograd through ``vae_le_siso_forward`` + ``elbo_siso``;
+  True     — kernel F (``ops/elbo_siso_kernel.py``) computes each
+             minibatch's loss and gradients for all runs in one launch;
+  "frame"  — kernel G (``ops/siso_frame_kernel.py``) trains the whole
+             experiment for all runs in one launch (or one per group of
+             ``runs_batch``), streaming out the parameters at the eval
+             points; every epoch's channel data is generated up front and
+             the evaluations run afterwards, batched over runs x evals.
+A kernel mode launches the CUDA kernel for a CUDA ``device`` and takes its
+plain version on the CPU. All three share one AMSGrad (optax semantics,
+``ops/siso_frame_kernel.py: amsgrad``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..channels import channel_ir, make_awgn_simulator
+from ..core import make_constellation
+from ..metrics import find_shift_siso, mutual_information_ambiguity, ser_q_siso
+from ..models import dirac_taps_siso, elbo_siso, siso_fir_init, vae_le_siso_forward
+from ..ops.elbo_siso_kernel import vae_siso_loss_and_grad
+from ..ops.siso_frame_kernel import amsgrad, siso_frame_opt_init, vae_siso_experiment_train
+from ..utils.config import AwgnVaeLeConfig
+from .eval_utils import margin_weight, roll_time
+from .harness import Progress
+
+__all__ = ["train_vae_le_awgn"]
+
+_EVAL_NAMES = ("ser", "mi", "shift")
+# frame mode: validation frames (runs x evals) per batched evaluation; at
+# n_valid = 15,000 a batch of 100 holds ~0.1 GB of posteriors
+_EVAL_BATCH = 100
+_DEFERRED = "not ported yet (ROADMAP.md, queue 1: 'Deferred train_vae_le_awgn options')"
+
+
+def _setup(cfg: AwgnVaeLeConfig, device):
+    """Constellation, the train / valid simulators, amps, P and the demapper
+    variance 10^(-SNR/10) of the SISO path (awgn.py:361)."""
+    const = make_constellation(cfg.mod, cfg.nu)
+    h_up, m_orig = channel_ir(cfg.channel, cfg.sps)
+    sims = {kind: make_awgn_simulator(const, cfg.snr_db, h_up, m_orig, n, cfg.sps, device=device)
+            for kind, n in (("train", cfg.n_train), ("valid", cfg.n_valid))}
+    amps = torch.from_numpy(const.amps).to(device)
+    P = torch.from_numpy(np.asarray(const.P, np.float32)).to(device)
+    return const, sims, amps, P, 10 ** (-cfg.snr_db / 10)
+
+
+def _siso_eval_pack(q, tx, n_valid: int, const, amps, P) -> torch.Tensor:
+    """Shared posterior eval: sync -> roll -> masked SER + MI, packed (..., 3)."""
+    shift = find_shift_siso(q, tx, 21, amps)
+    q_r = roll_time(q, shift)
+    w = margin_weight(n_valid, shift)
+    ser = ser_q_siso(q_r, tx, const.num_lev, weight=w)
+    mi = mutual_information_ambiguity(q_r, tx, amps, P, weight=w)
+    return torch.stack([ser, mi, shift.to(torch.float32)], dim=-1)
+
+
+def _evaluate(cfg, w, valid_draws, sim, const, amps, P, var) -> torch.Tensor:
+    """Validation frames (levels, noise) (*b, ...) through the taps w (*b, 1, 2, M)."""
+    rx, tx, _ = sim.physics(*valid_draws)
+    q, _ = vae_le_siso_forward(w, rx, amps, const.amp_mean, var, cfg.sps)
+    return _siso_eval_pack(q, tx, cfg.n_valid, const, amps, P)
+
+
+def _run_epochs(cfg, step_fn, params, draws, sims, const, amps, P, var, R: int,
+                progress: Progress) -> tuple[dict, np.ndarray]:
+    """Loop mode: per epoch a training frame and its minibatch steps
+    (``step_fn(w, h, x) -> (loss, gw, gh)`` + AMSGrad with a global step
+    count); after epoch k*epe an evaluation. Returns (params, packed
+    (R, n_evals, 3))."""
+    n_evals = cfg.num_epochs // cfg.epe
+    n_batches = cfg.n_train // cfg.batch_len
+    mb_len = cfg.batch_len * cfg.sps
+    w, h = params["w"], params["h"]
+    opt = siso_frame_opt_init(params)
+    mw, vw, xw, mh, vh, xh = (opt[k] for k in ("mw", "vw", "xw", "mh", "vh", "xh"))
+    packed = np.zeros((R, n_evals, len(_EVAL_NAMES)), np.float32)
+    step = 0
+    for epoch in range(cfg.num_epochs):
+        rx, _, _ = sims["train"].physics(*draws("train", epoch, R))
+        for b in range(n_batches):
+            loss, gw, gh = step_fn(w, h, rx[..., b * mb_len : (b + 1) * mb_len].contiguous())
+            w, mw, vw, xw = amsgrad(w, mw, vw, xw, gw, cfg.lr, step)
+            h, mh, vh, xh = amsgrad(h, mh, vh, xh, gh, cfg.lr, step)
+            step += 1
+        if epoch % cfg.epe == 0 and epoch // cfg.epe < n_evals:
+            i = epoch // cfg.epe
+            packed[:, i] = _evaluate(cfg, w, draws("valid", i, R), sims["valid"], const, amps, P,
+                                     var).cpu().numpy()  # one device-to-host copy per eval
+            if progress:
+                progress(epoch, {"loss": loss.cpu().numpy(),
+                                 **{n: packed[:, i, j] for j, n in enumerate(_EVAL_NAMES)}})
+    return {"w": w, "h": h}, packed
+
+
+def _frame_train_data(sim, draws, R: int, n_epochs: int) -> torch.Tensor:
+    """Every epoch's training frame for all runs, up front: rx (R, E, 2, sps n_train)."""
+    lev, noi = zip(*(draws("train", e, R) for e in range(n_epochs)))
+    return sim.physics(torch.stack(lev, dim=1), torch.stack(noi, dim=1))[0]
+
+
+def _frame_train(cfg, params, rx_epochs, amps, P, var, amp_mean: float, rb: int):
+    """Kernel G over groups of ``rb`` runs: (params, w_evals (n_evals + 1, R, 1, 2, M))."""
+    outs = []
+    for g in range(0, rx_epochs.shape[0], rb):
+        p = {k: v[g : g + rb].contiguous() for k, v in params.items()}
+        outs.append(vae_siso_experiment_train(
+            p["w"], p["h"], siso_frame_opt_init(p), rx_epochs[g : g + rb], amps, amp_mean, var, P,
+            cfg.lr, bl_sym=cfg.batch_len, n_batches=cfg.n_train // cfg.batch_len, epe=cfg.epe))
+    params = {"w": torch.cat([o[0] for o in outs]), "h": torch.cat([o[1] for o in outs])}
+    return params, torch.cat([o[4] for o in outs], dim=1)
+
+
+def _frame_evals(cfg, w_ev, draws, sim, const, amps, P, var) -> np.ndarray:
+    """The n_evals evaluations over the streamed snapshots, batched over runs
+    and chunks of evals: packed (R, n_evals, 3)."""
+    n_evals, R = cfg.num_epochs // cfg.epe, w_ev.shape[1]
+    chunk = max(1, _EVAL_BATCH // R)
+    packed = []
+    for i0 in range(0, n_evals, chunk):
+        idx = range(i0, min(i0 + chunk, n_evals))
+        lev, noi = zip(*(draws("valid", i, R) for i in idx))
+        packed.append(_evaluate(cfg, w_ev[idx.start : idx.stop], (torch.stack(lev), torch.stack(noi)),
+                                sim, const, amps, P, var))
+    return torch.cat(packed).movedim(0, 1).cpu().numpy()  # one device-to-host copy
+
+
+def _default_draws(sims, seed: int, device):
+    rng = torch.Generator(device=device)
+    rng.manual_seed(seed)
+    return lambda kind, index, R: sims[kind].draws(rng, R)
+
+
+def train_vae_le_awgn(cfg: AwgnVaeLeConfig, seed: int, device="cpu", progress: Progress = None,
+                      runs: int | None = None, use_pallas=False, runs_batch: int | None = None,
+                      params_init=None, draws=None, mesh=None, compiled: bool = False,
+                      checkpoint=None, checkpoint_every: int = 0,
+                      timings: dict | None = None) -> dict:
+    """VAE-LE training on the AWGN ISI channel (use_pallas: see the module docstring).
+
+    The channel draws come from a ``torch.Generator`` seeded with ``seed``,
+    or from ``draws(kind, index, R) -> (levels (R, 2, n_conv), noise
+    (R, 2, sig_len))`` where given, with kind "train" (index = epoch) or
+    "valid" (index = eval) — how tests feed the JAX package's draws.
+    ``params_init`` {"w" (R?, 1, 2, M), "h" (R?, 2, M)}, numpy or torch.
+    ``runs_batch`` (frame mode): runs per kernel G launch (default: all).
+    ``progress(epoch, metrics)`` is called after each loop-mode eval.
+
+    Returns {"ser" (..., n_evals), "mi" (..., n_evals), "params" {"w"
+    (..., 1, 2, M), "h" (..., 2, M)}} with a leading runs axis iff ``runs``.
+    """
+    for name, is_set in {"checkpoint": checkpoint is not None or checkpoint_every != 0,
+                         "compiled": compiled, "mesh": mesh is not None,
+                         "timings": timings is not None}.items():
+        if is_set:
+            raise NotImplementedError(f"{name}: {_DEFERRED}")
+    if use_pallas not in (False, True, "frame"):
+        raise ValueError(f"use_pallas={use_pallas!r}: expected False, True or 'frame'")
+    if use_pallas and (cfg.sps != 2 or cfg.m_est % 2 == 0):
+        raise ValueError("use_pallas requires sps=2 and odd M_est")
+
+    device = torch.device(device)
+    R = 1 if runs is None else runs
+    const, sims, amps, P, var = _setup(cfg, device)
+    draws = draws or _default_draws(sims, seed, device)
+    params = params_init or {"w": siso_fir_init(cfg.m_est), "h": dirac_taps_siso(cfg.m_est)}
+
+    def per_run(v, tail: int) -> torch.Tensor:
+        v = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v, np.float32))
+        v = v.to(device, torch.float32)
+        return v.expand((R,) + v.shape[-tail:]).contiguous()
+
+    params = {"w": per_run(params["w"], 3), "h": per_run(params["h"], 2)}
+
+    if use_pallas == "frame":
+        rb = runs_batch or R
+        if R % rb != 0:
+            raise ValueError(f"runs_batch={rb} must divide runs={R}")
+        rx_epochs = _frame_train_data(sims["train"], draws, R, cfg.num_epochs)
+        params, w_ev = _frame_train(cfg, params, rx_epochs, amps, P, var, const.amp_mean, rb)
+        packed = _frame_evals(cfg, w_ev, draws, sims["valid"], const, amps, P, var)
+    else:
+        if use_pallas:
+            def step_fn(w, h, x):
+                return vae_siso_loss_and_grad(w, h, x, amps, const.amp_mean, var, P)[:3]
+        else:
+            def step_fn(w, h, x):
+                w_, h_ = w.detach().requires_grad_(), h.detach().requires_grad_()
+                q, _ = vae_le_siso_forward(w_, x, amps, const.amp_mean, var, cfg.sps)
+                loss = elbo_siso(q, x, h_, amps, P)  # (R,): runs are independent
+                gw, gh = torch.autograd.grad(loss.sum(), (w_, h_))
+                return loss.detach(), gw, gh
+        params, packed = _run_epochs(cfg, step_fn, params, draws, sims, const, amps, P, var, R,
+                                     progress)
+
+    if runs is None:
+        packed = packed[0]
+        params = {k: v[0] for k, v in params.items()}
+    return {"ser": packed[..., 0], "mi": packed[..., 1], "params": params}

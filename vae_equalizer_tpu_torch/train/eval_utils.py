@@ -1,7 +1,8 @@
-"""Eval masks and alignment for the DP frame evaluation.
+"""Eval masks and alignment for the DP frame and the AWGN evaluations.
 
 Port of ``vae_equalizer_tpu/train/eval_utils.py: align_idx_dp, align_tx_dp,
-batch_cut_weight, margin_weight_maxshift`` with any leading batch dims. The
+batch_cut_weight, margin_weight, margin_weight_maxshift, roll_time`` with
+any leading batch dims. The
 reference's data-dependent slices become a roll + boolean weight over the
 full array; the masks are evaluated at the shifted positions t directly
 (not rolled), exactly as in the JAX package. The JAX package's gather-free
@@ -13,7 +14,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["MARGIN", "align_idx_dp", "align_tx_dp", "batch_cut_weight", "margin_weight_maxshift"]
+__all__ = ["MARGIN", "align_idx_dp", "align_tx_dp", "batch_cut_weight", "margin_weight",
+           "margin_weight_maxshift", "roll_time"]
 
 MARGIN = 11  # the reference's fixed edge trim (func_VAELE_MQAM_shaping.py:318)
 
@@ -47,6 +49,24 @@ def align_tx_dp(tx: torch.Tensor, shift: torch.Tensor, r: torch.Tensor, weight: 
         return torch.gather(w, -1, t)
 
     return align_idx_dp(tx, shift, r, rolled_weight)
+
+
+def roll_time(x: torch.Tensor, shift) -> torch.Tensor:
+    """Roll by -shift along time, per run: x (*b, C, n), shift (*b) ->
+    x'[..., t] = x[..., (t + shift) % n]."""
+    n = x.shape[-1]
+    s = torch.as_tensor(shift, device=x.device).to(torch.int64)
+    t = torch.remainder(torch.arange(n, device=x.device) + s[..., None, None], n)
+    return torch.gather(x, -1, t.expand(x.shape))
+
+
+def margin_weight(n: int, shift, margin: int = MARGIN) -> torch.Tensor:
+    """Weight for the reference's ``x[margin+shift:-margin]`` vs
+    ``tx[margin:-margin-shift]`` comparison after ``roll_time(x, shift)``:
+    positions t in [margin, n - margin - shift), (*b, n) for shift (*b)."""
+    s = torch.as_tensor(shift)
+    t = torch.arange(n, device=s.device)
+    return ((t >= margin) & (t < n - margin - s[..., None])).to(torch.float32)
 
 
 def margin_weight_maxshift(n: int, max_shift, margin: int = MARGIN, t=None) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """Configurations and weight conversion."""
 
-from .config import DpConfig
+from .config import AwgnVaeLeConfig, DpConfig
 
-__all__ = ["DpConfig"]
+__all__ = ["AwgnVaeLeConfig", "DpConfig"]

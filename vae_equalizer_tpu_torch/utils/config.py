@@ -1,7 +1,8 @@
-"""Typed experiment configuration of the DP flagship (``Eval_run_DP``).
+"""Typed experiment configurations: the DP flagship (``Eval_run_DP``) and
+the AWGN VAE-LE experiment (``Eval_run_shaping_vaele``).
 
-Field-for-field the JAX package's ``utils/config.py: DpConfig``, so one
-configuration drives both packages.
+Field-for-field the JAX package's ``utils/config.py: DpConfig,
+AwgnVaeLeConfig``, so one configuration drives both packages.
 """
 
 from __future__ import annotations
@@ -9,6 +10,24 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class AwgnVaeLeConfig:
+    """Eval_run_shaping_vaele defaults (Eval_run_shaping_vaele.py:19-36)."""
+
+    mod: str = "64-QAM"
+    sps: int = 2
+    snr_db: float = 24.0
+    nu: float = 0.0
+    m_est: int = 25
+    lr: float = 5e-3
+    batch_len: int = 350
+    n_valid: int = 15000
+    n_train: int = 1200
+    num_epochs: int = 500
+    epe: int = 2
+    channel: str = "h1"
 
 
 @dataclasses.dataclass(frozen=True)
