@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port on one GPU: ``python3 chip_smoke.py``.
 
-Drives the port's two paths through their hand-written CUDA kernels, after
+Drives the port's paths through their hand-written CUDA kernels, after
 building them from ``csrc/`` and holding each kernel against its plain
 PyTorch version at its path's shapes: the flagship DP VAE online-training
 experiment (``vae_equalizer_tpu_torch.train.train_vae_dp``, DpConfig()
-defaults: 64-QAM, M = 25, bl = 100, 170 frames x 10,000 symbols, 8 runs)
+defaults: 64-QAM, M = 25, bl = 100, 170 frames x 10,000 symbols, 8 runs),
 the CMA / CMAbatch / CMAflex baselines on the same channel (``run_cma_dp``,
-5 runs) and the AWGN VAE-LE experiment (``train_vae_le_awgn``, 20 runs).
-One line per phase:
+5 runs), the AWGN VAE-LE experiment (``train_vae_le_awgn``, 20 runs), the
+AWGN VAE-NN experiment (``train_vae_nn_awgn``, Net and Net_BN, 8 runs) and
+the streaming DP receiver (``models.streaming.StreamingReceiver``). One line
+per phase:
 
   1. device    card name and power limit (nvidia-smi)
-  2. build     nvcc build of kernels A-D, F, G (one nvcc per source, in parallel),
+  2. build     nvcc build of kernels A-H (one nvcc per source, in parallel),
                seconds, ptxas resource use
   3. kernel A  vs plain (one minibatch), errors and CUDA-event times
   4. kernel B  vs plain: (a) a 3-minibatch frame, R = 8, across the lr
@@ -32,6 +34,18 @@ One line per phase:
                R = 20, with use_pallas="frame" (kernel G) and True (kernel F):
                launch counts, last-25-evals SER band, final MI, speed;
                channel / kernel / eval split
+ 13. kernel H  vs plain, Net and Net_BN, R = 8, full width: (a) 2 epochs from
+               a perturbed start; (b) 10 epochs from the state after 50
+               trained epochs; a 20-epoch slice timed against the plain engine
+ 14. VAE-NN    the full VAE-NN experiment (AwgnVaeNnConfig(): 64-QAM, h1,
+     path      24 dB, 500 epochs x 13 steps, 250 evals), Net then Net_BN, R = 8,
+               use_pallas="frame": one kernel H launch each, last-25-evals SER
+               band, final MI; channel / kernel / eval split
+ 15. kernel E  vs plain: one output pass at the streaming shapes, sps 2 and 1
+ 16. streaming DpConfig()'s channel as one continuous stream of 120 blocks of
+     path      2,000 symbols through StreamingReceiver(adapt=True,
+               use_pallas=True): one kernel E launch per block, last-10-block
+               SER band; adapt / output ms per block
 
 then the kernels' JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises (non-zero exit,
@@ -75,6 +89,30 @@ AWGN_STUCK_SER = 0.05
 AWGN_MAX_STUCK = 3
 AWGN_MI_MIN = 5.90  # bits, each converged run's final MI (JAX: 5.937-5.974)
 AWGN_WARM_EPOCHS = 50  # epochs of training before the 10-epoch comparison
+NN_RUNS = 8
+# Per run, the mean SER of the last 25 evals of the VAE-NN experiment
+# (AwgnVaeNnConfig()). The JAX package on the CPU (tools/jax_bands.py, PERF.md
+# §6): Net, runs 4 at keys 0 and 1, 8 runs, none stuck, 0.009941-0.011235,
+# final MI 5.9422-5.9543; Net_BN, 16 runs (keys 0, 1, 10, 11, 20, 21, ..., 70,
+# 71, runs=None), 1 stuck, converged 0.010810-0.011935, final MI
+# 5.9387-5.9550. Band = each spread widened 2x about its middle; MI floor =
+# the lowest final MI less the spread. {batchnorm: (band, MI floor)}
+NN_BANDS = {False: ((0.00929, 0.01188), 5.93), True: ((0.01025, 0.01250), 5.92)}
+NN_MAX_STUCK = 2  # of NN_RUNS (a stuck run: last-25 SER above AWGN_STUCK_SER)
+NN_WARM_EPOCHS = 50
+NN_TIMED_EPOCHS = 20  # kernel H vs its plain engine, timed over this slice
+# The streaming receiver on DpConfig()'s channel (64-QAM, 23 dB, h0, CD/PMD,
+# theta = pi/10), 2,000-symbol blocks: the JAX receiver on the CPU
+# (tools/jax_bands.py stream, keys 0 and 1, 200 blocks) settles after 51 and 53
+# blocks; its 10-block mean SER over blocks 60-200 spans 0.00860-0.01292 and
+# its single blocks 0.00556-0.01872. Band = each widened 2x about its middle.
+STREAM_BLOCKS = 120
+STREAM_BAND = (0.00644, 0.01508)  # mean SER of the last 10 blocks
+STREAM_BLOCK_MAX = 0.0253  # each of the last 10 blocks
+# Published peaks of one H100 SXM (NVIDIA's datasheet) for each
+# kernel's bound: float32 outside the tensor cores and HBM.
+F32_FLOPS = 67e12
+HBM_BYTES = 3.35e12
 
 
 def _line(phase: str, **kv) -> None:
@@ -134,6 +172,64 @@ def _dec_ties_only(dec, dec_ref, out, amps, var, nu_sc, tol=1e-4):
     return int(mism.sum()), int(mism.numel())
 
 
+def _nbytes(*objs) -> int:
+    """Bytes of every tensor in objs (tuples, lists and dicts walked): each
+    input read once, each output written once."""
+    import torch
+
+    total = 0
+    for o in objs:
+        if isinstance(o, torch.Tensor):
+            total += o.numel() * o.element_size()
+        elif isinstance(o, (tuple, list)):
+            total += _nbytes(*o)
+        elif isinstance(o, dict):
+            total += _nbytes(*o.values())
+    return total
+
+
+def _bound(flops: float, nbytes: int) -> dict:
+    """The least time the card could take: the larger of FLOPs at the f32 peak
+    and bytes at the HBM rate."""
+    t_ops, t_bytes = 1e3 * flops / F32_FLOPS, 1e3 * nbytes / HBM_BYTES
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None}
+
+
+# FLOP counts of the kernels' work (2 per multiply-add, 1 per other
+# arithmetic op, exp or log), per run and step, from the shapes:
+def _elbo_flops(n_samp: int, m: int, n_lev: int, pols: int) -> float:
+    """The ELBO from the posteriors and its gradient back to them: the D conv
+    of E_q[x] through h (per out-pol 2 re/im x n_eff x pols in-pols x 2 I/Q x
+    (m + 1) / 2 nonzero taps), its two adjoints (to E_q[x] and to h), and per
+    posterior ~12 ops (moments, KL, dL/dq)."""
+    n_eff = n_samp - (m - 1)
+    conv = pols * 2 * n_eff * pols * 2 * ((m + 1) // 2)
+    return 2 * 3 * conv + pols * 2 * (n_samp // 2) * n_lev * 12
+
+
+def _dp_step_flops(n_sym: int, m: int, n_lev: int) -> float:
+    """Kernels A/B: butterfly (4 outputs x 4 rows x m taps) forward and gw,
+    the softmin demapper and its VJP, the DP ELBO."""
+    return 2 * 2 * 4 * n_sym * 4 * m + 4 * n_sym * n_lev * 12 + _elbo_flops(2 * n_sym, m, n_lev, 2)
+
+
+def _siso_step_flops(n_sym: int, m: int, n_lev: int) -> float:
+    """Kernels F/G: the SISO FIR (2 outputs x 2 rows x m taps) forward and gw,
+    the demapper and its VJP, the SISO ELBO."""
+    return 2 * 2 * 2 * n_sym * 2 * m + 2 * n_sym * n_lev * 12 + _elbo_flops(2 * n_sym, m, n_lev, 1)
+
+
+def _nn_step_flops(n_sym: int, m: int, n_lev: int, k1: int, batchnorm: bool) -> float:
+    """Kernel H: conv1 (C x 2 bl x 2 k1) forward and gW1; conv2 (C x bl x 3C)
+    forward, gW2 and its input gradient; ELU / BatchNorm / softmax and their
+    VJPs; the SISO ELBO."""
+    ch, n_samp = 2 * n_lev, 2 * n_sym
+    conv = 2 * (ch * n_samp * 2 * k1) + 3 * (ch * n_sym * 3 * ch)
+    return 2 * conv + ch * n_samp * (10 if batchnorm else 4) + ch * n_sym * 12 + \
+        _elbo_flops(n_samp, m, n_lev, 1)
+
+
 def _awgn_phases(card: str) -> list:
     """Phases 10-12: kernels F and G against their plain versions, then the
     AWGN VAE-LE path in both kernel modes, counted. Returns the kernels' JSON
@@ -142,14 +238,10 @@ def _awgn_phases(card: str) -> list:
     import torch
 
     from vae_equalizer_tpu_torch.models import dirac_taps_siso, siso_fir_init, vae_le_siso_forward
-    from vae_equalizer_tpu_torch.ops.cma_frame_kernel import cma_chunked_frame
-    from vae_equalizer_tpu_torch.ops.cma_kernel import cma_dp_kernel
-    from vae_equalizer_tpu_torch.ops.elbo_kernel import vae_dp_loss_and_grad
     from vae_equalizer_tpu_torch.ops.elbo_siso_kernel import (
         vae_siso_loss_and_grad,
         vae_siso_loss_and_grad_plain,
     )
-    from vae_equalizer_tpu_torch.ops.frame_kernel import vae_dp_frame_train
     from vae_equalizer_tpu_torch.ops.siso_frame_kernel import (
         amsgrad,
         siso_frame_opt_init,
@@ -190,6 +282,8 @@ def _awgn_phases(card: str) -> list:
         _check(name, g_, w_, 1e-4, 1e-4 * float(w_.abs().max()), errs_f)
     ms_f = _time_ms(lambda: vae_siso_loss_and_grad(*f_args))
     ms_f_plain = _time_ms(lambda: vae_siso_loss_and_grad_plain(*f_args))
+    n_lev = const.num_lev
+    bound_f = _bound(R * _siso_step_flops(bl, M, n_lev), _nbytes(f_args, got))
     _line("10 kernel F", ok=True, R=R, bl=bl, errs_abs_rel=_fmt(errs_f), ms=f"{ms_f:.4f}",
           plain_ms=f"{ms_f_plain:.4f}")
 
@@ -226,7 +320,11 @@ def _awgn_phases(card: str) -> list:
 
     # the whole experiment: 500 epochs x 3 steps, R = 20
     full_args = (w0, h0, opt0, rx_epochs(cfg.num_epochs), amps, amp_mean, var, P, cfg.lr)
-    ms_g = _time_ms(lambda: vae_siso_experiment_train(*full_args, **g_kw), reps=3)
+    out_g = vae_siso_experiment_train(*full_args, **g_kw)  # also the timing's warm-up
+    ms_g = _time_ms(lambda: vae_siso_experiment_train(*full_args, **g_kw), reps=3, warmup=False)
+    steps_g = cfg.num_epochs * nb
+    bound_g = _bound(R * steps_g * (_siso_step_flops(bl, M, n_lev) + 12 * 4 * M),
+                     _nbytes(full_args, out_g))
     ms_g_plain = _time_ms(lambda: vae_siso_experiment_train_plain(*full_args, **g_kw), reps=1,
                           warmup=False)
     _line("11b kernel G 10 epochs", ok=True, R=R, step0=step0, errs_abs_rel=_fmt(errs_gb),
@@ -234,24 +332,13 @@ def _awgn_phases(card: str) -> list:
           experiment_plain_ms=f"{ms_g_plain:.3f}", steps=cfg.num_epochs * nb)
 
     # ---- 12. the AWGN path in both kernel modes, counted
-    counters = (vae_dp_frame_train, vae_dp_loss_and_grad, cma_dp_kernel, cma_chunked_frame,
-                vae_siso_loss_and_grad, vae_siso_experiment_train)
     steps = cfg.num_epochs * nb
     expect = {"frame": (vae_siso_experiment_train, 1), True: (vae_siso_loss_and_grad, steps)}
     launches = {}
     n_evals = cfg.num_epochs // cfg.epe
     for mode, (kern, n_expect) in expect.items():
-        for c in counters:
-            c.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = train_awgn.train_vae_le_awgn(cfg, seed=0, device=DEVICE, runs=R, use_pallas=mode)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = {c.__name__: c.launches for c in counters}
-        if counts[kern.__name__] != n_expect or sum(counts.values()) != n_expect:
-            raise AssertionError(f"AWGN use_pallas={mode!r}: launches {counts}, expected {n_expect} "
-                                 f"of {kern.__name__}")
+        res, wall = _counted(kern, n_expect, lambda mode=mode: train_awgn.train_vae_le_awgn(
+            cfg, seed=0, device=DEVICE, runs=R, use_pallas=mode))
         launches[kern.__name__] = n_expect
         for k in ("ser", "mi"):
             if res[k].shape != (R, n_evals) or not np.all(np.isfinite(res[k])):
@@ -270,27 +357,317 @@ def _awgn_phases(card: str) -> list:
         split = _awgn_split(mode, cfg, train_awgn, sims, draws, amps, P, var, const, w0, h0,
                             vae_siso_loss_and_grad, amsgrad, rx_epochs)
         _line(f"12 AWGN path {mode!r}", ok=True, runs=R, epochs=cfg.num_epochs, evals=n_evals,
-              launches=counts[kern.__name__], ser_last25_median=f"{stats['median']:.6f}",
+              launches=n_expect, ser_last25_median=f"{stats['median']:.6f}",
               ser_last25_converged_mean=f"{stats['converged_mean']:.6f}",
               ser_last25_mean_all=f"{ser25.mean():.6f}", stuck=stats["stuck"], band=AWGN_SER_BAND,
               ser_last25_converged_min_max=f"{ser25[ok].min():.6f}/{ser25[ok].max():.6f}",
               mi_final_min=f"{mi_last.min():.4f}", mi_final_mean=f"{mi_last.mean():.4f}",
               wall_s=f"{wall:.3f}", train_sym_per_s=f"{R * cfg.num_epochs * cfg.n_train / wall:.0f}",
               **split, card=repr(card))
-        for c in counters:
-            c.launches = 0
 
     src = "vae_equalizer_tpu_torch/csrc/siso_kernels.cu"
     return [
         {"name": "vae_siso_loss_and_grad", "route": "cuda", "source": src,
          "replaces": "vae_equalizer_tpu/ops/elbo_siso_kernel.py:283",
          "launches": launches["vae_siso_loss_and_grad"],
-         "max_abs_err": max(errs_f["gw"][0], errs_f["gh"][0]), "ms": ms_f, "plain_ms": ms_f_plain},
+         "max_abs_err": max(errs_f["gw"][0], errs_f["gh"][0]), "ms": ms_f, "plain_ms": ms_f_plain,
+         **bound_f},
         {"name": "vae_siso_experiment_train", "route": "cuda", "source": src,
          "replaces": "vae_equalizer_tpu/ops/siso_frame_kernel.py:842",
          "launches": launches["vae_siso_experiment_train"], "max_abs_err": g_err, "ms": ms_g,
-         "plain_ms": ms_g_plain},
+         "plain_ms": ms_g_plain, **bound_g},
     ]
+
+
+def _all_counters() -> tuple:
+    """Every kernel wrapper's launch counter holder, A-H."""
+    from vae_equalizer_tpu_torch.ops.butterfly_kernel import vae_le_dp_forward_fused
+    from vae_equalizer_tpu_torch.ops.cma_frame_kernel import cma_chunked_frame
+    from vae_equalizer_tpu_torch.ops.cma_kernel import cma_dp_kernel
+    from vae_equalizer_tpu_torch.ops.elbo_kernel import vae_dp_loss_and_grad
+    from vae_equalizer_tpu_torch.ops.elbo_siso_kernel import vae_siso_loss_and_grad
+    from vae_equalizer_tpu_torch.ops.frame_kernel import vae_dp_frame_train
+    from vae_equalizer_tpu_torch.ops.nn_frame_kernel import vae_nn_experiment_train
+    from vae_equalizer_tpu_torch.ops.siso_frame_kernel import vae_siso_experiment_train
+
+    return (vae_dp_loss_and_grad, vae_dp_frame_train, cma_dp_kernel, cma_chunked_frame,
+            vae_le_dp_forward_fused, vae_siso_loss_and_grad, vae_siso_experiment_train,
+            vae_nn_experiment_train)
+
+
+def _counted(path_kernel, n_expect: int, fn):
+    """Run fn with every launch count at 0; the path must launch path_kernel
+    n_expect times and nothing else. Returns (fn's result, wall seconds)."""
+    import torch
+
+    counters = _all_counters()
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {c.__name__: c.launches for c in counters}
+    for c in counters:
+        c.launches = 0
+    if counts[path_kernel.__name__] != n_expect or sum(counts.values()) != n_expect:
+        raise AssertionError(f"launches {counts}, expected {n_expect} of {path_kernel.__name__}")
+    return res, wall
+
+
+def _nn_phases(card: str) -> list:
+    """Phases 13-14: kernel H against its plain engine (Net and Net_BN), then
+    the VAE-NN path in frame mode, counted. Returns the kernels' JSON entries."""
+    import numpy as np
+    import torch
+
+    from vae_equalizer_tpu_torch.models.vae_nn import vae_nn_forward, vae_nn_init
+    from vae_equalizer_tpu_torch.ops import nn_frame_kernel as nfk
+    from vae_equalizer_tpu_torch.train import awgn as train_awgn
+    from vae_equalizer_tpu_torch.utils import AwgnVaeNnConfig
+
+    dev = torch.device(DEVICE)
+    R = NN_RUNS
+    entries, stage = [], {}
+    for bn_on in (False, True):
+        variant = "Net_BN" if bn_on else "Net"
+        cfg = AwgnVaeNnConfig(batchnorm=bn_on)
+        const, sims, amps, P, _ = train_awgn._setup(cfg, dev, fixed_noise=True)
+        M, k1, n_lev = cfg.m_est, cfg.kernel_1, const.num_lev
+        ch, nb = 2 * n_lev, cfg.n_train // cfg.batch_len
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(2024)
+        draws = lambda kind, index, runs, sims=sims: sims[kind].draws(gen, runs)
+        rx_epochs = lambda n, sims=sims: train_awgn._frame_train_data(sims["train"], draws, R, n)
+        g0 = torch.Generator()
+        g0.manual_seed(5)
+        net, _ = vae_nn_init(g0, k1, cfg.kernel_2, n_lev, bn_on)
+        pert = lambda t: (t + 0.01 * torch.randn((R,) + t.shape, generator=g0)).contiguous().to(dev)
+        w1f, w2f = (pert(t) for t in nfk.flatten_nn_params(net))
+        h0 = torch.zeros((2, M))
+        h0[0, M // 2] = 1.0
+        h0 = pert(h0)
+        bn = None
+        if bn_on:
+            bn = (torch.stack([torch.ones(R, ch), torch.zeros(R, ch)], -1).to(dev),
+                  torch.stack([torch.zeros(R, ch), torch.ones(R, ch)], -1).to(dev))
+        opt0 = nfk.nn_frame_opt_init(w1f, w2f, h0, None if bn is None else bn[0])
+        kw = dict(bl_sym=cfg.batch_len, n_batches=nb, epe=cfg.epe, k1=k1)
+        params = ("w1f", "w2f", "h", "bnp", "rs")
+        slots = ((7, "w1_ev"), (8, "w2_ev"), (9, "h_ev"), (10, "bnp_ev"), (11, "rs_ev"))
+
+        # ---- 13a. kernel H vs plain: 2 epochs (26 steps) from a perturbed start
+        # (float32 sums in another order: losses rtol 1e-4; parameters, running
+        # statistics and eval slots rtol 1e-3 with a 1e-5 floor)
+        a_args = (w1f, w2f, h0, opt0, rx_epochs(2), amps, cfg.lr, bn, 0.1)
+        got = nfk.vae_nn_experiment_train(*a_args, **kw)
+        torch.cuda.synchronize()
+        want = nfk.vae_nn_experiment_train_plain(*a_args, **kw)
+        errs_a: dict = {}
+        _check("losses", got[6], want[6], 1e-4, 0.0, errs_a)
+        for i, name in (*enumerate(params), *slots):
+            if bn_on or name[:2] not in ("bn", "rs"):
+                _check(name, got[i], want[i], 1e-3, 1e-5, errs_a)
+        h_err = max(errs_a[k][0] for k in ("w1f", "w2f", "h"))
+        _line(f"13a kernel H {variant} 2 epochs", ok=True, R=R, errs_abs_rel=_fmt(errs_a))
+
+        # ---- 13b. 10 epochs from the state after NN_WARM_EPOCHS trained epochs
+        warm = nfk.vae_nn_experiment_train(w1f, w2f, h0, opt0, rx_epochs(NN_WARM_EPOCHS), amps,
+                                           cfg.lr, bn, 0.1, **kw)
+        b_args = (*warm[:3], warm[5], rx_epochs(10), amps, cfg.lr,
+                  (warm[3], warm[4]) if bn_on else None, 0.1)
+        step0 = NN_WARM_EPOCHS * nb
+        got = nfk.vae_nn_experiment_train(*b_args, **kw, step0=step0)
+        torch.cuda.synchronize()
+        want = nfk.vae_nn_experiment_train_plain(*b_args, **kw, step0=step0)
+        errs_b: dict = {}
+        _check("losses", got[6], want[6], 1e-3, 0.0, errs_b)
+        rx_v, _, _ = sims["valid"](gen, R)
+
+        def decide(out, i):
+            net_i = nfk.nn_net(out[7][i], out[8][i], out[10][i], k1, bn_on)
+            state = {"mean": out[11][i][..., 0], "var": out[11][i][..., 1], "momentum": 0.1}
+            with torch.no_grad():
+                q = vae_nn_forward(net_i, rx_v, cfg.sps, state=state, train=False) if bn_on \
+                    else vae_nn_forward(net_i, rx_v, cfg.sps)
+            return (q[0] if bn_on else q).unflatten(-2, (2, -1)).argmax(-2)
+
+        agree = min(float((decide(got, i) == decide(want, i)).float().mean())
+                    for i in range(got[7].shape[0]))
+        if agree < 0.999:
+            raise AssertionError(f"10-epoch H {variant}: eval-slot decision agreement {agree:.5f}")
+
+        # the kernel against its plain engine over a NN_TIMED_EPOCHS slice
+        t_args = (w1f, w2f, h0, opt0, rx_epochs(NN_TIMED_EPOCHS), amps, cfg.lr, bn, 0.1)
+        out_t = nfk.vae_nn_experiment_train(*t_args, **kw)  # also the timing's warm-up
+        ms_h = _time_ms(lambda: nfk.vae_nn_experiment_train(*t_args, **kw), reps=3, warmup=False)
+        ms_h_plain = _time_ms(lambda: nfk.vae_nn_experiment_train_plain(*t_args, **kw), reps=1,
+                              warmup=False)
+        steps_t = NN_TIMED_EPOCHS * nb
+        n_par = ch * (2 * k1 + 1) + ch * (3 * ch + 1) + 2 * M + (2 * ch if bn_on else 0)
+        bound_h = _bound(R * steps_t * (_nn_step_flops(cfg.batch_len, M, n_lev, k1, bn_on)
+                                        + 12 * n_par), _nbytes(t_args, out_t))
+        _line(f"13b kernel H {variant} 10 epochs", ok=True, R=R, step0=step0,
+              errs_abs_rel=_fmt(errs_b), slot_dec_agree=f"{agree:.6f}",
+              slice_epochs=NN_TIMED_EPOCHS, slice_ms=f"{ms_h:.3f}", plain_slice_ms=f"{ms_h_plain:.3f}",
+              step_ms=f"{ms_h / steps_t:.4f}", plain_step_ms=f"{ms_h_plain / steps_t:.3f}",
+              bound_ms=f"{bound_h['bound_ms']:.4f}", card=repr(card))
+        stage[bn_on] = (cfg, const, sims, amps, P, draws, rx_epochs, (w1f, w2f, h0, opt0, bn))
+        entries.append({"name": f"vae_nn_experiment_train[{variant}]", "route": "cuda",
+                        "source": "vae_equalizer_tpu_torch/csrc/nn_kernels.cu",
+                        "replaces": "vae_equalizer_tpu/ops/nn_frame_kernel.py:500", "launches": None,
+                        "max_abs_err": h_err, "ms": ms_h, "plain_ms": ms_h_plain, **bound_h})
+
+    # ---- 14. the VAE-NN path, counted: Net, then Net_BN
+    for entry, bn_on in zip(entries, (False, True)):
+        cfg, const, sims, amps, P, draws, rx_epochs, start = stage[bn_on]
+        variant = "Net_BN" if bn_on else "Net"
+        n_evals = cfg.num_epochs // cfg.epe
+        res, wall = _counted(nfk.vae_nn_experiment_train, 1, lambda cfg=cfg: train_awgn.train_vae_nn_awgn(
+            cfg, seed=0, device=DEVICE, runs=R, use_pallas="frame"))
+        entry["launches"] = 1
+        for k in ("ser", "mi"):
+            if res[k].shape != (R, n_evals) or not np.all(np.isfinite(res[k])):
+                raise AssertionError(f"VAE-NN {variant} {k}: shape {res[k].shape} or non-finite values")
+        ser25 = res["ser"][:, -25:].mean(-1)
+        ok = ser25 <= AWGN_STUCK_SER
+        (lo, hi), mi_min = NN_BANDS[bn_on]
+        med, conv_mean = float(np.median(ser25)), float(ser25[ok].mean()) if ok.any() else float("nan")
+        mi_last = res["mi"][ok, -1] if ok.any() else np.full(1, np.nan)
+        if (int((~ok).sum()) > NN_MAX_STUCK or not lo <= med <= hi or not lo <= conv_mean <= hi
+                or not np.all(mi_last > mi_min)):
+            raise AssertionError(f"VAE-NN {variant}: last-25-evals SER median {med:.6f}, converged "
+                                 f"mean {conv_mean:.6f} (band {(lo, hi)}), stuck {int((~ok).sum())} "
+                                 f"(at most {NN_MAX_STUCK}), converged final MI min "
+                                 f"{mi_last.min():.4f} (floor {mi_min})")
+        # channel / kernel / eval split at the path's shapes (CUDA events)
+        w1f, w2f, h0, _, bn = start
+        st = {}
+        kw = dict(bl_sym=cfg.batch_len, n_batches=cfg.n_train // cfg.batch_len, epe=cfg.epe,
+                  k1=cfg.kernel_1)
+
+        def channel():
+            st["rx"] = rx_epochs(cfg.num_epochs)
+
+        def kernel():
+            opt = nfk.nn_frame_opt_init(w1f, w2f, h0, None if bn is None else bn[0])
+            st["ev"] = nfk.vae_nn_experiment_train(w1f, w2f, h0, opt, st["rx"], amps, cfg.lr, bn, 0.1,
+                                                   **kw)[7:]
+
+        def evaluate():
+            w1_ev, w2_ev, _, bnp_ev, rs_ev = st["ev"]
+            train_awgn._batched_evals(n_evals, R, draws, lambda sl, vd: train_awgn._nn_evaluate(
+                cfg, nfk.nn_net(w1_ev[sl], w2_ev[sl], bnp_ev[sl], cfg.kernel_1, bn_on),
+                rs_ev[sl], vd, sims["valid"], const, amps, P))
+
+        ms = [_time_ms(f, reps=1, warmup=False) for f in (channel, kernel, evaluate)]
+        _line(f"14 VAE-NN path {variant}", ok=True, runs=R, epochs=cfg.num_epochs, evals=n_evals,
+              launches=1, ser_last25_median=f"{med:.6f}", ser_last25_converged_mean=f"{conv_mean:.6f}",
+              ser_last25_mean_all=f"{ser25.mean():.6f}", stuck=int((~ok).sum()), band=(lo, hi),
+              ser_last25_min_max=f"{ser25.min():.6f}/{ser25.max():.6f}",
+              mi_final_min=f"{mi_last.min():.4f}", mi_final_mean=f"{mi_last.mean():.4f}",
+              wall_s=f"{wall:.3f}", train_sym_per_s=f"{R * cfg.num_epochs * cfg.n_train / wall:.0f}",
+              channel_ms=f"{ms[0]:.3f}", kernel_ms=f"{ms[1]:.3f}", eval_ms=f"{ms[2]:.3f}",
+              card=repr(card))
+    return entries
+
+
+def _stream_phases(card: str) -> list:
+    """Phases 15-16: kernel E against its plain version, then the streaming
+    receiver over a continuous DP stream, counted. Returns E's JSON entry."""
+    import numpy as np
+    import torch
+
+    from vae_equalizer_tpu_torch.channels import channel_ir, make_dp_simulator
+    from vae_equalizer_tpu_torch.core import demapper_noise_var, make_constellation
+    from vae_equalizer_tpu_torch.metrics import find_shift_dp, ser_iqflip
+    from vae_equalizer_tpu_torch.models import butterfly_init
+    from vae_equalizer_tpu_torch.models.streaming import StreamingReceiver
+    from vae_equalizer_tpu_torch.ops.butterfly_kernel import (
+        vae_le_dp_forward_fused,
+        vae_le_dp_forward_plain,
+    )
+    from vae_equalizer_tpu_torch.train.eval_utils import margin_weight_maxshift
+    from vae_equalizer_tpu_torch.utils import DpConfig
+
+    dev = torch.device(DEVICE)
+    cfg = DpConfig()
+    M, block = cfg.m_est, 2000
+    const = make_constellation(cfg.mod, cfg.nu)
+    amps = torch.from_numpy(const.amps).to(dev)
+    P = torch.from_numpy(np.asarray(const.P, np.float32)).to(dev)
+    var = torch.full((2,), demapper_noise_var(const, cfg.snr_db), dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(31)
+
+    # ---- 15. kernel E vs plain: one output pass at the streaming shapes (a
+    # 2,000-symbol block + the M - 1 tail), sps 2 and sps 1 (float32 sums in
+    # another order through the softmin: q rtol 5e-4 / atol 2e-6, out rtol
+    # 1e-4 / atol 1e-6, the JAX test's, tests/test_streaming.py:78-79)
+    e_res = {}
+    for sps in (2, 1):
+        w = (butterfly_init(M, dev) + 0.05 * torch.randn((2, 4, M), generator=gen, device=dev)).contiguous()
+        x = torch.randn((2, 2, M - 1 + block * sps), generator=gen, device=dev)
+        e_args = (w, x, amps, var, const.nu_sc, sps)
+        got = vae_le_dp_forward_fused(*e_args)
+        torch.cuda.synchronize()
+        want = vae_le_dp_forward_plain(*e_args)
+        errs: dict = {}
+        _check("q", got[0], want[0], 5e-4, 2e-6, errs)
+        _check("out", got[1], want[1], 1e-4, 1e-6, errs)
+        ms_e = _time_ms(lambda: vae_le_dp_forward_fused(*e_args), reps=50)
+        ms_e_plain = _time_ms(lambda: vae_le_dp_forward_plain(*e_args), reps=50)
+        n_out = got[1].shape[-1]
+        # per symbol: 4 outputs x 4 rows x M multiply-adds, 4 softmin demappers of ~8 ops per level
+        bound_e = _bound(n_out * (4 * 4 * M * 2 + 4 * amps.shape[0] * 8), _nbytes(e_args, got))
+        e_res[sps] = (max(errs["q"][0], errs["out"][0]), ms_e, ms_e_plain, bound_e)
+        _line(f"15 kernel E sps {sps}", ok=True, n_out=n_out, errs_abs_rel=_fmt(errs),
+              ms=f"{ms_e:.4f}", plain_ms=f"{ms_e_plain:.4f}", bound_ms=f"{bound_e['bound_ms']:.6f}")
+
+    # ---- 16. the streaming path: a continuous stream of STREAM_BLOCKS blocks
+    h_up, _ = channel_ir(cfg.channel, cfg.sps)
+    sim = make_dp_simulator(const, cfg.snr_db, h_up, STREAM_BLOCKS * block, cfg.sps, cfg.symb_rate,
+                            cfg.tau_cd, cfg.tau_pmd, np.asarray(cfg.phi_iq), device=dev)
+    rx, tx, _ = sim(gen, float(np.float32(cfg.theta)), 1)
+    rx, tx = rx[0], tx[0]
+    rxr = StreamingReceiver(amps, P, var, const.nu_sc, m_est=M, sps=cfg.sps, block_len=block,
+                            lr=cfg.lr, adapt=True, use_pallas=True, device=DEVICE)
+    t_pos = torch.arange(block, device=dev)
+    blk = lambda b: rx[:, :, b * block * cfg.sps : (b + 1) * block * cfg.sps]
+
+    def run_stream():
+        state, sers = rxr.init(), []
+        for b in range(STREAM_BLOCKS):
+            state, q, _ = rxr.step(state, blk(b))
+            txb = tx[:, :, b * block : (b + 1) * block]
+            shift, r = find_shift_dp(q, txb, 21, amps)
+            q = torch.roll(q, int(r), dims=0)
+            q = torch.stack([torch.roll(q[i], -int(shift[i]), dims=-1) for i in range(2)])
+            wgt = margin_weight_maxshift(block, int(shift.abs().max()), t=t_pos)
+            sers.append(float(ser_iqflip(q, txb, weight=wgt).mean()))
+        return state, np.asarray(sers)
+
+    (state, sers), wall = _counted(vae_le_dp_forward_fused, STREAM_BLOCKS, run_stream)
+    last = sers[-10:]
+    settled = int(np.argmax(sers < AWGN_STUCK_SER)) if np.any(sers < AWGN_STUCK_SER) else -1
+    if not (STREAM_BAND[0] <= last.mean() <= STREAM_BAND[1] and last.max() <= STREAM_BLOCK_MAX):
+        raise AssertionError(f"streaming: last-10-block SER mean {last.mean():.6f} (band {STREAM_BAND}), "
+                             f"max {last.max():.6f} (at most {STREAM_BLOCK_MAX}); first block below "
+                             f"{AWGN_STUCK_SER}: {settled}")
+    ms_adapt = _time_ms(lambda: rxr.adapt_block(state, blk(0)), reps=5)
+    with torch.no_grad():
+        ms_out = _time_ms(lambda: rxr.output_block(state, blk(0)), reps=20)
+    _line("16 streaming path", ok=True, mod=cfg.mod, blocks=STREAM_BLOCKS, block=block,
+          kernel_e_launches=STREAM_BLOCKS, ser_last10_mean=f"{last.mean():.6f}",
+          ser_last10_max=f"{last.max():.6f}", band=STREAM_BAND, first_block_below_0p05=settled,
+          wall_s=f"{wall:.3f}", block_wall_ms=f"{1e3 * wall / STREAM_BLOCKS:.3f}",
+          adapt_ms=f"{ms_adapt:.3f}", output_ms=f"{ms_out:.4f}", card=repr(card))
+    err, ms_e, ms_e_plain, bound_e = e_res[2]
+    return [{"name": "vae_le_dp_forward_fused", "route": "cuda",
+             "source": "vae_equalizer_tpu_torch/csrc/butterfly_kernel.cu",
+             "replaces": "vae_equalizer_tpu/ops/butterfly_kernel.py:135", "launches": STREAM_BLOCKS,
+             "max_abs_err": max(err, e_res[1][0]), "ms": ms_e, "plain_ms": ms_e_plain, **bound_e}]
 
 
 def _awgn_split(mode, cfg, train_awgn, sims, draws, amps, P, var, const, w0, h0, step_kernel,
@@ -416,6 +793,8 @@ def main() -> int:
         _check(name, g, w, 1e-4, 1e-4 * float(w.abs().max()), errs_a)
     ms_a = _time_ms(lambda: vae_dp_loss_and_grad(*a_args))
     ms_a_plain = _time_ms(lambda: vae_dp_loss_and_grad_plain(*a_args))
+    n_lev = amps.shape[0]
+    bound_a = _bound(_dp_step_flops(bl, M, n_lev), _nbytes(a_args, got))
     _line("3 kernel A", ok=True, errs_abs_rel=_fmt(errs_a), ms=f"{ms_a:.4f}", plain_ms=f"{ms_a_plain:.4f}")
 
     # ---- 4a. kernel B vs plain: 3 minibatches, R = 8, w lr halves at the 2nd
@@ -470,20 +849,15 @@ def main() -> int:
         raise AssertionError(f"100-step frame: dec agreement {agree:.5f} < 0.999")
     ms_b = _time_ms(lambda: vae_dp_frame_train(*f_args, bl_sym=bl))
     ms_b_plain = _time_ms(lambda: vae_dp_frame_train_plain(*f_args, bl_sym=bl))
+    # + Adam: ~12 ops per parameter (w 8M, h 8M) and step
+    bound_b = _bound(R * m_max * (_dp_step_flops(bl, M, n_lev) + 12 * 16 * M), _nbytes(f_args, got))
     _line("4b kernel B 100 steps", ok=True, R=R, errs_abs_rel=_fmt(errs_f), dec_agree=f"{agree:.6f}",
           ms=f"{ms_b:.3f}", plain_ms=f"{ms_b_plain:.3f}")
 
     # ---- 5. the main path, counted
-    vae_dp_frame_train.launches = 0
-    vae_dp_loss_and_grad.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = train_dp.train_vae_dp(cfg, seed=0, device=DEVICE, use_pallas="frame", runs=R)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches_b = vae_dp_frame_train.launches
-    if launches_b != cfg.num_frames:
-        raise AssertionError(f"kernel B launched {launches_b} times, expected {cfg.num_frames}")
+    res, wall = _counted(vae_dp_frame_train, cfg.num_frames, lambda: train_dp.train_vae_dp(
+        cfg, seed=0, device=DEVICE, use_pallas="frame", runs=R))
+    launches_b = cfg.num_frames
     for k in ("ser", "mi", "var_est"):
         if not np.all(np.isfinite(res[k])):
             raise AssertionError(f"non-finite {k}")
@@ -536,6 +910,10 @@ def main() -> int:
     for name, g_, w_ in zip(("out", "h", "e"), got, want):
         _check(name, g_, w_, 1e-4, 1e-6 * float(w_.abs().max()), errs_c)
     ms_c = _time_ms(lambda: cma_dp_kernel(rx_c, cfg.R, h_c, lr_c, cfg.sps))
+    # per symbol: the 2x2 butterfly output (4 x 4M multiply-adds), the CMA
+    # error and the tap update (4 x 4M multiply-adds)
+    cma_flops = Rc * (rx_c.shape[-1] // cfg.sps) * (2 * 2 * 16 * M + 20)
+    bound_c = _bound(cma_flops, _nbytes((rx_c, h_c), got))
     # the plain per-symbol loop is ~10^5 small launches: one timed frame
     ms_c_plain = _time_ms(lambda: cma_dp_plain(rx_c, cfg.R, h_c, lr_c, cfg.sps), reps=1, warmup=False)
     _line("7 kernel C", ok=True, R=Rc, errs_abs_rel=_fmt(errs_c), ms=f"{ms_c:.4f}",
@@ -554,30 +932,22 @@ def main() -> int:
             _check(name, g_, w_, 1e-4, 1e-6 * float(w_.abs().max()), errs_d)
         ms_d = _time_ms(lambda: cma_chunked_frame(*d_args))
         ms_d_plain = _time_ms(lambda: cma_chunked_frame_plain(*d_args), reps=1, warmup=False)
-        d_res[v] = (max(a for a, _ in errs_d.values()), ms_d, ms_d_plain)
+        d_res[v] = (max(a for a, _ in errs_d.values()), ms_d, ms_d_plain,
+                    _bound(cma_flops, _nbytes((rx_c, h_c), got)))
         _line(f"8 kernel D {v}", ok=True, R=Rc, B=cfg.batch_len, S=S, errs_abs_rel=_fmt(errs_d),
               ms=f"{ms_d:.4f}", plain_ms=f"{ms_d_plain:.3f}")
 
     # ---- 9. the CMA path: each variant's full experiment, counted
-    counters = (cma_dp_kernel, cma_chunked_frame, vae_dp_frame_train, vae_dp_loss_and_grad)
     cma_launches = {}
     n_cma = cfg.n_frame_max  # = the flagship frame, so `sim` serves both paths
     n_eval = n_cma - 2 * cfg.n_cut
     for v, (mode, lr_v, band) in CMA_VARIANTS.items():
         cfg_v = dataclasses.replace(cfg, loss_type=v, lr=lr_v)
         path_kernel = cma_dp_kernel if v == "CMA" else cma_chunked_frame
-        for c in counters:
-            c.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = train_dp.run_cma_dp(cfg_v, seed=0, device=DEVICE, runs=Rc, use_pallas=mode)
-        torch.cuda.synchronize()
-        wall_v = time.perf_counter() - t0
-        counts = {c.__name__: c.launches for c in counters}
-        name_v = path_kernel.__name__
-        if counts[name_v] != cfg.num_frames or sum(counts.values()) != cfg.num_frames:
-            raise AssertionError(f"{v}: launches {counts}, expected {cfg.num_frames} of {name_v}")
-        cma_launches[v] = counts[name_v]
+        res, wall_v = _counted(path_kernel, cfg.num_frames, lambda cfg_v=cfg_v, mode=mode:
+                               train_dp.run_cma_dp(cfg_v, seed=0, device=DEVICE, runs=Rc,
+                                                   use_pallas=mode))
+        cma_launches[v] = cfg.num_frames
         for k in ("ser", "mi", "var_est", "taps"):
             if not np.all(np.isfinite(np.asarray(res[k].cpu() if k == "taps" else res[k]))):
                 raise AssertionError(f"{v}: non-finite {k}")
@@ -615,32 +985,34 @@ def main() -> int:
               sym_per_s=f"{sym_s_v:.0f}", channel_ms=f"{ms_ch_v:.3f}", kernel_ms=f"{ms_k_v:.3f}",
               eval_ms=f"{ms_ev_v:.3f}", frame_wall_ms=f"{1e3 * wall_v / cfg.num_frames:.3f}",
               card=repr(card))
-        for c in counters:
-            c.launches = 0
 
     awgn_kernels = _awgn_phases(card)
+    nn_kernels = _nn_phases(card)
+    stream_kernels = _stream_phases(card)
 
     kernels = {"kernels": [
         {"name": "vae_dp_frame_train", "route": "cuda",
          "source": "vae_equalizer_tpu_torch/csrc/dp_kernels.cu",
          "replaces": "vae_equalizer_tpu/ops/frame_kernel.py:1024", "launches": launches_b,
-         "max_abs_err": b_err, "ms": ms_b, "plain_ms": ms_b_plain},
+         "max_abs_err": b_err, "ms": ms_b, "plain_ms": ms_b_plain, **bound_b},
         {"name": "cma_dp_kernel", "route": "cuda",
          "source": "vae_equalizer_tpu_torch/csrc/cma_kernels.cu",
          "replaces": "vae_equalizer_tpu/ops/cma_kernel.py:128", "launches": cma_launches["CMA"],
-         "max_abs_err": max(a for a, _ in errs_c.values()), "ms": ms_c, "plain_ms": ms_c_plain},
+         "max_abs_err": max(a for a, _ in errs_c.values()), "ms": ms_c, "plain_ms": ms_c_plain,
+         **bound_c},
     ] + [
         {"name": f"cma_chunked_frame[{v}]", "route": "cuda",
          "source": "vae_equalizer_tpu_torch/csrc/cma_kernels.cu",
          "replaces": "vae_equalizer_tpu/ops/cma_frame_kernel.py:404", "launches": cma_launches[v],
-         "max_abs_err": d_res[v][0], "ms": d_res[v][1], "plain_ms": d_res[v][2]}
+         "max_abs_err": d_res[v][0], "ms": d_res[v][1], "plain_ms": d_res[v][2], **d_res[v][3]}
         for v in ("CMAbatch", "CMAflex")
-    ] + awgn_kernels, "step_body_checked": [
+    ] + awgn_kernels + nn_kernels + stream_kernels, "step_body_checked": [
         {"name": "vae_dp_loss_and_grad", "route": "cuda",
          "source": "vae_equalizer_tpu_torch/csrc/dp_kernels.cu",
          "replaces": "vae_equalizer_tpu/ops/elbo_kernel.py:361",
-         "launches": vae_dp_loss_and_grad.launches,
-         "max_abs_err": max(errs_a["gw"][0], errs_a["gh"][0]), "ms": ms_a, "plain_ms": ms_a_plain},
+         "launches": 0,  # no path runs kernel A yet (ROADMAP)
+         "max_abs_err": max(errs_a["gw"][0], errs_a["gh"][0]), "ms": ms_a, "plain_ms": ms_a_plain,
+         **bound_a},
     ]}
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

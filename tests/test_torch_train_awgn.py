@@ -83,7 +83,7 @@ def jax_reference():
 @pytest.mark.parametrize("use_pallas", [False, True])
 def test_loop_modes_match_jax_on_jax_draws(jax_reference, use_pallas):
     cfg, res_j, draws, p0 = jax_reference
-    res = train_vae_le_awgn(cfg, 0, runs=RUNS, use_pallas=use_pallas, draws=draws, params_init=p0)
+    res = train_vae_le_awgn(cfg, 0, device="cpu", runs=RUNS, use_pallas=use_pallas, draws=draws, params_init=p0)
     n_evals = cfg.num_epochs // cfg.epe
     assert res["ser"].shape == res_j["ser"].shape == (RUNS, n_evals)
     assert res["mi"].shape == (RUNS, n_evals)
@@ -100,8 +100,8 @@ def test_loop_modes_match_jax_on_jax_draws(jax_reference, use_pallas):
 def test_frame_mode_statistically_matches_loop():
     cfg = AwgnVaeLeConfig(mod="16-QAM", snr_db=20.0, num_epochs=20, epe=5, n_train=600,
                           batch_len=200, n_valid=2000)
-    rf = train_vae_le_awgn(cfg, 0, use_pallas="frame")
-    rl = train_vae_le_awgn(cfg, 0, use_pallas=True)
+    rf = train_vae_le_awgn(cfg, 0, device="cpu", use_pallas="frame")
+    rl = train_vae_le_awgn(cfg, 0, device="cpu", use_pallas=True)
     assert rf["ser"].shape == rl["ser"].shape == (4,)
     assert rf["params"]["w"].shape == (1, 2, 25) and rf["params"]["h"].shape == (2, 25)
     assert np.all(np.isfinite(rf["ser"])) and np.all(np.isfinite(rf["mi"]))
@@ -112,8 +112,8 @@ def test_frame_mode_statistically_matches_loop():
     # runs and groups of runs_batch: one kernel launch per group, the same
     # result (at the parity test's lr, from a perturbed start, see _near_dirac)
     cfg = AwgnVaeLeConfig(**SMALL)
-    r2 = train_vae_le_awgn(cfg, 3, runs=2, use_pallas="frame", params_init=_near_dirac())
-    r1 = train_vae_le_awgn(cfg, 3, runs=2, use_pallas="frame", runs_batch=1, params_init=_near_dirac())
+    r2 = train_vae_le_awgn(cfg, 3, device="cpu", runs=2, use_pallas="frame", params_init=_near_dirac())
+    r1 = train_vae_le_awgn(cfg, 3, device="cpu", runs=2, use_pallas="frame", runs_batch=1, params_init=_near_dirac())
     assert r2["ser"].shape == (2, 4) and r2["params"]["w"].shape == (2, 1, 2, 25)
     np.testing.assert_allclose(r1["ser"], r2["ser"], atol=2 / cfg.n_valid)
     np.testing.assert_allclose(r1["params"]["w"].numpy(), r2["params"]["w"].numpy(), rtol=1e-3, atol=1e-5)
@@ -125,10 +125,10 @@ def test_options_and_modes_raise():
     for kw in ({"checkpoint": "x.npz"}, {"checkpoint_every": 5}, {"compiled": True},
                {"mesh": object()}, {"timings": {}}):
         with pytest.raises(NotImplementedError, match="Deferred `?train_vae_le_awgn`? options"):
-            train_vae_le_awgn(cfg, 0, **kw)
+            train_vae_le_awgn(cfg, 0, device="cpu", **kw)
     for mode in (True, "frame"):
         for bad in (AwgnVaeLeConfig(**{**SMALL, "sps": 1}), AwgnVaeLeConfig(**{**SMALL, "m_est": 24})):
             with pytest.raises(ValueError, match="sps=2 and odd M_est"):
-                train_vae_le_awgn(bad, 0, use_pallas=mode)
+                train_vae_le_awgn(bad, 0, device="cpu", use_pallas=mode)
     with pytest.raises(ValueError, match="runs_batch"):
-        train_vae_le_awgn(cfg, 0, runs=3, runs_batch=2, use_pallas="frame")
+        train_vae_le_awgn(cfg, 0, device="cpu", runs=3, runs_batch=2, use_pallas="frame")

@@ -69,7 +69,7 @@ def test_run_cma_dp_matches_jax_on_jax_draws(variant, lr, kernel_mode):
     draws = _jax_draws(cfg, key, _setup(cfg, cfg.n_frame_max, "cpu")[2], RUNS)
     for mode in (False, kernel_mode):
         m_t = []
-        res = run_cma_dp(cfg, 0, runs=RUNS, use_pallas=mode, draws=lambda f, r: draws[f],
+        res = run_cma_dp(cfg, 0, device="cpu", runs=RUNS, use_pallas=mode, draws=lambda f, r: draws[f],
                          progress=_per_frame(m_t))
         assert res["ser"].shape == res_j["ser"].shape == (RUNS, 4, cfg.num_frames)
         assert res["mi"].shape == (RUNS, 2, cfg.num_frames) and res["taps"].shape == (RUNS, 2, 2, 2, 25)
@@ -98,7 +98,7 @@ def test_single_run_and_taps_from_jax():
     res_j = j_run_cma_dp(cfg_j, key, taps_init=taps_j)
     cfg = DpConfig(loss_type="CMAbatch", lr=1e-4, **SMALL)
     draws = _jax_draws(cfg, key, _setup(cfg, cfg.n_frame_max, "cpu")[2], None)
-    res = run_cma_dp(cfg, 0, use_pallas="frame", taps_init=np.asarray(taps_j),
+    res = run_cma_dp(cfg, 0, device="cpu", use_pallas="frame", taps_init=np.asarray(taps_j),
                      draws=lambda f, r: draws[f])
     assert res["ser"].shape == (4, cfg.num_frames) and res["var_est"].shape == (2, cfg.num_frames)
     assert res["taps"].shape == (2, 2, 2, 25)
@@ -123,11 +123,11 @@ def test_every_mode_runs_or_raises(loss_type, mode):
     assert PALLAS_MODES == J_PALLAS_MODES
     cfg = _tiny(loss_type)
     if mode in PALLAS_MODES[loss_type]:
-        res = run_cma_dp(cfg, 0, runs=4, runs_batch=2, use_pallas=mode)
+        res = run_cma_dp(cfg, 0, device="cpu", runs=4, runs_batch=2, use_pallas=mode)
         assert res["ser"].shape == (4, 4, cfg.num_frames) and np.all(np.isfinite(res["mi"]))
     else:
         with pytest.raises(ValueError, match="use_pallas"):
-            run_cma_dp(cfg, 0, use_pallas=mode)
+            run_cma_dp(cfg, 0, device="cpu", use_pallas=mode)
 
 
 def test_vae_modes_follow_the_table():
@@ -135,10 +135,10 @@ def test_vae_modes_follow_the_table():
     mode in the table that the port has not brought up stays deferred."""
     cfg = DpConfig(mod="4-QAM", num_frames=1, n_frame_max=200, batch_len=50)
     with pytest.raises(ValueError, match="use_pallas"):
-        train_vae_dp(cfg, 0, use_pallas="bogus")
+        train_vae_dp(cfg, 0, device="cpu", use_pallas="bogus")
     for mode in (False, True):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train_vae_dp(cfg, 0, use_pallas=mode)
+            train_vae_dp(cfg, 0, device="cpu", use_pallas=mode)
 
 
 def test_deferred_options_and_bad_arguments_raise():
@@ -146,12 +146,12 @@ def test_deferred_options_and_bad_arguments_raise():
     for kw in ({"mesh": object()}, {"compiled": True}, {"chunk_frames": 2},
                {"checkpoint": "x.npz"}, {"timings": {}}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run_cma_dp(cfg, 0, **kw)
+            run_cma_dp(cfg, 0, device="cpu", **kw)
     with pytest.raises(ValueError, match="runs_batch"):
-        run_cma_dp(cfg, 0, runs=4, runs_batch=3, use_pallas="frame")
+        run_cma_dp(cfg, 0, device="cpu", runs=4, runs_batch=3, use_pallas="frame")
     with pytest.raises(ValueError, match="CMA variant"):
-        run_cma_dp(_tiny("VAE"), 0)
+        run_cma_dp(_tiny("VAE"), 0, device="cpu")
     with pytest.raises(ValueError, match="unknown loss_type"):
-        run_cma_dp(_tiny("nope"), 0)
+        run_cma_dp(_tiny("nope"), 0, device="cpu")
     # off the card no kernel launches: the wrappers took their plain versions
     assert cma_dp_kernel.launches == 0 and cma_chunked_frame.launches == 0

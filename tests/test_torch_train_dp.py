@@ -110,7 +110,7 @@ def test_deferred_options_raise():
     for kw in ({"use_pallas": True}, {"stream_bf16": True}, {"lr_vec": [1e-3]}, {"compiled": True},
                {"chunk_frames": 2}, {"checkpoint": "x.npz"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train_vae_dp(cfg, 0, **kw)
+            train_vae_dp(cfg, 0, device="cpu", **kw)
 
 
 def test_port_never_imports_jax():

@@ -1,4 +1,5 @@
-"""L0 primitives: constellations + PCS and pulse-shaping filters."""
+"""L0 primitives: constellations + PCS, pulse-shaping filters and the entry
+points' device."""
 
 from .constellation import (
     Constellation,
@@ -9,6 +10,7 @@ from .constellation import (
     qam_points,
     sample_levels,
 )
+from .device import resolve_device
 from .filters import rcfir, rrcfir
 
 __all__ = [
@@ -18,6 +20,7 @@ __all__ = [
     "make_constellation",
     "mb_prior",
     "qam_points",
+    "resolve_device",
     "sample_levels",
     "rcfir",
     "rrcfir",

@@ -19,6 +19,8 @@
 // thread; block totals (sum |out|, C, the KL, the normalization dots) use a
 // fixed-order shared-memory tree — no atomics, so a run repeats bit for bit.
 // A step is ~1 MFLOP over ~55 KB: the chain of ~10 dependent phases bounds it.
+// The ELBO back end (moments, elbo_forward, elbo_gd, elbo_gh, elbo_gq) is
+// shared with kernel H (nn_step.cuh), which puts its softmax posteriors in q.
 //
 // The body also compiles as plain C++ (SISO_HOST_EMULATION), where one
 // "thread" (tid 0, nt 1) runs every item of every phase in order; that is how
@@ -184,14 +186,149 @@ SISO_DEV void block_sum(float* red, int nt, int rows, int tid) {
   }
 }
 
-// The step. Reads s.x, s.w, s.h and the level constants; leaves out, q, eq,
-// v, d, gd, S, gn (= dL/dout), gw and gh in shared memory and the scalars
-// sc = [loss, C, g_C, k_I, k_Q, dot_I, dot_Q].
-SISO_DEV void siso_step(const Dims& D, const Smem& s, float amp_mean, float var, int tid, int nt) {
+// ---- The ELBO back end, shared with kernel H (nn_step.cuh): every function
+// below reads the posteriors q (2, n_lev, n_sym), the minibatch x and the
+// channel estimate h from shared memory. With P = 1 the KL term is the plain
+// posterior entropy (the uniform-prior ELBO of the VAE-NN).
+
+// Posterior moments of column it = (comp, t) of q into s.eq / s.v, and its
+// KL term -sum_l q log(q / P + eps) (inside the window t in [mh, n_sym - mh))
+// added to the thread's partial kl_part.
+SISO_DEV void moments(const Dims& D, const Smem& s, int it, float& kl_part) {
+  const int comp = it / D.n_sym, t = it - comp * D.n_sym;
+  const bool inner = t >= D.mh && t < D.n_sym - D.mh;
+  const float* qrow = s.q + comp * D.n_lev * D.n_sym + t;
+  float eqv = 0.f, eq2v = 0.f;
+  for (int l = 0; l < D.n_lev; ++l) {
+    const float ql = qrow[l * D.n_sym];
+    eqv += ql * s.amps[l];
+    eq2v += ql * s.a2[l];
+    if (inner) kl_part += -ql * logf(ql / s.P[l] + EPS_KL);
+  }
+  s.eq[it] = eqv;
+  s.v[it] = eq2v - eqv * eqv;
+}
+
+// D conv, the E-term window totals S, then C = sum (rx_w - D)^2 + E and the
+// KL over the block (fixed-order trees): sc = [loss, C, g_C = n_eff / C].
+// Call after a barrier that follows the moments; ends with one.
+SISO_DEV void elbo_forward(const Dims& D, const Smem& s, float kl_part, int tid, int nt) {
+  const int n_sym = D.n_sym, m = D.m, n_samp = D.n_samp;
+  const int mh = D.mh, mh2 = D.mh2, n_eff = D.n_eff;
+  const float* hr = s.h;
+  const float* hi = s.h + m;
+  const float* ei = s.eq;
+  const float* eqq = s.eq + n_sym;
+  // ---- D conv (re/im, n) and the E-term window totals S[j]
+  for (int it = tid; it < 2 * n_eff; it += nt) {
+    const int ri = it / n_eff, n = it - ri * n_eff;
+    float acc = 0.f;
+    for (int j = (n + mh2) & 1; j < m; j += 2) {  // EqUp is zero at odd samples
+      const int tt = (n + mh2 - j) >> 1;
+      acc += ri == 0 ? (hr[j] * ei[tt] - hi[j] * eqq[tt]) : (hi[j] * ei[tt] + hr[j] * eqq[tt]);
+    }
+    s.d[it] = acc;
+  }
+  for (int j = tid; j < m; j += nt) {
+    float acc = 0.f;
+    for (int smp = mh2 - j + ((mh2 - j) & 1); smp < n_samp - j; smp += 2)
+      acc += s.v[smp >> 1] + s.v[n_sym + (smp >> 1)];
+    s.S[j] = acc;
+  }
+  SISO_SYNC();
+
+  // ---- C = sum (rx_w - D)^2 + E and the KL: fixed-order block tree
+  {
+    float c_part = 0.f;
+    for (int it = tid; it < 2 * n_eff; it += nt) {
+      const int ri = it / n_eff, n = it - ri * n_eff;
+      const float diff = s.x[ri * n_samp + mh + n] - s.d[it];
+      c_part += diff * diff;
+    }
+    s.red[tid] = c_part;
+    s.red[nt + tid] = kl_part;
+  }
+  SISO_SYNC();
+  block_sum(s.red, nt, 2, tid);
+  if (tid == 0) {
+    float e = 0.f;
+    for (int j = 0; j < m; ++j) e += (hr[j] * hr[j] + hi[j] * hi[j]) * s.S[j];
+    const float ne = (float)n_eff;
+    const float C = s.red[0] + e;
+    s.sc[0] = ne * logf(C) - s.red[nt];
+    s.sc[1] = C;
+    s.sc[2] = ne / C;
+  }
+  SISO_SYNC();
+}
+
+// dL/dD (re/im, n) into s.gd (dL/dloss = 1); ends with a barrier.
+SISO_DEV void elbo_gd(const Dims& D, const Smem& s, int tid, int nt) {
+  const float g_c = s.sc[2];
+  for (int it = tid; it < 2 * D.n_eff; it += nt) {
+    const int ri = it / D.n_eff, n = it - ri * D.n_eff;
+    s.gd[it] = g_c * (2.f * s.d[it] - 2.f * s.x[ri * D.n_samp + D.mh + n]);
+  }
+  SISO_SYNC();
+}
+
+// gh (re/im, j): correlation of dL/dD with EqUp + the E term, into s.gh.
+SISO_DEV void elbo_gh(const Dims& D, const Smem& s, int tid, int nt) {
+  const int m = D.m, mh2 = D.mh2, n_eff = D.n_eff;
+  const float g_c = s.sc[2];
+  const float* g_re = s.gd;
+  const float* g_im = s.gd + n_eff;
+  const float* ei = s.eq;
+  const float* eqq = s.eq + D.n_sym;
+  for (int it = tid; it < 2 * m; it += nt) {
+    const int ri = it / m, j = it - ri * m;
+    float acc = 0.f;
+    for (int n = j & 1; n < n_eff; n += 2) {  // n + Mh - j even
+      const int tt = (n + mh2 - j) >> 1;
+      acc += ri == 0 ? (g_re[n] * ei[tt] + g_im[n] * eqq[tt]) : (g_im[n] * ei[tt] - g_re[n] * eqq[tt]);
+    }
+    s.gh[it] = acc + 2.f * g_c * s.h[it] * s.S[j];
+  }
+}
+
+// dL/dq of column it = (comp, t), per level, into gq[0, n_lev): gEqUp and
+// gVar at sample 2t through the moments, plus the KL term.
+SISO_DEV void elbo_gq(const Dims& D, const Smem& s, int it, float* gq) {
   const int n_sym = D.n_sym, m = D.m, n_lev = D.n_lev, n_samp = D.n_samp;
   const int mh = D.mh, mh2 = D.mh2, n_eff = D.n_eff;
   const float* hr = s.h;
   const float* hi = s.h + m;
+  const float* g_re = s.gd;
+  const float* g_im = s.gd + n_eff;
+  const float g_c = s.sc[2];
+  const int comp = it / n_sym, t = it - comp * n_sym, ps = 2 * t;
+  float ge = 0.f, hsum = 0.f;
+  for (int j = 0; j < m; ++j) {
+    const int n = ps + j - mh2;
+    if (n >= 0 && n < n_eff)
+      ge += comp == 0 ? (g_re[n] * hr[j] + g_im[n] * hi[j]) : (g_im[n] * hr[j] - g_re[n] * hi[j]);
+    if (ps >= mh2 - j && ps < n_samp - j) hsum += hr[j] * hr[j] + hi[j] * hi[j];
+  }
+  const float gv = g_c * hsum;
+  const float geq = ge - 2.f * s.eq[it] * gv;
+  const bool inner = t >= mh && t < n_sym - mh;
+  const float* qrow = s.q + comp * n_lev * n_sym + t;
+  for (int l = 0; l < n_lev; ++l) {
+    float g = s.amps[l] * geq + s.a2[l] * gv;
+    if (inner) {
+      const float r = qrow[l * n_sym] / s.P[l];
+      g += logf(r + EPS_KL) + r / (r + EPS_KL);
+    }
+    gq[l] = g;
+  }
+}
+
+// The VAE-LE step. Reads s.x, s.w, s.h and the level constants; leaves out,
+// q, eq, v, d, gd, S, gn (= dL/dout), gw and gh in shared memory and the
+// scalars sc = [loss, C, g_C, k_I, k_Q, dot_I, dot_Q].
+SISO_DEV void siso_step(const Dims& D, const Smem& s, float amp_mean, float var, int tid, int nt) {
+  const int n_sym = D.n_sym, m = D.m, n_lev = D.n_lev;
+  const int mh = D.mh;
 
   // ---- forward FIR: out[comp, t] = sum_{c,k} w[c,k] xarr(comp, c, 2t + k - mh), and sum |out|
   {
@@ -237,113 +374,26 @@ SISO_DEV void siso_step(const Dims& D, const Smem& s, float amp_mean, float var,
       met[l] = expf(mmv - met[l]);  // met now holds e_l
       s1v += met[l];
     }
-    const bool inner = t >= mh && t < n_sym - mh;
     float* qrow = s.q + comp * n_lev * n_sym + t;
-    float eqv = 0.f, eq2v = 0.f;
-    for (int l = 0; l < n_lev; ++l) {
-      const float ql = met[l] / s1v;
-      qrow[l * n_sym] = ql;
-      eqv += ql * s.amps[l];
-      eq2v += ql * s.a2[l];
-      if (inner) kl_part += -ql * logf(ql / s.P[l] + EPS_KL);
-    }
-    s.eq[it] = eqv;
-    s.v[it] = eq2v - eqv * eqv;
+    for (int l = 0; l < n_lev; ++l) qrow[l * n_sym] = met[l] / s1v;
+    moments(D, s, it, kl_part);
   }
   SISO_SYNC();
-
-  // ---- D conv (re/im, n) and the E-term window totals S[j]
-  const float* ei = s.eq;
-  const float* eqq = s.eq + n_sym;
-  for (int it = tid; it < 2 * n_eff; it += nt) {
-    const int ri = it / n_eff, n = it - ri * n_eff;
-    float acc = 0.f;
-    for (int j = (n + mh2) & 1; j < m; j += 2) {  // EqUp is zero at odd samples
-      const int tt = (n + mh2 - j) >> 1;
-      acc += ri == 0 ? (hr[j] * ei[tt] - hi[j] * eqq[tt]) : (hi[j] * ei[tt] + hr[j] * eqq[tt]);
-    }
-    s.d[it] = acc;
-  }
-  for (int j = tid; j < m; j += nt) {
-    float acc = 0.f;
-    for (int smp = mh2 - j + ((mh2 - j) & 1); smp < n_samp - j; smp += 2)
-      acc += s.v[smp >> 1] + s.v[n_sym + (smp >> 1)];
-    s.S[j] = acc;
-  }
-  SISO_SYNC();
-
-  // ---- C = sum (rx_w - D)^2 + E and the KL: fixed-order block tree
-  {
-    float c_part = 0.f;
-    for (int it = tid; it < 2 * n_eff; it += nt) {
-      const int ri = it / n_eff, n = it - ri * n_eff;
-      const float diff = s.x[ri * n_samp + mh + n] - s.d[it];
-      c_part += diff * diff;
-    }
-    s.red[tid] = c_part;
-    s.red[nt + tid] = kl_part;
-  }
-  SISO_SYNC();
-  block_sum(s.red, nt, 2, tid);
-  if (tid == 0) {
-    float e = 0.f;
-    for (int j = 0; j < m; ++j) e += (hr[j] * hr[j] + hi[j] * hi[j]) * s.S[j];
-    const float ne = (float)n_eff;
-    const float C = s.red[0] + e;
-    s.sc[0] = ne * logf(C) - s.red[nt];
-    s.sc[1] = C;
-    s.sc[2] = ne / C;
-  }
-  SISO_SYNC();
+  elbo_forward(D, s, kl_part, tid, nt);
 
   // ================= backward (dL/dloss = 1) =================
-  const float g_c = s.sc[2];
-  for (int it = tid; it < 2 * n_eff; it += nt) {
-    const int ri = it / n_eff, n = it - ri * n_eff;
-    s.gd[it] = g_c * (2.f * s.d[it] - 2.f * s.x[ri * n_samp + mh + n]);
-  }
-  SISO_SYNC();
-
-  const float* g_re = s.gd;
-  const float* g_im = s.gd + n_eff;
-  // ---- gh (re/im, j): correlation of dL/dD with EqUp + the E term
-  for (int it = tid; it < 2 * m; it += nt) {
-    const int ri = it / m, j = it - ri * m;
-    float acc = 0.f;
-    for (int n = j & 1; n < n_eff; n += 2) {  // n + Mh - j even
-      const int tt = (n + mh2 - j) >> 1;
-      acc += ri == 0 ? (g_re[n] * ei[tt] + g_im[n] * eqq[tt]) : (g_im[n] * ei[tt] - g_re[n] * eqq[tt]);
-    }
-    s.gh[it] = acc + 2.f * g_c * s.h[it] * s.S[j];
-  }
-  // ---- dL/dnorm per (comp, t): gEqUp and gVar at sample 2t -> gq -> softmin VJP
+  elbo_gd(D, s, tid, nt);
+  elbo_gh(D, s, tid, nt);
+  // ---- dL/dnorm per (comp, t): dL/dq -> softmin VJP
   {
     float dot0 = 0.f, dot1 = 0.f;
     for (int it = tid; it < 2 * n_sym; it += nt) {
-      const int comp = it / n_sym, t = it - comp * n_sym, ps = 2 * t;
-      float ge = 0.f, hsum = 0.f;
-      for (int j = 0; j < m; ++j) {
-        const int n = ps + j - mh2;
-        if (n >= 0 && n < n_eff)
-          ge += comp == 0 ? (g_re[n] * hr[j] + g_im[n] * hi[j]) : (g_im[n] * hr[j] - g_re[n] * hi[j]);
-        if (ps >= mh2 - j && ps < n_samp - j) hsum += hr[j] * hr[j] + hi[j] * hi[j];
-      }
-      const float gv = g_c * hsum;
-      const float geq = ge - 2.f * s.eq[it] * gv;
-      const bool inner = t >= mh && t < n_sym - mh;
+      const int comp = it / n_sym, t = it - comp * n_sym;
       const float* qrow = s.q + comp * n_lev * n_sym + t;
       float gq[MAX_LEV];
+      elbo_gq(D, s, it, gq);
       float inner_sum = 0.f;
-      for (int l = 0; l < n_lev; ++l) {
-        const float ql = qrow[l * n_sym];
-        float g = s.amps[l] * geq + s.a2[l] * gv;
-        if (inner) {
-          const float r = ql / s.P[l];
-          g += logf(r + EPS_KL) + r / (r + EPS_KL);
-        }
-        gq[l] = g;
-        inner_sum += ql * g;
-      }
+      for (int l = 0; l < n_lev; ++l) inner_sum += qrow[l * n_sym] * gq[l];
       const float nrm = s.out[it] * s.sc[3 + comp];
       float acc = 0.f;
       for (int l = 0; l < n_lev; ++l) {

@@ -1,5 +1,6 @@
 """Equalizer models and the ELBO (the DP VAE-LE and CMA paths, the AWGN
-VAE-LE)."""
+VAE-LE and VAE-NN). The streaming DP receiver is ``models.streaming``
+(it runs kernel E of ``ops``, so the package does not import it)."""
 
 from .cma import cma_batch_dp, cma_dp, cma_flex_dp, dirac_taps_dp, dirac_taps_siso
 from .losses import elbo_dp, elbo_siso, posterior_moments
@@ -12,6 +13,7 @@ from .vae_le import (
     vae_le_dp_forward,
     vae_le_siso_forward,
 )
+from .vae_nn import vae_nn_forward, vae_nn_init
 
 __all__ = [
     "VaeLeDp",
@@ -29,4 +31,6 @@ __all__ = [
     "soft_demap_dp",
     "vae_le_dp_forward",
     "vae_le_siso_forward",
+    "vae_nn_forward",
+    "vae_nn_init",
 ]

@@ -7,7 +7,9 @@ rebuilds:
 
   * ``dp``  — ``csrc/dp_kernels.cu`` (+ ``dp_step.cuh``): kernels A and B;
   * ``cma`` — ``csrc/cma_kernels.cu``: kernels C and D;
-  * ``siso`` — ``csrc/siso_kernels.cu`` (+ ``siso_step.cuh``): kernels F and G.
+  * ``siso`` — ``csrc/siso_kernels.cu`` (+ ``siso_step.cuh``): kernels F and G;
+  * ``nn``  — ``csrc/nn_kernels.cu`` (+ ``nn_step.cuh``, ``siso_step.cuh``): kernel H;
+  * ``butterfly`` — ``csrc/butterfly_kernel.cu``: kernel E.
 
 The compiles of all libraries that need one start together and run in
 parallel. The libraries are loaded with ``ctypes`` with typed entry points
@@ -41,6 +43,8 @@ LIBRARIES = {
     "dp": ("dp_kernels.cu", ("dp_step.cuh",)),
     "cma": ("cma_kernels.cu", ()),
     "siso": ("siso_kernels.cu", ("siso_step.cuh",)),
+    "nn": ("nn_kernels.cu", ("nn_step.cuh", "siso_step.cuh")),
+    "butterfly": ("butterfly_kernel.cu", ()),
 }
 # --fmad=false: no multiply-add contraction, so the kernels' elementwise math
 # (demapper metric, Adam / AMSGrad, CMA updates) rounds op for op like the plain
@@ -74,6 +78,15 @@ _SIGNATURES = {
         # w_ev, h_ev, amps, P, amp_mean, var, lr, step0, stream
         "vae_siso_experiment_launch": [_I] * 6 + [_LL, _I, _I] + [_P] * 9 + [_P] * 8
         + [_P] * 3 + [_P, _P, _F, _F, _F, _LL, _P],
+    },
+    "nn": {
+        # R, n_epochs, n_batches, n_sym, m, n_lev, k1, n_total, epe, n_evals, batchnorm,
+        # pointer table (csrc/nn_kernels.cu), lr, momentum, step0, stream
+        "vae_nn_experiment_launch": [_I] * 7 + [_LL, _I, _I, _I, _P, _F, _F, _LL, _P],
+    },
+    "butterfly": {
+        # n_out, m, sps, n_lev, l_in, w, x, amps, var, nu_sc, q, out, stream
+        "butterfly_demap_launch": [_I] * 5 + [_P] * 4 + [_F, _P, _P, _P],
     },
 }
 

@@ -1,7 +1,7 @@
 """Training loops: the DP VAE online frame experiment, the CMA baselines and
-the AWGN VAE-LE experiment."""
+the AWGN VAE-LE and VAE-NN experiments."""
 
-from .awgn import train_vae_le_awgn
+from .awgn import train_vae_le_awgn, train_vae_nn_awgn
 from .dp import run_cma_dp, train_vae_dp
 
-__all__ = ["run_cma_dp", "train_vae_dp", "train_vae_le_awgn"]
+__all__ = ["run_cma_dp", "train_vae_dp", "train_vae_le_awgn", "train_vae_nn_awgn"]

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..channels import channel_ir, make_dp_simulator
-from ..core import demapper_noise_var, make_constellation
+from ..core import demapper_noise_var, make_constellation, resolve_device
 from ..metrics import (
     cpe_dp,
     find_shift_dp,
@@ -248,7 +248,7 @@ def _default_draws(gen, seed: int, device):
     return lambda frame, R: gen.draws(rng, R)
 
 
-def train_vae_dp(cfg: DpConfig, seed: int, device="cpu", progress: Progress = None,
+def train_vae_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progress = None,
                  runs: int | None = None, mesh=None, params_init=None, compiled: bool = False,
                  use_pallas="frame", checkpoint=None, checkpoint_every: int = 0,
                  chunk_frames: int = 1, stream_bf16: bool = False, lr_vec=None, snr_vec=None,
@@ -279,7 +279,7 @@ def train_vae_dp(cfg: DpConfig, seed: int, device="cpu", progress: Progress = No
     if cfg.sps != 2 or cfg.m_est % 2 == 0:
         raise ValueError('use_pallas="frame" requires sps=2 and odd M_est')
 
-    device = torch.device(device)
+    device = resolve_device(device)
     m_max = cfg.n_frame_max // cfg.batch_len
     n_frame = m_max * cfg.batch_len
     const, var, gen, amps, P = _setup(cfg, n_frame, device)
@@ -293,7 +293,7 @@ def train_vae_dp(cfg: DpConfig, seed: int, device="cpu", progress: Progress = No
         params=params, runs=runs, progress=progress)
 
 
-def run_cma_dp(cfg: DpConfig, seed: int, device="cpu", progress: Progress = None,
+def run_cma_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progress = None,
                runs: int | None = None, mesh=None, taps_init=None, use_pallas=False,
                compiled: bool = False, checkpoint=None, checkpoint_every: int = 0,
                chunk_frames: int = 1, timings: dict | None = None, runs_batch: int | None = None,
@@ -338,7 +338,7 @@ def run_cma_dp(cfg: DpConfig, seed: int, device="cpu", progress: Progress = None
     else:
         raise ValueError(f"unknown CMA variant {cfg.loss_type!r}")
 
-    device = torch.device(device)
+    device = resolve_device(device)
     R = 1 if runs is None else runs
     rb = runs_batch or R
     if R % rb != 0:

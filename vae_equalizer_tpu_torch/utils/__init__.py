@@ -1,5 +1,5 @@
 """Configurations and weight conversion."""
 
-from .config import AwgnVaeLeConfig, DpConfig
+from .config import AwgnVaeLeConfig, AwgnVaeNnConfig, DpConfig
 
-__all__ = ["AwgnVaeLeConfig", "DpConfig"]
+__all__ = ["AwgnVaeLeConfig", "AwgnVaeNnConfig", "DpConfig"]

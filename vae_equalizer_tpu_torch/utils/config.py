@@ -1,8 +1,10 @@
-"""Typed experiment configurations: the DP flagship (``Eval_run_DP``) and
-the AWGN VAE-LE experiment (``Eval_run_shaping_vaele``).
+"""Typed experiment configurations: the DP flagship (``Eval_run_DP``), the
+AWGN VAE-LE experiment (``Eval_run_shaping_vaele``) and the AWGN VAE-NN
+experiment (``Eval_run_vaenn``).
 
 Field-for-field the JAX package's ``utils/config.py: DpConfig,
-AwgnVaeLeConfig``, so one configuration drives both packages.
+AwgnVaeLeConfig, AwgnVaeNnConfig``, so one configuration drives both
+packages.
 """
 
 from __future__ import annotations
@@ -28,6 +30,26 @@ class AwgnVaeLeConfig:
     num_epochs: int = 500
     epe: int = 2
     channel: str = "h1"
+
+
+@dataclasses.dataclass(frozen=True)
+class AwgnVaeNnConfig:
+    """Eval_run_vaenn defaults (Eval_run_vaenn.py:19-37)."""
+
+    mod: str = "64-QAM"
+    sps: int = 2
+    snr_db: float = 24.0
+    m_est: int = 25
+    kernel_1: int = 25
+    kernel_2: int = 3
+    lr: float = 4e-3
+    batch_len: int = 300
+    n_valid: int = 15000
+    n_train: int = 4000
+    num_epochs: int = 500
+    epe: int = 2
+    channel: str = "h1"
+    batchnorm: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,9 +2,11 @@
 
 The port keeps the JAX package's public layouts — DP ``w`` (..., 2, 4, M),
 ``h`` and the CMA taps (..., 2, 2, 2, M), SISO ``w`` (..., 1, 2, M) and
-``h`` (..., 2, M), the optimizer moments in the same shapes — so a
-conversion is a checked copy: float32, on the requested device, with the
-shapes the port expects.
+``h`` (..., 2, M), the VAE-NN filters in torch's Conv1d layout, the
+optimizer moments in the same shapes — so a conversion is a checked copy:
+float32, on the requested device, with the shapes the port expects. The
+VAE-NN's AMSGrad moments go to kernel H's flat layout
+(``ops/nn_frame_kernel.py: flatten_nn_params``).
 """
 
 from __future__ import annotations
@@ -12,8 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["amsgrad_state_from_jax", "params_from_jax", "opt_from_jax", "siso_params_from_jax",
-           "taps_from_jax"]
+__all__ = ["amsgrad_state_from_jax", "nn_amsgrad_state_from_jax", "nn_params_from_jax",
+           "opt_from_jax", "params_from_jax", "siso_params_from_jax", "taps_from_jax"]
 
 
 def _copy(name: str, a, tail: tuple[int, ...], device) -> torch.Tensor:
@@ -71,3 +73,59 @@ def amsgrad_state_from_jax(state, device="cpu") -> tuple[dict[str, torch.Tensor]
         p = siso_params_from_jax(tree, device)
         moments[key + "w"], moments[key + "h"] = p["w"], p["h"]
     return moments, int(np.asarray(state.count))
+
+
+def nn_params_from_jax(params: dict, bn_state=None, device="cpu") -> dict:
+    """VAE-NN {"net": {"w1" (.., C, 2, k1), "b1", "w2" (.., C, C, k2), "b2"[,
+    "bn_scale", "bn_bias"]}, "h" (.., 2, M)[, "bn"]} arrays -> torch, with the
+    BatchNorm state {"mean", "var", "momentum"} (``bn_state``, else
+    ``params["bn"]``) as "bn" where there is one."""
+    net = params["net"]
+    ch, k1 = np.asarray(net["w1"]).shape[-3], np.asarray(net["w1"]).shape[-1]
+    k2 = np.asarray(net["w2"]).shape[-1]
+    tails = {"w1": (ch, 2, k1), "w2": (ch, ch, k2)}
+    out = {"net": {k: _copy(k, v, tails.get(k, (ch,)), device) for k, v in net.items()},
+           "h": _copy("h", params["h"], (2, np.asarray(params["h"]).shape[-1]), device)}
+    bn_state = bn_state if bn_state is not None else params.get("bn")
+    if bn_state is not None:
+        out["bn"] = {"mean": _copy("mean", bn_state["mean"], (ch,), device),
+                     "var": _copy("var", bn_state["var"], (ch,), device),
+                     "momentum": float(bn_state["momentum"])}
+    return out
+
+
+def _find_amsgrad(state):
+    """The ``ScaleByAmsgradState`` inside an optax state (a chain tuple, or
+    ``multi_transform``'s inner states for Net_BN)."""
+    if hasattr(state, "nu_max"):
+        return state
+    children = state.values() if isinstance(state, dict) else (
+        state if isinstance(state, tuple) else vars(state).values() if hasattr(state, "__dict__")
+        else ())
+    for child in children:
+        found = _find_amsgrad(child)
+        if found is not None:
+            return found
+    return None
+
+
+def nn_amsgrad_state_from_jax(state, device="cpu") -> tuple[dict[str, torch.Tensor], int]:
+    """``optax.amsgrad`` state over VAE-NN params {"net", "h"} (alone, in a
+    chain, or the "train" part of Net_BN's ``multi_transform``) -> (moments
+    {"m1","v1","x1","m2",...,"xb"} in kernel H's flat layout, the step count
+    = the next update's step0)."""
+    from ..ops.nn_frame_kernel import flatten_nn_params
+
+    ams = _find_amsgrad(state)
+    if ams is None:
+        raise ValueError("no optax AMSGrad state (mu / nu / nu_max) found")
+    moments = {}
+    for key, tree in (("m", ams.mu), ("v", ams.nu), ("x", ams.nu_max)):
+        p = nn_params_from_jax({"net": tree["net"], "h": tree["h"]}, device=device)
+        net = p["net"]
+        moments[key + "1"], moments[key + "2"] = flatten_nn_params(net)
+        moments[key + "h"] = p["h"]
+        moments[key + "b"] = (torch.stack([net["bn_scale"], net["bn_bias"]], dim=-1)
+                              if "bn_scale" in net else
+                              torch.zeros(moments[key + "1"].shape[:-1] + (2,), device=device))
+    return {k: v.contiguous() for k, v in moments.items()}, int(np.asarray(ams.count))
