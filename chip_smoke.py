@@ -5,17 +5,20 @@ Drives the port's paths through their hand-written CUDA kernels, after
 building them from ``csrc/`` and holding each kernel against its plain
 PyTorch version at its path's shapes: the flagship DP VAE online-training
 experiment (``vae_equalizer_tpu_torch.train.train_vae_dp``, DpConfig()
-defaults: 64-QAM, M = 25, bl = 100, 170 frames x 10,000 symbols, 8 runs),
-the CMA / CMAbatch / CMAflex baselines on the same channel (``run_cma_dp``,
-5 runs), the AWGN VAE-LE experiment (``train_vae_le_awgn``, 20 runs), the
-AWGN VAE-NN experiment (``train_vae_nn_awgn``, Net and Net_BN, 8 runs) and
-the streaming DP receiver (``models.streaming.StreamingReceiver``). One line
-per phase:
+defaults: 64-QAM, M = 25, bl = 100, 170 frames x 10,000 symbols, 8 runs) in
+its frame mode (kernel B) and its per-step mode (kernel A), the CMA /
+CMAbatch / CMAflex baselines on the same channel (``run_cma_dp``, 5 runs),
+the AWGN VAE-LE experiment (``train_vae_le_awgn``, 20 runs), the AWGN VAE-NN
+experiment (``train_vae_nn_awgn``, Net and Net_BN, 8 runs), the streaming DP
+receiver (``models.streaming.StreamingReceiver``) and VAEflex
+(``train_vae_flex_dp``, 8 runs, kernel B with stride_sym = 10, and kernel A
+per window). One line per phase:
 
   1. device    card name and power limit (nvidia-smi)
   2. build     nvcc build of kernels A-H (one nvcc per source, in parallel),
                seconds, ptxas resource use
-  3. kernel A  vs plain (one minibatch), errors and CUDA-event times
+  3. kernel A  vs plain (one minibatch of R = 8 runs, one launch), errors
+               and CUDA-event times
   4. kernel B  vs plain: (a) a 3-minibatch frame, R = 8, across the lr
                halving; (b) a full 100-step frame; times
   5. main path the full VAE experiment; launch count, soft SER band, MI, speed
@@ -46,6 +49,17 @@ per phase:
      path      2,000 symbols through StreamingReceiver(adapt=True,
                use_pallas=True): one kernel E launch per block, last-10-block
                SER band; adapt / output ms per block
+ 17. per-step  train_vae_dp(use_pallas=True), the full 170 frames, R = 8: one
+     path      kernel A launch per minibatch (17,000), soft SER band, MI;
+               channel / kernel A / Adam / eval split; use_pallas=False
+               (autograd) for 2 frames, its frame time
+ 18. kernel B  stride_sym = 10 vs plain: (a) 3 windows; (b) a full
+     stride    990-window frame from a warm state; times
+ 19. VAEflex   train_vae_flex_dp(use_pallas="frame"), 170 frames, R = 8: one
+     path      kernel B launch per frame, soft SER and MI in the JAX band;
+               channel / kernel B / eval split
+ 20. VAEflex   use_pallas=True (kernel A per window) against "frame" on shared
+     per-step  draws, 5 frames from phase 19's taps; frame times
 
 then the kernels' JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises (non-zero exit,
@@ -109,6 +123,16 @@ NN_TIMED_EPOCHS = 20  # kernel H vs its plain engine, timed over this slice
 STREAM_BLOCKS = 120
 STREAM_BAND = (0.00644, 0.01508)  # mean SER of the last 10 blocks
 STREAM_BLOCK_MAX = 0.0253  # each of the last 10 blocks
+# VAEflex (train_vae_flex_dp(DpConfig()): windows of 100 every 10, 990 per
+# frame). The JAX package on the CPU (tools/jax_bands.py vaeflex, keys 0 and
+# 1, runs 2, PERF.md): per run the last-20-frame soft SER 0.022918-0.023367
+# and the final MI (mean of the pols) 5.8274-5.8612 bits. Bands for the mean
+# over runs = each spread widened 2x about its middle (the SER band holds the
+# reference's 0.0230); every run's MI above the lowest less the spread.
+VAEFLEX_SER_BAND = (0.02269, 0.02360)
+VAEFLEX_MI_BAND = (5.810, 5.879)
+VAEFLEX_MI_FLOOR = 5.79
+FLEX_CHECK_FRAMES = 5  # VAEflex use_pallas=True against "frame", phase 20
 # Published peaks of one H100 SXM (NVIDIA's datasheet) for each
 # kernel's bound: float32 outside the tensor cores and HBM.
 F32_FLOPS = 67e12
@@ -725,6 +749,247 @@ def _awgn_split(mode, cfg, train_awgn, sims, draws, amps, P, var, const, w0, h0,
                 step_unit_ms=f"{t_step:.4f}", eval_unit_ms=f"{t_ev:.3f}")
 
 
+def _step_path_phase(card, cfg, sim, gen, thetas, w0, h0, const, amps, var, P) -> int:
+    """Phase 17: the flagship per-step path, train_vae_dp(use_pallas=True),
+    counted (kernel A once per minibatch for all runs), gated like phase 5;
+    its per-frame split; use_pallas=False (autograd) for its frame time.
+    Returns kernel A's launch count on the path."""
+    import numpy as np
+    import torch
+
+    from vae_equalizer_tpu_torch.ops.elbo_kernel import vae_dp_loss_and_grad
+    from vae_equalizer_tpu_torch.ops.frame_kernel import adam_update, frame_opt_init
+    from vae_equalizer_tpu_torch.train import dp as train_dp
+
+    R, bl = w0.shape[0], cfg.batch_len
+    m_max = cfg.n_frame_max // bl
+    n_expect = cfg.num_frames * m_max
+    res, wall = _counted(vae_dp_loss_and_grad, n_expect, lambda: train_dp.train_vae_dp(
+        cfg, seed=0, device=DEVICE, use_pallas=True, runs=R))
+    for k in ("ser", "mi", "var_est"):
+        if not np.all(np.isfinite(res[k])):
+            raise AssertionError(f"per-step path: non-finite {k}")
+    if res["ser"].shape != (R, 4, cfg.num_frames):
+        raise AssertionError(f"per-step path: result shape {res['ser'].shape}")
+    soft = float(res["ser"][:, 2:, -20:].mean())
+    mi_last = res["mi"][:, :, -1]
+    if not SER_BAND[0] <= soft <= SER_BAND[1] or not np.all(mi_last > MI_MIN):
+        raise AssertionError(f"per-step path: last-20-frame soft SER {soft:.5f} (band {SER_BAND}), "
+                             f"final MI min {mi_last.min():.3f} (floor {MI_MIN})")
+
+    # per-frame split at the path's shapes (CUDA events): the channel, the
+    # frame's 100 kernel A launches, its 100 Adam updates, the q-stream eval
+    st = {}
+    params = {"w": w0, "h": h0}
+    wfn = train_dp._batch_cut_weight_fn(m_max, bl, cfg.n_cut)
+
+    def channel():
+        st["ch"] = sim(gen, thetas[0], R)
+
+    def kernel_steps():
+        rx = st["ch"][0]
+        st["k"] = [vae_dp_loss_and_grad(w0, h0, rx[..., 2 * bl * m : 2 * bl * (m + 1)], amps, var,
+                                        const.nu_sc, P) for m in range(m_max)]
+
+    def adam():
+        p, o = params, frame_opt_init(params)
+        for k in st["k"]:
+            p, o = adam_update(p, o, {"w": k[2], "h": k[3]}, cfg.lr, 0)
+
+    def evaluate():
+        k = list(zip(*st["k"]))
+        train_dp._finish_step_frame(torch.stack(k[0]), torch.cat(k[4], -1), torch.cat(k[5], -1),
+                                    torch.stack(k[1], -2), st["ch"][1], const, amps, P, var, wfn,
+                                    st["ch"][2])
+
+    ms = [_time_ms(f) for f in (channel, kernel_steps, adam, evaluate)]
+    cfg2 = dataclasses.replace(cfg, num_frames=2)
+    _, wall_f = _counted(vae_dp_loss_and_grad, 0, lambda: train_dp.train_vae_dp(
+        cfg2, seed=0, device=DEVICE, use_pallas=False, runs=R))
+    _line("17 per-step path", ok=True, runs=R, frames=cfg.num_frames, kernel_a_launches=n_expect,
+          soft_ser_last20=f"{soft:.5f}", const_ser_last20=f"{float(res['ser'][:, :2, -20:].mean()):.5f}",
+          mi_final_min=f"{mi_last.min():.4f}", wall_s=f"{wall:.3f}",
+          sym_per_s=f"{R * cfg.num_frames * m_max * bl / wall:.0f}",
+          frame_wall_ms=f"{1e3 * wall / cfg.num_frames:.3f}", channel_ms=f"{ms[0]:.3f}",
+          kernel_a_steps_ms=f"{ms[1]:.3f}", adam_ms=f"{ms[2]:.3f}", eval_ms=f"{ms[3]:.3f}",
+          autograd_frame_wall_ms=f"{1e3 * wall_f / 2:.3f}", card=repr(card))
+    return n_expect
+
+
+def _vaeflex_phases(card, cfg, sim, gen, w0, h0, const, amps, var, P) -> list:
+    """Phases 18-20: kernel B's stride form against its plain version, the
+    VAEflex frame path (kernel B, stride_sym = flex_step) counted and gated by
+    the JAX band, then VAEflex's per-step kernel A mode against it on shared
+    draws. Returns the stride form's JSON entry."""
+    import numpy as np
+    import torch
+
+    from vae_equalizer_tpu_torch.models import butterfly_init, dirac_taps_dp
+    from vae_equalizer_tpu_torch.ops.elbo_kernel import vae_dp_loss_and_grad
+    from vae_equalizer_tpu_torch.ops.frame_kernel import (
+        frame_opt_init,
+        vae_dp_frame_train,
+        vae_dp_frame_train_plain,
+    )
+    from vae_equalizer_tpu_torch.train import dp as train_dp
+
+    dev = torch.device(DEVICE)
+    R, M, bl, fs = w0.shape[0], cfg.m_est, cfg.batch_len, cfg.flex_step
+    n_frame = cfg.n_frame_max // bl * bl
+    n_win = (n_frame - bl) // fs
+    nu_sc, lr, n_lev = const.nu_sc, cfg.lr, amps.shape[0]
+    thresh = float(cfg.n_lrhalf * n_win)
+    thetas = train_dp._frame_inputs(dataclasses.replace(cfg, num_frames=WARM_FRAMES + 1), dev)
+
+    # ---- 18a. 3 windows from the perturbed Dirac start, w lr halving at the
+    # 2nd: phase 4a's tolerances
+    rx = sim(gen, thetas[0], R)[0]
+    opt0 = frame_opt_init({"w": w0, "h": h0})
+    rx3 = rx[..., : 2 * (3 * fs + bl)].contiguous()  # (130 - 100) // 10 = 3 windows
+    b_args = (w0, h0, opt0, rx3, amps, var, nu_sc, P, lr, 40, 41.0)
+    got = vae_dp_frame_train(*b_args, bl_sym=bl, stride_sym=fs)
+    torch.cuda.synchronize()
+    want = vae_dp_frame_train_plain(*b_args, bl_sym=bl, stride_sym=fs)
+    if got[3].shape != (3, R):
+        raise AssertionError(f"stride form: losses shape {tuple(got[3].shape)}, expected (3, {R})")
+    names = ("w", "h", "opt", "losses", "var_est", "out", "dec", "eq", "mm", "s1")
+    g, w = dict(zip(names, got)), dict(zip(names, want))
+    errs: dict = {}
+    for k in ("w", "h", "losses", "var_est"):
+        _check(k, g[k], w[k], 1e-4, 3e-7, errs)
+    for k in ("mw", "vw", "mh", "vh"):
+        _check(k, g["opt"][k], w["opt"][k], 1e-4, 1e-5 * float(w["opt"][k].abs().max()), errs)
+    for k in ("out", "eq", "s1"):
+        _check(k, g[k], w[k], 1e-4, 1e-6, errs)
+    _check("mm", g["mm"], w["mm"], 1e-4, 1e-4, errs)
+    dec_mis = _dec_ties_only(g["dec"], w["dec"], w["out"], amps, var, nu_sc)
+    err_b = max(errs["w"][0], errs["h"][0])
+    _line("18a kernel B stride 3 windows", ok=True, R=R, stride_sym=fs, errs_abs_rel=_fmt(errs),
+          dec_tie_mismatch=dec_mis)
+
+    # ---- 18b. one full frame of n_win windows from the state after
+    # WARM_FRAMES frames. Every window is a dependent Adam step, and past ~150
+    # of them two float32 roundings of the same training part ways (the plain
+    # version against itself with w moved by 1e-7 relative does it too):
+    # the first 100 windows hold phase 4b's tolerances; the whole frame may
+    # part from the plain version at most twice as far as the plain version
+    # parts from itself so perturbed
+    wk = butterfly_init(M, dev).expand(R, 2, 4, M).contiguous()
+    hk = dirac_taps_dp(M, dev).expand(R, 2, 2, 2, M).contiguous()
+    optk = frame_opt_init({"w": wk, "h": hk})
+    for f in range(WARM_FRAMES):
+        rx_f = sim(gen, thetas[f], R)[0]
+        wk, hk, optk = vae_dp_frame_train(wk, hk, optk, rx_f, amps, var, nu_sc, P, lr, f * n_win,
+                                          thresh, bl_sym=bl, stride_sym=fs)[:3]
+    rx_f = sim(gen, thetas[WARM_FRAMES], R)[0]
+    f_args = (wk, hk, optk, rx_f, amps, var, nu_sc, P, lr, WARM_FRAMES * n_win, thresh)
+    got = vae_dp_frame_train(*f_args, bl_sym=bl, stride_sym=fs)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = vae_dp_frame_train_plain(*f_args, bl_sym=bl, stride_sym=fs)
+    end.record()
+    torch.cuda.synchronize()
+    ms_plain = start.elapsed_time(end)
+    gen_p = torch.Generator(device=dev)
+    gen_p.manual_seed(5)
+    wk_p = wk * (1 + 1e-7 * torch.randn(wk.shape, generator=gen_p, device=dev))
+    want_p = vae_dp_frame_train_plain(wk_p, *f_args[1:], bl_sym=bl, stride_sym=fs)
+    rel = lambda a, b: float(((a - b).abs() / b.abs()).max())
+    agree = lambda a, b: float((a == b).float().mean())
+    errs_f: dict = {}
+    _check("losses_first100", got[3][:100], want[3][:100], 1e-3, 0.0, errs_f)
+    agree100 = agree(got[6][:100], want[6][:100])
+    loss_rel, loss_rel_pp = rel(got[3], want[3]), rel(want_p[3], want[3])
+    agree_all, agree_pp = agree(got[6], want[6]), agree(want_p[6], want[6])
+    if agree100 < 0.999 or loss_rel > 2 * loss_rel_pp + 1e-3 or \
+            1 - agree_all > 2 * (1 - agree_pp) + 1e-3:
+        raise AssertionError(f"{n_win}-window frame: first-100 dec agreement {agree100:.5f}; whole "
+                             f"frame losses rel {loss_rel:.3e} (plain vs perturbed plain "
+                             f"{loss_rel_pp:.3e}), dec agreement {agree_all:.5f} ({agree_pp:.5f})")
+    ms_b = _time_ms(lambda: vae_dp_frame_train(*f_args, bl_sym=bl, stride_sym=fs), reps=3)
+    bound_b = _bound(R * n_win * (_dp_step_flops(bl, M, n_lev) + 12 * 16 * M), _nbytes(f_args, got))
+    _line(f"18b kernel B stride {n_win} windows", ok=True, R=R, errs_abs_rel=_fmt(errs_f),
+          dec_agree_first100=f"{agree100:.6f}", losses_rel_all=f"{loss_rel:.3e}",
+          losses_rel_plain_perturbed=f"{loss_rel_pp:.3e}", dec_agree_all=f"{agree_all:.6f}",
+          dec_agree_plain_perturbed=f"{agree_pp:.6f}", ms=f"{ms_b:.3f}", plain_ms=f"{ms_plain:.3f}",
+          bound_ms=f"{bound_b['bound_ms']:.6f}", card=repr(card))
+
+    # ---- 19. the VAEflex frame path, counted, gated by the JAX band
+    res, wall = _counted(vae_dp_frame_train, cfg.num_frames, lambda: train_dp.train_vae_flex_dp(
+        cfg, seed=0, device=DEVICE, use_pallas="frame", runs=R))
+    for k in ("ser", "mi", "var_est"):
+        if not np.all(np.isfinite(res[k])):
+            raise AssertionError(f"VAEflex: non-finite {k}")
+    if res["ser"].shape != (R, 4, cfg.num_frames):
+        raise AssertionError(f"VAEflex: result shape {res['ser'].shape}")
+    soft = float(res["ser"][:, 2:, -20:].mean())
+    mi_run = res["mi"][:, :, -1].mean(-1)  # (R,) final MI, mean of the pols
+    (lo, hi), (mlo, mhi), mi_floor = VAEFLEX_SER_BAND, VAEFLEX_MI_BAND, VAEFLEX_MI_FLOOR
+    if not lo <= soft <= hi or not mlo <= float(mi_run.mean()) <= mhi or not np.all(mi_run > mi_floor):
+        raise AssertionError(f"VAEflex: last-20-frame soft SER {soft:.5f} (band {VAEFLEX_SER_BAND}), "
+                             f"final MI mean {mi_run.mean():.4f} (band {VAEFLEX_MI_BAND}), min "
+                             f"{mi_run.min():.4f} (floor {mi_floor})")
+    st = {}
+    wfn = train_dp._margin_weight_fn(n_win * fs)
+    crop = slice((bl - fs) // 2, (bl - fs) // 2 + fs)
+
+    def channel():
+        st["ch"] = sim(gen, thetas[0], R)
+
+    def kernel():
+        st["k"] = vae_dp_frame_train(w0, h0, opt0, st["ch"][0], amps, var, nu_sc, P, lr, 0, 1e9,
+                                     bl_sym=bl, stride_sym=fs)
+
+    def evaluate():
+        k, (_, tx, sigma) = st["k"], st["ch"]
+        out, dec, eq, mm, s1 = (a[..., crop] for a in (k[5], k[6], k[7], k[8], k[9]))
+        train_dp._finish_vae_frame(k[3], out, k[4], tx[..., bl // 2 : bl // 2 + n_win * fs], const,
+                                   amps, P, var, wfn, sigma, dec, eq, mm, s1)
+
+    ms = [_time_ms(f) for f in (channel, kernel, evaluate)]
+    _line("19 VAEflex path", ok=True, runs=R, frames=cfg.num_frames, windows=n_win,
+          kernel_b_launches=cfg.num_frames, soft_ser_last20=f"{soft:.5f}",
+          const_ser_last20=f"{float(res['ser'][:, :2, -20:].mean()):.5f}", band=VAEFLEX_SER_BAND,
+          mi_final_mean=f"{mi_run.mean():.4f}", mi_final_min=f"{mi_run.min():.4f}",
+          wall_s=f"{wall:.3f}", sym_per_s=f"{R * cfg.num_frames * n_frame / wall:.0f}",
+          frame_wall_ms=f"{1e3 * wall / cfg.num_frames:.3f}", channel_ms=f"{ms[0]:.3f}",
+          kernel_b_ms=f"{ms[1]:.3f}", eval_ms=f"{ms[2]:.3f}", card=repr(card))
+
+    # ---- 20. VAEflex use_pallas=True (kernel A per window) against "frame" on
+    # shared draws, FLEX_CHECK_FRAMES frames from the taps phase 19 trained:
+    # from a cold start the two roundings part within the first frame and
+    # converge frames apart, so the check starts from trained taps (Adam's
+    # moments start at zero in both). The JAX test's coarse tolerances
+    # (tests/test_frame_kernel.py:198-206): SER atol 0.05 per frame (the mean
+    # over runs in the re-converging first frame), w atol 0.05
+    cfg5 = dataclasses.replace(cfg, num_frames=FLEX_CHECK_FRAMES)
+    gen_d = torch.Generator(device=dev)
+    gen_d.manual_seed(77)
+    draws = [sim.draws(gen_d, R) for _ in range(FLEX_CHECK_FRAMES)]
+    run = lambda mode: train_dp.train_vae_flex_dp(cfg5, seed=0, device=DEVICE, use_pallas=mode, runs=R,
+                                                  params_init=res["params"],
+                                                  draws=lambda frame, r: draws[frame])
+    res_k, wall_k = _counted(vae_dp_loss_and_grad, FLEX_CHECK_FRAMES * n_win, lambda: run(True))
+    res_b, wall_b = _counted(vae_dp_frame_train, FLEX_CHECK_FRAMES, lambda: run("frame"))
+    d_ser = np.abs(res_k["ser"] - res_b["ser"])
+    d_ser_first = float(np.abs(res_k["ser"][..., 0].mean(0) - res_b["ser"][..., 0].mean(0)).max())
+    d_w = float((res_k["params"]["w"] - res_b["params"]["w"]).abs().max())
+    if float(d_ser[..., 1:].max()) > 0.05 or d_ser_first > 0.05 or d_w > 0.05:
+        raise AssertionError(f"VAEflex True vs frame: SER diff {d_ser[..., 1:].max():.4f} (frames 2-), "
+                             f"{d_ser_first:.4f} (frame 1, run mean), w diff {d_w:.4f}")
+    _line("20 VAEflex per-step", ok=True, runs=R, frames=FLEX_CHECK_FRAMES,
+          kernel_a_launches=FLEX_CHECK_FRAMES * n_win, ser_diff_max=f"{d_ser[..., 1:].max():.5f}",
+          ser_diff_frame1_run_mean=f"{d_ser_first:.5f}", w_diff_max=f"{d_w:.5f}",
+          soft_ser_true=f"{res_k['ser'][:, 2:, -1].mean():.5f}",
+          soft_ser_frame=f"{res_b['ser'][:, 2:, -1].mean():.5f}",
+          frame_wall_ms_true=f"{1e3 * wall_k / FLEX_CHECK_FRAMES:.3f}",
+          frame_wall_ms_frame=f"{1e3 * wall_b / FLEX_CHECK_FRAMES:.3f}", card=repr(card))
+    return [{"name": "vae_dp_frame_train[stride]", "route": "cuda",
+             "source": "vae_equalizer_tpu_torch/csrc/dp_kernels.cu",
+             "replaces": "vae_equalizer_tpu/ops/frame_kernel.py:1024", "launches": cfg.num_frames,
+             "max_abs_err": err_b, "ms": ms_b, "plain_ms": ms_plain, **bound_b}]
+
+
 def main() -> int:
     import torch
 
@@ -782,20 +1047,23 @@ def main() -> int:
     nu_sc, lr = const.nu_sc, cfg.lr
     bl = cfg.batch_len
 
-    # ---- 3. kernel A vs plain (rtol 1e-4: float32 sums in another order)
-    x1 = rx[0, ..., : 2 * bl].contiguous()
-    a_args = (w0[0].contiguous(), h0[0].contiguous(), x1, amps, var, nu_sc, P)
+    # ---- 3. kernel A vs plain: one minibatch of all R = 8 runs in one launch,
+    # read in place from the frame rows as the per-step path does (rtol 1e-4:
+    # float32 sums in another order)
+    x1 = rx[..., 2 * bl : 4 * bl]
+    a_args = (w0, h0, x1, amps, var, nu_sc, P)
     got = vae_dp_loss_and_grad(*a_args)
     torch.cuda.synchronize()
     want = vae_dp_loss_and_grad_plain(*a_args)
     errs_a: dict = {}
     for name, g, w in zip(("loss", "var_est", "gw", "gh", "q", "out"), got, want):
         _check(name, g, w, 1e-4, 1e-4 * float(w.abs().max()), errs_a)
-    ms_a = _time_ms(lambda: vae_dp_loss_and_grad(*a_args))
-    ms_a_plain = _time_ms(lambda: vae_dp_loss_and_grad_plain(*a_args))
+    ms_a = _time_ms(lambda: vae_dp_loss_and_grad(*a_args), reps=20)
+    ms_a_plain = _time_ms(lambda: vae_dp_loss_and_grad_plain(*a_args), reps=20)
     n_lev = amps.shape[0]
-    bound_a = _bound(_dp_step_flops(bl, M, n_lev), _nbytes(a_args, got))
-    _line("3 kernel A", ok=True, errs_abs_rel=_fmt(errs_a), ms=f"{ms_a:.4f}", plain_ms=f"{ms_a_plain:.4f}")
+    bound_a = _bound(R * _dp_step_flops(bl, M, n_lev), _nbytes(a_args, got))
+    _line("3 kernel A", ok=True, R=R, errs_abs_rel=_fmt(errs_a), ms=f"{ms_a:.4f}",
+          plain_ms=f"{ms_a_plain:.4f}", bound_ms=f"{bound_a['bound_ms']:.6f}")
 
     # ---- 4a. kernel B vs plain: 3 minibatches, R = 8, w lr halves at the 2nd
     opt0 = frame_opt_init({"w": w0, "h": h0})
@@ -877,7 +1145,7 @@ def main() -> int:
 
     # ---- 6. per-frame breakdown at the main path's shapes (CUDA events)
     opt = frame_opt_init({"w": w0, "h": h0})
-    wfn = lambda s0, ms, t=None: train_dp.batch_cut_weight(m_max, bl, s0, ms, cfg.n_cut, t=t)
+    wfn = train_dp._batch_cut_weight_fn(m_max, bl, cfg.n_cut)
     state = {}
 
     def channel():
@@ -960,7 +1228,7 @@ def main() -> int:
         # per-frame breakdown at this path's shapes (CUDA events)
         st = {}
         step_v = cfg.batch_len if v == "CMAbatch" else cfg.flex_step
-        wfn_v = train_dp._margin_weight_fn(n_eval, dev)
+        wfn_v = train_dp._margin_weight_fn(n_eval)
 
         def channel_v():
             st["ch"] = sim(gen, thetas[0], Rc)  # the flagship's 10,000-symbol channel
@@ -989,8 +1257,15 @@ def main() -> int:
     awgn_kernels = _awgn_phases(card)
     nn_kernels = _nn_phases(card)
     stream_kernels = _stream_phases(card)
+    launches_a = _step_path_phase(card, cfg, sim, gen, thetas, w0, h0, const, amps, var, P)
+    flex_kernels = _vaeflex_phases(card, cfg, sim, gen, w0, h0, const, amps, var, P)
 
     kernels = {"kernels": [
+        {"name": "vae_dp_loss_and_grad", "route": "cuda",
+         "source": "vae_equalizer_tpu_torch/csrc/dp_kernels.cu",
+         "replaces": "vae_equalizer_tpu/ops/elbo_kernel.py:361", "launches": launches_a,
+         "max_abs_err": max(errs_a["gw"][0], errs_a["gh"][0]), "ms": ms_a, "plain_ms": ms_a_plain,
+         **bound_a},
         {"name": "vae_dp_frame_train", "route": "cuda",
          "source": "vae_equalizer_tpu_torch/csrc/dp_kernels.cu",
          "replaces": "vae_equalizer_tpu/ops/frame_kernel.py:1024", "launches": launches_b,
@@ -1006,14 +1281,7 @@ def main() -> int:
          "replaces": "vae_equalizer_tpu/ops/cma_frame_kernel.py:404", "launches": cma_launches[v],
          "max_abs_err": d_res[v][0], "ms": d_res[v][1], "plain_ms": d_res[v][2], **d_res[v][3]}
         for v in ("CMAbatch", "CMAflex")
-    ] + awgn_kernels + nn_kernels + stream_kernels, "step_body_checked": [
-        {"name": "vae_dp_loss_and_grad", "route": "cuda",
-         "source": "vae_equalizer_tpu_torch/csrc/dp_kernels.cu",
-         "replaces": "vae_equalizer_tpu/ops/elbo_kernel.py:361",
-         "launches": 0,  # no path runs kernel A yet (ROADMAP)
-         "max_abs_err": max(errs_a["gw"][0], errs_a["gh"][0]), "ms": ms_a, "plain_ms": ms_a_plain,
-         **bound_a},
-    ]}
+    ] + flex_kernels + awgn_kernels + nn_kernels + stream_kernels}
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -23,7 +23,7 @@ from vae_equalizer_tpu_torch.ops.frame_kernel import (
     vae_dp_frame_train,
     vae_dp_frame_train_plain,
 )
-from vae_equalizer_tpu_torch.train import train_vae_dp
+from vae_equalizer_tpu_torch.train import train_vae_dp, train_vae_flex_dp
 from vae_equalizer_tpu_torch.utils import DpConfig
 
 torch.set_num_threads(1)
@@ -73,6 +73,23 @@ def test_kernel_a_matches_plain(cuda, mod):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("mod", ["4-QAM", "64-QAM"])
+def test_kernel_a_runs_axis_matches_plain(cuda, mod):
+    """R = 5 runs in one launch, each minibatch read in place from a window of
+    the frame rows (not contiguous), as the per-step path passes it."""
+    const, w, h, rx, var, amps, P = _inputs(mod, 5, 100, 3, cuda)
+    args = (w, h, rx[..., 200:400], amps, var, const.nu_sc, P)
+    before = vae_dp_loss_and_grad.launches
+    got = vae_dp_loss_and_grad(*args)
+    torch.cuda.synchronize()
+    assert vae_dp_loss_and_grad.launches == before + 1
+    want = vae_dp_loss_and_grad_plain(*args)
+    for name, a, b in zip(("loss", "var_est", "gw", "gh", "q", "out"), got, want):
+        assert a.shape == b.shape, name
+        _close(a, b, 1e-4, 1e-4 * float(b.abs().max()), name)
+
+
+@pytest.mark.requires_cuda
 def test_kernel_a_autograd_function(cuda):
     const, w, h, rx, var, amps, P = _inputs("64-QAM", 1, 100, 1, cuda)
     wt, ht = w[0].clone().requires_grad_(), h[0].clone().requires_grad_()
@@ -109,6 +126,39 @@ def test_kernel_b_matches_plain(cuda, mod):
     _close(g["mm"], wa["mm"], 1e-4, 5e-4, "mm")
     assert g["dec"].dtype == torch.int32
     assert float((g["dec"] == wa["dec"]).float().mean()) > 0.999
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("mod", ["4-QAM", "64-QAM"])
+def test_kernel_b_stride_matches_plain(cuda, mod):
+    """VAEflex's overlapping windows: 4 windows of 50 symbols every 25."""
+    R, bl, fs = 4, 50, 25
+    const, w, h, rx, var, amps, P = _inputs(mod, R, bl, 3, cuda)
+    args = (w, h, frame_opt_init({"w": w, "h": h}), rx, amps, var, const.nu_sc, P, 2.5e-3, 5, 7.0)
+    got = vae_dp_frame_train(*args, bl_sym=bl, stride_sym=fs)
+    torch.cuda.synchronize()
+    want = vae_dp_frame_train_plain(*args, bl_sym=bl, stride_sym=fs)
+    assert got[3].shape == want[3].shape == ((3 * bl - bl) // fs, R)
+    for k, i in (("losses", 3), ("var_est", 4), ("w", 0), ("h", 1)):
+        _close(got[i], want[i], 1e-4, 3e-7, k)
+    for k, i in (("out", 5), ("eq", 7), ("s1", 9)):
+        _close(got[i], want[i], 1e-4, 1e-4, k)
+    assert float((got[6] == want[6]).float().mean()) > 0.999
+
+
+@pytest.mark.requires_cuda
+def test_step_modes_on_cuda_count_launches(cuda):
+    """train_vae_dp(True) launches kernel A once per minibatch for all runs;
+    train_vae_flex_dp("frame") kernel B once per frame, True kernel A once
+    per window; False launches neither."""
+    cfg = DpConfig(mod="16-QAM", num_frames=2, n_frame_max=1000)
+    counts = lambda: (vae_dp_loss_and_grad.launches, vae_dp_frame_train.launches)
+    for fn, mode, expect in ((train_vae_dp, True, (20, 0)), (train_vae_dp, False, (0, 0)),
+                             (train_vae_flex_dp, "frame", (0, 2)), (train_vae_flex_dp, True, (180, 0))):
+        before = counts()
+        res = fn(cfg, 0, device="cuda", runs=2, use_pallas=mode)
+        assert tuple(b - a for a, b in zip(before, counts())) == expect, (fn.__name__, mode)
+        assert res["ser"].shape == (2, 4, 2) and np.all(np.isfinite(res["ser"]))
 
 
 @pytest.mark.requires_cuda

@@ -131,14 +131,14 @@ def test_every_mode_runs_or_raises(loss_type, mode):
 
 
 def test_vae_modes_follow_the_table():
-    """train_vae_dp: a mode outside the table raises the JAX ValueError; a
-    mode in the table that the port has not brought up stays deferred."""
+    """train_vae_dp: a mode outside the table raises the JAX ValueError; every
+    mode in the table (False, True, "frame") runs."""
     cfg = DpConfig(mod="4-QAM", num_frames=1, n_frame_max=200, batch_len=50)
     with pytest.raises(ValueError, match="use_pallas"):
         train_vae_dp(cfg, 0, device="cpu", use_pallas="bogus")
-    for mode in (False, True):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train_vae_dp(cfg, 0, device="cpu", use_pallas=mode)
+    for mode in (False, True, "frame"):
+        res = train_vae_dp(cfg, 0, device="cpu", use_pallas=mode)
+        assert res["ser"].shape == (4, 1) and np.all(np.isfinite(res["ser"]))
 
 
 def test_deferred_options_and_bad_arguments_raise():

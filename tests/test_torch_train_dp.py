@@ -107,8 +107,8 @@ def test_weight_conversion_checks_shapes():
 
 def test_deferred_options_raise():
     cfg = DpConfig(mod="4-QAM", **SMALL)
-    for kw in ({"use_pallas": True}, {"stream_bf16": True}, {"lr_vec": [1e-3]}, {"compiled": True},
-               {"chunk_frames": 2}, {"checkpoint": "x.npz"}):
+    for kw in ({"stream_bf16": True}, {"lr_vec": [1e-3]}, {"compiled": True}, {"chunk_frames": 2},
+               {"checkpoint": "x.npz"}, {"mesh": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             train_vae_dp(cfg, 0, device="cpu", **kw)
 

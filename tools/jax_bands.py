@@ -7,6 +7,10 @@ Runs one experiment of the JAX package and prints one JSON line:
       run the mean SER of the last 25 evals and the final MI. The JAX
       package's runs axis cannot carry Net_BN's state (its float momentum),
       so with --bn the runs are keys key, key + 1, ... each with runs=None.
+  PYTHONPATH=. python tools/jax_bands.py vaeflex --key 0 --runs 2
+      train_vae_flex_dp(DpConfig(), compiled=True) (64-QAM, 23 dB, 170 frames
+      of 10,000 symbols, windows of 100 every 10): per run the last-20-frame
+      mean soft SER (both pols) and the final MI (mean of the pols).
   PYTHONPATH=. python tools/jax_bands.py stream --key 0 --blocks 200 [--mod 64-QAM]
       the DP channel of DpConfig() (23 dB, h0, CD/PMD, theta = pi/10) as one
       continuous stream through StreamingReceiver(adapt=True): the SER of
@@ -45,6 +49,17 @@ def run_nn(key: int, runs: int, bn: bool) -> dict:
     return {"ser_last25": ser[:, -25:].mean(-1).tolist(), "mi_final": mi[:, -1].tolist()}
 
 
+def run_vaeflex(key: int, runs: int) -> dict:
+    from vae_equalizer_tpu.train.dp import train_vae_flex_dp
+    from vae_equalizer_tpu.utils.config import DpConfig
+
+    r = train_vae_flex_dp(DpConfig(), jax.random.PRNGKey(key), runs=runs, compiled=True)
+    ser, mi = np.asarray(r["ser"]), np.asarray(r["mi"])  # (runs, 4, F), (runs, 2, F)
+    return {"soft_ser_last20": ser[:, 2:, -20:].mean((-2, -1)).tolist(),
+            "const_ser_last20": ser[:, :2, -20:].mean((-2, -1)).tolist(),
+            "mi_final": mi[:, :, -1].mean(-1).tolist()}
+
+
 def run_stream(key: int, blocks: int, mod: str, block: int = 2000) -> dict:
     from vae_equalizer_tpu.channels import channel_ir, make_dp_simulator
     from vae_equalizer_tpu.core import make_constellation
@@ -79,7 +94,7 @@ def run_stream(key: int, blocks: int, mod: str, block: int = 2000) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("what", choices=("nn", "stream"))
+    ap.add_argument("what", choices=("nn", "stream", "vaeflex"))
     ap.add_argument("--key", type=int, default=0)
     ap.add_argument("--runs", type=int, default=4)
     ap.add_argument("--bn", action="store_true")
@@ -90,6 +105,8 @@ def main() -> None:
     if a.what == "nn":
         out = {"what": "nn_bn" if a.bn else "nn", "key": a.key, "runs": a.runs,
                **run_nn(a.key, a.runs, a.bn)}
+    elif a.what == "vaeflex":
+        out = {"what": "vaeflex", "key": a.key, "runs": a.runs, **run_vaeflex(a.key, a.runs)}
     else:
         out = {"what": "stream", "key": a.key, **run_stream(a.key, a.blocks, a.mod)}
     out["seconds"] = time.perf_counter() - t0

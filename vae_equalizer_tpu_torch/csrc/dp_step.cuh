@@ -403,17 +403,19 @@ DP_DEV void adam(float* p, float* mo, float* ve, const float* g, int n, float lr
   }
 }
 
-// ---- kernel A's block: one minibatch, outputs in the JAX contract layout
-DP_DEV void step_block(float* smem, int tid, int nt, const float* x, const float* w,
-                       const float* h, const float* amps, const float* P, const float* var,
-                       float nu_sc, int n_sym, int m, int n_lev, float* stats, float* gw,
-                       float* gh, float* q, float* out) {
+// ---- kernel A's block: one run's minibatch, outputs in the JAX contract
+// layout. x's 4 rows (pol*2 + I/Q) lie x_row floats apart, so the block reads
+// a window of a longer frame row in place.
+DP_DEV void step_block(float* smem, int tid, int nt, const float* x, long long x_row,
+                       const float* w, const float* h, const float* amps, const float* P,
+                       const float* var, float nu_sc, int n_sym, int m, int n_lev, float* stats,
+                       float* gw, float* gh, float* q, float* out) {
   const Dims D = make_dims(n_sym, m, n_lev);
   const float var0 = var[0], var1 = var[1];
   const Layout L = make_layout(D, nt);
   const Smem s = carve(smem, L);
   load_consts(D, s, amps, P, nu_sc, tid, nt);
-  load_x(D, s, x, D.n_samp, tid, nt);
+  load_x(D, s, x, x_row, tid, nt);
   for (int i = tid; i < 8 * m; i += nt) {
     s.w[i] = w[i];
     s.h[i] = h[i];
@@ -434,11 +436,14 @@ DP_DEV void step_block(float* smem, int tid, int nt, const float* x, const float
 }
 
 // ---- kernel B's block: run r trains all m_max minibatches of its frame.
-// rx (R, 2, 2, n_total); params/moments (R, 8m); streams per (mb, r):
-// losses (m_max, R), var_est (m_max, R, 2), out/dec/mm/s1 (m_max, R, 2, 2,
-// n_sym), eq (m_max, R, 2, n_sym) = E_q[x^I].
-DP_DEV void frame_block(float* smem, int tid, int nt, int r, int R, int m_max, int n_sym, int m,
-                        int n_lev, long long n_total, const float* rx, const float* w_in,
+// Minibatch mb is the window of n_sym symbols starting at symbol
+// mb * stride_sym (stride_sym = n_sym: back to back; smaller: VAEflex's
+// overlapping windows). rx (R, 2, 2, n_total); params/moments (R, 8m);
+// streams per (mb, r): losses (m_max, R), var_est (m_max, R, 2),
+// out/dec/mm/s1 (m_max, R, 2, 2, n_sym), eq (m_max, R, 2, n_sym) = E_q[x^I].
+DP_DEV void frame_block(float* smem, int tid, int nt, int r, int R, int m_max, int n_sym,
+                        int stride_sym, int m, int n_lev, long long n_total, const float* rx,
+                        const float* w_in,
                         const float* h_in, const float* mw_in, const float* vw_in,
                         const float* mh_in, const float* vh_in, float* w_out, float* h_out,
                         float* mw_out, float* vw_out, float* mh_out, float* vh_out,
@@ -464,7 +469,7 @@ DP_DEV void frame_block(float* smem, int tid, int nt, int r, int R, int m_max, i
   const float* rx_r = rx + (long long)r * 4 * n_total;
   const float ne = (float)D.n_eff;
   for (int mb = 0; mb < m_max; ++mb) {
-    load_x(D, s, rx_r + (long long)mb * D.n_samp, n_total, tid, nt);
+    load_x(D, s, rx_r + (long long)mb * 2 * stride_sym, n_total, tid, nt);
     DP_SYNC();
     dp_step(D, s, var0, var1, tid, nt);
 

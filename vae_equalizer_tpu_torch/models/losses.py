@@ -65,40 +65,42 @@ def conv_bank(h: torch.Tensor) -> torch.Tensor:
 
 def elbo_dp(q: torch.Tensor, rx: torch.Tensor, h_est: torch.Tensor, amps: torch.Tensor,
             P: torch.Tensor, eps: float = 1e-12):
-    """Dual-pol ELBO with PCS prior.
+    """Dual-pol ELBO with PCS prior, any leading batch dims (the runs axis).
 
-    q (2, 2n, N_sym); rx (2, 2, N); h_est (2 out-pol, 2 in-pol, 2, M).
-    Returns (loss, var_est (2,)); var_est = C/(N-Mh) is detached.
+    q (..., 2, 2n, N_sym); rx (..., 2, 2, N); h_est (..., 2 out-pol, 2
+    in-pol, 2, M). Returns (loss (...), var_est (..., 2)); var_est =
+    C/(N-Mh) is detached.
     """
     n_samp = rx.shape[-1]
     sps = n_samp // q.shape[-1]
     mh = h_est.shape[-1] // 2
     mh2 = 2 * mh
 
-    eq, eq2 = posterior_moments(q, amps, sps)  # (2, 2, N)
+    eq, eq2 = posterior_moments(q, amps, sps)  # (..., 2, 2, N)
     var = eq2 - eq * eq
 
     h = h_est[..., : mh2 + 1]
     w = conv_bank(h)
-    cols = eq.reshape(eq.shape[:-3] + (4, n_samp)).unfold(-1, mh2 + 1, 1)  # (4, N-Mh, taps)
-    d = torch.einsum("oij,inj->on", w, cols).reshape(2, 2, n_samp - mh2)
-    d_re, d_im = d[:, 0, :], d[:, 1, :]
+    cols = eq.reshape(eq.shape[:-3] + (4, n_samp)).unfold(-1, mh2 + 1, 1)  # (..., 4, N-Mh, taps)
+    d = torch.einsum("...oij,...inj->...on", w, cols)
+    d = d.reshape(d.shape[:-2] + (2, 2, n_samp - mh2))
+    d_re, d_im = d[..., 0, :], d[..., 1, :]
 
-    h_absq = torch.sum(h * h, dim=2)  # (chi, nu, j)
-    s = _windowed_sums(torch.sum(var, dim=1), mh, n_samp)  # (nu, j)
-    e_term = torch.einsum("xnj,nj->x", h_absq, s)
+    h_absq = torch.sum(h * h, dim=-2)  # (..., chi, nu, j)
+    s = _windowed_sums(torch.sum(var, dim=-2), mh, n_samp)  # (..., nu, j)
+    e_term = torch.einsum("...xnj,...nj->...x", h_absq, s)
 
-    rx_w = rx[:, :, mh : n_samp - mh]
-    c = torch.sum(rx_w * rx_w, dim=(1, 2))
-    c = c - 2.0 * torch.sum(rx_w[:, 0] * d_re + rx_w[:, 1] * d_im, dim=1)
-    c = c + torch.sum(d_re * d_re + d_im * d_im, dim=1) + e_term
+    rx_w = rx[..., mh : n_samp - mh]
+    c = torch.sum(rx_w * rx_w, dim=(-2, -1))
+    c = c - 2.0 * torch.sum(rx_w[..., 0, :] * d_re + rx_w[..., 1, :] * d_im, dim=-1)
+    c = c + torch.sum(d_re * d_re + d_im * d_im, dim=-1) + e_term
 
-    q_c = q[:, :, mh : q.shape[-1] - mh]
-    p_col = P.repeat(2)[None, :, None]
-    kl = torch.sum(-q_c * torch.log(q_c / p_col + eps))
+    q_c = q[..., mh : q.shape[-1] - mh]
+    p_col = P.repeat(2)[:, None]
+    kl = torch.sum(-q_c * torch.log(q_c / p_col + eps), dim=(-3, -2, -1))
 
     n_eff = n_samp - mh2
-    loss = torch.sum(n_eff * torch.log(c)) - kl
+    loss = torch.sum(n_eff * torch.log(c), dim=-1) - kl
     return loss, (c / n_eff).detach()
 
 

@@ -23,14 +23,12 @@ import torch
 
 from ..core.device import resolve_device
 from ..ops.butterfly_kernel import vae_le_dp_forward_fused
-from ..ops.frame_kernel import _adam, frame_opt_init
+from ..ops.frame_kernel import adam_update, frame_opt_init
 from .cma import dirac_taps_dp
 from .losses import elbo_dp
 from .vae_le import butterfly_init, vae_le_dp_forward
 
 __all__ = ["StreamingReceiver"]
-
-_B1, _B2 = 0.9, 0.999
 
 
 @dataclasses.dataclass
@@ -70,20 +68,18 @@ class StreamingReceiver:
                 "tail": torch.zeros((2, 2, self.m_est - 1), dtype=torch.float32, device=self.device)}
 
     def _adapt(self, params: dict, opt: dict, block: torch.Tensor):
-        w, h = params["w"], params["h"]
-        mw, vw, mh, vh, step = opt["mw"], opt["vw"], opt["mh"], opt["vh"], opt["step"]
+        step = opt["step"]
+        moments = {k: opt[k] for k in ("mw", "vw", "mh", "vh")}
         mb = self.adapt_batch * self.sps
         for i in range(block.shape[-1] // mb):
             x = block[..., i * mb : (i + 1) * mb]
-            w_, h_ = w.detach().requires_grad_(), h.detach().requires_grad_()
+            w_, h_ = params["w"].detach().requires_grad_(), params["h"].detach().requires_grad_()
             q, _ = vae_le_dp_forward(w_, x, self.amps, self.var, self.nu_sc, self.sps)
             loss, _ = elbo_dp(q, x, h_, self.amps, self.P)
             gw, gh = torch.autograd.grad(loss, (w_, h_))
-            bc1, bc2 = 1.0 - _B1 ** (step + 1), 1.0 - _B2 ** (step + 1)
-            w, mw, vw = _adam(w, mw, vw, gw, self.lr, bc1, bc2)
-            h, mh, vh = _adam(h, mh, vh, gh, self.lr, bc1, bc2)
+            params, moments = adam_update(params, moments, {"w": gw, "h": gh}, self.lr, step)
             step += 1
-        return {"w": w, "h": h}, {"mw": mw, "vw": vw, "mh": mh, "vh": vh, "step": step}
+        return params, {**moments, "step": step}
 
     def adapt_block(self, state: dict, block: torch.Tensor) -> dict:
         """The adaptation part of ``step``: the state after the block's Adam steps."""

@@ -55,12 +55,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 _P, _I, _LL, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_double
 _SIGNATURES = {
     "dp": {
-        # x, w, h, amps, P, var, nu_sc, n_sym, m, n_lev, stats, gw, gh, q, out, stream
-        "vae_dp_step_launch": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P],
-        # R, m_max, n_sym, m, n_lev, n_total, rx, w, h, mw, vw, mh, vh (in),
-        # w, h, mw, vw, mh, vh (out), losses, var_est, out, dec, eq, mm, s1,
-        # amps, P, var, nu_sc, lr, step0, lr_half_step, stream
-        "vae_dp_frame_launch": [_I, _I, _I, _I, _I, _LL] + [_P] * 7 + [_P] * 6 + [_P] * 7
+        # R, x, x_run, x_row, w, h, amps, P, var, nu_sc, n_sym, m, n_lev, stats, gw,
+        # gh, q, out, stream
+        "vae_dp_step_launch": [_I, _P, _LL, _LL] + [_P] * 5 + [_F, _I, _I, _I] + [_P] * 6,
+        # R, m_max, n_sym, stride_sym, m, n_lev, n_total, rx, w, h, mw, vw, mh,
+        # vh (in), w, h, mw, vw, mh, vh (out), losses, var_est, out, dec, eq, mm,
+        # s1, amps, P, var, nu_sc, lr, step0, lr_half_step, stream
+        "vae_dp_frame_launch": [_I] * 6 + [_LL] + [_P] * 7 + [_P] * 6 + [_P] * 7
         + [_P, _P, _P, _F, _F, _LL, _D, _P],
     },
     "cma": {

@@ -3,12 +3,16 @@
 Replaces the TPU kernel ``vae_equalizer_tpu/ops/elbo_kernel.py:
 vae_dp_loss_and_grad_pallas`` (pallas_call at :361). Computes the fused
 butterfly -> PCS softmin demapper -> DP ELBO forward and the hand-derived
-backward of ``vae_equalizer_tpu/ops/elbo_vjp.py`` (derivation there):
+backward of ``vae_equalizer_tpu/ops/elbo_vjp.py`` (derivation there), for R
+runs' minibatches in one launch (the JAX package vmaps the per-run call):
 
-    loss, var_est, gw (2, 4, M), gh (2, 2, 2, M), q (2, 2n, N), out (2, 2, N)
+    loss (R,), var_est (R, 2), gw (R, 2, 4, M), gh (R, 2, 2, 2, M),
+    q (R, 2, 2n, N), out (R, 2, 2, N)
 
-The CUDA body (``csrc/dp_step.cuh``) is shared with kernel B
-(``ops/frame_kernel.py``), which runs it for all of a frame's minibatches.
+It is the step of the per-step training modes (``train/dp.py``,
+``use_pallas=True``). The CUDA body (``csrc/dp_step.cuh``) is shared with
+kernel B (``ops/frame_kernel.py``), which runs it for all of a frame's
+minibatches.
 
 On the card: one minibatch is ~0.2 MFLOP over a ~40 KB working set, so a
 launch is bound by latency — the dependent phases of the step (forward,
@@ -16,7 +20,8 @@ demapper, D conv, reductions, backward), each a few hundred independent
 items — not by bytes or FLOPs. The design keeps every intermediate of the
 step in one block's shared memory (no device-memory round trips between
 phases), with one thread per output item and fixed-order shared-memory
-tree reductions (no atomics, so results repeat bit for bit).
+tree reductions (no atomics, so results repeat bit for bit); grid = R, one
+block per run, each reading its minibatch in place from the frame row.
 
 Dispatch: a CPU tensor takes ``vae_dp_loss_and_grad_plain`` (the plain
 PyTorch version, also the reference the kernel is checked against on the
@@ -139,10 +144,20 @@ def vae_dp_loss_and_grad_plain(w, h, x, amps, var, nu_sc: float, P, eps: float =
 
 
 def vae_dp_loss_and_grad(w, h, x, amps, var, nu_sc: float, P):
-    """Kernel A. w (2, 4, M), h (2, 2, 2, M), x (2, 2, 2N) -> (loss, var_est,
-    gw, gh, q (2, 2n, N), out (2, 2, N)). CPU tensors take the plain version."""
+    """Kernel A for R runs in one launch, or one run without the runs axis.
+
+    w (R, 2, 4, M), h (R, 2, 2, 2, M), x (R, 2, 2, 2N) -> (loss (R,),
+    var_est (R, 2), gw, gh, q (R, 2, 2n, N), out (R, 2, 2, N)); amps/P (n,),
+    var (2,). ``x`` may be a window of longer frame rows (last axis
+    contiguous, the four rows evenly spaced, as a slice of the simulator's
+    (R, 2, 2, Nsamp) output): the kernel reads it in place. CPU tensors take
+    the plain version."""
     if not x.is_cuda:
         return vae_dp_loss_and_grad_plain(w, h, x, amps, var, nu_sc, P)
+    return _launch(w, h, x, amps, var, nu_sc, P)
+
+
+def _launch(w, h, x, amps, var, nu_sc: float, P):
     dev = x.device
     m = w.shape[-1]
     n_samp = x.shape[-1]
@@ -150,22 +165,34 @@ def vae_dp_loss_and_grad(w, h, x, amps, var, nu_sc: float, P):
     n_lev = amps.shape[0]
     if m % 2 != 1 or n_samp % 2 != 0:
         raise ValueError("kernel A needs odd M and an even sample count (sps = 2)")
-    for name, t, shape in (("w", w, (2, 4, m)), ("h", h, (2, 2, 2, m)), ("x", x, (2, 2, n_samp)),
+    lead = tuple(w.shape[:-3])
+    if len(lead) > 1:
+        raise ValueError(f"w: expected (2, 4, M) or (R, 2, 4, M), got {tuple(w.shape)}")
+    R = lead[0] if lead else 1
+    for name, t, shape in (("w", w, lead + (2, 4, m)), ("h", h, lead + (2, 2, 2, m)),
                            ("amps", amps, (n_lev,)), ("P", P, (n_lev,)), ("var", var, (2,))):
         _build.check_tensor(name, t, shape, dev)
+    if x.device != dev or x.dtype != torch.float32 or tuple(x.shape) != lead + (2, 2, n_samp):
+        raise ValueError(f"x: expected a float32 tensor of shape {lead + (2, 2, n_samp)} on {dev}, "
+                         f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+    row = x.stride(-2)
+    if x.stride(-1) != 1 or x.stride(-3) != 2 * row or row < n_samp:
+        raise ValueError(f"x: needs a contiguous last axis and evenly spaced rows, got strides "
+                         f"{x.stride()}")
     lib = _build.load()
     f32 = dict(dtype=torch.float32, device=dev)
-    stats = torch.empty(3, **f32)
-    gw = torch.empty((2, 4, m), **f32)
-    gh = torch.empty((2, 2, 2, m), **f32)
-    q = torch.empty((2, 2 * n_lev, n_sym), **f32)
-    out = torch.empty((2, 2, n_sym), **f32)
+    stats = torch.empty(lead + (3,), **f32)
+    gw = torch.empty(lead + (2, 4, m), **f32)
+    gh = torch.empty(lead + (2, 2, 2, m), **f32)
+    q = torch.empty(lead + (2, 2 * n_lev, n_sym), **f32)
+    out = torch.empty(lead + (2, 2, n_sym), **f32)
     rc = lib.vae_dp_step_launch(
-        *(t.data_ptr() for t in (x, w, h, amps, P, var)), nu_sc, n_sym, m, n_lev,
+        R, x.data_ptr(), x.stride(0) if lead else 0, row,
+        *(t.data_ptr() for t in (w, h, amps, P, var)), nu_sc, n_sym, m, n_lev,
         *(t.data_ptr() for t in (stats, gw, gh, q, out)), _build.stream(dev))
     _build.check(rc, "vae_dp_step_launch")
     vae_dp_loss_and_grad.launches += 1
-    return stats[0], stats[1:3], gw, gh, q, out
+    return stats[..., 0], stats[..., 1:3], gw, gh, q, out
 
 
 vae_dp_loss_and_grad.launches = 0
@@ -174,7 +201,8 @@ vae_dp_loss_and_grad.launches = 0
 class VaeDpLoss(torch.autograd.Function):
     """The fused DP loss as an autograd node: forward runs kernel A (or its
     plain version on the CPU) and saves gw/gh; backward scales them by the
-    incoming gradient. Returns (loss, var_est); var_est carries no gradient."""
+    incoming gradient (per run, with a runs axis). Returns (loss, var_est);
+    var_est carries no gradient."""
 
     @staticmethod
     def forward(ctx, w, h, x, amps, var, nu_sc, P):
@@ -186,4 +214,5 @@ class VaeDpLoss(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_loss, g_var_est):
         gw, gh = ctx.saved_tensors
-        return g_loss * gw, g_loss * gh, None, None, None, None, None
+        g = g_loss[..., None, None, None]
+        return g * gw, g[..., None] * gh, None, None, None, None, None

@@ -1,15 +1,17 @@
-"""Optical dual-pol processing loops: VAE online training (the flagship
-``Eval_run_DP`` path) and the CMA / CMAbatch / CMAflex baselines.
+"""Optical dual-pol processing loops: VAE and VAEflex online training (the
+flagship ``Eval_run_DP`` path) and the CMA / CMAbatch / CMAflex baselines.
 
-Port of ``vae_equalizer_tpu/train/dp.py``: ``train_vae_dp(use_pallas=
-"frame")`` (``_setup``, ``_frame_inputs``, the sufficient-statistics branch
-of ``_dp_frame_eval_mb``, ``_finish_vae_frame``,
-``_run_frame_kernel_experiment``) and ``run_cma_dp`` (``_dp_frame_eval``).
+Port of ``vae_equalizer_tpu/train/dp.py``: ``train_vae_dp`` and
+``train_vae_flex_dp`` in their three modes (``_setup``, ``_frame_inputs``,
+``_vae_optimizer`` as ``ops/frame_kernel.py: adam_update``, both branches of
+``_dp_frame_eval_mb``, ``_finish_vae_frame``, ``_run_frame_kernel_experiment``
+and the per-step ``lax.scan`` loops) and ``run_cma_dp`` (``_dp_frame_eval``).
 Frame semantics follow the reference (func_VAELE_DP_MQAM_shaping.py:17-95,
-func_CMA*_DP_MQAM_shaping.py): every frame draws fresh channel data with the
-polarization angle advanced by theta_diff, trains or adapts online (one
-kernel launch per frame for all R runs, ``ops/``), and measures SER/MI on
-the frame's own outputs.
+func_VAEflex_DP_MQAM_shaping.py:16-90, func_CMA*_DP_MQAM_shaping.py): every
+frame draws fresh channel data with the polarization angle advanced by
+theta_diff, trains or adapts online (``ops/``: one kernel launch per frame,
+or per minibatch in the VAE's per-step modes, for all R runs), and measures
+SER/MI on the frame's own outputs.
 
 SER layout matches the reference: rows 0:2 per-pol SER of the constellation
 output (PCS decision boundaries), rows 2:4 per-pol soft SER (IQ-flip family).
@@ -34,16 +36,26 @@ from ..metrics import (
 )
 from ..metrics.ser import _decode_levels
 from ..metrics.sync import _dp_shift_core
-from ..models import butterfly_init, cma_batch_dp, cma_dp, cma_flex_dp, dirac_taps_dp, soft_demap_dp
+from ..models import (
+    butterfly_init,
+    cma_batch_dp,
+    cma_dp,
+    cma_flex_dp,
+    dirac_taps_dp,
+    elbo_dp,
+    soft_demap_dp,
+    vae_le_dp_forward,
+)
 from ..ops.cma_frame_kernel import cma_chunked_frame
 from ..ops.cma_kernel import cma_dp_kernel
-from ..ops.frame_kernel import frame_opt_init, vae_dp_frame_train
+from ..ops.elbo_kernel import vae_dp_loss_and_grad
+from ..ops.frame_kernel import adam_update, frame_opt_init, vae_dp_frame_train
 from ..utils.config import DpConfig
 from .eval_utils import align_idx_dp, align_tx_dp, batch_cut_weight, margin_weight_maxshift
 from .harness import Progress, pack_metrics, run_frame_loop
 from .modes import check_pallas_mode
 
-__all__ = ["run_cma_dp", "train_vae_dp"]
+__all__ = ["run_cma_dp", "train_vae_dp", "train_vae_flex_dp"]
 
 # Correlation window of the per-frame sync searches (train/dp.py:76 of the
 # JAX package): a contiguous 2000-symbol prefix finds the global delay with
@@ -88,8 +100,8 @@ def _dp_frame_eval_mb(out_const, tx, amps, P, nu_sc, var, weight_fn, dec, eq, ou
     eval streams (the JAX stats branch, train/dp.py:187-214).
 
     out_const/dec (R, 2, 2, N); eq (R, 2, N); out_mb/mm_mb/s1_mb
-    (R, n_mb, 2, 2, bl); tx (R, 2, 2, N). Returns per-run
-    (ser_const, ser_soft, mi) (R, 2) and (shift (R, 2), r (R,)).
+    (R, n_mb, 2, 2, bl); tx (R, 2, 2, N); weight_fn as in ``_dp_frame_eval``.
+    Returns per-run (ser_const, ser_soft, mi) (R, 2) and (shift (R, 2), r (R,)).
     """
     num_lev = amps.shape[0]
     shift, r = _dp_shift_core(eq, tx, 21, corr_len=_SYNC_CORR_LEN)
@@ -99,7 +111,7 @@ def _dp_frame_eval_mb(out_const, tx, amps, P, nu_sc, var, weight_fn, dec, eq, ou
     def aligned(sh, rr):
         s0 = sh[..., 0, None, None]
         ms = sh.abs().max(dim=-1).values[..., None, None]
-        return align_idx_dp(idx, sh, rr, lambda t: weight_fn(s0, ms, t=t))
+        return align_idx_dp(idx, sh, rr, lambda t: weight_fn(s0, ms, t))
 
     idx_al, w_al = aligned(shift, r)
     ser_soft = _roll_pol(ser_iqflip_from_dec(dec, None, num_lev, weight=w_al, tx_idx=idx_al), r)
@@ -111,17 +123,9 @@ def _dp_frame_eval_mb(out_const, tx, amps, P, nu_sc, var, weight_fn, dec, eq, ou
     return ser_const, ser_soft, mi, shift, r
 
 
-def _finish_vae_frame(losses, out_mb, var_est, tx, const, amps, P, var, weight_fn, sigma,
-                      dec_mb, eq_mb, mm_mb, s1_mb):
-    """Kernel streams (m_max, R, ...) -> evaluate -> packed metrics (R, n_tot)."""
-    runs_first = lambda a: a.movedim(0, 1)  # (m_max, R, ...) -> (R, m_max, ...)
-    out_mb, dec_mb, eq_mb, mm_mb, s1_mb, var_est = map(
-        runs_first, (out_mb, dec_mb, eq_mb, mm_mb, s1_mb, var_est))
-    time_major = lambda a: a.movedim(-4, -2).flatten(-2)  # (R, m, 2, 2, bl) -> (R, 2, 2, N)
-    out_const, dec = time_major(out_mb), time_major(dec_mb)
-    eq = eq_mb.movedim(-3, -2).flatten(-2)  # (R, m, 2, bl) -> (R, 2, N)
-    ser_const, ser_soft, mi, shift, r = _dp_frame_eval_mb(
-        out_const, tx, amps, P, const.nu_sc, var, weight_fn, dec, eq, out_mb, mm_mb, s1_mb)
+def _vae_metrics(losses, ser_const, ser_soft, mi, var_est, shift, r, sigma, const):
+    """A VAE frame's metrics packed (R, n_tot): losses (steps, R), var_est
+    (R, steps, 2), the eval's per-run results and the channel's sigma (R,)."""
     snr_est = const.pow_mean / var_est.mean(dim=(-2, -1))
     metrics = {
         "loss": losses[-1],
@@ -137,17 +141,46 @@ def _finish_vae_frame(losses, out_mb, var_est, tx, const, amps, P, var, weight_f
     return pack_metrics(metrics, _VAE_FIELDS, batch_ndim=1)
 
 
+def _finish_vae_frame(losses, out_mb, var_est, tx, const, amps, P, var, weight_fn, sigma,
+                      dec_mb, eq_mb, mm_mb, s1_mb):
+    """Kernel B's streams (m_max, R, ...) -> evaluate -> packed metrics (R, n_tot)."""
+    runs_first = lambda a: a.movedim(0, 1)  # (m_max, R, ...) -> (R, m_max, ...)
+    out_mb, dec_mb, eq_mb, mm_mb, s1_mb, var_est = map(
+        runs_first, (out_mb, dec_mb, eq_mb, mm_mb, s1_mb, var_est))
+    time_major = lambda a: a.movedim(-4, -2).flatten(-2)  # (R, m, 2, 2, bl) -> (R, 2, 2, N)
+    out_const, dec = time_major(out_mb), time_major(dec_mb)
+    eq = eq_mb.movedim(-3, -2).flatten(-2)  # (R, m, 2, bl) -> (R, 2, N)
+    ser_const, ser_soft, mi, shift, r = _dp_frame_eval_mb(
+        out_const, tx, amps, P, const.nu_sc, var, weight_fn, dec, eq, out_mb, mm_mb, s1_mb)
+    return _vae_metrics(losses, ser_const, ser_soft, mi, var_est, shift, r, sigma, const)
+
+
+def _finish_step_frame(losses, q, out_const, var_est, tx, const, amps, P, var, weight_fn, sigma):
+    """The per-step modes' streams -> evaluate the posteriors (the q branch of
+    JAX's ``_dp_frame_eval_mb``, train/dp.py:216-231, which is
+    ``_dp_frame_eval`` in minibatch memory order) -> packed metrics.
+    q (R, 2, 2n, N) and out_const (R, 2, 2, N) time-major; losses (steps,
+    R); var_est (R, steps, 2)."""
+    ser_const, ser_soft, mi, (shift, r), _ = _dp_frame_eval(
+        q, out_const, tx, amps, P, const.nu_sc, var, weight_fn)
+    return _vae_metrics(losses, ser_const, ser_soft, mi, var_est, shift, r, sigma, const)
+
+
 def _dp_frame_eval(q, out_const, tx, amps, P, nu_sc, var, weight_fn):
     """Sync -> align tx -> masked SER (+ MI) from the posteriors (the JAX
     q-stream eval, train/dp.py:116-150).
 
-    q (R, 2, 2n, N); out_const/tx (R, 2, 2, N); weight_fn(shift0, max_shift)
-    -> (R, N) eval mask. Returns per-run (ser_const, ser_soft, mi) (R, 2),
-    the posterior sync (shift (R, 2), r (R,)) and the constellation sync
-    (shift_c, r_c).
+    q (R, 2, 2n, N); out_const/tx (R, 2, 2, N); weight_fn(shift0, max_shift,
+    t) -> the eval mask at symbol positions t, here (R, N) for shift0 and
+    max_shift (R, 1) and t (N,). Returns per-run (ser_const, ser_soft, mi)
+    (R, 2), the posterior sync (shift (R, 2), r (R,)) and the constellation
+    sync (shift_c, r_c).
     """
+    t = torch.arange(tx.shape[-1], device=tx.device)
+
     def aligned(sh, rr):
-        return align_tx_dp(tx, sh, rr, weight_fn(sh[..., 0], sh.abs().max(dim=-1).values))
+        w = weight_fn(sh[..., 0, None], sh.abs().max(dim=-1).values[..., None], t)
+        return align_tx_dp(tx, sh, rr, w)
 
     shift, r = find_shift_dp(q, tx, 21, amps, corr_len=_SYNC_CORR_LEN)
     tx_al, w_al = aligned(shift, r)
@@ -161,11 +194,15 @@ def _dp_frame_eval(q, out_const, tx, amps, P, nu_sc, var, weight_fn):
     return ser_const, ser_soft, mi, (shift, r), (shift_c, r_c)
 
 
-def _margin_weight_fn(n_eval: int, device):
-    """weight_fn(shift0, max_shift) of the CMA eval: the plain margin trim
-    [11 : n - 11 - max|shift|] per run, (R, n_eval)."""
-    t = torch.arange(n_eval, device=device)
-    return lambda s0, ms: margin_weight_maxshift(n_eval, ms[..., None], t=t)
+def _margin_weight_fn(n_eval: int):
+    """weight_fn(shift0, max_shift, t) of the plain margin trim
+    [11 : n - 11 - max|shift|] per run (the CMA and VAEflex evals)."""
+    return lambda s0, ms, t: margin_weight_maxshift(n_eval, ms, t=t)
+
+
+def _batch_cut_weight_fn(m_max: int, batch_len: int, n_cut: int):
+    """weight_fn(shift0, max_shift, t) of the VAE's per-batch edge cut."""
+    return lambda s0, ms, t: batch_cut_weight(m_max, batch_len, s0, ms, n_cut, t=t)
 
 
 def _finish_cma_frame(out, e, tx, sigma, const, amps, P, var, n_cut: int, weight_fn):
@@ -200,13 +237,69 @@ def _dp_result(hist: dict, var, **extra) -> dict:
     }
 
 
-def _run_frame_kernel_experiment(cfg, gen, const, amps, P, var, draws, *, steps_per_frame,
-                                 weight_fn, params, runs, progress):
-    """One kernel B launch per frame for all runs; the carry is (params, Adam
+def _frame_kernel_train(cfg, const, amps, P, var, *, stride_sym, crop, tx_of, weight_fn, thresh):
+    """``use_pallas="frame"``: a frame's training is one kernel B launch for
+    all runs (JAX ``_run_frame_kernel_experiment``); VAEflex's windows crop
+    the eval streams to their central ``crop`` (``crop_flex``)."""
+    def train(params, opt, count, rx, tx, sigma):
+        (w, h, opt, losses, var_est, out_mb, dec_mb, eq_mb, mm_mb, s1_mb) = vae_dp_frame_train(
+            params["w"], params["h"], opt, rx, amps, var, const.nu_sc, P, cfg.lr, count, thresh,
+            bl_sym=cfg.batch_len, stride_sym=stride_sym)
+        streams = (a[..., crop] for a in (out_mb, dec_mb, eq_mb, mm_mb, s1_mb))
+        out_mb, dec_mb, eq_mb, mm_mb, s1_mb = streams
+        packed = _finish_vae_frame(losses, out_mb, var_est, tx_of(tx), const, amps, P, var,
+                                   weight_fn, sigma, dec_mb, eq_mb, mm_mb, s1_mb)
+        return {"w": w, "h": h}, opt, packed
+    return train
+
+
+def _step_train(cfg, const, amps, P, var, *, use_kernel, n_steps, stride_sym, crop, tx_of,
+                weight_fn, thresh):
+    """The per-step modes (JAX's ``lax.scan`` over minibatches): each window
+    is one step for all runs, then one Adam update. ``use_kernel`` (True):
+    the step is kernel A, launched once for all runs on the window read in
+    place (its plain version on a CPU tensor). False: autograd through the
+    model and the ELBO (``jax.value_and_grad(loss_fn)``, train/dp.py:570-591)
+    — not kernel A's closed form, so the two modes witness each other. The
+    q and out streams, cropped to ``crop``, are evaluated time-major."""
+    mb_len, hop = cfg.batch_len * cfg.sps, stride_sym * cfg.sps
+
+    def kernel_step(params, x):
+        loss, var_est, gw, gh, q, out = vae_dp_loss_and_grad(
+            params["w"], params["h"], x, amps, var, const.nu_sc, P)
+        return loss, var_est, {"w": gw, "h": gh}, q, out
+
+    def autograd_step(params, x):
+        w, h = (params[k].detach().requires_grad_() for k in ("w", "h"))
+        q, out = vae_le_dp_forward(w, x, amps, var, const.nu_sc, cfg.sps)
+        loss, var_est = elbo_dp(q, x, h, amps, P)
+        gw, gh = torch.autograd.grad(loss.sum(), (w, h))  # runs are independent
+        return loss.detach(), var_est, {"w": gw, "h": gh}, q.detach(), out.detach()
+
+    step = kernel_step if use_kernel else autograd_step
+
+    def train(params, opt, count, rx, tx, sigma):
+        losses, var_est, q, out = [], [], [], []
+        for m in range(n_steps):
+            loss_m, var_m, grads, q_m, out_m = step(params, rx[..., m * hop : m * hop + mb_len])
+            params, opt = adam_update(params, opt, grads, cfg.lr, count + m, thresh)
+            losses.append(loss_m)
+            var_est.append(var_m)
+            q.append(q_m[..., crop])
+            out.append(out_m[..., crop])
+        packed = _finish_step_frame(torch.stack(losses), torch.cat(q, -1), torch.cat(out, -1),
+                                    torch.stack(var_est, -2), tx_of(tx), const, amps, P, var,
+                                    weight_fn, sigma)
+        return params, opt, packed
+    return train
+
+
+def _run_vae_experiment(cfg, gen, var, draws, train, *, steps_per_frame, params, runs, progress):
+    """The VAE / VAEflex frame loop for every mode: the carry is (params, Adam
     moments, global step count), so the lr schedule and bias correction
-    continue across frames."""
+    continue across frames; ``train(params, opt, count, rx, tx, sigma) ->
+    (params, opt, packed)`` trains and evaluates one frame of all runs."""
     R = 1 if runs is None else runs
-    thresh = float(cfg.n_lrhalf) * steps_per_frame
     tail = {"w": 3, "h": 4}  # w (2, 4, M), h (2, 2, 2, M), with or without a runs axis
     params = {k: v.expand((R,) + v.shape[-tail[k]:]).contiguous() for k, v in params.items()}
     carry = (params, frame_opt_init(params), 0)
@@ -215,14 +308,10 @@ def _run_frame_kernel_experiment(cfg, gen, const, amps, P, var, draws, *, steps_
         params, opt, count = carry
         levels, noise = draws(frame, R)
         rx, tx, sigma = gen.physics(theta, levels, noise)
-        (w, h, opt, losses, var_est, out_mb, dec_mb, eq_mb, mm_mb, s1_mb) = vae_dp_frame_train(
-            params["w"], params["h"], opt, rx, amps, var, const.nu_sc, P, cfg.lr, count, thresh,
-            bl_sym=cfg.batch_len)
-        packed = _finish_vae_frame(losses, out_mb, var_est, tx, const, amps, P, var, weight_fn,
-                                   sigma, dec_mb, eq_mb, mm_mb, s1_mb)
+        params, opt, packed = train(params, opt, count, rx, tx, sigma)
         if runs is None:
             packed = packed[0]
-        return ({"w": w, "h": h}, opt, count + steps_per_frame), packed
+        return (params, opt, count + steps_per_frame), packed
 
     (params, _, _), hist = run_frame_loop(
         frame_step, carry, (range(cfg.num_frames), _frame_inputs(cfg, var.device)), _VAE_FIELDS,
@@ -232,7 +321,8 @@ def _run_frame_kernel_experiment(cfg, gen, const, amps, P, var, draws, *, steps_
     return _dp_result(hist, var, params=params)
 
 
-_DEFERRED = "not ported yet (ROADMAP.md, queue 1: 'Deferred train_vae_dp options')"
+_DEFERRED = ("not ported yet (ROADMAP.md, queue 1: 'Deferred train_vae_dp / train_vae_flex_dp "
+             "options')")
 _DEFERRED_CMA = "not ported yet (ROADMAP.md, queue 1: 'Deferred run_cma_dp options')"
 
 
@@ -248,6 +338,33 @@ def _default_draws(gen, seed: int, device):
     return lambda frame, R: gen.draws(rng, R)
 
 
+def _vae_setup(loss_type, cfg, seed, device, params_init, use_pallas, draws, deferred):
+    """What both VAE runners share: the mode and option checks, then (device,
+    n_frame, constellation, demapper var, simulator, amps, P, params, draws)
+    for frames of n_frame = (n_frame_max // batch_len) * batch_len symbols."""
+    check_pallas_mode(loss_type, use_pallas)
+    _raise_deferred(deferred, _DEFERRED)
+    if use_pallas and (cfg.sps != 2 or cfg.m_est % 2 == 0):
+        raise ValueError("use_pallas requires sps=2 and odd M_est")
+    device = resolve_device(device)
+    n_frame = cfg.n_frame_max // cfg.batch_len * cfg.batch_len
+    const, var, gen, amps, P = _setup(cfg, n_frame, device)
+    params = params_init or {"w": butterfly_init(cfg.m_est, device), "h": dirac_taps_dp(cfg.m_est, device)}
+    params = {k: torch.as_tensor(v, dtype=torch.float32).to(device) for k, v in params.items()}
+    return device, n_frame, const, var, gen, amps, P, params, draws or _default_draws(gen, seed, device)
+
+
+def _deferred_options(checkpoint, checkpoint_every, stream_bf16, lr_vec, snr_vec, nu_vec, mesh,
+                      compiled, chunk_frames) -> dict:
+    return {
+        "checkpoint": checkpoint is not None or checkpoint_every != 0,
+        "stream_bf16": stream_bf16,
+        "lr_vec/snr_vec/nu_vec": lr_vec is not None or snr_vec is not None or nu_vec is not None,
+        "mesh": mesh is not None,
+        "compiled/chunk_frames": compiled or chunk_frames != 1,
+    }
+
+
 def train_vae_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progress = None,
                  runs: int | None = None, mesh=None, params_init=None, compiled: bool = False,
                  use_pallas="frame", checkpoint=None, checkpoint_every: int = 0,
@@ -255,42 +372,73 @@ def train_vae_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progress = N
                  nu_vec=None, draws=None) -> dict:
     """VAE-LE butterfly, online frame training on the optical DP channel.
 
-    ``use_pallas="frame"``: all of a frame's minibatch steps (incl. Adam)
-    run as one kernel B launch for all ``runs`` (``ops/frame_kernel.py``) —
-    the CUDA kernel for a CUDA ``device``, its plain version on the CPU.
-    The channel draws come from a ``torch.Generator`` seeded with ``seed``,
-    or from ``draws(frame, runs) -> (levels (R, 4, n_conv), noise
-    (R, 2, 2, sig_len))`` where given (how tests feed the JAX package's
-    draws). sps = 2 and odd M.
+    ``use_pallas`` (``train/modes.py``): ``"frame"`` runs all of a frame's
+    minibatch steps (incl. Adam) as one kernel B launch for all ``runs``
+    (``ops/frame_kernel.py``); ``True`` runs each minibatch of all runs as
+    one kernel A launch (``ops/elbo_kernel.py``) followed by Adam; ``False``
+    takes each minibatch's gradient by autograd through the model and the
+    ELBO. A kernel mode launches the CUDA kernel for a CUDA ``device`` and
+    takes its plain version on the CPU. The channel draws come from a
+    ``torch.Generator`` seeded with ``seed``, or from ``draws(frame, runs) ->
+    (levels (R, 4, n_conv), noise (R, 2, 2, sig_len))`` where given (how
+    tests feed the JAX package's draws). The kernel modes need sps = 2 and
+    odd M.
 
     Returns {"ser" (..., 4, F), "mi" (..., 2, F), "var_est" (..., 2, F),
     "var" (2,), "params" {"w", "h"}} with a leading runs axis iff ``runs``.
     """
-    check_pallas_mode("VAE", use_pallas)
-    deferred = {
-        "checkpoint": checkpoint is not None or checkpoint_every != 0,
-        f"use_pallas={use_pallas!r} (the per-step modes)": use_pallas != "frame",
-        "stream_bf16": stream_bf16,
-        "lr_vec/snr_vec/nu_vec": lr_vec is not None or snr_vec is not None or nu_vec is not None,
-        "mesh": mesh is not None,
-        "compiled/chunk_frames": compiled or chunk_frames != 1,
-    }
-    _raise_deferred(deferred, _DEFERRED)
-    if cfg.sps != 2 or cfg.m_est % 2 == 0:
-        raise ValueError('use_pallas="frame" requires sps=2 and odd M_est')
+    deferred = _deferred_options(checkpoint, checkpoint_every, stream_bf16, lr_vec, snr_vec, nu_vec,
+                                 mesh, compiled, chunk_frames)
+    device, n_frame, const, var, gen, amps, P, params, draws = _vae_setup(
+        "VAE", cfg, seed, device, params_init, use_pallas, draws, deferred)
+    m_max = n_frame // cfg.batch_len
+    kw = dict(stride_sym=cfg.batch_len, crop=slice(None), tx_of=lambda tx: tx,
+              weight_fn=_batch_cut_weight_fn(m_max, cfg.batch_len, cfg.n_cut),
+              thresh=float(cfg.n_lrhalf) * m_max)
+    if use_pallas == "frame":
+        train = _frame_kernel_train(cfg, const, amps, P, var, **kw)
+    else:
+        train = _step_train(cfg, const, amps, P, var, use_kernel=use_pallas, n_steps=m_max, **kw)
+    return _run_vae_experiment(cfg, gen, var, draws, train, steps_per_frame=m_max, params=params,
+                               runs=runs, progress=progress)
 
-    device = resolve_device(device)
-    m_max = cfg.n_frame_max // cfg.batch_len
-    n_frame = m_max * cfg.batch_len
-    const, var, gen, amps, P = _setup(cfg, n_frame, device)
-    params = params_init or {"w": butterfly_init(cfg.m_est, device), "h": dirac_taps_dp(cfg.m_est, device)}
-    params = {k: torch.as_tensor(v, dtype=torch.float32).to(device) for k, v in params.items()}
-    draws = draws or _default_draws(gen, seed, device)
 
-    return _run_frame_kernel_experiment(
-        cfg, gen, const, amps, P, var, draws, steps_per_frame=m_max,
-        weight_fn=lambda s0, ms, t=None: batch_cut_weight(m_max, cfg.batch_len, s0, ms, cfg.n_cut, t=t),
-        params=params, runs=runs, progress=progress)
+def train_vae_flex_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progress = None,
+                      runs: int | None = None, mesh=None, params_init=None, compiled: bool = False,
+                      use_pallas=False, checkpoint=None, checkpoint_every: int = 0,
+                      chunk_frames: int = 1, runs_batch: int | None = None,
+                      stream_bf16: bool = False, lr_vec=None, snr_vec=None, nu_vec=None,
+                      draws=None) -> dict:
+    """VAEflex: overlapping sliding-window minibatches with a central crop
+    (func_VAEflex_DP_MQAM_shaping.py:16-90, JAX ``train_vae_flex_dp``).
+
+    Window m covers symbols [m * flex_step, m * flex_step + batch_len) of the
+    frame; there are (n_frame - batch_len) // flex_step windows, and the
+    central flex_step symbols of each, from (batch_len - flex_step) // 2 on,
+    are the recorded stream, held against tx from batch_len // 2 on.
+    ``use_pallas``: ``"frame"`` runs all windows (incl. Adam) as one kernel B
+    launch with ``stride_sym = flex_step``; ``True`` runs each window of all
+    runs as one kernel A launch; ``False`` takes each window's gradient by
+    autograd. Arguments, draws and returns as ``train_vae_dp``.
+    """
+    deferred = _deferred_options(checkpoint, checkpoint_every, stream_bf16, lr_vec, snr_vec, nu_vec,
+                                 mesh, compiled, chunk_frames)
+    deferred["runs_batch"] = runs_batch is not None
+    device, n_frame, const, var, gen, amps, P, params, draws = _vae_setup(
+        "VAEflex", cfg, seed, device, params_init, use_pallas, draws, deferred)
+    fs, bl = cfg.flex_step, cfg.batch_len
+    n_windows = (n_frame - bl) // fs
+    m_max = n_windows * fs  # symbols of the recorded stream
+    crop0 = (bl - fs) // 2
+    kw = dict(stride_sym=fs, crop=slice(crop0, crop0 + fs),
+              tx_of=lambda tx: tx[..., bl // 2 : bl // 2 + m_max],
+              weight_fn=_margin_weight_fn(m_max), thresh=float(cfg.n_lrhalf) * n_windows)
+    if use_pallas == "frame":
+        train = _frame_kernel_train(cfg, const, amps, P, var, **kw)
+    else:
+        train = _step_train(cfg, const, amps, P, var, use_kernel=use_pallas, n_steps=n_windows, **kw)
+    return _run_vae_experiment(cfg, gen, var, draws, train, steps_per_frame=n_windows,
+                               params=params, runs=runs, progress=progress)
 
 
 def run_cma_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progress = None,
@@ -352,7 +500,7 @@ def run_cma_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progress = Non
         h = torch.from_numpy(np.array(h, np.float32))  # a copy: JAX arrays are read-only
     h = h.to(device, torch.float32)
     h = h.expand((R,) + h.shape[-4:]).contiguous()
-    weight_fn = _margin_weight_fn(n_eval, device)
+    weight_fn = _margin_weight_fn(n_eval)
     lrs = (np.float32(cfg.lr) * 0.5 ** (np.arange(cfg.num_frames) // cfg.n_lrhalf)).astype(np.float32)
 
     def frame_step(h, frame, theta, lr):

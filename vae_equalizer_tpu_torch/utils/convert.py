@@ -37,12 +37,30 @@ def params_from_jax(params: dict, device="cpu") -> dict[str, torch.Tensor]:
     return {"w": w, "h": h}
 
 
-def opt_from_jax(opt: dict, device="cpu") -> dict[str, torch.Tensor]:
-    """Adam moments {"mw", "vw", "mh", "vh"} (frame-kernel layout) -> torch."""
-    m = np.asarray(opt["mw"]).shape[-1]
-    out = {k: _copy(k, opt[k], (2, 4, m), device) for k in ("mw", "vw")}
-    out.update({k: _copy(k, opt[k], (2, 2, 2, m), device) for k in ("mh", "vh")})
-    return out
+def opt_from_jax(opt, device="cpu"):
+    """Adam state of the JAX package -> torch moments {"mw", "vw", "mh", "vh"}
+    in the shapes of w (..., 2, 4, M) and h (..., 2, 2, 2, M).
+
+    ``opt`` is either the frame kernel's moments dict (``frame_opt_init``
+    layout), returned as that dict, or the per-step path's optax state
+    (``train/dp.py: _vae_optimizer``, a ``multi_transform`` of one Adam per
+    parameter group, with or without a runs axis), returned as (moments, the
+    step count = the next update's step for ``adam_update``)."""
+    if isinstance(opt, dict):
+        m = np.asarray(opt["mw"]).shape[-1]
+        out = {k: _copy(k, opt[k], (2, 4, m), device) for k in ("mw", "vw")}
+        out.update({k: _copy(k, opt[k], (2, 2, 2, m), device) for k in ("mh", "vh")})
+        return out
+    moments, counts = {}, set()
+    for group in ("w", "h"):
+        adam = _find_state(opt.inner_states[group], "mu")
+        if adam is None:
+            raise ValueError(f"no optax Adam state (mu / nu) for the {group!r} group")
+        moments["m" + group], moments["v" + group] = adam.mu[group], adam.nu[group]
+        counts.update(np.asarray(adam.count).reshape(-1).tolist())
+    if len(counts) != 1:
+        raise ValueError(f"the Adam step counts disagree: {sorted(counts)}")
+    return opt_from_jax(moments, device), int(counts.pop())
 
 
 def taps_from_jax(h, device="cpu") -> torch.Tensor:
@@ -94,16 +112,17 @@ def nn_params_from_jax(params: dict, bn_state=None, device="cpu") -> dict:
     return out
 
 
-def _find_amsgrad(state):
-    """The ``ScaleByAmsgradState`` inside an optax state (a chain tuple, or
-    ``multi_transform``'s inner states for Net_BN)."""
-    if hasattr(state, "nu_max"):
+def _find_state(state, attr: str):
+    """The first optax state with field ``attr`` inside ``state`` (a chain
+    tuple, a masked state, or ``multi_transform``'s inner states):
+    "nu_max" finds the AMSGrad state, "mu" the Adam state."""
+    if hasattr(state, attr):
         return state
     children = state.values() if isinstance(state, dict) else (
         state if isinstance(state, tuple) else vars(state).values() if hasattr(state, "__dict__")
         else ())
     for child in children:
-        found = _find_amsgrad(child)
+        found = _find_state(child, attr)
         if found is not None:
             return found
     return None
@@ -116,7 +135,7 @@ def nn_amsgrad_state_from_jax(state, device="cpu") -> tuple[dict[str, torch.Tens
     = the next update's step0)."""
     from ..ops.nn_frame_kernel import flatten_nn_params
 
-    ams = _find_amsgrad(state)
+    ams = _find_state(state, "nu_max")
     if ams is None:
         raise ValueError("no optax AMSGrad state (mu / nu / nu_max) found")
     moments = {}
