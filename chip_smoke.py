@@ -12,7 +12,9 @@ the AWGN VAE-LE experiment (``train_vae_le_awgn``, 20 runs), the AWGN VAE-NN
 experiment (``train_vae_nn_awgn``, Net and Net_BN, 8 runs), the streaming DP
 receiver (``models.streaming.StreamingReceiver``) and VAEflex
 (``train_vae_flex_dp``, 8 runs, kernel B with stride_sym = 10, and kernel A
-per window). One line per phase:
+per window), kernel B's per-run constants and the Eval_run_DP sweep driver
+(``drivers/eval_run_dp.py``: the lr, SNR and nu axes batched into the runs
+of one kernel B launch per frame). One line per phase:
 
   1. device    card name and power limit (nvidia-smi)
   2. build     nvcc build of kernels A-H (one nvcc per source, in parallel),
@@ -60,6 +62,21 @@ per window). One line per phase:
                channel / kernel B / eval split
  20. VAEflex   use_pallas=True (kernel A per window) against "frame" on shared
      per-step  draws, 5 frames from phase 19's taps; frame times
+ 21. kernel B  per-run lr / var / nu_sc / P, R = 8 (8 lr, SNR 16-23 dB, nu 0 and
+     per run   0.0270955): (a) a 3-minibatch frame across the lr halving vs
+               plain; (b) constant vectors vs the shared form and rows vs
+               single-run calls, bit for bit; (c) stream_bf16 vs float32; times
+ 22. lr sweep  the Eval_run_DP driver (``drivers/eval_run_dp.py``) at its
+               defaults with --pallas-frame --batch-lr-axis: 3 lr x 5 iters =
+               15 runs, one kernel B launch per frame; per-point soft SER in
+               the JAX band; the unbatched sweep (3 calls of 5 runs) point for
+               point; the .mat's keys and shape
+ 23. SNR curve --batch-snr-axis over 16-23 dB at lr 2.5e-3: 40 runs, one kernel
+               B launch per frame; the SER-vs-SNR curve against JAX's, monotone;
+               var_real per point
+ 24. nu sweep  --batch-nu-axis over nu 0 and 0.0270955: 10 runs; soft SER and
+               MI against JAX's; each of 22-24 with wall, symbols/s and a
+               per-frame channel / kernel B / eval split
 
 then the kernels' JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises (non-zero exit,
@@ -133,6 +150,16 @@ VAEFLEX_SER_BAND = (0.02269, 0.02360)
 VAEFLEX_MI_BAND = (5.810, 5.879)
 VAEFLEX_MI_FLOOR = 5.79
 FLEX_CHECK_FRAMES = 5  # VAEflex use_pallas=True against "frame", phase 20
+# Phases 22-24: the JAX package's batched Eval_run_DP sweeps on a TPU at these
+# defaults (PARITY_RESULTS.md:1005-1084; accuracy only, its times are not the
+# port's). Per point, the mean over iters of the last-20-frame soft SER.
+SWEEP_TOL = 0.003
+LR_SWEEP_SER = {2.5e-3: 0.0314, 2e-3: 0.0305, 3e-3: 0.0323}  # :1011, within +-SWEEP_TOL
+SNR_CURVE_SER = {16: 0.3281, 17: 0.2571, 18: 0.1943, 19: 0.1391, 20: 0.0956, 21: 0.0644,
+                 22: 0.0436, 23: 0.0315}  # :1023-1024, within max(SWEEP_TOL, 10 %)
+# nu -> (soft SER within +-SWEEP_TOL, floor of the last-20-frame MI); the heavy-
+# shaping points 0.0872449 and 0.1222578 diverge in every mode (:1072-1084)
+NU_SWEEP = {0.0: (0.0313, 5.70), 0.0270955: (0.0129, 5.53)}  # :1074-1075
 # Published peaks of one H100 SXM (NVIDIA's datasheet) for each
 # kernel's bound: float32 outside the tensor cores and HBM.
 F32_FLOPS = 67e12
@@ -180,13 +207,16 @@ def _time_ms(fn, reps: int = 5, warmup: bool = True) -> float:
 
 def _dec_ties_only(dec, dec_ref, out, amps, var, nu_sc, tol=1e-4):
     """Decision mismatches must sit where the two smallest demapper metrics
-    are within `tol` (relative) — a tie to float32 rounding."""
+    are within `tol` (relative) — a tie to float32 rounding. out (..., R, 2,
+    2, bl); var (2,) or per run (R, 2), nu_sc a float or (R,)."""
     import torch
 
     mism = dec != dec_ref
     if not bool(mism.any()):
         return 0, 0
-    met = (out[..., None, :] - amps[:, None]) ** 2 / (2 * var[:, None, None, None]) \
+    if torch.is_tensor(nu_sc):
+        nu_sc = nu_sc.reshape(nu_sc.shape + (1, 1, 1, 1))
+    met = (out[..., None, :] - amps[:, None]) ** 2 / (2 * var.reshape(var.shape[:-1] + (2, 1, 1, 1))) \
         + nu_sc * (amps * amps)[:, None]
     two = met.topk(2, dim=-2, largest=False).values
     gap = (two[..., 1, :] - two[..., 0, :]) / two[..., 0, :].abs().clamp_min(1.0)
@@ -943,8 +973,8 @@ def _vaeflex_phases(card, cfg, sim, gen, w0, h0, const, amps, var, P) -> list:
     def evaluate():
         k, (_, tx, sigma) = st["k"], st["ch"]
         out, dec, eq, mm, s1 = (a[..., crop] for a in (k[5], k[6], k[7], k[8], k[9]))
-        train_dp._finish_vae_frame(k[3], out, k[4], tx[..., bl // 2 : bl // 2 + n_win * fs], const,
-                                   amps, P, var, wfn, sigma, dec, eq, mm, s1)
+        train_dp._finish_vae_frame(k[3], out, k[4], tx[..., bl // 2 : bl // 2 + n_win * fs], amps,
+                                   P, var, nu_sc, const.pow_mean, wfn, sigma, dec, eq, mm, s1)
 
     ms = [_time_ms(f) for f in (channel, kernel, evaluate)]
     _line("19 VAEflex path", ok=True, runs=R, frames=cfg.num_frames, windows=n_win,
@@ -988,6 +1018,249 @@ def _vaeflex_phases(card, cfg, sim, gen, w0, h0, const, amps, var, P) -> list:
              "source": "vae_equalizer_tpu_torch/csrc/dp_kernels.cu",
              "replaces": "vae_equalizer_tpu/ops/frame_kernel.py:1024", "launches": cfg.num_frames,
              "max_abs_err": err_b, "ms": ms_b, "plain_ms": ms_plain, **bound_b}]
+
+
+def _per_run_phase(card, cfg, sim, gen, w0, h0, const, amps, P, f_args) -> dict:
+    """Phase 21: kernel B with per-run lr / var / nu_sc / P against its plain
+    version, against its own shared form, and with stream_bf16. ``f_args``:
+    phase 4b's warm 100-step frame (shared constants). Returns the per-run
+    form's timing and errors."""
+    import numpy as np
+    import torch
+
+    from vae_equalizer_tpu_torch.core import make_constellation
+    from vae_equalizer_tpu_torch.ops.frame_kernel import (
+        frame_opt_init,
+        vae_dp_frame_train,
+        vae_dp_frame_train_plain,
+    )
+
+    dev = torch.device(DEVICE)
+    R, bl, n_lev = w0.shape[0], cfg.batch_len, amps.shape[0]
+    nus = (0.0, 0.0270955) * (R // 2)
+    snrs = np.arange(16.0, 16.0 + R)
+    consts = [make_constellation(cfg.mod, nu) for nu in nus]
+    T = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    rc = {"lr": T([2.5e-3, 2e-3, 3e-3, 1.5e-3, 2.25e-3, 2.75e-3, 1e-3, 3.5e-3][:R]),
+          "var": T([[c.pow_mean / 10 ** (s / 10) / 2] * 2 for c, s in zip(consts, snrs)]),
+          "nu_sc": T([c.nu_sc for c in consts]), "P": T(np.stack([c.P for c in consts]))}
+    names = ("w", "h", "opt", "losses", "var_est", "out", "dec", "eq", "mm", "s1")
+    flat = lambda res: {**{k: v for k, v in zip(names, res) if k != "opt"}, **res[2]}
+
+    # ---- 21a. 3 minibatches from the perturbed start, w lr halving at the
+    # 2nd, every run with its own constants: phase 4a's tolerances, but for
+    # eq = sum_l q_l a_l an absolute floor of 1e-5: where the posterior
+    # splits between +-a its terms cancel, and the output's ~3e-7 rounding
+    # through the softmin's (out - a) / var (x80 at 16 dB) leaves ~1e-6 to
+    # 3e-6 there (measured on the card: 2.6e-6 at |eq| 4e-3, one element of
+    # 4,800); 21b holds every run's row to the shared form bit for bit
+    rx3 = sim(gen, 0.3, R)[0][..., : 3 * 2 * bl].contiguous()
+    a_args = (w0, h0, frame_opt_init({"w": w0, "h": h0}), rx3, amps, rc["var"], rc["nu_sc"], rc["P"],
+              rc["lr"], 40, 41.0)
+    got = flat(vae_dp_frame_train(*a_args, bl_sym=bl))
+    torch.cuda.synchronize()
+    want = flat(vae_dp_frame_train_plain(*a_args, bl_sym=bl))
+    errs: dict = {}
+    for k in ("w", "h", "losses", "var_est"):
+        _check(k, got[k], want[k], 1e-4, 3e-7, errs)
+    for k in ("mw", "vw", "mh", "vh"):
+        _check(k, got[k], want[k], 1e-4, 1e-5 * float(want[k].abs().max()), errs)
+    for k in ("out", "s1"):
+        _check(k, got[k], want[k], 1e-4, 1e-6, errs)
+    _check("eq", got["eq"], want["eq"], 1e-4, 1e-5, errs)
+    _check("mm", got["mm"], want["mm"], 1e-4, 1e-4, errs)
+    dec_mis = _dec_ties_only(got["dec"], want["dec"], want["out"], amps, rc["var"], rc["nu_sc"])
+    _line("21a kernel B per-run 3 steps", ok=True, R=R, errs_abs_rel=_fmt(errs), dec_tie_mismatch=dec_mis)
+
+    # ---- 21b. bit for bit on the card: constant vectors against the shared
+    # form (phase 4b's warm frame), and run r of a per-run call against a
+    # one-run call with run r's constants in the shared form
+    wk, hk, optk, rx_f, _, var, nu_sc, _, lr, step0, thresh = f_args
+    shared = flat(vae_dp_frame_train(*f_args, bl_sym=bl))
+    vec = flat(vae_dp_frame_train(wk, hk, optk, rx_f, amps, var.expand(R, 2).contiguous(),
+                                  torch.full((R,), nu_sc, device=dev), P.expand(R, n_lev).contiguous(),
+                                  torch.full((R,), lr, device=dev), step0, thresh, bl_sym=bl))
+    bad = [k for k in shared if not torch.equal(shared[k], vec[k])]
+    b_args = (wk, hk, optk, rx_f, amps, rc["var"], rc["nu_sc"], rc["P"], rc["lr"], step0, thresh)
+    per_run = flat(vae_dp_frame_train(*b_args, bl_sym=bl))
+    for r in (0, 1, R - 1):
+        sl = slice(r, r + 1)
+        one = flat(vae_dp_frame_train(wk[sl], hk[sl], {k: v[sl] for k, v in optk.items()}, rx_f[sl],
+                                      amps, rc["var"][r], float(rc["nu_sc"][r]), rc["P"][r],
+                                      float(rc["lr"][r]), step0, thresh, bl_sym=bl))
+        runs_first = ("w", "h", "mw", "vw", "mh", "vh")
+        bad += [f"row {r} {k}" for k in one
+                if not torch.equal(per_run[k][sl] if k in runs_first else per_run[k][:, sl], one[k])]
+    if bad:
+        raise AssertionError(f"kernel B per-run constants: not bit for bit: {bad}")
+
+    # ---- 21c. stream_bf16: training and mm / s1 unchanged, out / eq the
+    # float32 values rounded to bfloat16 (within 2^-8 relative), dec exact
+    bf = flat(vae_dp_frame_train(*b_args, bl_sym=bl, stream_bf16=True))
+    bad = [k for k in ("w", "h", "mw", "vw", "mh", "vh", "losses", "var_est", "mm", "s1")
+           if bf[k].dtype != torch.float32 or not torch.equal(bf[k], per_run[k])]
+    bad += [k for k in ("out", "dec", "eq") if bf[k].dtype != torch.bfloat16]
+    bad += [k for k in ("out", "eq") if not torch.equal(bf[k], per_run[k].to(torch.bfloat16))]
+    bad += ["dec"] if not torch.equal(bf["dec"].to(torch.int32), per_run["dec"]) else []
+    rel = max(float(((bf[k].float() - per_run[k]).abs() / per_run[k].abs().clamp_min(1e-30)).max())
+              for k in ("out", "eq"))
+    if bad or rel > 2.0**-8:
+        raise AssertionError(f"stream_bf16: {bad}, out/eq max rel {rel:.3e}")
+    ms_shared = _time_ms(lambda: vae_dp_frame_train(*f_args, bl_sym=bl))
+    ms_vec = _time_ms(lambda: vae_dp_frame_train(*b_args, bl_sym=bl))
+    ms_bf = _time_ms(lambda: vae_dp_frame_train(*b_args, bl_sym=bl, stream_bf16=True))
+    ms_plain = _time_ms(lambda: vae_dp_frame_train_plain(*b_args, bl_sym=bl), reps=1, warmup=False)
+    m_max = rx_f.shape[-1] // (2 * bl)
+    bound = _bound(R * m_max * (_dp_step_flops(bl, cfg.m_est, n_lev) + 12 * 16 * cfg.m_est),
+                   _nbytes(b_args, list(per_run.values())))
+    _line("21b-c kernel B per-run bit for bit, stream_bf16", ok=True, R=R,
+          bf16_out_eq_max_rel=f"{rel:.3e}", ms_shared=f"{ms_shared:.3f}", ms_per_run=f"{ms_vec:.3f}",
+          ms_bf16=f"{ms_bf:.3f}", plain_ms=f"{ms_plain:.3f}", bound_ms=f"{bound['bound_ms']:.6f}",
+          card=repr(card))
+    return {"max_abs_err": max(errs["w"][0], errs["h"][0]), "ms": ms_vec, "plain_ms": ms_plain, **bound}
+
+
+def _soft20(ser, axis_sl):
+    """Per grid point: the mean over iters of the last-20-frame soft SER
+    (rows 2:4 of the .mat's SER), the points along ``axis_sl``."""
+    return ser[(slice(2, 4),) + axis_sl].reshape(2, -1, ser.shape[-2], ser.shape[-1])[..., -20:] \
+        .mean(axis=(0, 2, 3))
+
+
+def _sweep_phases(card, cfg, const, amps, var, w0, h0, per_run) -> dict:
+    """Phases 22-24: the Eval_run_DP driver's batched lr / SNR / nu sweeps at
+    its defaults, counted (one kernel B launch per frame for the whole grid)
+    and held to the JAX package's accuracy; 22 also unbatched. Returns the
+    per-run kernel's JSON entry."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import scipy.io as sio
+    import torch
+
+    from vae_equalizer_tpu_torch.drivers import eval_run_dp
+    from vae_equalizer_tpu_torch.ops.frame_kernel import frame_opt_init, vae_dp_frame_train
+    from vae_equalizer_tpu_torch.train import dp as train_dp
+    from vae_equalizer_tpu_torch.utils import io
+
+    dev = torch.device(DEVICE)
+    bl, iters, n_frame = cfg.batch_len, 5, cfg.n_frame_max
+    m_max = n_frame // bl
+    sim = train_dp._setup(cfg, n_frame, dev)[2]
+    keys = ["SER", "Var_est", "var_real", "SNR", "nu", "theta_diff", "theta", "M", "lr",
+            "batch_len", "symb_rate", "symb_step"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sweep_")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4242)
+    wfn = train_dp._batch_cut_weight_fn(m_max, bl, cfg.n_cut)
+    theta = float(np.float32(cfg.theta))
+
+    def sweep(name, argv, n_launch):
+        """One driver run, counted: (SER (4, grid..., iters, frames), the
+        records, wall seconds)."""
+        out = os.path.join(tmp, name)
+        mat, wall = _counted(vae_dp_frame_train, n_launch, lambda: eval_run_dp.main(
+            ["--loss-type", "VAE", "--pallas-frame", "--out", out] + argv))
+        d = sio.loadmat(mat)["dict"]
+        if list(d.dtype.names) != keys:
+            raise AssertionError(f"{name}: .mat keys {d.dtype.names}")
+        recs = io.read_jsonl(glob.glob(os.path.join(out, "sweep_*.jsonl"))[0])
+        return {k: d[k][0, 0] for k in keys}, recs, wall
+
+    def split(R, lr_vec=None, snr_vec=None, nu_vec=None):
+        """Per-frame channel / kernel B / eval ms at a sweep's shapes and run
+        constants (CUDA events)."""
+        rc = train_dp._run_consts(cfg, const, var, R, lr_vec, snr_vec, nu_vec, dev)
+        w, h = (t[:1].expand((R,) + t.shape[1:]).contiguous() for t in (w0, h0))
+        opt, st = frame_opt_init({"w": w, "h": h}), {}
+
+        def channel():
+            st["ch"] = sim.physics(theta, *sim.draws(gen, R, rc["P_draw"]), rc["snr_lin"])
+
+        def kernel():
+            st["k"] = vae_dp_frame_train(w, h, opt, st["ch"][0], amps, rc["var"], rc["nu_sc"], rc["P"],
+                                         rc["lr"], 0, 1e9, bl_sym=bl)
+
+        def evaluate():
+            k, (_, tx, sigma) = st["k"], st["ch"]
+            train_dp._finish_vae_frame(k[3], k[5], k[4], tx, amps, rc["P"], rc["var"], rc["nu_sc"],
+                                       rc["pow_mean"], wfn, sigma, k[6], k[7], k[8], k[9])
+
+        ms = [_time_ms(f) for f in (channel, kernel, evaluate)]
+        return dict(channel_ms=f"{ms[0]:.3f}", kernel_b_ms=f"{ms[1]:.3f}", eval_ms=f"{ms[2]:.3f}")
+
+    speed = lambda R, wall: dict(wall_s=f"{wall:.3f}", sym_per_s=f"{R * cfg.num_frames * n_frame / wall:.0f}",
+                                 frame_wall_ms=f"{1e3 * wall / cfg.num_frames:.3f}")
+
+    # ---- 22. the lr sweep: 3 lr x 5 iters as one call, then unbatched
+    lrs = list(LR_SWEEP_SER)
+    mat, _, wall = sweep("lr", ["--batch-lr-axis"], cfg.num_frames)
+    if mat["SER"].shape != (4, 1, 1, 1, 1, 1, 3, 1, 1, iters, cfg.num_frames):
+        raise AssertionError(f"lr sweep: SER shape {mat['SER'].shape}")
+    soft = _soft20(mat["SER"], (0, 0, 0, 0, 0, slice(None)))
+    mat_u, _, wall_u = sweep("lr_unbatched", [], 3 * cfg.num_frames)
+    soft_u = _soft20(mat_u["SER"], (0, 0, 0, 0, 0, slice(None)))
+    ref = np.asarray([LR_SWEEP_SER[lr] for lr in lrs])
+    if not np.all(np.isfinite(mat["SER"])) or np.abs(soft - ref).max() > SWEEP_TOL \
+            or np.abs(soft_u - soft).max() > SWEEP_TOL:
+        raise AssertionError(f"lr sweep: soft SER {soft} (JAX {ref}, +-{SWEEP_TOL}), unbatched {soft_u}")
+    _line("22 lr sweep", ok=True, runs=3 * iters, frames=cfg.num_frames, kernel_b_launches=cfg.num_frames,
+          lr=lrs, soft_ser_last20=[round(float(x), 5) for x in soft],
+          unbatched_soft_ser_last20=[round(float(x), 5) for x in soft_u],
+          unbatched_kernel_b_launches=3 * cfg.num_frames, unbatched_wall_s=f"{wall_u:.3f}",
+          **speed(3 * iters, wall), **split(3 * iters, lr_vec=np.repeat(lrs, iters)), card=repr(card))
+
+    # ---- 23. the SER-vs-SNR curve: 8 SNRs x 5 iters as one call
+    snrs = list(SNR_CURVE_SER)
+    mat, _, wall = sweep("snr", ["--batch-snr-axis", "--snr", *map(str, snrs), "--lr", "2.5e-3"],
+                         cfg.num_frames)
+    soft = _soft20(mat["SER"], (slice(None),))
+    ref = np.asarray([SNR_CURVE_SER[s] for s in snrs])
+    var_real = mat["var_real"][0, :, 0, 0, 0, 0, 0, 0, 0, 0, 0]  # pol x, per SNR point
+    want_var = np.asarray([np.float32(const.pow_mean / 10 ** (s / 10) / 2) for s in snrs])
+    if np.any(np.abs(soft - ref) > np.maximum(SWEEP_TOL, 0.1 * ref)) or np.any(np.diff(soft) >= 0) \
+            or not np.array_equal(var_real, want_var):
+        raise AssertionError(f"SNR curve: soft SER {soft} (JAX {ref}), var_real {var_real} ({want_var})")
+    _line("23 SNR curve", ok=True, runs=len(snrs) * iters, frames=cfg.num_frames,
+          kernel_b_launches=cfg.num_frames, snr_db=snrs, soft_ser_last20=[round(float(x), 5) for x in soft],
+          jax_soft_ser=[float(x) for x in ref], **speed(len(snrs) * iters, wall),
+          **split(len(snrs) * iters, snr_vec=np.repeat(snrs, iters)), card=repr(card))
+
+    # ---- 24. the nu sweep: 2 nu x 5 iters as one call
+    nus = list(NU_SWEEP)
+    mat, recs, wall = sweep("nu", ["--batch-nu-axis", "--nu", *map(str, nus), "--lr", "2.5e-3"],
+                            cfg.num_frames)
+    soft = _soft20(mat["SER"], (0, 0, slice(None)))
+    mi = [float(np.asarray(r["mi"])[..., -20:].mean()) for r in sorted(recs, key=lambda r: r["coords"])]
+    for nu, s, m in zip(nus, soft, mi):
+        if abs(s - NU_SWEEP[nu][0]) > SWEEP_TOL or not m > NU_SWEEP[nu][1]:
+            raise AssertionError(f"nu sweep: nu {nu}: soft SER {s:.5f} (JAX {NU_SWEEP[nu][0]} +-{SWEEP_TOL}), "
+                                 f"MI {m:.4f} (floor {NU_SWEEP[nu][1]})")
+    _line("24 nu sweep", ok=True, runs=len(nus) * iters, frames=cfg.num_frames,
+          kernel_b_launches=cfg.num_frames, nu=nus, soft_ser_last20=[round(float(x), 5) for x in soft],
+          mi_last20=[round(m, 4) for m in mi], **speed(len(nus) * iters, wall),
+          **split(len(nus) * iters, nu_vec=np.repeat(nus, iters)), card=repr(card))
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    # the per-run form at the SNR curve's 40 runs: one 100-step frame
+    R = len(snrs) * iters
+    rc = train_dp._run_consts(cfg, const, var, R, None, np.repeat(snrs, iters), None, dev)
+    w, h = (t[:1].expand((R,) + t.shape[1:]).contiguous() for t in (w0, h0))
+    t_args = (w, h, frame_opt_init({"w": w, "h": h}), sim(gen, theta, R)[0], amps, rc["var"],
+              rc["nu_sc"], rc["P"], rc["lr"], 0, 1e9)
+    got = vae_dp_frame_train(*t_args, bl_sym=bl)
+    ms = _time_ms(lambda: vae_dp_frame_train(*t_args, bl_sym=bl))
+    bound = _bound(R * m_max * (_dp_step_flops(bl, cfg.m_est, amps.shape[0]) + 12 * 16 * cfg.m_est),
+                   _nbytes(t_args, got))
+    _line("24 kernel B per-run", R=R, ms=f"{ms:.3f}", bound_ms=f"{bound['bound_ms']:.6f}",
+          card=repr(card))
+    return {"name": "vae_dp_frame_train[per-run]", "route": "cuda",
+            "source": "vae_equalizer_tpu_torch/csrc/dp_kernels.cu",
+            "replaces": "vae_equalizer_tpu/ops/frame_kernel.py:1024", "launches": 3 * cfg.num_frames,
+            **per_run}
 
 
 def main() -> int:
@@ -1157,8 +1430,8 @@ def main() -> int:
 
     def evaluate():
         k = state["k"]
-        train_dp._finish_vae_frame(k[3], k[5], k[4], state["ch"][1], const, amps, P, var, wfn,
-                                   state["ch"][2], k[6], k[7], k[8], k[9])
+        train_dp._finish_vae_frame(k[3], k[5], k[4], state["ch"][1], amps, P, var, nu_sc,
+                                   const.pow_mean, wfn, state["ch"][2], k[6], k[7], k[8], k[9])
 
     ms_ch, ms_k, ms_ev = _time_ms(channel), _time_ms(kernel), _time_ms(evaluate)
     _line("6 breakdown", runs=R, channel_ms=f"{ms_ch:.3f}", kernel_b_ms=f"{ms_k:.3f}",
@@ -1259,6 +1532,8 @@ def main() -> int:
     stream_kernels = _stream_phases(card)
     launches_a = _step_path_phase(card, cfg, sim, gen, thetas, w0, h0, const, amps, var, P)
     flex_kernels = _vaeflex_phases(card, cfg, sim, gen, w0, h0, const, amps, var, P)
+    per_run = _per_run_phase(card, cfg, sim, gen, w0, h0, const, amps, P, f_args)
+    sweep_kernel = _sweep_phases(card, cfg, const, amps, var, w0, h0, per_run)
 
     kernels = {"kernels": [
         {"name": "vae_dp_loss_and_grad", "route": "cuda",
@@ -1281,7 +1556,7 @@ def main() -> int:
          "replaces": "vae_equalizer_tpu/ops/cma_frame_kernel.py:404", "launches": cma_launches[v],
          "max_abs_err": d_res[v][0], "ms": d_res[v][1], "plain_ms": d_res[v][2], **d_res[v][3]}
         for v in ("CMAbatch", "CMAflex")
-    ] + flex_kernels + awgn_kernels + nn_kernels + stream_kernels}
+    ] + flex_kernels + [sweep_kernel] + awgn_kernels + nn_kernels + stream_kernels}
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

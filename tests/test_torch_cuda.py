@@ -147,6 +147,44 @@ def test_kernel_b_stride_matches_plain(cuda, mod):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("mod", ["4-QAM", "64-QAM"])
+def test_kernel_b_run_constants_on_cuda(cuda, mod):
+    """Per-run lr / var / nu_sc / P against the plain version; constant
+    vectors against the shared form and stream_bf16 against float32, bit
+    for bit on the card."""
+    R, bl, m_max = 4, 50, 3
+    const, w, h, rx, var, amps, P = _inputs(mod, R, bl, m_max, cuda)
+    shaped = make_constellation(mod, 0.0270955)
+    run = dict(lr=torch.tensor([2.5e-3, 1e-3, 3e-3, 2e-3], device=cuda),
+               var=var * torch.tensor([[1.0], [2.0], [0.5], [1.5]], device=cuda),
+               nu_sc=torch.tensor([0.0, shaped.nu_sc] * 2, device=cuda),
+               P=torch.from_numpy(np.stack([const.P, shaped.P] * 2).astype(np.float32)).to(cuda))
+    args = lambda c: (w, h, frame_opt_init({"w": w, "h": h}), rx, amps, c["var"], c["nu_sc"], c["P"],
+                      c["lr"], 5, 6.0)
+    got = vae_dp_frame_train(*args(run), bl_sym=bl)
+    torch.cuda.synchronize()
+    want = vae_dp_frame_train_plain(*args(run), bl_sym=bl)
+    for k, i in (("losses", 3), ("var_est", 4), ("w", 0), ("h", 1)):
+        _close(got[i], want[i], 1e-4, 3e-7, k)
+    for k, i in (("out", 5), ("eq", 7), ("s1", 9)):
+        _close(got[i], want[i], 1e-4, 1e-4, k)
+    assert float((got[6] == want[6]).float().mean()) > 0.999
+    shared = dict(lr=2.5e-3, var=var, nu_sc=const.nu_sc, P=P)
+    const_vec = dict(lr=torch.full((R,), 2.5e-3, device=cuda), var=var.expand(R, 2).contiguous(),
+                     nu_sc=torch.full((R,), const.nu_sc, device=cuda), P=P.expand(R, -1).contiguous())
+    flat = lambda res: [*res[:2], *res[2].values(), *res[3:]]
+    for a, b in zip(flat(vae_dp_frame_train(*args(shared), bl_sym=bl)),
+                    flat(vae_dp_frame_train(*args(const_vec), bl_sym=bl))):
+        assert torch.equal(a, b)
+    bf = vae_dp_frame_train(*args(run), bl_sym=bl, stream_bf16=True)
+    for i in (0, 1, 3, 4, 8, 9):
+        assert torch.equal(bf[i], got[i]), i
+    for i in (5, 7):
+        assert bf[i].dtype == torch.bfloat16 and torch.equal(bf[i], got[i].to(torch.bfloat16)), i
+    assert torch.equal(bf[6].to(torch.int32), got[6])
+
+
+@pytest.mark.requires_cuda
 def test_step_modes_on_cuda_count_launches(cuda):
     """train_vae_dp(True) launches kernel A once per minibatch for all runs;
     train_vae_flex_dp("frame") kernel B once per frame, True kernel A once
@@ -165,7 +203,7 @@ def test_step_modes_on_cuda_count_launches(cuda):
 def test_train_vae_dp_on_cuda_counts_one_launch_per_frame(cuda):
     cfg = DpConfig(mod="16-QAM", num_frames=3, n_frame_max=1000)
     before = vae_dp_frame_train.launches
-    res = train_vae_dp(cfg, 0, device="cuda", runs=2)
+    res = train_vae_dp(cfg, 0, device="cuda", runs=2, use_pallas="frame")
     assert vae_dp_frame_train.launches == before + cfg.num_frames
     assert res["ser"].shape == (2, 4, 3) and np.all(np.isfinite(res["ser"]))
     assert res["params"]["w"].is_cuda

@@ -106,11 +106,16 @@ def test_weight_conversion_checks_shapes():
 
 
 def test_deferred_options_raise():
+    """Options still deferred raise NotImplementedError naming ROADMAP.md;
+    the runs-batched kernel's options without runs raise JAX's ValueErrors."""
     cfg = DpConfig(mod="4-QAM", **SMALL)
-    for kw in ({"stream_bf16": True}, {"lr_vec": [1e-3]}, {"compiled": True}, {"chunk_frames": 2},
-               {"checkpoint": "x.npz"}, {"mesh": object()}):
+    for kw in ({"compiled": True}, {"chunk_frames": 2}, {"checkpoint": "x.npz"}, {"mesh": object()},
+               {"timings": {}}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             train_vae_dp(cfg, 0, device="cpu", **kw)
+    for kw in ({"stream_bf16": True}, {"lr_vec": [1e-3]}):
+        with pytest.raises(ValueError, match=r"the runs-batched kernel \(set runs\)"):
+            train_vae_dp(cfg, 0, device="cpu", use_pallas="frame", **kw)
 
 
 def test_port_never_imports_jax():

@@ -155,11 +155,25 @@ def test_train_vae_flex_dp_modes_match_jax_on_jax_draws():
 @pytest.mark.parametrize("kw", [{"checkpoint": "x.npz"}, {"checkpoint_every": 5},
                                 {"stream_bf16": True}, {"lr_vec": [1e-3]}, {"snr_vec": [20.0]},
                                 {"nu_vec": [0.0]}, {"mesh": object()}, {"compiled": True},
-                                {"chunk_frames": 2}, {"runs_batch": 2}])
+                                {"chunk_frames": 2}, {"runs_batch": 2}, {"timings": {}}])
 def test_flex_deferred_options_raise(kw):
+    """Options still deferred raise NotImplementedError naming ROADMAP's list;
+    the runs-batched kernel's options, misused, raise JAX's ValueErrors
+    (JAX train/dp.py:323-337, 676-677)."""
     cfg = DpConfig(**FLEX)
-    with pytest.raises(NotImplementedError, match="Deferred train_vae_dp / train_vae_flex_dp"):
-        train_vae_flex_dp(cfg, 0, device="cpu", **kw)
+    name = next(iter(kw))
+    if name in ("stream_bf16", "lr_vec", "snr_vec", "nu_vec"):
+        with pytest.raises(ValueError, match=r"the runs-batched kernel \(set runs\)"):
+            train_vae_flex_dp(cfg, 0, device="cpu", use_pallas="frame", **kw)
+        if name != "stream_bf16":
+            with pytest.raises(ValueError, match='need use_pallas="frame"'):
+                train_vae_flex_dp(cfg, 0, device="cpu", runs=1, **kw)
+    elif name == "runs_batch":
+        with pytest.raises(ValueError, match="runs_batch=2 must divide runs=3"):
+            train_vae_flex_dp(cfg, 0, device="cpu", use_pallas="frame", runs=3, **kw)
+    else:
+        with pytest.raises(NotImplementedError, match="Deferred train_vae_dp / train_vae_flex_dp"):
+            train_vae_flex_dp(cfg, 0, device="cpu", **kw)
 
 
 def test_flex_modes_and_device():

@@ -7,15 +7,19 @@ against its plain version and times it; runs kernel B with stride_sym = 10
 (VAEflex) over 3 windows against its plain version and times one whole
 990-window frame; then times 3 frames of train_vae_dp(use_pallas=True).
 Run from the repository root on a machine with a card:
-``PYTHONPATH=. python tools/first_check_a_b.py``.
+``python tools/first_check_a_b.py``.
 """
 
 import dataclasses
+import pathlib
 import subprocess
+import sys
 import time
 
 import numpy as np
 import torch
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 from vae_equalizer_tpu_torch.models import butterfly_init, dirac_taps_dp
 from vae_equalizer_tpu_torch.ops import _build

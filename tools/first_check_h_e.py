@@ -5,15 +5,19 @@ the full VAE-NN width, Net and Net_BN) for 2 epochs against its plain engine
 and times it over 20 epochs (and the plain engine over 2); then kernel E at
 the streaming shapes (sps 2 and 1) against its plain version. Run from the
 repository root on a machine with a card:
-``PYTHONPATH=. python tools/first_check_h_e.py``.
+``python tools/first_check_h_e.py``.
 """
 
 import json
+import pathlib
 import subprocess
+import sys
 import time
 
 import numpy as np
 import torch
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 from vae_equalizer_tpu_torch.core import make_constellation
 from vae_equalizer_tpu_torch.models import butterfly_init

@@ -11,6 +11,9 @@ same draws:
   the RRC pulse + ISI IR folded into the CD response, PMD, rotation theta
   with the static IQ phase, then AWGN (torch.fft, i.e. cuFFT on the card).
 
+``draws(gen, R, P=)`` and ``physics(..., snr_lin=)`` take a per-run pmf and
+SNR: the port's form of JAX's ``generate(key, theta, snr_lin_r, P_r)``.
+
 Physics parity with the reference (optical_DP_channel/shared_funcs.py:38-90)
 is inherited from the JAX package: same float64 host constants cast to
 float32, same FFT length (``_fast_fft_len``, so the 'valid' window is the
@@ -91,16 +94,20 @@ class DpSimulator:
         self._e0 = complex(float(e_re[0]), float(e_im[0]))
         self._e1 = complex(float(e_re[1]), float(e_im[1]))
 
-    def draws(self, gen: torch.Generator, runs: int) -> tuple[torch.Tensor, torch.Tensor]:
-        """(levels (R, 4, n_conv), unit noise (R, 2, 2, sig_len)) from ``gen``."""
-        levels = sample_levels(gen, self.const.amps, self.const.P, (runs, 4, self.n_conv),
-                               device=self.device)
+    def draws(self, gen: torch.Generator, runs: int, P=None) -> tuple[torch.Tensor, torch.Tensor]:
+        """(levels (R, 4, n_conv), unit noise (R, 2, 2, sig_len)) from ``gen``;
+        ``P`` (R, n), a per-run sampling pmf (the sweep's nu axis batched as
+        runs), else the constellation's."""
+        levels = sample_levels(gen, self.const.amps, self.const.P if P is None else P,
+                               (runs, 4, self.n_conv), device=self.device)
         noise = torch.randn((runs, 2, 2, self.sig_len), generator=gen, device=self.device,
                             dtype=torch.float32)
         return levels, noise
 
-    def physics(self, theta, levels: torch.Tensor, noise: torch.Tensor):
-        """Deterministic channel: (theta, levels, noise) -> (rx, tx, sigma)."""
+    def physics(self, theta, levels: torch.Tensor, noise: torch.Tensor, snr_lin=None):
+        """Deterministic channel: (theta, levels, noise) -> (rx, tx, sigma).
+        ``snr_lin`` (R,) float32, a per-run linear SNR (the sweep's SNR axis
+        batched as runs), else the configured one."""
         R = levels.shape[0]
         sps, dev = self.sps, self.device
         d4 = levels.reshape(R, 2, 2, self.n_conv)
@@ -126,7 +133,8 @@ class DpSimulator:
         z = z[..., self.h_len - 1 : self.h_len - 1 + self.sig_len]
         sig = torch.stack([z.real, z.imag], dim=2).to(torch.float32)  # (R, 2, 2, sig_len)
 
-        sigma = torch.sqrt(torch.mean(sig**2, dim=(1, 2, 3)) * 2 * sps / 2 / self.snr_lin)
+        snr = self.snr_lin if snr_lin is None else snr_lin
+        sigma = torch.sqrt(torch.mean(sig**2, dim=(1, 2, 3)) * 2 * sps / 2 / snr)
         sig = sig + sigma[:, None, None, None] * noise
         rx = sig[..., : sps * self.N].contiguous()  # kernel B reads rows of 2N samples
         tx = levels[:, :, self.offset : self.offset + self.N].reshape(R, 2, 2, self.N)

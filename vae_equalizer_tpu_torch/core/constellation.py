@@ -96,22 +96,28 @@ def levels_from_uniform(u: torch.Tensor, amps: np.ndarray, P: np.ndarray) -> tor
 
     Builds the level as ``amps[0]`` plus one step per crossed CDF edge, in
     float32, like the JAX ``sample_levels`` (constellation.py:161-163) — so
-    the same uniforms give bit-identical levels.
+    the same uniforms give bit-identical levels. ``P`` (n,) is shared by all
+    of ``u``; a per-run pmf (R, n) applies row r to ``u[r]`` (the sweep's nu
+    axis batched as runs; JAX's ``generate(..., P_r)``).
     """
     amps32 = np.asarray(amps, np.float32)
-    cum = np.cumsum(np.asarray(P, dtype=np.float32))
+    cum = np.cumsum(np.asarray(P, dtype=np.float32), axis=-1)
     steps = np.diff(amps32)
     a = torch.full(u.shape, float(amps32[0]), dtype=torch.float32, device=u.device)
     zero = torch.zeros((), dtype=torch.float32, device=u.device)
+    if cum.ndim > 1:  # per run: edges (R, 1, ..., 1) against u (R, ...)
+        cum = torch.from_numpy(cum).to(u.device).reshape(cum.shape[:1] + (1,) * (u.dim() - 1) + cum.shape[1:])
     for lev in range(1, amps32.shape[0]):
         step = torch.tensor(float(steps[lev - 1]), dtype=torch.float32, device=u.device)
-        a = a + torch.where(u >= float(cum[lev - 1]), step, zero)
+        edge = float(cum[lev - 1]) if isinstance(cum, np.ndarray) else cum[..., lev - 1]
+        a = a + torch.where(u >= edge, step, zero)
     return a
 
 
 def sample_levels(gen: torch.Generator, amps: np.ndarray, P: np.ndarray, shape,
                   device=None) -> torch.Tensor:
-    """Draw amplitude levels i.i.d. from the PCS pmf with ``gen``."""
+    """Draw amplitude levels i.i.d. from the PCS pmf with ``gen``; ``P`` (n,),
+    or (R, n) per run over the leading axis of ``shape``."""
     device = gen.device if device is None else device
     u = torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
     return levels_from_uniform(u, amps, P)

@@ -13,12 +13,17 @@
 //   the block takes the place of the TPU's sequential grid, with w, h and
 //   the four Adam moments resident in shared memory for the whole frame and
 //   each minibatch read straight from rx in device memory, window mb at
-//   symbol mb * stride_sym (VAEflex: overlapping windows). The step count
-//   is an integer (step0 + mb), so no float32 step-counter limit applies.
+//   symbol mb * stride_sym (VAEflex: overlapping windows). Each run reads
+//   its own lr, demapper variance, nu_sc and prior P (the sweep's lr / SNR /
+//   nu axes batched as runs). The out / dec / eq streams are float32 / int32,
+//   or bfloat16 with stream_bf16. The step count is an integer (step0 + mb),
+//   so no float32 step-counter limit applies.
 //
 // Both run the shared step body of dp_step.cuh. Each launcher returns
 // cudaGetLastError() so the wrapper can raise on a refused launch.
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "dp_step.cuh"
 
@@ -38,20 +43,25 @@ vae_dp_step_kernel(const float* x, long long x_run, long long x_row, const float
                  q + r * 4 * n_lev * n_sym, out + r * 4 * n_sym);
 }
 
+// out / dec / eq as float / int32, or all three as bfloat16 (stream_bf16).
+template <bool BF16>
 __global__ void __launch_bounds__(kThreads)
 vae_dp_frame_kernel(int R, int m_max, int n_sym, int stride_sym, int m, int n_lev,
                     long long n_total, const float* rx, const float* w_in, const float* h_in,
                     const float* mw_in, const float* vw_in, const float* mh_in,
                     const float* vh_in, float* w_out, float* h_out, float* mw_out,
                     float* vw_out, float* mh_out, float* vh_out, float* losses, float* var_est,
-                    float* out, int* dec, float* eq, float* mm, float* s1, const float* amps,
-                    const float* P, const float* var, float nu_sc, float lr, long long step0,
-                    double lr_half_step) {
+                    void* out, void* dec, void* eq, float* mm, float* s1, const float* amps,
+                    const float* P, const float* var, const float* nu_sc, const float* lr,
+                    long long step0, double lr_half_step) {
+  using SF = typename std::conditional<BF16, dp::bf16, float>::type;
+  using SD = typename std::conditional<BF16, dp::bf16, int>::type;
   extern __shared__ float smem[];
-  dp::frame_block(smem, threadIdx.x, blockDim.x, blockIdx.x, R, m_max, n_sym, stride_sym, m,
-                  n_lev, n_total, rx, w_in, h_in, mw_in, vw_in, mh_in, vh_in, w_out, h_out,
-                  mw_out, vw_out, mh_out, vh_out, losses, var_est, out, dec, eq, mm, s1, amps, P,
-                  var, nu_sc, lr, step0, lr_half_step);
+  dp::frame_block<SF, SD>(smem, threadIdx.x, blockDim.x, blockIdx.x, R, m_max, n_sym, stride_sym,
+                          m, n_lev, n_total, rx, w_in, h_in, mw_in, vw_in, mh_in, vh_in, w_out,
+                          h_out, mw_out, vw_out, mh_out, vh_out, losses, var_est,
+                          static_cast<SF*>(out), static_cast<SD*>(dec), static_cast<SF*>(eq), mm,
+                          s1, amps, P, var, nu_sc, lr, step0, lr_half_step);
 }
 
 // Dynamic shared memory for one block, with the opt-in above 48 KB.
@@ -88,18 +98,19 @@ int vae_dp_frame_launch(int R, int m_max, int n_sym, int stride_sym, int m, int 
                         const float* h_in, const float* mw_in, const float* vw_in,
                         const float* mh_in, const float* vh_in, float* w_out, float* h_out,
                         float* mw_out, float* vw_out, float* mh_out, float* vh_out,
-                        float* losses, float* var_est, float* out, int* dec, float* eq, float* mm,
+                        float* losses, float* var_est, void* out, void* dec, void* eq, float* mm,
                         float* s1, const float* amps, const float* P, const float* var,
-                        float nu_sc, float lr, long long step0, double lr_half_step,
-                        void* stream) {
+                        const float* nu_sc, const float* lr, long long step0,
+                        double lr_half_step, int stream_bf16, void* stream) {
   // the last window, samples [2 stride_sym (m_max - 1), + 2 n_sym), must lie in the row
   if (R < 1 || m_max < 1 || stride_sym < 1 ||
       n_total < 2 * ((long long)stride_sym * (m_max - 1) + n_sym))
     return (int)cudaErrorInvalidValue;
+  auto kernel = stream_bf16 ? vae_dp_frame_kernel<true> : vae_dp_frame_kernel<false>;
   size_t bytes = 0;
-  cudaError_t err = prepare(vae_dp_frame_kernel, n_sym, m, n_lev, &bytes);
+  cudaError_t err = prepare(kernel, n_sym, m, n_lev, &bytes);
   if (err != cudaSuccess) return (int)err;
-  vae_dp_frame_kernel<<<R, kThreads, bytes, (cudaStream_t)stream>>>(
+  kernel<<<R, kThreads, bytes, (cudaStream_t)stream>>>(
       R, m_max, n_sym, stride_sym, m, n_lev, n_total, rx, w_in, h_in, mw_in, vw_in, mh_in, vh_in,
       w_out, h_out, mw_out, vw_out, mh_out, vh_out, losses, var_est, out, dec, eq, mm, s1, amps, P,
       var, nu_sc, lr, step0, lr_half_step);

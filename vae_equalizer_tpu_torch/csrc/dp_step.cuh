@@ -24,16 +24,38 @@
 
 #ifdef DP_HOST_EMULATION
 #include <math.h>
+#include <string.h>
 #define DP_HD inline
 #define DP_DEV inline
 #define DP_SYNC() ((void)0)
 #else
+#include <cuda_bf16.h>
 #define DP_HD __host__ __device__ __forceinline__
 #define DP_DEV __device__ __forceinline__
 #define DP_SYNC() __syncthreads()
 #endif
 
 namespace dp {
+
+// Element types of kernel B's out / dec / eq streams: float32 (dec int32),
+// or bfloat16 for all three with stream_bf16 (dec's level indices are exact
+// in bfloat16). put() rounds to nearest even, as torch's .to(bfloat16).
+#ifdef DP_HOST_EMULATION
+struct bf16 {
+  unsigned short bits;
+};
+inline void put(bf16* p, float v) {
+  unsigned int u;
+  memcpy(&u, &v, 4);
+  p->bits = (v != v) ? (unsigned short)0x7fc0 : (unsigned short)((u + 0x7fffu + ((u >> 16) & 1u)) >> 16);
+}
+#else
+typedef __nv_bfloat16 bf16;
+DP_DEV void put(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+#endif
+DP_DEV void put(float* p, float v) { *p = v; }
+DP_DEV void put(int* p, int v) { *p = v; }
+DP_DEV void put(bf16* p, int v) { put(p, (float)v); }
 
 constexpr int MAX_LEV = 16;       // up to 256-QAM (16 levels per dimension)
 constexpr float EPS_KL = 1e-12f;  // KL log guard (elbo_dp's eps)
@@ -439,25 +461,29 @@ DP_DEV void step_block(float* smem, int tid, int nt, const float* x, long long x
 // Minibatch mb is the window of n_sym symbols starting at symbol
 // mb * stride_sym (stride_sym = n_sym: back to back; smaller: VAEflex's
 // overlapping windows). rx (R, 2, 2, n_total); params/moments (R, 8m);
+// per-run constants P (R, n_lev), var (R, 2), nu_sc (R,), lr (R,): run r
+// reads its own row (the wrapper broadcasts scalar inputs into these);
 // streams per (mb, r): losses (m_max, R), var_est (m_max, R, 2),
-// out/dec/mm/s1 (m_max, R, 2, 2, n_sym), eq (m_max, R, 2, n_sym) = E_q[x^I].
+// out/dec/mm/s1 (m_max, R, 2, 2, n_sym), eq (m_max, R, 2, n_sym) = E_q[x^I],
+// out/dec/eq stored as SF/SD (float/int, or bf16 for all three).
+template <typename SF, typename SD>
 DP_DEV void frame_block(float* smem, int tid, int nt, int r, int R, int m_max, int n_sym,
                         int stride_sym, int m, int n_lev, long long n_total, const float* rx,
                         const float* w_in,
                         const float* h_in, const float* mw_in, const float* vw_in,
                         const float* mh_in, const float* vh_in, float* w_out, float* h_out,
                         float* mw_out, float* vw_out, float* mh_out, float* vh_out,
-                        float* losses, float* var_est, float* out, int* dec, float* eq,
+                        float* losses, float* var_est, SF* out, SD* dec, SF* eq,
                         float* mm, float* s1, const float* amps, const float* P,
-                        const float* var, float nu_sc, float lr, long long step0,
+                        const float* var, const float* nu_sc, const float* lr, long long step0,
                         double lr_half_step) {
   const Dims D = make_dims(n_sym, m, n_lev);
-  const float var0 = var[0], var1 = var[1];
+  const float var0 = var[2 * r], var1 = var[2 * r + 1], lr_r = lr[r];
   const Layout L = make_layout(D, nt);
   const Smem s = carve(smem, L);
   const int np = 8 * m;
   const long long pofs = (long long)r * np;
-  load_consts(D, s, amps, P, nu_sc, tid, nt);
+  load_consts(D, s, amps, P + (long long)r * n_lev, nu_sc[r], tid, nt);
   for (int i = tid; i < np; i += nt) {
     s.w[i] = w_in[pofs + i];
     s.h[i] = h_in[pofs + i];
@@ -480,21 +506,21 @@ DP_DEV void frame_block(float* smem, int tid, int nt, int r, int R, int m_max, i
       var_est[row * 2 + 1] = s.sc[2] / ne;
     }
     for (int i = tid; i < 4 * n_sym; i += nt) {
-      out[row * 4 * n_sym + i] = s.out[i];
-      dec[row * 4 * n_sym + i] = s.dec[i];
+      put(out + row * 4 * n_sym + i, s.out[i]);
+      put(dec + row * 4 * n_sym + i, s.dec[i]);
       mm[row * 4 * n_sym + i] = s.mm[i];
       s1[row * 4 * n_sym + i] = s.s1[i];
       const int pc = i / n_sym;
-      if ((pc & 1) == 0) eq[row * 2 * n_sym + (pc >> 1) * n_sym + i % n_sym] = s.eq[i];
+      if ((pc & 1) == 0) put(eq + row * 2 * n_sym + (pc >> 1) * n_sym + i % n_sym, s.eq[i]);
     }
 
     const long long step = step0 + mb;
     const double tt = (double)(step + 1);
     const float bc1 = (float)(1.0 - pow(0.9, tt));
     const float bc2 = (float)(1.0 - pow(0.999, tt));
-    const float lr_w = (double)step >= lr_half_step ? lr * 0.5f : lr;
+    const float lr_w = (double)step >= lr_half_step ? lr_r * 0.5f : lr_r;
     adam(s.w, s.mw, s.vw, s.gw, np, lr_w, bc1, bc2, tid, nt);
-    adam(s.h, s.mh, s.vh, s.gh, np, lr, bc1, bc2, tid, nt);
+    adam(s.h, s.mh, s.vh, s.gh, np, lr_r, bc1, bc2, tid, nt);
     DP_SYNC();
   }
   for (int i = tid; i < np; i += nt) {

@@ -30,6 +30,16 @@ def _level_select(lq: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(lq, -2, idx.to(torch.int64).unsqueeze(-2)).squeeze(-2)
 
 
+def _take(vec: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """vec (n,) at level indices idx; or per run, vec (R, n) with row r
+    taken at idx[r] (idx (R, ...))."""
+    if vec.dim() == 1:
+        return vec[idx]
+    n = vec.shape[-1]
+    off = torch.arange(vec.shape[0], device=idx.device) * n
+    return vec.reshape(-1)[idx + off.reshape(off.shape + (1,) * (idx.dim() - 1))]
+
+
 def _best_of_ambiguities(a1, a2, a3, a4, b1, b2, b3, b4):
     """The 8 ambiguity hypotheses (rotations x IQ-flip) as sums of the
     selected traces, maximized (metrics/mi.py:118-130 of the JAX package)."""
@@ -73,8 +83,9 @@ def mutual_information_ambiguity_mb_stats(out_mb, mm_mb, s1_mb, tx, amps, P, nu_
     """MI (bits per QAM symbol) per polarization from the demapper statistics.
 
     out_mb/mm_mb/s1_mb (..., n_mb, 2 pol, 2 comp, bl); tx (..., 2, 2, N)
-    ALIGNED levels or tx_idx their indices; var (2,); weight broadcastable
-    to (..., 2, N). Returns (..., 2).
+    ALIGNED levels or tx_idx their indices; var (2,), nu_sc a float and P
+    (n,), or per run var (R, 2), nu_sc (R,) and P (R, n) over the leading
+    runs axis; weight broadcastable to (..., 2, N). Returns (..., 2).
     """
     n = amps.shape[0]
     n_mb, bl = out_mb.shape[-4], out_mb.shape[-1]
@@ -93,7 +104,9 @@ def mutual_information_ambiguity_mb_stats(out_mb, mm_mb, s1_mb, tx, amps, P, nu_
         w = to_mb(torch.broadcast_to(weight.to(torch.float32), idx.shape[:-3] + (2, n_mb * bl)))
         red = lambda t: torch.sum(t * w, dim=(-3, -1))
 
-    inv2v = (0.5 / var.to(torch.float32))[:, None]  # per pol
+    inv2v = (0.5 / var.to(torch.float32))[..., None, :, None]  # per pol (and run)
+    if torch.is_tensor(nu_sc):  # per run (R,)
+        nu_sc = nu_sc.reshape(nu_sc.shape + (1, 1, 1))
     o32, mm32, s132 = (a.to(torch.float32) for a in (out_mb, mm_mb, s1_mb))
     amps_r = amps_f.flip(0)
     a_i, a_ir = amps_f[idx_i], amps_r[idx_i]
@@ -109,7 +122,7 @@ def mutual_information_ambiguity_mb_stats(out_mb, mm_mb, s1_mb, tx, amps, P, nu_
     a3, a4 = trace(1, a_i), trace(1, a_ir)
     b1, b2 = trace(1, a_q), trace(1, a_qr)
     b3, b4 = trace(0, a_q), trace(0, a_qr)
-    prior = red(lp[idx_i] + lp[idx_q])
+    prior = red(_take(lp, idx_i) + _take(lp, idx_q))
     best = _best_of_ambiguities(a1, a2, a3, a4, b1, b2, b3, b4)
     if weight is None:
         return (best - prior) / (n_mb * bl)

@@ -90,14 +90,15 @@ def ser_iqflip(q: torch.Tensor, tx: torch.Tensor, weight: torch.Tensor | None = 
 
 
 def ser_constell_shaping(rx: torch.Tensor, tx: torch.Tensor | None, amps: torch.Tensor,
-                         nu_sc: float, var: torch.Tensor, weight: torch.Tensor | None = None,
+                         nu_sc, var: torch.Tensor, weight: torch.Tensor | None = None,
                          tx_idx: torch.Tensor | None = None) -> torch.Tensor:
     """Per-pol SER from the constellation output with PCS decision boundaries.
 
     rx (..., 2, 2, N) equalized symbols; tx levels or tx_idx indices
-    (..., 2, 2, N); var (2,) demapper noise variance. The MAP boundary
-    between shaped neighbours moves inward: d = (1 + 2 nu_sc var) (a_i +
-    a_{i+1}) / 2. Non-finite outputs always count as errors.
+    (..., 2, 2, N); var (2,) demapper noise variance and nu_sc a float, or
+    per run var (R, 2) and nu_sc (R,) over rx's leading runs axis. The MAP
+    boundary between shaped neighbours moves inward: d = (1 + 2 nu_sc var)
+    (a_i + a_{i+1}) / 2. Non-finite outputs always count as errors.
     """
     num_lev = amps.shape[0]
     data = _indices(tx, tx_idx, num_lev)
@@ -105,7 +106,11 @@ def ser_constell_shaping(rx: torch.Tensor, tx: torch.Tensor | None, amps: torch.
     data_i, data_q = data[..., 0, :], data[..., 1, :]
     data_q_inv = (num_lev - 1) - data_q
 
-    d_vec = (1 + 2 * nu_sc * var[0]) * (amps[:-1] + amps[1:]) / 2
+    if torch.is_tensor(nu_sc):  # per run (R,)
+        nu_sc = nu_sc[..., None]
+    d_vec = (1 + 2 * nu_sc * var[..., 0, None]) * (amps[:-1] + amps[1:]) / 2  # ([R,] n - 1)
+    if d_vec.dim() > 1:  # per run: (R, 1, 1, 1, n - 1) against rx (R, 2, 2, N)
+        d_vec = d_vec[:, None, None, None, :]
 
     mag_tx = _wmean(torch.sqrt(tx_i**2 + tx_q**2), weight, (-2, -1))
     mag_rx = _wmean(torch.sqrt(rx[..., 0, :] ** 2 + rx[..., 1, :] ** 2), weight, (-2, -1))
@@ -114,8 +119,8 @@ def ser_constell_shaping(rx: torch.Tensor, tx: torch.Tensor | None, amps: torch.
     dec_pos = torch.zeros(rx.shape, dtype=torch.int64, device=rx.device)  # bin(+rx)
     dec_neg = torch.zeros(rx.shape, dtype=torch.int64, device=rx.device)  # bin(-rx)
     for lev in range(num_lev - 1):
-        dec_pos = dec_pos + (rx >= d_vec[lev])
-        dec_neg = dec_neg + (rx <= -d_vec[lev])
+        dec_pos = dec_pos + (rx >= d_vec[..., lev])
+        dec_neg = dec_neg + (rx <= -d_vec[..., lev])
     p0, p1 = dec_pos[..., 0, :], dec_pos[..., 1, :]
     n0, n1 = dec_neg[..., 0, :], dec_neg[..., 1, :]
     i_src = (p0, n0, n1, p1)

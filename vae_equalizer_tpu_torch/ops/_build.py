@@ -60,9 +60,10 @@ _SIGNATURES = {
         "vae_dp_step_launch": [_I, _P, _LL, _LL] + [_P] * 5 + [_F, _I, _I, _I] + [_P] * 6,
         # R, m_max, n_sym, stride_sym, m, n_lev, n_total, rx, w, h, mw, vw, mh,
         # vh (in), w, h, mw, vw, mh, vh (out), losses, var_est, out, dec, eq, mm,
-        # s1, amps, P, var, nu_sc, lr, step0, lr_half_step, stream
+        # s1, amps, P (R, n), var (R, 2), nu_sc (R,), lr (R,), step0, lr_half_step,
+        # stream_bf16, stream
         "vae_dp_frame_launch": [_I] * 6 + [_LL] + [_P] * 7 + [_P] * 6 + [_P] * 7
-        + [_P, _P, _P, _F, _F, _LL, _D, _P],
+        + [_P] * 5 + [_LL, _D, _I, _P],
     },
     "cma": {
         # R, n_sym, m, sps, lp, y, h_in, h_out, out, e, big_r, lr2, update, stream

@@ -46,11 +46,12 @@ __all__ = [
 EPS_KL = 1e-12
 
 
-def dp_step_plain(w, h, x, amps, var, nu_sc: float, P, eps: float = EPS_KL) -> dict:
+def dp_step_plain(w, h, x, amps, var, nu_sc, P, eps: float = EPS_KL) -> dict:
     """Plain PyTorch minibatch step, any leading batch dims (the runs axis).
 
-    w (..., 2, 4, M); h (..., 2, 2, 2, M); x (..., 2, 2, 2*N); amps/P (n,);
-    var (2,) or (..., 2). sps = 2 and odd M, as the kernel. Returns a dict:
+    w (..., 2, 4, M); h (..., 2, 2, 2, M); x (..., 2, 2, 2*N); amps (n,);
+    var (2,) or (..., 2); nu_sc a float or a tensor (...,); P (n,) or
+    (..., n). sps = 2 and odd M, as the kernel. Returns a dict:
     loss (...), var_est (..., 2), gw (..., 2, 4, M), gh (..., 2, 2, 2, M),
     q (..., 2, 2, n, N), out / mm / s1 / eq (..., 2, 2, N) and dec
     (..., 2, 2, N) the int64 argmax level.
@@ -68,6 +69,10 @@ def dp_step_plain(w, h, x, amps, var, nu_sc: float, P, eps: float = EPS_KL) -> d
     mh2 = 2 * mh
     n_eff = n_samp - mh2
     var = var.expand(x.shape[:-3] + (2,))
+    if torch.is_tensor(nu_sc):  # per run: (...,) against (..., pol, I/Q, level, t)
+        nu_sc = nu_sc[..., None, None, None, None]
+    if P.dim() > 1:  # per run: (..., n) against (..., pol, I/Q, level, t)
+        P = P[..., None, None, :]
     a = amps[:, None]
 
     # ---- forward: butterfly, demapper with its sufficient statistics
@@ -96,7 +101,7 @@ def dp_step_plain(w, h, x, amps, var, nu_sc: float, P, eps: float = EPS_KL) -> d
     c = torch.sum((rx_w - d) ** 2, dim=(-2, -1)) + e_term  # (..., 2)
     t_in = torch.zeros(n_sym, dtype=x.dtype, device=x.device)
     t_in[mh : n_sym - mh] = 1.0
-    ratio = q / P[:, None]
+    ratio = q / P[..., :, None]
     kl = torch.sum(-q * torch.log(ratio + eps) * t_in, dim=(-4, -3, -2, -1))
     loss = n_eff * (torch.log(c[..., 0]) + torch.log(c[..., 1])) - kl
 

@@ -13,6 +13,22 @@ With ``stride_sym`` (VAEflex) minibatch mb is the window of bl symbols
 starting at symbol mb * stride_sym, and a frame of N symbols has
 (N - bl) // stride_sym windows (JAX ``frame_kernel.py:701-717``).
 
+Run constants (JAX ``frame_kernel.py:767-826, 902-913``): ``lr``, ``var``,
+``nu_sc`` and ``P`` are each either shared by all runs (a float, (2,), a
+float, (n,)) or given per run ((R,), (R, 2), (R,), (R, n)): run r trains
+with lr[r] (w's lr still halves once at ``lr_half_step``), demaps with
+var[r] and nu_sc[r] a^2, and holds its KL against P[r]. This is how a sweep
+folds the points of its lr, SNR or nu axis into the runs of one launch. The
+wrapper broadcasts the shared form into the per-run buffers the kernel
+reads, so the card has one code path; a shared value and a constant
+per-run vector give the same bits.
+
+``stream_bf16`` stores the out, dec and eq streams as bfloat16 (rounded to
+nearest even from the float32 values; dec's level indices are exact), and
+training is unchanged. Unlike JAX (``frame_kernel.py:1011-1020``), mm and s1
+stay float32: the MI rebuilds log-posteriors from them, and bfloat16 there
+widens its error (the JAX package's own note at ``metrics/mi.py:338``).
+
 On the card (``csrc/dp_kernels.cu``): grid = R, one 256-thread block per
 run; the minibatch loop runs inside the block with w, h and the four Adam
 moments resident in shared memory for the whole frame, each minibatch read
@@ -32,6 +48,7 @@ emit_q=False), so the return drops JAX's q slot.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import _build
@@ -52,23 +69,44 @@ def frame_opt_init(params: dict) -> dict:
     }
 
 
-def adam_update(params: dict, opt: dict, grads: dict, lr: float, step: int,
+def adam_update(params: dict, opt: dict, grads: dict, lr, step: int,
                 lr_half_step: float = float("inf")) -> tuple[dict, dict]:
     """One Adam update of {"w", "h"} at global step ``step`` with optax
     semantics (b1 .9, b2 .999, eps 1e-8 outside the sqrt, bias correction
     with t = step + 1); w's lr halves once ``step`` reaches ``lr_half_step``,
-    h keeps the base lr (JAX ``train/dp.py: _vae_optimizer``). Moments
-    {"mw","vw","mh","vh"} as ``frame_opt_init``. Returns (params', opt')."""
+    h keeps the base lr (JAX ``train/dp.py: _vae_optimizer``). ``lr`` is a
+    float, or a float32 tensor (R,) of per-run rates over the params' leading
+    runs axis. Moments {"mw","vw","mh","vh"} as ``frame_opt_init``. Returns
+    (params', opt')."""
     bc1 = 1.0 - _B1 ** (step + 1)
     bc2 = 1.0 - _B2 ** (step + 1)
     lr_w = lr * (0.5 if step >= lr_half_step else 1.0)
     new_p, new_o = {}, {}
     for k, lr_k in (("w", lr_w), ("h", lr)):
+        if torch.is_tensor(lr_k):  # per run: over the leading runs axis
+            lr_k = lr_k.reshape(lr_k.shape + (1,) * (params[k].dim() - lr_k.dim()))
         mo = _B1 * opt["m" + k] + (1 - _B1) * grads[k]
         ve = _B2 * opt["v" + k] + (1 - _B2) * grads[k] * grads[k]
         new_p[k] = params[k] - lr_k * ((mo / bc1) / (torch.sqrt(ve / bc2) + _EPS_ADAM))
         new_o["m" + k], new_o["v" + k] = mo, ve
     return new_p, {k: new_o[k] for k in ("mw", "vw", "mh", "vh")}
+
+
+def _shape(v) -> tuple:
+    return tuple(v.shape) if torch.is_tensor(v) else np.shape(v)
+
+
+def _check_run_consts(R: int, lr, var, nu_sc, P) -> None:
+    """The per-run forms must have R rows (JAX's checks and messages,
+    ``frame_kernel.py:772-773, 798-801, 843-846, 903-904``)."""
+    if len(_shape(var)) == 2 and _shape(var) != (R, 2):
+        raise ValueError(f"per-run var must be ({R}, 2), got {_shape(var)}")
+    if len(_shape(nu_sc)) > 0 and _shape(nu_sc) != (R,):
+        raise ValueError(f"per-run nu_sc must have shape ({R},), got {_shape(nu_sc)}")
+    if len(_shape(P)) == 2 and _shape(P)[0] != R:
+        raise ValueError(f"per-run P must have leading dim {R}, got {_shape(P)}")
+    if len(_shape(lr)) > 0 and _shape(lr) != (R,):
+        raise ValueError(f"per-run lr must have shape ({R},), got {_shape(lr)}")
 
 
 def _windows(n_total: int, bl_sym: int, stride_sym: int | None) -> tuple[int, int]:
@@ -82,10 +120,12 @@ def _windows(n_total: int, bl_sym: int, stride_sym: int | None) -> tuple[int, in
     return (n_total // 2 - bl_sym) // stride_sym, stride_sym
 
 
-def vae_dp_frame_train_plain(w, h, opt, rx, amps, var, nu_sc: float, P, lr: float, step0: int,
-                             lr_half_step: float, *, bl_sym: int, stride_sym: int | None = None):
+def vae_dp_frame_train_plain(w, h, opt, rx, amps, var, nu_sc, P, lr, step0: int,
+                             lr_half_step: float, *, bl_sym: int, stride_sym: int | None = None,
+                             stream_bf16: bool = False):
     """Plain version of kernel B (same arguments and returns as
     ``vae_dp_frame_train``)."""
+    _check_run_consts(w.shape[0], lr, var, nu_sc, P)
     m_max, fs = _windows(rx.shape[-1], bl_sym, stride_sym)
     params = {"w": w, "h": h}
     streams = {k: [] for k in ("loss", "var_est", "out", "dec", "eq", "mm", "s1")}
@@ -97,52 +137,78 @@ def vae_dp_frame_train_plain(w, h, opt, rx, amps, var, nu_sc: float, P, lr: floa
         params, opt = adam_update(params, opt, {"w": st["gw"], "h": st["gh"]}, lr, int(step0) + mb,
                                   lr_half_step)
     s = {k: torch.stack(v) for k, v in streams.items()}
-    return (params["w"], params["h"], opt, s["loss"], s["var_est"], s["out"],
-            s["dec"].to(torch.int32), s["eq"][..., 0, :], s["mm"], s["s1"])
+    sdt, ddt = (torch.bfloat16, torch.bfloat16) if stream_bf16 else (torch.float32, torch.int32)
+    return (params["w"], params["h"], opt, s["loss"], s["var_est"], s["out"].to(sdt),
+            s["dec"].to(ddt), s["eq"][..., 0, :].to(sdt), s["mm"], s["s1"])
 
 
-def vae_dp_frame_train(w, h, opt, rx, amps, var, nu_sc: float, P, lr: float, step0: int,
-                       lr_half_step: float, *, bl_sym: int, stride_sym: int | None = None):
+def vae_dp_frame_train(w, h, opt, rx, amps, var, nu_sc, P, lr, step0: int,
+                       lr_half_step: float, *, bl_sym: int, stride_sym: int | None = None,
+                       stream_bf16: bool = False):
     """Train one frame of R runs. Kernel B on a CUDA ``rx``, plain on the CPU.
 
     w (R, 2, 4, M); h (R, 2, 2, 2, M); opt {"mw","vw","mh","vh"} in those
-    shapes; rx (R, 2, 2, Nsamp); amps/P (n,); var (2,); step0 = global step
-    of the frame's first minibatch. Minibatches: m_max = Nsamp // (2 bl_sym)
-    back-to-back windows, or with ``stride_sym`` (a divisor of bl_sym; VAEflex)
-    m_max = (Nsamp / 2 - bl_sym) // stride_sym windows of bl_sym symbols
-    starting every stride_sym symbols.
+    shapes; rx (R, 2, 2, Nsamp); amps (n,); the run constants shared or per
+    run (module docstring): lr a float or (R,), var (2,) or (R, 2), nu_sc a
+    float or (R,), P (n,) or (R, n), tensors on rx's device; step0 = global
+    step of the frame's first minibatch. Minibatches: m_max = Nsamp // (2
+    bl_sym) back-to-back windows, or with ``stride_sym`` (a divisor of
+    bl_sym; VAEflex) m_max = (Nsamp / 2 - bl_sym) // stride_sym windows of
+    bl_sym symbols starting every stride_sym symbols.
 
     Returns (w', h', opt', losses (m_max, R), var_est (m_max, R, 2),
-    out (m_max, R, 2, 2, bl), dec (m_max, R, 2, 2, bl) int32 argmax level,
+    out (m_max, R, 2, 2, bl), dec (m_max, R, 2, 2, bl) argmax level (int32),
     eq (m_max, R, 2, bl) E_q[x^I], mm / s1 (m_max, R, 2, 2, bl) the softmin
-    minimum and normalizer) — the JAX returns without the q slot.
+    minimum and normalizer) — the JAX returns without the q slot. With
+    ``stream_bf16`` out, dec and eq are bfloat16.
     """
     if not rx.is_cuda:
         return vae_dp_frame_train_plain(w, h, opt, rx, amps, var, nu_sc, P, lr, step0,
-                                        lr_half_step, bl_sym=bl_sym, stride_sym=stride_sym)
-    return _launch(w, h, opt, rx, amps, var, nu_sc, P, lr, step0, lr_half_step, bl_sym, stride_sym)
+                                        lr_half_step, bl_sym=bl_sym, stride_sym=stride_sym,
+                                        stream_bf16=stream_bf16)
+    return _launch(w, h, opt, rx, amps, var, nu_sc, P, lr, step0, lr_half_step, bl_sym, stride_sym,
+                   stream_bf16)
 
 
-def _launch(w, h, opt, rx, amps, var, nu_sc, P, lr, step0, lr_half_step, bl_sym, stride_sym):
+def _per_run(name: str, v, R: int, tail: tuple, dev) -> torch.Tensor:
+    """A run constant as the contiguous float32 (R, *tail) buffer kernel B
+    reads; the shared form (a float, or a tensor of shape ``tail``) is
+    broadcast to every run."""
+    if not torch.is_tensor(v):
+        if np.ndim(v) == 0:
+            return torch.full((R,) + tail, float(v), dtype=torch.float32, device=dev)
+        raise ValueError(f"{name}: a float or a float32 tensor on {dev}, got {type(v).__name__}")
+    if tuple(v.shape) == tail:
+        v = v.expand((R,) + tail).contiguous()
+    _build.check_tensor(name, v, (R,) + tail, dev)
+    return v
+
+
+def _launch(w, h, opt, rx, amps, var, nu_sc, P, lr, step0, lr_half_step, bl_sym, stride_sym,
+            stream_bf16):
     dev = rx.device
     R, m = w.shape[0], w.shape[-1]
     n_lev = amps.shape[0]
     n_total = rx.shape[-1]
     n_sym = bl_sym
     m_max, fs = _windows(n_total, bl_sym, stride_sym)
+    _check_run_consts(R, lr, var, nu_sc, P)
     checks = [("rx", rx, (R, 2, 2, n_total)), ("w", w, (R, 2, 4, m)), ("h", h, (R, 2, 2, 2, m)),
-              ("amps", amps, (n_lev,)), ("P", P, (n_lev,)), ("var", var, (2,))]
+              ("amps", amps, (n_lev,))]
     checks += [(k, opt[k], w.shape if k[1] == "w" else h.shape) for k in ("mw", "vw", "mh", "vh")]
     for name, t, shape in checks:
         _build.check_tensor(name, t, shape, dev)
+    consts = (_per_run("P", P, R, (n_lev,), dev), _per_run("var", var, R, (2,), dev),
+              _per_run("nu_sc", nu_sc, R, (), dev), _per_run("lr", lr, R, (), dev))
     lib = _build.load()
     f32 = dict(dtype=torch.float32, device=dev)
+    sdt, ddt = (torch.bfloat16, torch.bfloat16) if stream_bf16 else (torch.float32, torch.int32)
     new = {k: torch.empty_like(t) for k, t in (("w", w), ("h", h), *opt.items())}
     losses = torch.empty((m_max, R), **f32)
     var_est = torch.empty((m_max, R, 2), **f32)
-    out = torch.empty((m_max, R, 2, 2, n_sym), **f32)
-    dec = torch.empty((m_max, R, 2, 2, n_sym), dtype=torch.int32, device=dev)
-    eq = torch.empty((m_max, R, 2, n_sym), **f32)
+    out = torch.empty((m_max, R, 2, 2, n_sym), dtype=sdt, device=dev)
+    dec = torch.empty((m_max, R, 2, 2, n_sym), dtype=ddt, device=dev)
+    eq = torch.empty((m_max, R, 2, n_sym), dtype=sdt, device=dev)
     mm = torch.empty((m_max, R, 2, 2, n_sym), **f32)
     s1 = torch.empty((m_max, R, 2, 2, n_sym), **f32)
     ins = (rx, w, h, opt["mw"], opt["vw"], opt["mh"], opt["vh"])
@@ -150,7 +216,7 @@ def _launch(w, h, opt, rx, amps, var, nu_sc, P, lr, step0, lr_half_step, bl_sym,
             dec, eq, mm, s1)
     rc = lib.vae_dp_frame_launch(
         R, m_max, n_sym, fs, m, n_lev, n_total, *(t.data_ptr() for t in ins + outs), amps.data_ptr(),
-        P.data_ptr(), var.data_ptr(), nu_sc, lr, int(step0), float(lr_half_step),
+        *(t.data_ptr() for t in consts), int(step0), float(lr_half_step), int(bool(stream_bf16)),
         _build.stream(dev))
     _build.check(rc, "vae_dp_frame_launch")
     vae_dp_frame_train.launches += 1

@@ -100,7 +100,8 @@ def _dp_frame_eval_mb(out_const, tx, amps, P, nu_sc, var, weight_fn, dec, eq, ou
     eval streams (the JAX stats branch, train/dp.py:187-214).
 
     out_const/dec (R, 2, 2, N); eq (R, 2, N); out_mb/mm_mb/s1_mb
-    (R, n_mb, 2, 2, bl); tx (R, 2, 2, N); weight_fn as in ``_dp_frame_eval``.
+    (R, n_mb, 2, 2, bl); tx (R, 2, 2, N); P (n,) or (R, n), nu_sc a float or
+    (R,), var (2,) or (R, 2); weight_fn as in ``_dp_frame_eval``.
     Returns per-run (ser_const, ser_soft, mi) (R, 2) and (shift (R, 2), r (R,)).
     """
     num_lev = amps.shape[0]
@@ -123,10 +124,11 @@ def _dp_frame_eval_mb(out_const, tx, amps, P, nu_sc, var, weight_fn, dec, eq, ou
     return ser_const, ser_soft, mi, shift, r
 
 
-def _vae_metrics(losses, ser_const, ser_soft, mi, var_est, shift, r, sigma, const):
+def _vae_metrics(losses, ser_const, ser_soft, mi, var_est, shift, r, sigma, pow_mean):
     """A VAE frame's metrics packed (R, n_tot): losses (steps, R), var_est
-    (R, steps, 2), the eval's per-run results and the channel's sigma (R,)."""
-    snr_est = const.pow_mean / var_est.mean(dim=(-2, -1))
+    (R, steps, 2), the eval's per-run results, the channel's sigma (R,) and
+    the source power (a float, or (R,) per run)."""
+    snr_est = pow_mean / var_est.mean(dim=(-2, -1))
     metrics = {
         "loss": losses[-1],
         "ser_const": ser_const,
@@ -141,18 +143,21 @@ def _vae_metrics(losses, ser_const, ser_soft, mi, var_est, shift, r, sigma, cons
     return pack_metrics(metrics, _VAE_FIELDS, batch_ndim=1)
 
 
-def _finish_vae_frame(losses, out_mb, var_est, tx, const, amps, P, var, weight_fn, sigma,
+def _finish_vae_frame(losses, out_mb, var_est, tx, amps, P, var, nu_sc, pow_mean, weight_fn, sigma,
                       dec_mb, eq_mb, mm_mb, s1_mb):
-    """Kernel B's streams (m_max, R, ...) -> evaluate -> packed metrics (R, n_tot)."""
+    """Kernel B's streams (m_max, R, ...) -> evaluate -> packed metrics (R,
+    n_tot). The eval constants P, var, nu_sc and pow_mean are shared, or per
+    run (JAX ``_finish_vae_frame``'s overrides, train/dp.py:240-261);
+    bfloat16 out / eq streams (``stream_bf16``) are evaluated in float32."""
     runs_first = lambda a: a.movedim(0, 1)  # (m_max, R, ...) -> (R, m_max, ...)
     out_mb, dec_mb, eq_mb, mm_mb, s1_mb, var_est = map(
-        runs_first, (out_mb, dec_mb, eq_mb, mm_mb, s1_mb, var_est))
+        runs_first, (out_mb.float(), dec_mb, eq_mb.float(), mm_mb, s1_mb, var_est))
     time_major = lambda a: a.movedim(-4, -2).flatten(-2)  # (R, m, 2, 2, bl) -> (R, 2, 2, N)
     out_const, dec = time_major(out_mb), time_major(dec_mb)
     eq = eq_mb.movedim(-3, -2).flatten(-2)  # (R, m, 2, bl) -> (R, 2, N)
     ser_const, ser_soft, mi, shift, r = _dp_frame_eval_mb(
-        out_const, tx, amps, P, const.nu_sc, var, weight_fn, dec, eq, out_mb, mm_mb, s1_mb)
-    return _vae_metrics(losses, ser_const, ser_soft, mi, var_est, shift, r, sigma, const)
+        out_const, tx, amps, P, nu_sc, var, weight_fn, dec, eq, out_mb, mm_mb, s1_mb)
+    return _vae_metrics(losses, ser_const, ser_soft, mi, var_est, shift, r, sigma, pow_mean)
 
 
 def _finish_step_frame(losses, q, out_const, var_est, tx, const, amps, P, var, weight_fn, sigma):
@@ -163,7 +168,7 @@ def _finish_step_frame(losses, q, out_const, var_est, tx, const, amps, P, var, w
     R); var_est (R, steps, 2)."""
     ser_const, ser_soft, mi, (shift, r), _ = _dp_frame_eval(
         q, out_const, tx, amps, P, const.nu_sc, var, weight_fn)
-    return _vae_metrics(losses, ser_const, ser_soft, mi, var_est, shift, r, sigma, const)
+    return _vae_metrics(losses, ser_const, ser_soft, mi, var_est, shift, r, sigma, const.pow_mean)
 
 
 def _dp_frame_eval(q, out_const, tx, amps, P, nu_sc, var, weight_fn):
@@ -227,28 +232,57 @@ def _finish_cma_frame(out, e, tx, sigma, const, amps, P, var, n_cut: int, weight
 
 def _dp_result(hist: dict, var, **extra) -> dict:
     """The runners' result; ``var_est`` is zeros (shaped like ``mi``) where
-    the history has none, as in the JAX package."""
+    the history has none, as in the JAX package; ``extra`` entries of None
+    are left out."""
     return {
         "ser": np.concatenate([hist["ser_const"], hist["ser_soft"]], axis=-2),
         "var_est": hist.get("var_est", np.zeros_like(hist["mi"])),
         "mi": hist["mi"],
         "var": var.cpu().numpy(),
-        **extra,
+        **{k: v for k, v in extra.items() if v is not None},
     }
 
 
-def _frame_kernel_train(cfg, const, amps, P, var, *, stride_sym, crop, tx_of, weight_fn, thresh):
+# dims of each run constant's shared form; one more is its per-run form
+_CONST_NDIM = {"lr": 0, "nu_sc": 0, "var": 1, "P": 1}
+
+
+def _frame_kernel_train(cfg, amps, rc, *, runs, runs_batch, stream_bf16, stride_sym, crop, tx_of,
+                        weight_fn, thresh):
     """``use_pallas="frame"``: a frame's training is one kernel B launch for
-    all runs (JAX ``_run_frame_kernel_experiment``); VAEflex's windows crop
-    the eval streams to their central ``crop`` (``crop_flex``)."""
+    all runs (JAX ``_run_frame_kernel_experiment``), or one per group of
+    ``runs_batch`` runs, with the run constants of ``_run_consts``; VAEflex's
+    windows crop the eval streams to their central ``crop``
+    (``crop_flex``). The eval takes all runs at once."""
+    R = runs or 1
+    rb = runs_batch or R
+    if R % rb != 0:
+        raise ValueError(f"runs_batch={rb} must divide runs={R}")
+
+    def rows(name, sl):  # a run constant for the runs of one launch
+        v = rc[name]
+        return v[sl] if torch.is_tensor(v) and v.dim() > _CONST_NDIM[name] else v
+
     def train(params, opt, count, rx, tx, sigma):
-        (w, h, opt, losses, var_est, out_mb, dec_mb, eq_mb, mm_mb, s1_mb) = vae_dp_frame_train(
-            params["w"], params["h"], opt, rx, amps, var, const.nu_sc, P, cfg.lr, count, thresh,
-            bl_sym=cfg.batch_len, stride_sym=stride_sym)
+        parts = []
+        for g in range(0, R, rb):
+            sl = slice(g, g + rb)
+            parts.append(vae_dp_frame_train(
+                params["w"][sl], params["h"][sl], {k: v[sl] for k, v in opt.items()}, rx[sl], amps,
+                rows("var", sl), rows("nu_sc", sl), rows("P", sl), rows("lr", sl), count, thresh,
+                bl_sym=cfg.batch_len, stride_sym=stride_sym, stream_bf16=stream_bf16))
+        if len(parts) == 1:
+            w, h, opt, losses, var_est, out_mb, dec_mb, eq_mb, mm_mb, s1_mb = parts[0]
+        else:  # params and moments are runs-first, the streams (steps, runs, ...)
+            cat = lambda i, dim: torch.cat([p[i] for p in parts], dim=dim)
+            w, h = cat(0, 0), cat(1, 0)
+            opt = {k: torch.cat([p[2][k] for p in parts]) for k in parts[0][2]}
+            losses, var_est, out_mb, dec_mb, eq_mb, mm_mb, s1_mb = (cat(i, 1) for i in range(3, 10))
         streams = (a[..., crop] for a in (out_mb, dec_mb, eq_mb, mm_mb, s1_mb))
         out_mb, dec_mb, eq_mb, mm_mb, s1_mb = streams
-        packed = _finish_vae_frame(losses, out_mb, var_est, tx_of(tx), const, amps, P, var,
-                                   weight_fn, sigma, dec_mb, eq_mb, mm_mb, s1_mb)
+        packed = _finish_vae_frame(losses, out_mb, var_est, tx_of(tx), amps, rc["P"], rc["var"],
+                                   rc["nu_sc"], rc["pow_mean"], weight_fn, sigma, dec_mb, eq_mb,
+                                   mm_mb, s1_mb)
         return {"w": w, "h": h}, opt, packed
     return train
 
@@ -294,11 +328,14 @@ def _step_train(cfg, const, amps, P, var, *, use_kernel, n_steps, stride_sym, cr
     return train
 
 
-def _run_vae_experiment(cfg, gen, var, draws, train, *, steps_per_frame, params, runs, progress):
+def _run_vae_experiment(cfg, gen, var, draws, train, *, steps_per_frame, params, runs, progress,
+                        snr_lin=None, var_runs=None):
     """The VAE / VAEflex frame loop for every mode: the carry is (params, Adam
     moments, global step count), so the lr schedule and bias correction
     continue across frames; ``train(params, opt, count, rx, tx, sigma) ->
-    (params, opt, packed)`` trains and evaluates one frame of all runs."""
+    (params, opt, packed)`` trains and evaluates one frame of all runs;
+    ``snr_lin`` (R,) is the channel's per-run SNR, ``var_runs`` the per-run
+    demapper variance the result reports."""
     R = 1 if runs is None else runs
     tail = {"w": 3, "h": 4}  # w (2, 4, M), h (2, 2, 2, M), with or without a runs axis
     params = {k: v.expand((R,) + v.shape[-tail[k]:]).contiguous() for k, v in params.items()}
@@ -307,7 +344,7 @@ def _run_vae_experiment(cfg, gen, var, draws, train, *, steps_per_frame, params,
     def frame_step(carry, frame, theta):
         params, opt, count = carry
         levels, noise = draws(frame, R)
-        rx, tx, sigma = gen.physics(theta, levels, noise)
+        rx, tx, sigma = gen.physics(theta, levels, noise, snr_lin)
         params, opt, packed = train(params, opt, count, rx, tx, sigma)
         if runs is None:
             packed = packed[0]
@@ -318,7 +355,7 @@ def _run_vae_experiment(cfg, gen, var, draws, train, *, steps_per_frame, params,
         runs=runs, progress=progress)
     if runs is None:
         params = {k: v[0] for k, v in params.items()}
-    return _dp_result(hist, var, params=params)
+    return _dp_result(hist, var, params=params, var_runs=var_runs)
 
 
 _DEFERRED = ("not ported yet (ROADMAP.md, queue 1: 'Deferred train_vae_dp / train_vae_flex_dp "
@@ -332,83 +369,171 @@ def _raise_deferred(deferred: dict, where: str) -> None:
             raise NotImplementedError(f"{name}: {where}")
 
 
-def _default_draws(gen, seed: int, device):
+def _default_draws(gen, seed: int, device, P=None):
+    """Draws from a ``torch.Generator`` seeded with ``seed``; ``P`` (R, n) a
+    per-run sampling pmf."""
     rng = torch.Generator(device=device)
     rng.manual_seed(seed)
-    return lambda frame, R: gen.draws(rng, R)
+    return lambda frame, R: gen.draws(rng, R, P)
 
 
-def _vae_setup(loss_type, cfg, seed, device, params_init, use_pallas, draws, deferred):
-    """What both VAE runners share: the mode and option checks, then (device,
-    n_frame, constellation, demapper var, simulator, amps, P, params, draws)
-    for frames of n_frame = (n_frame_max // batch_len) * batch_len symbols."""
+def _run_consts(cfg: DpConfig, const, var, runs, lr_vec, snr_vec, nu_vec, device) -> dict:
+    """The VAE's run constants (JAX ``_run_frame_kernel_experiment``,
+    train/dp.py:347-413): lr, nu_sc, the prior P, the demapper variance and
+    the source power, each shared by all runs or, where ``lr_vec`` /
+    ``snr_vec`` / ``nu_vec`` batch a sweep's lr / SNR / nu axis into the
+    runs, per run; plus the channel's per-run pmf ``P_draw`` (nu) and linear
+    SNR ``snr_lin`` (SNR), and ``var_runs`` (runs, 2) for the result. The
+    per-run variance pow_mean(nu) / 10^(SNR/10) / 2 and SNR are folded in
+    float64 on the host, as the scalar path folds them, so a constant vector
+    gives the scalar path's bits."""
+    P = torch.from_numpy(np.asarray(const.P, np.float32)).to(device)
+    rc = dict(lr=cfg.lr, nu_sc=const.nu_sc, P=P, var=var, pow_mean=const.pow_mean, P_draw=None,
+              snr_lin=None, var_runs=None)
+    if lr_vec is None and snr_vec is None and nu_vec is None:
+        return rc
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)
+    if lr_vec is not None:
+        lr_arr = np.asarray(lr_vec, np.float32)
+        if lr_arr.shape != (runs,):
+            raise ValueError(f"lr_vec must have shape ({runs},), got {lr_arr.shape}")
+        rc["lr"] = f32(lr_arr)
+    pm_runs = np.full((runs,), const.pow_mean, np.float64)
+    if nu_vec is not None:
+        nu_arr = np.asarray(nu_vec, np.float64).reshape(-1)
+        if nu_arr.shape != (runs,):
+            raise ValueError(f"nu_vec must have shape ({runs},), got {nu_arr.shape}")
+        consts = [make_constellation(cfg.mod, float(v)) for v in nu_arr]
+        rc["P_draw"] = np.stack([np.asarray(c.P, np.float32) for c in consts])
+        rc["P"], rc["nu_sc"] = f32(rc["P_draw"]), f32([c.nu_sc for c in consts])
+        pm_runs = np.asarray([c.pow_mean for c in consts], np.float64)
+        rc["pow_mean"] = f32(pm_runs)
+    if snr_vec is not None or nu_vec is not None:
+        snr_db = np.full((runs,), cfg.snr_db, np.float32)
+        if snr_vec is not None:
+            snr_db = np.asarray(snr_vec, np.float32)
+            if snr_db.shape != (runs,):
+                raise ValueError(f"snr_vec must have shape ({runs},), got {snr_db.shape}")
+            rc["snr_lin"] = f32(10.0 ** (np.float64(snr_db) / 10.0))
+        rc["var_runs"] = ((pm_runs / 10.0 ** (np.float64(snr_db) / 10.0) / 2.0)[:, None]
+                          * np.ones((1, 2))).astype(np.float32)
+        rc["var"] = f32(rc["var_runs"])
+    return rc
+
+
+def _vae_setup(loss_type, cfg, seed, device, params_init, use_pallas, draws, runs, runs_batch,
+               stream_bf16, vecs, deferred):
+    """What both VAE runners share: the mode and option checks (JAX's
+    refusals, train/dp.py:323-331, 565-566), then (device, n_frame,
+    constellation, demapper var, simulator, amps, run constants, params,
+    draws) for frames of n_frame = (n_frame_max // batch_len) * batch_len
+    symbols."""
     check_pallas_mode(loss_type, use_pallas)
     _raise_deferred(deferred, _DEFERRED)
     if use_pallas and (cfg.sps != 2 or cfg.m_est % 2 == 0):
         raise ValueError("use_pallas requires sps=2 and odd M_est")
+    has_vec = any(v is not None for v in vecs)
+    if use_pallas == "frame" and runs is None:
+        if stream_bf16:
+            raise ValueError("stream_bf16 needs the runs-batched kernel (set runs)")
+        if has_vec:
+            raise ValueError("lr_vec/snr_vec/nu_vec need the runs-batched kernel (set runs)")
+    if use_pallas != "frame" and has_vec:
+        raise ValueError('lr_vec/snr_vec/nu_vec need use_pallas="frame"')
     device = resolve_device(device)
     n_frame = cfg.n_frame_max // cfg.batch_len * cfg.batch_len
-    const, var, gen, amps, P = _setup(cfg, n_frame, device)
+    const, var, gen, amps, _ = _setup(cfg, n_frame, device)
+    rc = _run_consts(cfg, const, var, runs, *vecs, device)
     params = params_init or {"w": butterfly_init(cfg.m_est, device), "h": dirac_taps_dp(cfg.m_est, device)}
     params = {k: torch.as_tensor(v, dtype=torch.float32).to(device) for k, v in params.items()}
-    return device, n_frame, const, var, gen, amps, P, params, draws or _default_draws(gen, seed, device)
+    draws = draws or _default_draws(gen, seed, device, rc["P_draw"])
+    return device, n_frame, const, var, gen, amps, rc, params, draws
 
 
-def _deferred_options(checkpoint, checkpoint_every, stream_bf16, lr_vec, snr_vec, nu_vec, mesh,
-                      compiled, chunk_frames) -> dict:
+def _deferred_options(checkpoint, checkpoint_every, mesh, compiled, chunk_frames, timings) -> dict:
     return {
         "checkpoint": checkpoint is not None or checkpoint_every != 0,
-        "stream_bf16": stream_bf16,
-        "lr_vec/snr_vec/nu_vec": lr_vec is not None or snr_vec is not None or nu_vec is not None,
         "mesh": mesh is not None,
         "compiled/chunk_frames": compiled or chunk_frames != 1,
+        "timings": timings is not None,
     }
+
+
+def _vae_runner(loss_type, cfg, seed, device, progress, runs, params_init, use_pallas, draws,
+                runs_batch, stream_bf16, vecs, deferred):
+    """``train_vae_dp`` (batch_len windows back to back) and
+    ``train_vae_flex_dp`` (windows every flex_step, central crop)."""
+    device, n_frame, const, var, gen, amps, rc, params, draws = _vae_setup(
+        loss_type, cfg, seed, device, params_init, use_pallas, draws, runs, runs_batch, stream_bf16,
+        vecs, deferred)
+    bl = cfg.batch_len
+    if loss_type == "VAE":
+        n_steps = n_frame // bl
+        kw = dict(stride_sym=bl, crop=slice(None), tx_of=lambda tx: tx,
+                  weight_fn=_batch_cut_weight_fn(n_steps, bl, cfg.n_cut))
+    else:
+        fs = cfg.flex_step
+        n_steps = (n_frame - bl) // fs
+        m_max = n_steps * fs  # symbols of the recorded stream
+        crop0 = (bl - fs) // 2
+        kw = dict(stride_sym=fs, crop=slice(crop0, crop0 + fs),
+                  tx_of=lambda tx: tx[..., bl // 2 : bl // 2 + m_max], weight_fn=_margin_weight_fn(m_max))
+    kw["thresh"] = float(cfg.n_lrhalf) * n_steps
+    if use_pallas == "frame":
+        train = _frame_kernel_train(cfg, amps, rc, runs=runs, runs_batch=runs_batch,
+                                    stream_bf16=stream_bf16, **kw)
+    else:
+        train = _step_train(cfg, const, amps, rc["P"], var, use_kernel=use_pallas, n_steps=n_steps, **kw)
+    return _run_vae_experiment(cfg, gen, var, draws, train, steps_per_frame=n_steps, params=params,
+                               runs=runs, progress=progress, snr_lin=rc["snr_lin"],
+                               var_runs=rc["var_runs"])
 
 
 def train_vae_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progress = None,
                  runs: int | None = None, mesh=None, params_init=None, compiled: bool = False,
-                 use_pallas="frame", checkpoint=None, checkpoint_every: int = 0,
-                 chunk_frames: int = 1, stream_bf16: bool = False, lr_vec=None, snr_vec=None,
-                 nu_vec=None, draws=None) -> dict:
+                 use_pallas=False, checkpoint=None, checkpoint_every: int = 0,
+                 timings: dict | None = None, chunk_frames: int = 1, runs_batch: int | None = None,
+                 stream_bf16: bool = False, lr_vec=None, snr_vec=None, nu_vec=None,
+                 draws=None) -> dict:
     """VAE-LE butterfly, online frame training on the optical DP channel.
 
-    ``use_pallas`` (``train/modes.py``): ``"frame"`` runs all of a frame's
-    minibatch steps (incl. Adam) as one kernel B launch for all ``runs``
-    (``ops/frame_kernel.py``); ``True`` runs each minibatch of all runs as
-    one kernel A launch (``ops/elbo_kernel.py``) followed by Adam; ``False``
-    takes each minibatch's gradient by autograd through the model and the
-    ELBO. A kernel mode launches the CUDA kernel for a CUDA ``device`` and
-    takes its plain version on the CPU. The channel draws come from a
-    ``torch.Generator`` seeded with ``seed``, or from ``draws(frame, runs) ->
-    (levels (R, 4, n_conv), noise (R, 2, 2, sig_len))`` where given (how
-    tests feed the JAX package's draws). The kernel modes need sps = 2 and
-    odd M.
+    ``use_pallas`` (``train/modes.py``; JAX's default False): ``"frame"``
+    runs all of a frame's minibatch steps (incl. Adam) as one kernel B launch
+    for all ``runs`` (``ops/frame_kernel.py``), or one per group of
+    ``runs_batch`` runs (same results); ``True`` runs each minibatch of all
+    runs as one kernel A launch (``ops/elbo_kernel.py``) followed by Adam;
+    ``False`` takes each minibatch's gradient by autograd through the model
+    and the ELBO. A kernel mode launches the CUDA kernel for a CUDA
+    ``device`` and takes its plain version on the CPU. The kernel modes need
+    sps = 2 and odd M.
+
+    With ``"frame"`` and ``runs`` (JAX's runs-batched kernel path):
+    ``lr_vec`` / ``snr_vec`` / ``nu_vec`` (runs,) give each run its own lr,
+    SNR (channel noise and demapper variance) or PCS shaping nu (sampling
+    pmf, demapper and KL constants, eval constants) — how a sweep batches a
+    grid axis into the runs; ``stream_bf16`` stores kernel B's out / dec /
+    eq streams as bfloat16 (training unchanged).
+
+    The channel draws come from a ``torch.Generator`` seeded with ``seed``,
+    or from ``draws(frame, runs) -> (levels (R, 4, n_conv), noise (R, 2, 2,
+    sig_len))`` where given (how tests feed the JAX package's draws).
 
     Returns {"ser" (..., 4, F), "mi" (..., 2, F), "var_est" (..., 2, F),
-    "var" (2,), "params" {"w", "h"}} with a leading runs axis iff ``runs``.
+    "var" (2,), "params" {"w", "h"}} with a leading runs axis iff ``runs``,
+    and "var_runs" (runs, 2), the per-run demapper variance, whenever
+    ``snr_vec`` or ``nu_vec`` is set.
     """
-    deferred = _deferred_options(checkpoint, checkpoint_every, stream_bf16, lr_vec, snr_vec, nu_vec,
-                                 mesh, compiled, chunk_frames)
-    device, n_frame, const, var, gen, amps, P, params, draws = _vae_setup(
-        "VAE", cfg, seed, device, params_init, use_pallas, draws, deferred)
-    m_max = n_frame // cfg.batch_len
-    kw = dict(stride_sym=cfg.batch_len, crop=slice(None), tx_of=lambda tx: tx,
-              weight_fn=_batch_cut_weight_fn(m_max, cfg.batch_len, cfg.n_cut),
-              thresh=float(cfg.n_lrhalf) * m_max)
-    if use_pallas == "frame":
-        train = _frame_kernel_train(cfg, const, amps, P, var, **kw)
-    else:
-        train = _step_train(cfg, const, amps, P, var, use_kernel=use_pallas, n_steps=m_max, **kw)
-    return _run_vae_experiment(cfg, gen, var, draws, train, steps_per_frame=m_max, params=params,
-                               runs=runs, progress=progress)
+    deferred = _deferred_options(checkpoint, checkpoint_every, mesh, compiled, chunk_frames, timings)
+    return _vae_runner("VAE", cfg, seed, device, progress, runs, params_init, use_pallas, draws,
+                       runs_batch, stream_bf16, (lr_vec, snr_vec, nu_vec), deferred)
 
 
 def train_vae_flex_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progress = None,
                       runs: int | None = None, mesh=None, params_init=None, compiled: bool = False,
                       use_pallas=False, checkpoint=None, checkpoint_every: int = 0,
-                      chunk_frames: int = 1, runs_batch: int | None = None,
-                      stream_bf16: bool = False, lr_vec=None, snr_vec=None, nu_vec=None,
-                      draws=None) -> dict:
+                      timings: dict | None = None, chunk_frames: int = 1,
+                      runs_batch: int | None = None, stream_bf16: bool = False, lr_vec=None,
+                      snr_vec=None, nu_vec=None, draws=None) -> dict:
     """VAEflex: overlapping sliding-window minibatches with a central crop
     (func_VAEflex_DP_MQAM_shaping.py:16-90, JAX ``train_vae_flex_dp``).
 
@@ -421,24 +546,9 @@ def train_vae_flex_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progres
     runs as one kernel A launch; ``False`` takes each window's gradient by
     autograd. Arguments, draws and returns as ``train_vae_dp``.
     """
-    deferred = _deferred_options(checkpoint, checkpoint_every, stream_bf16, lr_vec, snr_vec, nu_vec,
-                                 mesh, compiled, chunk_frames)
-    deferred["runs_batch"] = runs_batch is not None
-    device, n_frame, const, var, gen, amps, P, params, draws = _vae_setup(
-        "VAEflex", cfg, seed, device, params_init, use_pallas, draws, deferred)
-    fs, bl = cfg.flex_step, cfg.batch_len
-    n_windows = (n_frame - bl) // fs
-    m_max = n_windows * fs  # symbols of the recorded stream
-    crop0 = (bl - fs) // 2
-    kw = dict(stride_sym=fs, crop=slice(crop0, crop0 + fs),
-              tx_of=lambda tx: tx[..., bl // 2 : bl // 2 + m_max],
-              weight_fn=_margin_weight_fn(m_max), thresh=float(cfg.n_lrhalf) * n_windows)
-    if use_pallas == "frame":
-        train = _frame_kernel_train(cfg, const, amps, P, var, **kw)
-    else:
-        train = _step_train(cfg, const, amps, P, var, use_kernel=use_pallas, n_steps=n_windows, **kw)
-    return _run_vae_experiment(cfg, gen, var, draws, train, steps_per_frame=n_windows,
-                               params=params, runs=runs, progress=progress)
+    deferred = _deferred_options(checkpoint, checkpoint_every, mesh, compiled, chunk_frames, timings)
+    return _vae_runner("VAEflex", cfg, seed, device, progress, runs, params_init, use_pallas, draws,
+                       runs_batch, stream_bf16, (lr_vec, snr_vec, nu_vec), deferred)
 
 
 def run_cma_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progress = None,

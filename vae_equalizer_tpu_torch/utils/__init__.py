@@ -1,4 +1,4 @@
-"""Configurations and weight conversion."""
+"""Configurations, weight conversion (``convert``) and results IO (``io``)."""
 
 from .config import AwgnVaeLeConfig, AwgnVaeNnConfig, DpConfig
 
