@@ -22,7 +22,8 @@ of one kernel B launch per frame). One line per phase:
   3. kernel A  vs plain (one minibatch of R = 8 runs, one launch), errors
                and CUDA-event times
   4. kernel B  vs plain: (a) a 3-minibatch frame, R = 8, across the lr
-               halving; (b) a full 100-step frame; times
+               halving; (b) a full 100-step frame; times; the block's
+               clock64() cycles per step and phase
   5. main path the full VAE experiment; launch count, soft SER band, MI, speed
   6. breakdown per-frame channel / kernel B / eval times
   7. kernel C  vs plain: a whole 10,000-symbol CMA frame, R = 5; times
@@ -56,7 +57,7 @@ of one kernel B launch per frame). One line per phase:
                channel / kernel A / Adam / eval split; use_pallas=False
                (autograd) for 2 frames, its frame time
  18. kernel B  stride_sym = 10 vs plain: (a) 3 windows; (b) a full
-     stride    990-window frame from a warm state; times
+     stride    990-window frame from a warm state; times; cycles per phase
  19. VAEflex   train_vae_flex_dp(use_pallas="frame"), 170 frames, R = 8: one
      path      kernel B launch per frame, soft SER and MI in the JAX band;
                channel / kernel B / eval split
@@ -141,14 +142,15 @@ STREAM_BLOCKS = 120
 STREAM_BAND = (0.00644, 0.01508)  # mean SER of the last 10 blocks
 STREAM_BLOCK_MAX = 0.0253  # each of the last 10 blocks
 # VAEflex (train_vae_flex_dp(DpConfig()): windows of 100 every 10, 990 per
-# frame). The JAX package on the CPU (tools/jax_bands.py vaeflex, keys 0 and
-# 1, runs 2, PERF.md): per run the last-20-frame soft SER 0.022918-0.023367
-# and the final MI (mean of the pols) 5.8274-5.8612 bits. Bands for the mean
-# over runs = each spread widened 2x about its middle (the SER band holds the
-# reference's 0.0230); every run's MI above the lowest less the spread.
-VAEFLEX_SER_BAND = (0.02269, 0.02360)
-VAEFLEX_MI_BAND = (5.810, 5.879)
-VAEFLEX_MI_FLOOR = 5.79
+# frame). The JAX package on the CPU (tools/jax_bands.py vaeflex, keys 0-7,
+# runs 2, 16 runs, PERF.md): per run the last-20-frame soft SER
+# 0.022265-0.023367 and the final MI (mean of the pols) 5.8274-5.8785 bits.
+# Bands for the mean over runs = each spread widened 2x about its middle,
+# rounded outward (the SER band holds the reference's 0.0230); every run's MI
+# above the lowest less the spread.
+VAEFLEX_SER_BAND = (0.02171, 0.02392)
+VAEFLEX_MI_BAND = (5.801, 5.905)
+VAEFLEX_MI_FLOOR = 5.77
 FLEX_CHECK_FRAMES = 5  # VAEflex use_pallas=True against "frame", phase 20
 # Phases 22-24: the JAX package's batched Eval_run_DP sweeps on a TPU at these
 # defaults (PARITY_RESULTS.md:1005-1084; accuracy only, its times are not the
@@ -224,6 +226,35 @@ def _dec_ties_only(dec, dec_ref, out, amps, var, nu_sc, tol=1e-4):
     if bool(non_tie.any()):
         raise AssertionError(f"dec: {int(non_tie.sum())} mismatches away from ties")
     return int(mism.sum()), int(mism.numel())
+
+
+def _check_b3(got, want, amps, var, nu_sc, eq_atol, errs) -> tuple:
+    """Kernel B against its plain version over a few minibatches (phases 4a,
+    18a, 21a): w, h, losses, var_est at rtol 1e-4 over an absolute 3e-7; the
+    Adam moments (raw gradients of scale ~1e1-1e2, where 3e-7 is below one
+    float32 ulp) over 1e-5 of their scale; out, s1 over 1e-6 and eq over
+    ``eq_atol``; mm over 1e-4 (near-zero minima carry the output's absolute
+    error times the 1/(2 var) gain); decisions differ only at ties. Records
+    into errs; returns the tie mismatches (count, of)."""
+    names = ("w", "h", "opt", "losses", "var_est", "out", "dec", "eq", "mm", "s1")
+    g, w = dict(zip(names, got)), dict(zip(names, want))
+    for k in ("w", "h", "losses", "var_est"):
+        _check(k, g[k], w[k], 1e-4, 3e-7, errs)
+    for k in ("mw", "vw", "mh", "vh"):
+        _check(k, g["opt"][k], w["opt"][k], 1e-4, 1e-5 * float(w["opt"][k].abs().max()), errs)
+    for k in ("out", "s1"):
+        _check(k, g[k], w[k], 1e-4, 1e-6, errs)
+    _check("eq", g["eq"], w["eq"], 1e-4, eq_atol, errs)
+    _check("mm", g["mm"], w["mm"], 1e-4, 1e-4, errs)
+    return _dec_ties_only(g["dec"], w["dec"], w["out"], amps, var, nu_sc)
+
+
+def _clocks_kv(clocks: dict) -> dict:
+    """Kernel B's phase clocks (ops/frame_kernel.py: frame_clocks) as line
+    fields: cycles per step in all, and per phase with its share."""
+    total = sum(clocks.values())
+    return {"cycles_per_step": f"{total:.0f}",
+            "phase_cycles": ",".join(f"{k}:{v:.0f}({100 * v / total:.1f}%)" for k, v in clocks.items())}
 
 
 def _nbytes(*objs) -> int:
@@ -857,6 +888,7 @@ def _vaeflex_phases(card, cfg, sim, gen, w0, h0, const, amps, var, P) -> list:
     from vae_equalizer_tpu_torch.models import butterfly_init, dirac_taps_dp
     from vae_equalizer_tpu_torch.ops.elbo_kernel import vae_dp_loss_and_grad
     from vae_equalizer_tpu_torch.ops.frame_kernel import (
+        frame_clocks,
         frame_opt_init,
         vae_dp_frame_train,
         vae_dp_frame_train_plain,
@@ -882,17 +914,8 @@ def _vaeflex_phases(card, cfg, sim, gen, w0, h0, const, amps, var, P) -> list:
     want = vae_dp_frame_train_plain(*b_args, bl_sym=bl, stride_sym=fs)
     if got[3].shape != (3, R):
         raise AssertionError(f"stride form: losses shape {tuple(got[3].shape)}, expected (3, {R})")
-    names = ("w", "h", "opt", "losses", "var_est", "out", "dec", "eq", "mm", "s1")
-    g, w = dict(zip(names, got)), dict(zip(names, want))
     errs: dict = {}
-    for k in ("w", "h", "losses", "var_est"):
-        _check(k, g[k], w[k], 1e-4, 3e-7, errs)
-    for k in ("mw", "vw", "mh", "vh"):
-        _check(k, g["opt"][k], w["opt"][k], 1e-4, 1e-5 * float(w["opt"][k].abs().max()), errs)
-    for k in ("out", "eq", "s1"):
-        _check(k, g[k], w[k], 1e-4, 1e-6, errs)
-    _check("mm", g["mm"], w["mm"], 1e-4, 1e-4, errs)
-    dec_mis = _dec_ties_only(g["dec"], w["dec"], w["out"], amps, var, nu_sc)
+    dec_mis = _check_b3(got, want, amps, var, nu_sc, 1e-6, errs)
     err_b = max(errs["w"][0], errs["h"][0])
     _line("18a kernel B stride 3 windows", ok=True, R=R, stride_sym=fs, errs_abs_rel=_fmt(errs),
           dec_tie_mismatch=dec_mis)
@@ -942,7 +965,8 @@ def _vaeflex_phases(card, cfg, sim, gen, w0, h0, const, amps, var, P) -> list:
           dec_agree_first100=f"{agree100:.6f}", losses_rel_all=f"{loss_rel:.3e}",
           losses_rel_plain_perturbed=f"{loss_rel_pp:.3e}", dec_agree_all=f"{agree_all:.6f}",
           dec_agree_plain_perturbed=f"{agree_pp:.6f}", ms=f"{ms_b:.3f}", plain_ms=f"{ms_plain:.3f}",
-          bound_ms=f"{bound_b['bound_ms']:.6f}", card=repr(card))
+          bound_ms=f"{bound_b['bound_ms']:.6f}",
+          **_clocks_kv(frame_clocks(*f_args, bl_sym=bl, stride_sym=fs)), card=repr(card))
 
     # ---- 19. the VAEflex frame path, counted, gated by the JAX band
     res, wall = _counted(vae_dp_frame_train, cfg.num_frames, lambda: train_dp.train_vae_flex_dp(
@@ -1057,19 +1081,11 @@ def _per_run_phase(card, cfg, sim, gen, w0, h0, const, amps, P, f_args) -> dict:
     rx3 = sim(gen, 0.3, R)[0][..., : 3 * 2 * bl].contiguous()
     a_args = (w0, h0, frame_opt_init({"w": w0, "h": h0}), rx3, amps, rc["var"], rc["nu_sc"], rc["P"],
               rc["lr"], 40, 41.0)
-    got = flat(vae_dp_frame_train(*a_args, bl_sym=bl))
+    got = vae_dp_frame_train(*a_args, bl_sym=bl)
     torch.cuda.synchronize()
-    want = flat(vae_dp_frame_train_plain(*a_args, bl_sym=bl))
+    want = vae_dp_frame_train_plain(*a_args, bl_sym=bl)
     errs: dict = {}
-    for k in ("w", "h", "losses", "var_est"):
-        _check(k, got[k], want[k], 1e-4, 3e-7, errs)
-    for k in ("mw", "vw", "mh", "vh"):
-        _check(k, got[k], want[k], 1e-4, 1e-5 * float(want[k].abs().max()), errs)
-    for k in ("out", "s1"):
-        _check(k, got[k], want[k], 1e-4, 1e-6, errs)
-    _check("eq", got["eq"], want["eq"], 1e-4, 1e-5, errs)
-    _check("mm", got["mm"], want["mm"], 1e-4, 1e-4, errs)
-    dec_mis = _dec_ties_only(got["dec"], want["dec"], want["out"], amps, rc["var"], rc["nu_sc"])
+    dec_mis = _check_b3(got, want, amps, rc["var"], rc["nu_sc"], 1e-5, errs)
     _line("21a kernel B per-run 3 steps", ok=True, R=R, errs_abs_rel=_fmt(errs), dec_tie_mismatch=dec_mis)
 
     # ---- 21b. bit for bit on the card: constant vectors against the shared
@@ -1277,6 +1293,7 @@ def main() -> int:
     from vae_equalizer_tpu_torch.ops.cma_kernel import cma_dp_kernel, cma_dp_plain
     from vae_equalizer_tpu_torch.ops.elbo_kernel import vae_dp_loss_and_grad, vae_dp_loss_and_grad_plain
     from vae_equalizer_tpu_torch.ops.frame_kernel import (
+        frame_clocks,
         frame_opt_init,
         vae_dp_frame_train,
         vae_dp_frame_train_plain,
@@ -1345,21 +1362,8 @@ def main() -> int:
     got = vae_dp_frame_train(*b_args, bl_sym=bl)
     torch.cuda.synchronize()
     want = vae_dp_frame_train_plain(*b_args, bl_sym=bl)
-    names = ("w", "h", "opt", "losses", "var_est", "out", "dec", "eq", "mm", "s1")
-    g, w = dict(zip(names, got)), dict(zip(names, want))
     errs_b: dict = {}
-    for k in ("w", "h", "losses", "var_est"):
-        _check(k, g[k], w[k], 1e-4, 3e-7, errs_b)
-    # the moments are raw gradients of scale ~1e1-1e2: an absolute 3e-7 floor
-    # is below one float32 ulp there, so their floor is 1e-5 of their scale
-    for k in ("mw", "vw", "mh", "vh"):
-        _check(k, g["opt"][k], w["opt"][k], 1e-4, 1e-5 * float(w["opt"][k].abs().max()), errs_b)
-    for k in ("out", "eq", "s1"):
-        _check(k, g[k], w[k], 1e-4, 1e-6, errs_b)
-    # mm = min_l (out - a_l)^2 / (2 var): near-zero minima carry the output's
-    # absolute error times the 1/(2 var) gain
-    _check("mm", g["mm"], w["mm"], 1e-4, 1e-4, errs_b)
-    dec_mis = _dec_ties_only(g["dec"], w["dec"], w["out"], amps, var, nu_sc)
+    dec_mis = _check_b3(got, want, amps, var, nu_sc, 1e-6, errs_b)
     b_err = max(errs_b["w"][0], errs_b["h"][0])
     _line("4a kernel B 3 steps", ok=True, R=R, errs_abs_rel=_fmt(errs_b), dec_tie_mismatch=dec_mis)
 
@@ -1393,7 +1397,8 @@ def main() -> int:
     # + Adam: ~12 ops per parameter (w 8M, h 8M) and step
     bound_b = _bound(R * m_max * (_dp_step_flops(bl, M, n_lev) + 12 * 16 * M), _nbytes(f_args, got))
     _line("4b kernel B 100 steps", ok=True, R=R, errs_abs_rel=_fmt(errs_f), dec_agree=f"{agree:.6f}",
-          ms=f"{ms_b:.3f}", plain_ms=f"{ms_b_plain:.3f}")
+          ms=f"{ms_b:.3f}", plain_ms=f"{ms_b_plain:.3f}",
+          **_clocks_kv(frame_clocks(*f_args, bl_sym=bl)))
 
     # ---- 5. the main path, counted
     res, wall = _counted(vae_dp_frame_train, cfg.num_frames, lambda: train_dp.train_vae_dp(

@@ -19,7 +19,10 @@
 //   or bfloat16 with stream_bf16. The step count is an integer (step0 + mb),
 //   so no float32 step-counter limit applies.
 //
-// Both run the shared step body of dp_step.cuh. Each launcher returns
+// Both run the shared step body of dp_step.cuh (its notes say what bounds a
+// step and how the design answers it), 512 threads per block. B also takes
+// `clocks` (N_PHASES int64, or null): block 0's clock64() cycles per phase,
+// summed over the frame, for measurement. Each launcher returns
 // cudaGetLastError() so the wrapper can raise on a refused launch.
 #include <cuda_runtime.h>
 
@@ -29,14 +32,16 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+// 16 warps per run: every phase of the flagship step (at most ~400 items)
+// fits in one pass.
+constexpr int kThreads = 512;
 
 __global__ void __launch_bounds__(kThreads)
 vae_dp_step_kernel(const float* x, long long x_run, long long x_row, const float* w,
                    const float* h, const float* amps, const float* P, const float* var,
                    float nu_sc, int n_sym, int m, int n_lev, float* stats, float* gw, float* gh,
                    float* q, float* out) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const long long r = blockIdx.x, np = 8 * m;
   dp::step_block(smem, threadIdx.x, blockDim.x, x + r * x_run, x_row, w + r * np, h + r * np,
                  amps, P, var, nu_sc, n_sym, m, n_lev, stats + r * 3, gw + r * np, gh + r * np,
@@ -53,15 +58,15 @@ vae_dp_frame_kernel(int R, int m_max, int n_sym, int stride_sym, int m, int n_le
                     float* vw_out, float* mh_out, float* vh_out, float* losses, float* var_est,
                     void* out, void* dec, void* eq, float* mm, float* s1, const float* amps,
                     const float* P, const float* var, const float* nu_sc, const float* lr,
-                    long long step0, double lr_half_step) {
+                    long long step0, double lr_half_step, long long* clocks) {
   using SF = typename std::conditional<BF16, dp::bf16, float>::type;
   using SD = typename std::conditional<BF16, dp::bf16, int>::type;
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   dp::frame_block<SF, SD>(smem, threadIdx.x, blockDim.x, blockIdx.x, R, m_max, n_sym, stride_sym,
                           m, n_lev, n_total, rx, w_in, h_in, mw_in, vw_in, mh_in, vh_in, w_out,
                           h_out, mw_out, vw_out, mh_out, vh_out, losses, var_est,
                           static_cast<SF*>(out), static_cast<SD*>(dec), static_cast<SF*>(eq), mm,
-                          s1, amps, P, var, nu_sc, lr, step0, lr_half_step);
+                          s1, amps, P, var, nu_sc, lr, step0, lr_half_step, clocks);
 }
 
 // Dynamic shared memory for one block, with the opt-in above 48 KB.
@@ -101,7 +106,7 @@ int vae_dp_frame_launch(int R, int m_max, int n_sym, int stride_sym, int m, int 
                         float* losses, float* var_est, void* out, void* dec, void* eq, float* mm,
                         float* s1, const float* amps, const float* P, const float* var,
                         const float* nu_sc, const float* lr, long long step0,
-                        double lr_half_step, int stream_bf16, void* stream) {
+                        double lr_half_step, int stream_bf16, long long* clocks, void* stream) {
   // the last window, samples [2 stride_sym (m_max - 1), + 2 n_sym), must lie in the row
   if (R < 1 || m_max < 1 || stride_sym < 1 ||
       n_total < 2 * ((long long)stride_sym * (m_max - 1) + n_sym))
@@ -113,7 +118,7 @@ int vae_dp_frame_launch(int R, int m_max, int n_sym, int stride_sym, int m, int 
   kernel<<<R, kThreads, bytes, (cudaStream_t)stream>>>(
       R, m_max, n_sym, stride_sym, m, n_lev, n_total, rx, w_in, h_in, mw_in, vw_in, mh_in, vh_in,
       w_out, h_out, mw_out, vw_out, mh_out, vh_out, losses, var_est, out, dec, eq, mm, s1, amps, P,
-      var, nu_sc, lr, step0, lr_half_step);
+      var, nu_sc, lr, step0, lr_half_step, clocks);
   return (int)cudaGetLastError();
 }
 

@@ -61,9 +61,9 @@ _SIGNATURES = {
         # R, m_max, n_sym, stride_sym, m, n_lev, n_total, rx, w, h, mw, vw, mh,
         # vh (in), w, h, mw, vw, mh, vh (out), losses, var_est, out, dec, eq, mm,
         # s1, amps, P (R, n), var (R, 2), nu_sc (R,), lr (R,), step0, lr_half_step,
-        # stream_bf16, stream
+        # stream_bf16, clocks (int64 per phase, or null), stream
         "vae_dp_frame_launch": [_I] * 6 + [_LL] + [_P] * 7 + [_P] * 6 + [_P] * 7
-        + [_P] * 5 + [_LL, _D, _I, _P],
+        + [_P] * 5 + [_LL, _D, _I, _P, _P],
     },
     "cma": {
         # R, n_sym, m, sps, lp, y, h_in, h_out, out, e, big_r, lr2, update, stream

@@ -16,12 +16,13 @@ minibatches.
 
 On the card: one minibatch is ~0.2 MFLOP over a ~40 KB working set, so a
 launch is bound by latency — the dependent phases of the step (forward,
-demapper, D conv, reductions, backward), each a few hundred independent
-items — not by bytes or FLOPs. The design keeps every intermediate of the
-step in one block's shared memory (no device-memory round trips between
-phases), with one thread per output item and fixed-order shared-memory
-tree reductions (no atomics, so results repeat bit for bit); grid = R, one
-block per run, each reading its minibatch in place from the frame row.
+demapper, D conv, reductions, backward) — not by bytes or FLOPs. The design
+(``csrc/dp_step.cuh``) keeps every intermediate of the step in one 512-thread
+block's shared memory, runs each dot product as one fused chain in this
+file's contraction order (so its rounding stays that of ``dp_step_plain``),
+and closes the block totals with per-warp partials and one warp (no
+atomics, so results repeat bit for bit); grid = R, one block per run, each
+reading its minibatch in place from the frame row.
 
 Dispatch: a CPU tensor takes ``vae_dp_loss_and_grad_plain`` (the plain
 PyTorch version, also the reference the kernel is checked against on the

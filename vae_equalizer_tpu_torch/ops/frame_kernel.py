@@ -29,16 +29,18 @@ training is unchanged. Unlike JAX (``frame_kernel.py:1011-1020``), mm and s1
 stay float32: the MI rebuilds log-posteriors from them, and bfloat16 there
 widens its error (the JAX package's own note at ``metrics/mi.py:338``).
 
-On the card (``csrc/dp_kernels.cu``): grid = R, one 256-thread block per
+On the card (``csrc/dp_kernels.cu``): grid = R, one 512-thread block per
 run; the minibatch loop runs inside the block with w, h and the four Adam
-moments resident in shared memory for the whole frame, each minibatch read
-straight from ``rx`` in device memory at its window's offset. A frame is
-100 (990 with VAEflex's stride 10) dependent steps of ~10 dependent phases
-each, so it is bound by that latency chain, and R runs fill only R of the
-card's 132 SMs (R = 8 uses 8). The TPU design (im2col on the MXU,
-parity-major h, host-streamed parity rows, windows assembled by a reshape,
-selection-matrix demapper) answered Mosaic's constraints and is not
-carried over.
+moments resident in shared memory for the whole frame; the next window's
+samples are loaded from ``rx`` while a step runs. A frame is 100 (990 with
+VAEflex's stride 10) dependent steps, so it is bound by the step's latency
+chain (``csrc/dp_step.cuh``: seven barrier-separated phases of ~400 items,
+each item a serial chain), and R runs fill only R of the card's 132 SMs
+(R = 8 uses 8).
+The TPU design (im2col on the MXU, parity-major h, host-streamed parity
+rows, windows assembled by a reshape, selection-matrix demapper) answered
+Mosaic's constraints and is not carried over. ``frame_clocks`` runs it once
+with the block's per-phase clock64() cycles (measurement only).
 
 Dispatch: CPU tensors take ``vae_dp_frame_train_plain`` (a Python loop of
 kernel A's plain step plus ``adam_update``); CUDA tensors launch the kernel
@@ -54,7 +56,11 @@ import torch
 from . import _build
 from .elbo_kernel import dp_step_plain
 
-__all__ = ["adam_update", "frame_opt_init", "vae_dp_frame_train", "vae_dp_frame_train_plain"]
+__all__ = ["CLOCK_PHASES", "adam_update", "frame_clocks", "frame_opt_init", "vae_dp_frame_train",
+           "vae_dp_frame_train_plain"]
+
+# kernel B's step phases, in the order of csrc/dp_step.cuh: enum Phase
+CLOCK_PHASES = ("forward", "demap", "D/S/C", "scalars", "gout", "gw/gh", "Adam/streams/x")
 
 _B1 = 0.9
 _B2 = 0.999
@@ -184,8 +190,21 @@ def _per_run(name: str, v, R: int, tail: tuple, dev) -> torch.Tensor:
     return v
 
 
+def frame_clocks(w, h, opt, rx, amps, var, nu_sc, P, lr, step0: int, lr_half_step: float, *,
+                 bl_sym: int, stride_sym: int | None = None) -> dict:
+    """Kernel B once on CUDA tensors (the arguments of ``vae_dp_frame_train``)
+    with its phase clocks: {phase: clock64() cycles per step} of run 0's
+    block, averaged over the frame's steps. For measurement only (chip_smoke.py,
+    tools/); the runners never ask for it."""
+    clocks = torch.zeros(len(CLOCK_PHASES), dtype=torch.int64, device=rx.device)
+    res = _launch(w, h, opt, rx, amps, var, nu_sc, P, lr, step0, lr_half_step, bl_sym, stride_sym,
+                  False, clocks)
+    steps = res[3].shape[0]
+    return {k: c / steps for k, c in zip(CLOCK_PHASES, clocks.tolist())}
+
+
 def _launch(w, h, opt, rx, amps, var, nu_sc, P, lr, step0, lr_half_step, bl_sym, stride_sym,
-            stream_bf16):
+            stream_bf16, clocks=None):
     dev = rx.device
     R, m = w.shape[0], w.shape[-1]
     n_lev = amps.shape[0]
@@ -217,7 +236,7 @@ def _launch(w, h, opt, rx, amps, var, nu_sc, P, lr, step0, lr_half_step, bl_sym,
     rc = lib.vae_dp_frame_launch(
         R, m_max, n_sym, fs, m, n_lev, n_total, *(t.data_ptr() for t in ins + outs), amps.data_ptr(),
         *(t.data_ptr() for t in consts), int(step0), float(lr_half_step), int(bool(stream_bf16)),
-        _build.stream(dev))
+        None if clocks is None else clocks.data_ptr(), _build.stream(dev))
     _build.check(rc, "vae_dp_frame_launch")
     vae_dp_frame_train.launches += 1
     opt_new = {k: new[k] for k in ("mw", "vw", "mh", "vh")}
