@@ -42,7 +42,9 @@ of one kernel B launch per frame). One line per phase:
                channel / kernel / eval split
  13. kernel H  vs plain, Net and Net_BN, R = 8, full width: (a) 2 epochs from
                a perturbed start; (b) 10 epochs from the state after 50
-               trained epochs; a 20-epoch slice timed against the plain engine
+               trained epochs; a 20-epoch slice timed against the plain engine,
+               launched twice on the same inputs (bit for bit), and its
+               clock64() cycles per step and phase (nn_clocks)
  14. VAE-NN    the full VAE-NN experiment (AwgnVaeNnConfig(): 64-QAM, h1,
      path      24 dB, 500 epochs x 13 steps, 250 evals), Net then Net_BN, R = 8,
                use_pallas="frame": one kernel H launch each, last-25-evals SER
@@ -250,8 +252,9 @@ def _check_b3(got, want, amps, var, nu_sc, eq_atol, errs) -> tuple:
 
 
 def _clocks_kv(clocks: dict) -> dict:
-    """Kernel B's phase clocks (ops/frame_kernel.py: frame_clocks) as line
-    fields: cycles per step in all, and per phase with its share."""
+    """A kernel's phase clocks (ops/frame_kernel.py: frame_clocks,
+    ops/nn_frame_kernel.py: nn_clocks) as line fields: cycles per step in
+    all, and per phase with its share."""
     total = sum(clocks.values())
     return {"cycles_per_step": f"{total:.0f}",
             "phase_cycles": ",".join(f"{k}:{v:.0f}({100 * v / total:.1f}%)" for k, v in clocks.items())}
@@ -583,9 +586,16 @@ def _nn_phases(card: str) -> list:
         if agree < 0.999:
             raise AssertionError(f"10-epoch H {variant}: eval-slot decision agreement {agree:.5f}")
 
-        # the kernel against its plain engine over a NN_TIMED_EPOCHS slice
+        # the kernel against its plain engine over a NN_TIMED_EPOCHS slice; two
+        # launches on the same inputs give the same bits; its phase clocks
         t_args = (w1f, w2f, h0, opt0, rx_epochs(NN_TIMED_EPOCHS), amps, cfg.lr, bn, 0.1)
         out_t = nfk.vae_nn_experiment_train(*t_args, **kw)  # also the timing's warm-up
+        out_t2 = nfk.vae_nn_experiment_train(*t_args, **kw)
+        for x, y in zip(out_t, out_t2):
+            for u, v in (zip(x.values(), y.values()) if isinstance(x, dict) else ((x, y),)):
+                if not torch.equal(u, v):
+                    raise AssertionError(f"kernel H {variant}: two launches on the same inputs differ")
+        clocks_h = nfk.nn_clocks(*t_args, **kw)
         ms_h = _time_ms(lambda: nfk.vae_nn_experiment_train(*t_args, **kw), reps=3, warmup=False)
         ms_h_plain = _time_ms(lambda: nfk.vae_nn_experiment_train_plain(*t_args, **kw), reps=1,
                               warmup=False)
@@ -597,7 +607,8 @@ def _nn_phases(card: str) -> list:
               errs_abs_rel=_fmt(errs_b), slot_dec_agree=f"{agree:.6f}",
               slice_epochs=NN_TIMED_EPOCHS, slice_ms=f"{ms_h:.3f}", plain_slice_ms=f"{ms_h_plain:.3f}",
               step_ms=f"{ms_h / steps_t:.4f}", plain_step_ms=f"{ms_h_plain / steps_t:.3f}",
-              bound_ms=f"{bound_h['bound_ms']:.4f}", card=repr(card))
+              bound_ms=f"{bound_h['bound_ms']:.4f}", bit_identical=True, **_clocks_kv(clocks_h),
+              card=repr(card))
         stage[bn_on] = (cfg, const, sims, amps, P, draws, rx_epochs, (w1f, w2f, h0, opt0, bn))
         entries.append({"name": f"vae_nn_experiment_train[{variant}]", "route": "cuda",
                         "source": "vae_equalizer_tpu_torch/csrc/nn_kernels.cu",

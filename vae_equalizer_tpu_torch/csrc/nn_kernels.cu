@@ -19,9 +19,7 @@
 
 namespace {
 
-constexpr int kThreads = 512;
-
-__global__ void __launch_bounds__(kThreads) vae_nn_experiment_kernel(nn::Args args) {
+__global__ void __launch_bounds__(nn::kBlock) vae_nn_experiment_kernel(nn::Args args) {
   extern __shared__ float smem[];
   nn::experiment_block(smem, threadIdx.x, blockDim.x, blockIdx.x, args);
 }
@@ -30,47 +28,23 @@ __global__ void __launch_bounds__(kThreads) vae_nn_experiment_kernel(nn::Args ar
 
 extern "C" {
 
-// ptrs: rx, the N_STATE inputs, the N_STATE outputs, losses, the N_EVAL eval
-// slot arrays, amps (ops/nn_frame_kernel.py: _launch builds the table).
+// ptrs: the pointer table of nn::make_args (ops/nn_frame_kernel.py: _launch
+// builds it); clocks: nn::N_PHASES int64 phase cycles of block 0, or null.
 int vae_nn_experiment_launch(int R, int n_epochs, int n_batches, int n_sym, int m, int n_lev, int k1,
                              long long n_total, int epe, int n_evals, int batchnorm,
                              void* const* ptrs, float lr, float momentum, long long step0,
-                             void* stream) {
-  if (R < 1 || n_epochs < 1 || n_batches < 1 || epe < 1 || n_lev < 1 ||
-      n_lev > siso::MAX_LEV || m % 2 != 1 || 2 * n_sym <= m || k1 < 1 ||
-      n_total < (long long)n_batches * 2 * n_sym)
-    return (int)cudaErrorInvalidValue;
+                             long long* clocks, void* stream) {
   nn::Args a;
-  a.R = R;
-  a.n_epochs = n_epochs;
-  a.n_batches = n_batches;
-  a.n_sym = n_sym;
-  a.m = m;
-  a.n_lev = n_lev;
-  a.k1 = k1;
-  a.epe = epe;
-  a.n_evals = n_evals;
-  a.batchnorm = batchnorm;
-  a.n_total = n_total;
-  a.step0 = step0;
-  a.lr = lr;
-  a.momentum = momentum;
-  int p = 0;
-  a.rx = (const float*)ptrs[p++];
-  for (int i = 0; i < nn::N_STATE; ++i) a.in[i] = (const float*)ptrs[p++];
-  for (int i = 0; i < nn::N_STATE; ++i) a.out[i] = (float*)ptrs[p++];
-  a.losses = (float*)ptrs[p++];
-  for (int i = 0; i < nn::N_EVAL; ++i) a.ev[i] = (float*)ptrs[p++];
-  a.amps = (const float*)ptrs[p++];
-
-  const nn::Layout L = nn::make_layout(nn::make_dims(n_sym, m, n_lev, k1, batchnorm != 0), kThreads);
-  const size_t bytes = sizeof(float) * (size_t)L.total;
+  if (!nn::make_args(&a, R, n_epochs, n_batches, n_sym, m, n_lev, k1, n_total, epe, n_evals,
+                     batchnorm, ptrs, lr, momentum, step0, clocks))
+    return (int)cudaErrorInvalidValue;
+  const size_t bytes = sizeof(float) * (size_t)nn::smem_floats(n_sym, m, n_lev, k1, batchnorm != 0);
   if (bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(vae_nn_experiment_kernel,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  vae_nn_experiment_kernel<<<R, kThreads, bytes, (cudaStream_t)stream>>>(a);
+  vae_nn_experiment_kernel<<<R, nn::kBlock, bytes, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -83,8 +83,9 @@ _SIGNATURES = {
     },
     "nn": {
         # R, n_epochs, n_batches, n_sym, m, n_lev, k1, n_total, epe, n_evals, batchnorm,
-        # pointer table (csrc/nn_kernels.cu), lr, momentum, step0, stream
-        "vae_nn_experiment_launch": [_I] * 7 + [_LL, _I, _I, _I, _P, _F, _F, _LL, _P],
+        # pointer table (csrc/nn_kernels.cu), lr, momentum, step0, clocks (int64 per
+        # phase, or null), stream
+        "vae_nn_experiment_launch": [_I] * 7 + [_LL, _I, _I, _I, _P, _F, _F, _LL, _P, _P],
     },
     "butterfly": {
         # n_out, m, sps, n_lev, l_in, w, x, amps, var, nu_sc, q, out, stream

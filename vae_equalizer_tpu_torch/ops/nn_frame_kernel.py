@@ -23,13 +23,19 @@ epoch i*epe (0-based), the last slot the final ones — kernel G's rule.
 
 On the card (``csrc/nn_kernels.cu`` + ``nn_step.cuh``): grid = R, one
 512-thread block per run; the step loop runs inside the block with the
-parameters, their AMSGrad moments and one minibatch's activations in ~150 KB
-(Net_BN ~190 KB) of shared memory; the ELBO and its gradient are kernel G's
-device functions (``siso_step.cuh``) with P = 1, which makes the KL the
-plain entropy. Every long sum (conv weight gradients, BatchNorm statistics)
-is one warp's, closed by a fixed-order shuffle tree, so a run repeats bit
-for bit. 6,500 dependent steps of ~14 barrier-separated phases bound it;
-R runs fill R of the card's 132 SMs.
+parameters, their AMSGrad moments and one minibatch's activations in ~155 KB
+(Net_BN ~195 KB) of shared memory. The convolutions and weight gradients are
+warp items of register tiles (G channels x samples, or G channels x columns
+with the sum split over the lanes and closed by a fixed-order
+reduce-scatter); the ELBO and its gradient are H's own uniform-prior back
+end (P = 1, so the KL is the plain entropy); the next minibatch arrives by
+cp.async during the step. Sums run in a fixed order without atomics, so a
+run repeats bit for bit. What bounds a step is each phase's shared-memory
+wavefronts and issue on one SM, over 6,500 dependent steps of 12
+barrier-separated phases; R runs fill R of the card's 132 SMs.
+
+``nn_clocks`` runs the kernel once with its block's per-phase clock64()
+cycles (measurement only).
 
 Dispatch: CPU tensors take ``vae_nn_experiment_train_plain`` (a Python loop
 of autograd through ``models/vae_nn.py: vae_nn_forward`` + ``elbo_siso``
@@ -49,13 +55,20 @@ from . import _build
 from .siso_frame_kernel import amsgrad
 
 __all__ = [
+    "NN_CLOCK_PHASES",
     "flatten_nn_params",
+    "nn_clocks",
     "nn_frame_opt_init",
     "nn_net",
     "unflatten_nn_params",
     "vae_nn_experiment_train",
     "vae_nn_experiment_train_plain",
 ]
+
+# kernel H's step phases, in the order of csrc/nn_step.cuh: enum Phase
+NN_CLOCK_PHASES = ("load x", "conv1+ELU", "BN forward", "conv2+residual", "softmax+moments",
+                   "ELBO forward", "gd/gh/gq+softmax VJP", "gW2", "conv2T", "BN VJP+ELU VJP", "gW1",
+                   "AMSGrad")
 
 # moment names: (m, v, x) = (mu, nu, nu_max) of W1' (1), W2' (2), h (h), BN (gamma | beta) (b)
 _MOMENTS = ("m1", "v1", "x1", "m2", "v2", "x2", "mh", "vh", "xh", "mb", "vb", "xb")
@@ -180,9 +193,23 @@ def vae_nn_experiment_train(w1f, w2f, h, opt, rx_epochs, amps, lr: float, bn=Non
     return _launch(w1f, w2f, h, opt, rx_epochs, amps, lr, bn, momentum, **kw)
 
 
+def nn_clocks(w1f, w2f, h, opt, rx_epochs, amps, lr: float, bn=None, momentum: float = 0.1, *,
+              bl_sym: int, n_batches: int, epe: int, k1: int, step0: int = 0) -> dict:
+    """Kernel H once on CUDA tensors (the arguments of ``vae_nn_experiment_train``)
+    with its phase clocks: {phase: clock64() cycles per step} of run 0's block,
+    averaged over the call's steps. For measurement only (chip_smoke.py,
+    tools/); the runners never ask for it."""
+    clocks = torch.zeros(len(NN_CLOCK_PHASES), dtype=torch.int64, device=rx_epochs.device)
+    res = _launch(w1f, w2f, h, opt, rx_epochs, amps, lr, bn, momentum, bl_sym=bl_sym,
+                  n_batches=n_batches, epe=epe, k1=k1, step0=step0, clocks=clocks)
+    steps = res[6].shape[0]
+    return {k: c / steps for k, c in zip(NN_CLOCK_PHASES, clocks.tolist())}
+
+
 def _launch(w1f, w2f, h, opt, rx_epochs, amps, lr, bn, momentum, *, bl_sym, n_batches, epe, k1,
-            step0):
-    """Check the arguments, allocate the outputs and launch kernel H."""
+            step0, clocks=None):
+    """Check the arguments, allocate the outputs and launch kernel H (with
+    ``clocks``, an int64 tensor of len(NN_CLOCK_PHASES), its phase cycles)."""
     dev = rx_epochs.device
     R, n_epochs, _, n_total = rx_epochs.shape
     m, n_lev = h.shape[-1], amps.shape[0]
@@ -212,7 +239,8 @@ def _launch(w1f, w2f, h, opt, rx_epochs, amps, lr, bn, momentum, *, bl_sym, n_ba
     ptrs = (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
     rc = lib.vae_nn_experiment_launch(
         R, n_epochs, n_batches, bl_sym, m, n_lev, k1, n_total, epe, n_evals, int(batchnorm), ptrs,
-        float(lr), float(momentum), int(step0), _build.stream(dev))
+        float(lr), float(momentum), int(step0), None if clocks is None else clocks.data_ptr(),
+        _build.stream(dev))
     _build.check(rc, "vae_nn_experiment_launch")
     vae_nn_experiment_train.launches += 1
     opt_new = dict(zip(_MOMENTS, new[5:]))
