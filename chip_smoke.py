@@ -26,8 +26,11 @@ of one kernel B launch per frame). One line per phase:
                clock64() cycles per step and phase
   5. main path the full VAE experiment; launch count, soft SER band, MI, speed
   6. breakdown per-frame channel / kernel B / eval times
-  7. kernel C  vs plain: a whole 10,000-symbol CMA frame, R = 5; times
-  8. kernel D  vs plain: a whole CMAbatch and a whole CMAflex frame, R = 5
+  7. kernel C  vs plain: a whole 10,000-symbol CMA frame, R = 5; two launches
+               bit for bit; the whole call's and the launch's times; the
+               block's clock64() cycles per symbol and phase
+  8. kernel D  vs plain: a whole CMAbatch and a whole CMAflex frame, R = 5;
+               the same checks, times and cycles per chunk and phase
   9. CMA path  the three 170-frame CMA experiments, R = 5: launch counts,
                constellation SER band, speed; per-frame channel / kernel /
                eval times
@@ -300,6 +303,52 @@ def _dp_step_flops(n_sym: int, m: int, n_lev: int) -> float:
     """Kernels A/B: butterfly (4 outputs x 4 rows x m taps) forward and gw,
     the softmin demapper and its VJP, the DP ELBO."""
     return 2 * 2 * 4 * n_sym * 4 * m + 4 * n_sym * n_lev * 12 + _elbo_flops(2 * n_sym, m, n_lev, 2)
+
+
+def _cma_chunked_flops(n_sym: int, m: int, batch_len: int, symb_step: int, n_full: int) -> float:
+    """Kernel D, one run over a frame: every symbol's butterfly output (4
+    outputs x 4m multiply-adds) and error (~10 ops); the partial sums
+    sum_t e_t inc_t of the B symbols that seed the ring and of every full
+    chunk (8m tap entries x 5 ops per symbol: the increment, times e, added);
+    the n_full + 1 ring sums and tap updates (8m entries x (B/S + 1) ops)."""
+    n_slots = batch_len // symb_step
+    return n_sym * (2 * 4 * 4 * m + 10) + (batch_len + n_full * symb_step) * 8 * m * 5 + \
+        (n_full + 1) * 8 * m * (n_slots + 1)
+
+
+def _launch_alone_ms(fn, launcher: str, reps: int = 5, build_mod=None) -> float:
+    """Median CUDA-event time of the kernel launch alone inside fn(): events
+    recorded on the stream right around the call of the library's entry point
+    ``launcher`` (the wrapper's own work lies outside them), after a warm-up.
+    ``build_mod``: the ``ops._build`` module whose libraries fn calls (another
+    checkout's, in tools/); this tree's by default."""
+    import torch
+
+    if build_mod is None:
+        from vae_equalizer_tpu_torch.ops import _build as build_mod
+
+    lib = build_mod.load()
+    real, events = getattr(lib, launcher), []
+
+    def timed(*args):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        rc = real(*args)
+        end.record()
+        events.append((start, end))
+        return rc
+
+    setattr(lib, launcher, timed)
+    try:
+        fn()
+        torch.cuda.synchronize()
+        events.clear()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return statistics.median(a.elapsed_time(b) for a, b in events)
+    finally:
+        setattr(lib, launcher, real)
 
 
 def _siso_step_flops(n_sym: int, m: int, n_lev: int) -> float:
@@ -1300,8 +1349,13 @@ def main() -> int:
 
     from vae_equalizer_tpu_torch.models import butterfly_init, dirac_taps_dp
     from vae_equalizer_tpu_torch.ops import _build
-    from vae_equalizer_tpu_torch.ops.cma_frame_kernel import cma_chunked_frame, cma_chunked_frame_plain
-    from vae_equalizer_tpu_torch.ops.cma_kernel import cma_dp_kernel, cma_dp_plain
+    from vae_equalizer_tpu_torch.models.cma import chunk_schedule
+    from vae_equalizer_tpu_torch.ops.cma_frame_kernel import (
+        cma_chunked_clocks,
+        cma_chunked_frame,
+        cma_chunked_frame_plain,
+    )
+    from vae_equalizer_tpu_torch.ops.cma_kernel import cma_dp_clocks, cma_dp_kernel, cma_dp_plain
     from vae_equalizer_tpu_torch.ops.elbo_kernel import vae_dp_loss_and_grad, vae_dp_loss_and_grad_plain
     from vae_equalizer_tpu_torch.ops.frame_kernel import (
         frame_clocks,
@@ -1461,20 +1515,27 @@ def main() -> int:
     h_c = dirac_taps_dp(M, dev) + 0.01 * torch.randn((Rc, 2, 2, 2, M), generator=rng, device=dev)
     lr_c = CMA_VARIANTS["CMA"][1]
     got = cma_dp_kernel(rx_c, cfg.R, h_c, lr_c, cfg.sps)
+    again = cma_dp_kernel(rx_c, cfg.R, h_c, lr_c, cfg.sps)
     torch.cuda.synchronize()
+    if not all(torch.equal(a_, b_) for a_, b_ in zip(got, again)):
+        raise AssertionError("kernel C: two launches on the same inputs differ")
     want = cma_dp_plain(rx_c, cfg.R, h_c, lr_c, cfg.sps)
     errs_c: dict = {}
     for name, g_, w_ in zip(("out", "h", "e"), got, want):
         _check(name, g_, w_, 1e-4, 1e-6 * float(w_.abs().max()), errs_c)
     ms_c = _time_ms(lambda: cma_dp_kernel(rx_c, cfg.R, h_c, lr_c, cfg.sps))
+    ms_c_launch = _launch_alone_ms(lambda: cma_dp_kernel(rx_c, cfg.R, h_c, lr_c, cfg.sps), "cma_dp_launch")
     # per symbol: the 2x2 butterfly output (4 x 4M multiply-adds), the CMA
     # error and the tap update (4 x 4M multiply-adds)
-    cma_flops = Rc * (rx_c.shape[-1] // cfg.sps) * (2 * 2 * 16 * M + 20)
+    n_sym_c = rx_c.shape[-1] // cfg.sps
+    cma_flops = Rc * n_sym_c * (2 * 2 * 16 * M + 20)
     bound_c = _bound(cma_flops, _nbytes((rx_c, h_c), got))
     # the plain per-symbol loop is ~10^5 small launches: one timed frame
     ms_c_plain = _time_ms(lambda: cma_dp_plain(rx_c, cfg.R, h_c, lr_c, cfg.sps), reps=1, warmup=False)
-    _line("7 kernel C", ok=True, R=Rc, errs_abs_rel=_fmt(errs_c), ms=f"{ms_c:.4f}",
-          plain_ms=f"{ms_c_plain:.3f}")
+    _line("7 kernel C", ok=True, R=Rc, errs_abs_rel=_fmt(errs_c), bit_identical=True,
+          ms=f"{ms_c:.4f}", launch_ms=f"{ms_c_launch:.4f}", plain_ms=f"{ms_c_plain:.3f}",
+          bound_ms=f"{bound_c['bound_ms']:.6f}",
+          **_clocks_kv(cma_dp_clocks(rx_c, cfg.R, h_c, lr_c, cfg.sps)))
 
     # ---- 8. kernel D vs plain: one whole CMAbatch and CMAflex frame, R = 5
     d_res = {}
@@ -1482,17 +1543,25 @@ def main() -> int:
         lr_v = CMA_VARIANTS[v][1]
         d_args = (rx_c, cfg.R, h_c, lr_v, cfg.batch_len, S, cfg.sps)
         got = cma_chunked_frame(*d_args)
+        again = cma_chunked_frame(*d_args)
         torch.cuda.synchronize()
+        if not all(torch.equal(a_, b_) for a_, b_ in zip(got, again)):
+            raise AssertionError(f"kernel D {v}: two launches on the same inputs differ")
         want = cma_chunked_frame_plain(*d_args)
         errs_d: dict = {}
         for name, g_, w_ in zip(("out", "h", "e"), got, want):
             _check(name, g_, w_, 1e-4, 1e-6 * float(w_.abs().max()), errs_d)
         ms_d = _time_ms(lambda: cma_chunked_frame(*d_args))
+        ms_d_launch = _launch_alone_ms(lambda: cma_chunked_frame(*d_args), "cma_chunked_launch")
         ms_d_plain = _time_ms(lambda: cma_chunked_frame_plain(*d_args), reps=1, warmup=False)
-        d_res[v] = (max(a for a, _ in errs_d.values()), ms_d, ms_d_plain,
-                    _bound(cma_flops, _nbytes((rx_c, h_c), got)))
+        n_full = chunk_schedule(n_sym_c, cfg.batch_len, S, M // 2, cfg.sps)[1]
+        bound_d = _bound(Rc * _cma_chunked_flops(n_sym_c, M, cfg.batch_len, S, n_full),
+                         _nbytes((rx_c, h_c), got))
+        d_res[v] = (max(a for a, _ in errs_d.values()), ms_d, ms_d_plain, bound_d)
         _line(f"8 kernel D {v}", ok=True, R=Rc, B=cfg.batch_len, S=S, errs_abs_rel=_fmt(errs_d),
-              ms=f"{ms_d:.4f}", plain_ms=f"{ms_d_plain:.3f}")
+              bit_identical=True, ms=f"{ms_d:.4f}", launch_ms=f"{ms_d_launch:.4f}",
+              plain_ms=f"{ms_d_plain:.3f}", bound_ms=f"{bound_d['bound_ms']:.6f}",
+              **_clocks_kv(cma_chunked_clocks(*d_args)))
 
     # ---- 9. the CMA path: each variant's full experiment, counted
     cma_launches = {}

@@ -124,3 +124,40 @@ def test_chunked_frame_matches_plain_on_card(cuda, B, S, lr):
     want = cma_chunked_frame_plain(rx, 1.0, h0, lr, B, S, 2)
     for name, a, b in zip(("out", "h", "e"), got, want):
         _close(a, b, name)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("m,sps,n_sym,B,S", [
+    (25, 2, 1207, 100, 100), (25, 2, 1206, 100, 10), (25, 2, 1207, 60, 20),  # tails 1, S, 1
+    (41, 2, 900, 100, 20), (9, 1, 700, 40, 8), (25, 2, 112, 100, 10),  # n_full = 0
+    (25, 2, 1206, 400, 10), (25, 2, 500, 30, 1),
+], ids=["batch_tail1", "flex_tailS", "b60_tail1", "m41", "sps1", "no_full", "ring40", "S1"])
+def test_chunked_frame_shapes_on_card(cuda, m, sps, n_sym, B, S):
+    """Kernel D at the shapes of tests/test_torch_cma_step_emulation.py (the
+    prefix stages, tails of 1 and S, taps per lane 1-8, a large ring) against
+    its plain version; two launches give the same bits."""
+    rx, h0 = _frame(2, n_sym * sps, m)
+    rx, h0 = T(rx).to(cuda), T(h0).to(cuda)
+    got = cma_chunked_frame(rx, 1.0, h0, 1e-4, B, S, sps)
+    again = cma_chunked_frame(rx, 1.0, h0, 1e-4, B, S, sps)
+    torch.cuda.synchronize()
+    want = cma_chunked_frame_plain(rx, 1.0, h0, 1e-4, B, S, sps)
+    for name, a, b, c in zip(("out", "h", "e"), got, again, want):
+        assert torch.equal(a, b), name
+        _close(a, c, name)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("m,sps", [(41, 2), (9, 1)], ids=["m41", "sps1"])
+def test_cma_kernel_shapes_on_card(cuda, m, sps):
+    """Kernel C with two taps per lane (M > 32) and at sps 1 against its plain
+    version; two launches give the same bits."""
+    rx, h0 = _frame(2, 1206 * sps, m)
+    rx, h0 = T(rx).to(cuda), T(h0).to(cuda)
+    got = cma_dp_kernel(rx, 1.0, h0, 1e-3, sps)
+    again = cma_dp_kernel(rx, 1.0, h0, 1e-3, sps)
+    torch.cuda.synchronize()
+    want = cma_dp_plain(rx, 1.0, h0, 1e-3, sps)
+    for name, a, b, c in zip(("out", "h", "e"), got, again, want):
+        assert torch.equal(a, b), name
+        _close(a, c, name)

@@ -1,0 +1,152 @@
+"""Kernels C and D's CUDA blocks, compiled for the host.
+
+``csrc/cma_step.cuh`` compiles as plain C++ under ``CMA_HOST_EMULATION``, in
+which one thread runs every item of every phase and computes each item's
+lane partials one after another, closing them with the card's xor
+butterfly, so the card's lane partition and summation order are reproduced
+(barriers are no-ops, cp.async a copy). ``csrc/cma_host_emulation.cpp``
+wraps it in the cma library's C launchers; the test builds it with the
+host's C++ compiler, patches ``ops/_build.py``'s ``load`` / ``stream`` to
+return it, and runs the wrappers' own launch code (``ops/cma_kernel.py:
+_launch``, ``ops/cma_frame_kernel.py: _launch``) on CPU tensors against
+``cma_dp_plain`` / ``cma_chunked_frame_plain`` at chip_smoke.py's phase 7 / 8
+tolerances (out, h and e at rtol 1e-4 over 1e-6 of each tensor's scale). It
+is the CPU's only check of the blocks' index arithmetic (tiles, the o / e
+ring, the rolled storage, the prefix and the tail); the card runs the same
+source (``tests/test_torch_cma_kernels.py``, ``chip_smoke.py``). It skips
+where no C++ compiler is found.
+"""
+
+import ctypes
+import shutil
+import subprocess
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from vae_equalizer_tpu_torch.models import dirac_taps_dp
+from vae_equalizer_tpu_torch.models.cma import chunk_schedule
+from vae_equalizer_tpu_torch.ops import _build
+from vae_equalizer_tpu_torch.ops import cma_frame_kernel as cfk
+from vae_equalizer_tpu_torch.ops import cma_kernel as ck
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    """The emulated cma library's typed entry points, built once."""
+    cxx = shutil.which("g++") or shutil.which("c++") or shutil.which("clang++")
+    if cxx is None:
+        pytest.skip("no C++ compiler found to build csrc/cma_host_emulation.cpp")
+    so = tmp_path_factory.mktemp("cma_host") / "libcma_host.so"
+    subprocess.run([cxx, "-O2", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
+                    "-DCMA_HOST_EMULATION", "-o", str(so), str(_build.CSRC / "cma_host_emulation.cpp")],
+                   check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(so))
+    fns = {}
+    for name, argtypes in _build._SIGNATURES["cma"].items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fns[name] = fn
+    return types.SimpleNamespace(lib=lib, **fns)
+
+
+@pytest.fixture
+def emulated(host_lib, monkeypatch):
+    """The emulated library in place of the card's; the wrappers' launch counts
+    are restored afterwards (other tests of the process read them)."""
+    monkeypatch.setattr(_build, "load", lambda: host_lib)
+    monkeypatch.setattr(_build, "stream", lambda dev: None)
+    for wrapper in (ck.cma_dp_kernel, cfk.cma_chunked_frame):
+        monkeypatch.setattr(wrapper, "launches", wrapper.launches)
+    return host_lib
+
+
+def _frame(R, n_sym, m=25, sps=2, seed=11):
+    """R runs of Gaussian samples and a perturbed Dirac start (numpy seed)."""
+    rng = np.random.default_rng(seed)
+    rx = torch.from_numpy(rng.normal(size=(R, 2, 2, n_sym * sps)).astype(np.float32))
+    h0 = dirac_taps_dp(m) + torch.from_numpy((0.01 * rng.normal(size=(R, 2, 2, 2, m))).astype(np.float32))
+    return rx, h0.contiguous()
+
+
+def _close(got, want):
+    """Phase 7 / 8's tolerances: rtol 1e-4 over 1e-6 of each tensor's scale."""
+    errs: dict = {}
+    for name, g, w in zip(("out", "h", "e"), got, want):
+        assert g.shape == w.shape, name
+        chip_smoke._check(name, g, w, 1e-4, 1e-6 * float(w.abs().max()), errs)
+    return errs
+
+
+C_CASES = {
+    "m25_update": dict(m=25, sps=2, update=True),
+    "m25_frozen": dict(m=25, sps=2, update=False),
+    "m41_update": dict(m=41, sps=2, update=True),  # two taps per lane
+    "m9_sps1": dict(m=9, sps=1, update=True),
+}
+
+
+@pytest.mark.parametrize("case", list(C_CASES), ids=list(C_CASES))
+def test_kernel_c_block_matches_plain(emulated, case):
+    """Kernel C's block over 1,206 symbols (R = 2, a staged tile boundary every
+    64) against the per-symbol plain loop."""
+    c = C_CASES[case]
+    rx, h0 = _frame(2, 1206, c["m"], c["sps"])
+    args = (rx, 1.0, h0, 1e-3, c["sps"], c["update"])
+    _close(ck._launch(*args), ck.cma_dp_plain(*args))
+
+
+D_CASES = [(100, 100), (100, 10), (60, 20)]
+
+
+@pytest.mark.parametrize("n_sym", [1207, 1206], ids=["tail1", "tailS"])
+@pytest.mark.parametrize("B,S", D_CASES, ids=[f"B{b}_S{s}" for b, s in D_CASES])
+def test_kernel_d_block_matches_plain(emulated, B, S, n_sym):
+    """Kernel D's whole frame (prefix, chunks, tail) against the chunked plain
+    engine; 1,207 symbols leave a tail of 1 and 1,206 a tail of S at M = 25,
+    sps 2 for all three (B, S)."""
+    rx, h0 = _frame(2, n_sym)
+    assert chunk_schedule(n_sym, B, S, 12, 2)[2] == (1 if n_sym == 1207 else S)
+    args = (rx, 1.0, h0, 1e-4, B, S, 2)
+    _close(cfk._launch(*args), cfk.cma_chunked_frame_plain(*args))
+
+
+def test_kernel_d_block_other_shapes(emulated):
+    """M = 41 (eight taps per lane in the outputs), sps 1, a short frame with no
+    full chunk (n_full = 0), a ring of 40 slots and chunks of one symbol (a
+    prefix of 6 output-only stages)."""
+    for m, sps, n_sym, B, S in ((41, 2, 900, 100, 20), (9, 1, 700, 40, 8), (25, 2, 112, 100, 10),
+                                (25, 2, 1206, 400, 10), (25, 2, 500, 30, 1)):
+        rx, h0 = _frame(2, n_sym, m, sps, seed=m)
+        args = (rx, 1.0, h0, 1e-4, B, S, sps)
+        if n_sym == 112:
+            assert chunk_schedule(n_sym, B, S, m // 2, sps)[1] == 0
+        _close(cfk._launch(*args), cfk.cma_chunked_frame_plain(*args))
+
+
+@pytest.mark.parametrize("kernel", ["C", "D_flex", "D_batch"])
+def test_runs_are_single_run_calls_and_repeat(emulated, kernel):
+    """R = 3 in one call equals three single-run calls bit for bit; two calls
+    give the same bits; the clocks pointer changes no output (the host has no
+    clock, so every phase reads 0 there)."""
+    rx, h0 = _frame(3, 1206)
+    launch, phases = {
+        "C": (lambda x, h, **kw: ck._launch(x, 1.0, h, 1e-3, 2, True, **kw), ck.C_CLOCK_PHASES),
+        "D_flex": (lambda x, h, **kw: cfk._launch(x, 1.0, h, 1e-4, 100, 10, 2, **kw), cfk.D_CLOCK_PHASES),
+        "D_batch": (lambda x, h, **kw: cfk._launch(x, 1.0, h, 1e-4, 100, 100, 2, **kw), cfk.D_CLOCK_PHASES),
+    }[kernel]
+    full = launch(rx, h0)
+    for r in range(3):
+        one = launch(rx[r : r + 1].contiguous(), h0[r : r + 1].contiguous())
+        for a, b in zip(one, full):
+            assert torch.equal(a[0], b[r])
+    clocks = torch.ones(len(phases), dtype=torch.int64)
+    again = launch(rx, h0, clocks=clocks)
+    for a, b in zip(again, full):
+        assert torch.equal(a, b)
+    assert clocks.tolist() == [0] * len(phases)

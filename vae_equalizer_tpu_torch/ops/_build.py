@@ -6,7 +6,7 @@ repository root, named by a hash of its sources and flags so an edit
 rebuilds:
 
   * ``dp``  — ``csrc/dp_kernels.cu`` (+ ``dp_step.cuh``): kernels A and B;
-  * ``cma`` — ``csrc/cma_kernels.cu``: kernels C and D;
+  * ``cma`` — ``csrc/cma_kernels.cu`` (+ ``cma_step.cuh``): kernels C and D;
   * ``siso`` — ``csrc/siso_kernels.cu`` (+ ``siso_step.cuh``): kernels F and G;
   * ``nn``  — ``csrc/nn_kernels.cu`` (+ ``nn_step.cuh``, ``siso_step.cuh``): kernel H;
   * ``butterfly`` — ``csrc/butterfly_kernel.cu``: kernel E.
@@ -41,7 +41,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent.parent / "build" / "k
 # library -> (compiled source, headers it includes)
 LIBRARIES = {
     "dp": ("dp_kernels.cu", ("dp_step.cuh",)),
-    "cma": ("cma_kernels.cu", ()),
+    "cma": ("cma_kernels.cu", ("cma_step.cuh",)),
     "siso": ("siso_kernels.cu", ("siso_step.cuh",)),
     "nn": ("nn_kernels.cu", ("nn_step.cuh", "siso_step.cuh")),
     "butterfly": ("butterfly_kernel.cu", ()),
@@ -66,11 +66,12 @@ _SIGNATURES = {
         + [_P] * 5 + [_LL, _D, _I, _P, _P],
     },
     "cma": {
-        # R, n_sym, m, sps, lp, y, h_in, h_out, out, e, big_r, lr2, update, stream
-        "cma_dp_launch": [_I, _I, _I, _I, _LL, _P, _P, _P, _P, _P, _F, _F, _I, _P],
-        # R, m, sps, lp, j0, S, n_full, n_slots, y, h_in, ring_in, h_out,
-        # ring_out, out, e, big_r, lr2, stream
-        "cma_chunked_launch": [_I, _I, _I, _LL, _I, _I, _I, _I] + [_P] * 7 + [_F, _F, _P],
+        # R, n_sym, m, sps, lp, y, h_in, h_out, out, e, big_r, lr2, update, clocks
+        # (int64 per phase, or null), stream
+        "cma_dp_launch": [_I, _I, _I, _I, _LL, _P, _P, _P, _P, _P, _F, _F, _I, _P, _P],
+        # R, n_sym, m, sps, lp, j0, S, n_full, n_slots, tail, y, h_in, h_out, out,
+        # e, big_r, lr2, clocks (int64 per phase, or null), stream
+        "cma_chunked_launch": [_I, _I, _I, _I, _LL] + [_I] * 5 + [_P] * 5 + [_F, _F, _P, _P],
     },
     "siso": {
         # R, n_sym, m, n_lev, x, w, h, amps, P, amp_mean, var, loss, gw, gh, q, out, stream
