@@ -34,10 +34,13 @@ of one kernel B launch per frame). One line per phase:
   9. CMA path  the three 170-frame CMA experiments, R = 5: launch counts,
                constellation SER band, speed; per-frame channel / kernel /
                eval times
- 10. kernel F  vs plain: one 350-symbol AWGN minibatch, 64-QAM, R = 20; times
+ 10. kernel F  vs plain: one 350-symbol AWGN minibatch, 64-QAM, R = 20; two
+               launches bit for bit; the whole call's and the launch's times;
+               the block's clock64() cycles per phase (siso_step_clocks)
  11. kernel G  vs plain: (a) 2 epochs from a near-Dirac start; (b) 10 epochs
-               from the state after 50 trained epochs; the whole 1,500-step
-               experiment timed against the plain engine
+               from the state after 50 trained epochs, launched twice (bit
+               for bit), and its cycles per step and phase (siso_clocks); the
+               whole 1,500-step experiment timed against the plain engine
  12. AWGN path the full AWGN VAE-LE experiment (``train_vae_le_awgn``,
                AwgnVaeLeConfig(): 64-QAM, h1, 24 dB, 500 epochs, 250 evals),
                R = 20, with use_pallas="frame" (kernel G) and True (kernel F):
@@ -376,11 +379,13 @@ def _awgn_phases(card: str) -> list:
 
     from vae_equalizer_tpu_torch.models import dirac_taps_siso, siso_fir_init, vae_le_siso_forward
     from vae_equalizer_tpu_torch.ops.elbo_siso_kernel import (
+        siso_step_clocks,
         vae_siso_loss_and_grad,
         vae_siso_loss_and_grad_plain,
     )
     from vae_equalizer_tpu_torch.ops.siso_frame_kernel import (
         amsgrad,
+        siso_clocks,
         siso_frame_opt_init,
         vae_siso_experiment_train,
         vae_siso_experiment_train_plain,
@@ -411,18 +416,23 @@ def _awgn_phases(card: str) -> list:
     x = rx_epochs(1)[:, 0, :, : 2 * bl].contiguous()
     f_args = (w0, h0, x, amps, amp_mean, var, P)
     got = vae_siso_loss_and_grad(*f_args)
+    again = vae_siso_loss_and_grad(*f_args)
     torch.cuda.synchronize()
+    if not all(torch.equal(a_, b_) for a_, b_ in zip(got, again)):
+        raise AssertionError("kernel F: two launches on the same inputs differ")
     want = vae_siso_loss_and_grad_plain(*f_args)
     errs_f: dict = {}
     _check("loss", got[0], want[0], 1e-5, 0.0, errs_f)
     for name, g_, w_ in zip(("gw", "gh", "q", "out"), got[1:], want[1:]):
         _check(name, g_, w_, 1e-4, 1e-4 * float(w_.abs().max()), errs_f)
     ms_f = _time_ms(lambda: vae_siso_loss_and_grad(*f_args))
+    ms_f_launch = _launch_alone_ms(lambda: vae_siso_loss_and_grad(*f_args), "vae_siso_step_launch")
     ms_f_plain = _time_ms(lambda: vae_siso_loss_and_grad_plain(*f_args))
     n_lev = const.num_lev
     bound_f = _bound(R * _siso_step_flops(bl, M, n_lev), _nbytes(f_args, got))
-    _line("10 kernel F", ok=True, R=R, bl=bl, errs_abs_rel=_fmt(errs_f), ms=f"{ms_f:.4f}",
-          plain_ms=f"{ms_f_plain:.4f}")
+    _line("10 kernel F", ok=True, R=R, bl=bl, errs_abs_rel=_fmt(errs_f), bit_identical=True,
+          ms=f"{ms_f:.4f}", launch_ms=f"{ms_f_launch:.4f}", plain_ms=f"{ms_f_plain:.4f}",
+          **_clocks_kv(siso_step_clocks(*f_args)))
 
     # ---- 11a. kernel G vs plain: 2 epochs (6 steps) from the near-Dirac start
     g_args = (w0, h0, opt0, rx_epochs(2), amps, amp_mean, var, P, cfg.lr)
@@ -444,7 +454,11 @@ def _awgn_phases(card: str) -> list:
     b_args = (*warm[:3], rx_epochs(10), amps, amp_mean, var, P, cfg.lr)
     step0 = AWGN_WARM_EPOCHS * nb
     got = vae_siso_experiment_train(*b_args, **g_kw, step0=step0)
+    again = vae_siso_experiment_train(*b_args, **g_kw, step0=step0)
     torch.cuda.synchronize()
+    flat = lambda out: [t for o in out for t in (o.values() if isinstance(o, dict) else (o,))]
+    if not all(torch.equal(a_, b_) for a_, b_ in zip(flat(got), flat(again))):
+        raise AssertionError("kernel G: two launches on the same inputs differ")
     want = vae_siso_experiment_train_plain(*b_args, **g_kw, step0=step0)
     errs_gb: dict = {}
     _check("losses", got[3], want[3], 1e-3, 0.0, errs_gb)
@@ -465,8 +479,9 @@ def _awgn_phases(card: str) -> list:
     ms_g_plain = _time_ms(lambda: vae_siso_experiment_train_plain(*full_args, **g_kw), reps=1,
                           warmup=False)
     _line("11b kernel G 10 epochs", ok=True, R=R, step0=step0, errs_abs_rel=_fmt(errs_gb),
-          slot_dec_agree=f"{agree:.6f}", experiment_ms=f"{ms_g:.3f}",
-          experiment_plain_ms=f"{ms_g_plain:.3f}", steps=cfg.num_epochs * nb)
+          slot_dec_agree=f"{agree:.6f}", bit_identical=True, experiment_ms=f"{ms_g:.3f}",
+          experiment_plain_ms=f"{ms_g_plain:.3f}", steps=cfg.num_epochs * nb,
+          **_clocks_kv(siso_clocks(*b_args, **g_kw, step0=step0)), card=repr(card))
 
     # ---- 12. the AWGN path in both kernel modes, counted
     steps = cfg.num_epochs * nb

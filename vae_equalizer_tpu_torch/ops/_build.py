@@ -74,13 +74,15 @@ _SIGNATURES = {
         "cma_chunked_launch": [_I, _I, _I, _I, _LL] + [_I] * 5 + [_P] * 5 + [_F, _F, _P, _P],
     },
     "siso": {
-        # R, n_sym, m, n_lev, x, w, h, amps, P, amp_mean, var, loss, gw, gh, q, out, stream
-        "vae_siso_step_launch": [_I, _I, _I, _I] + [_P] * 5 + [_F, _F] + [_P] * 6,
+        # R, n_sym, m, n_lev, x, w, h, amps, P, amp_mean, var, loss, gw, gh, q, out,
+        # clocks (int64 per phase, or null), stream
+        "vae_siso_step_launch": [_I, _I, _I, _I] + [_P] * 5 + [_F, _F] + [_P] * 7,
         # R, n_epochs, n_batches, n_sym, m, n_lev, n_total, epe, n_evals, rx, w, h,
         # mw, vw, xw, mh, vh, xh (in), w, h, mw, vw, xw, mh, vh, xh (out), losses,
-        # w_ev, h_ev, amps, P, amp_mean, var, lr, step0, stream
+        # w_ev, h_ev, amps, P, amp_mean, var, lr, step0, clocks (int64 per phase, or
+        # null), stream
         "vae_siso_experiment_launch": [_I] * 6 + [_LL, _I, _I] + [_P] * 9 + [_P] * 8
-        + [_P] * 3 + [_P, _P, _F, _F, _F, _LL, _P],
+        + [_P] * 3 + [_P, _P, _F, _F, _F, _LL, _P, _P],
     },
     "nn": {
         # R, n_epochs, n_batches, n_sym, m, n_lev, k1, n_total, epe, n_evals, batchnorm,

@@ -15,14 +15,18 @@ out (..., 2, N)); the JAX kernel takes one run, this one takes all R runs of
 a leading runs axis in one launch.
 
 On the card (``csrc/siso_kernels.cu`` + ``siso_step.cuh``): grid = R, one
-256-thread block per run, every intermediate of the step in the block's
-shared memory (~55 KB at 64-QAM, bl 350, M 25), the phases of the step
-separated by barriers, block totals by fixed-order tree reductions (no
-atomics, so a run repeats bit for bit). A minibatch is ~1 MFLOP over that
-working set: a launch is bound by the chain of dependent phases (latency),
-not by bytes or FLOPs. The TPU layout (polyphase rows, per-tap (8, 2) weight
-blocks, parity-split planes) answered Mosaic's constraints and is not
-carried over: the step indexes samples directly.
+512-thread block per run, every intermediate of the step in the block's
+shared memory (~79 KB at 64-QAM, bl 350, M 25), the step in six passes with
+one barrier each, sums over time split over lanes and closed by fixed
+shuffle trees, block totals by per-warp shuffles and a fixed cross-warp
+order (no atomics, so a run repeats bit for bit), divisions branch-free
+and exact (the design and its per-phase clocks: ``siso_step.cuh``,
+PERF.md). A minibatch is ~0.5 MFLOP over that working set: a launch is
+bound by the chain of dependent passes (latency), not by bytes or FLOPs.
+The TPU layout (polyphase rows, per-tap (8, 2) weight blocks) answered
+Mosaic's constraints and is not carried over. ``siso_step_clocks`` runs the
+kernel once with its block's per-phase clock64() cycles (measurement
+only).
 
 Dispatch: a CPU tensor takes ``vae_siso_loss_and_grad_plain``; a CUDA tensor
 launches the kernel or raises.
@@ -35,9 +39,13 @@ import torch
 from ..models.vae_le import siso_arrangements, siso_windows
 from . import _build
 
-__all__ = ["siso_step_plain", "vae_siso_loss_and_grad", "vae_siso_loss_and_grad_plain"]
+__all__ = ["SISO_CLOCK_PHASES", "siso_step_clocks", "siso_step_plain", "vae_siso_loss_and_grad",
+           "vae_siso_loss_and_grad_plain"]
 
 EPS_KL = 1e-12
+# the step's phases, in the order of csrc/siso_step.cuh: enum Phase (kernels F and G)
+SISO_CLOCK_PHASES = ("load x", "FIR+|out|", "demapper+KL", "D+C+S", "gh+gq->gnorm", "gout",
+                     "gw+AMSGrad")
 
 
 def _upsample2(t: torch.Tensor) -> torch.Tensor:
@@ -142,7 +150,16 @@ def vae_siso_loss_and_grad(w, h, x, amps, amp_mean: float, var: float, P):
     return _launch(w, h, x, amps, amp_mean, var, P)
 
 
-def _launch(w, h, x, amps, amp_mean: float, var: float, P):
+def siso_step_clocks(w, h, x, amps, amp_mean: float, var: float, P) -> dict:
+    """Kernel F once on CUDA tensors (the arguments of ``vae_siso_loss_and_grad``)
+    with its phase clocks: {phase: clock64() cycles} of run 0's block. For
+    measurement only (chip_smoke.py, tools/); the runners never ask for it."""
+    clocks = torch.zeros(len(SISO_CLOCK_PHASES), dtype=torch.int64, device=x.device)
+    _launch(w, h, x, amps, amp_mean, var, P, clocks)
+    return dict(zip(SISO_CLOCK_PHASES, map(float, clocks.tolist())))
+
+
+def _launch(w, h, x, amps, amp_mean: float, var: float, P, clocks=None):
     """Check the arguments, allocate the outputs and launch kernel F."""
     dev = x.device
     R, m, n_samp = x.shape[0], w.shape[-1], x.shape[-1]
@@ -162,7 +179,8 @@ def _launch(w, h, x, amps, amp_mean: float, var: float, P):
     out = torch.empty((R, 2, n_sym), **f32)
     rc = lib.vae_siso_step_launch(
         R, n_sym, m, n_lev, *(t.data_ptr() for t in (x, w, h, amps, P)), float(amp_mean),
-        float(var), *(t.data_ptr() for t in (loss, gw, gh, q, out)), _build.stream(dev))
+        float(var), *(t.data_ptr() for t in (loss, gw, gh, q, out)),
+        None if clocks is None else clocks.data_ptr(), _build.stream(dev))
     _build.check(rc, "vae_siso_step_launch")
     vae_siso_loss_and_grad.launches += 1
     return loss, gw, gh, q, out

@@ -21,15 +21,17 @@ trained epochs — the reference's eval points (the TPU index map
 ``(epoch + epe - 1) // epe``, siso_frame_kernel.py:377); the last slot
 holds the final parameters.
 
-On the card (``csrc/siso_kernels.cu``): grid = R, one 256-thread block per
+On the card (``csrc/siso_kernels.cu``): grid = R, one 512-thread block per
 run; the step loop runs inside the block with w, h and the six AMSGrad
 moments resident in shared memory for the whole experiment, each minibatch
-read straight from ``rx_epochs`` in device memory, each step's loss and each
-eval slot written out as it is reached. 1,500 dependent steps of ~10
-barrier-separated phases bound it (latency), and R runs fill R of the
-card's 132 SMs. The TPU design (im2col on the MXU, parity-major h,
+copied from ``rx_epochs`` in device memory (cp.async) while the step before
+it runs, AMSGrad applied in the pass that forms the gradients, each step's
+loss and each eval slot written out as it is reached. 1,500 dependent steps
+of six barrier-separated passes bound it (latency), and R runs fill R of
+the card's 132 SMs. The TPU design (im2col on the MXU, parity-major h,
 selection matmuls, stacked-sum rows) answered Mosaic's constraints and is
-not carried over.
+not carried over. ``siso_clocks`` runs the kernel once with its block's
+clock64() cycles per step and phase (measurement only).
 
 Dispatch: CPU tensors take ``vae_siso_experiment_train_plain`` (a Python
 loop of kernel F's plain step plus ``amsgrad``); CUDA tensors launch the
@@ -41,10 +43,11 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .elbo_siso_kernel import siso_step_plain
+from .elbo_siso_kernel import SISO_CLOCK_PHASES, siso_step_plain
 
 __all__ = [
     "amsgrad",
+    "siso_clocks",
     "siso_frame_opt_init",
     "vae_siso_experiment_train",
     "vae_siso_experiment_train_plain",
@@ -120,7 +123,20 @@ def vae_siso_experiment_train(w, h, opt, rx_epochs, amps, amp_mean: float, var: 
     return _launch(w, h, opt, rx_epochs, amps, amp_mean, var, P, lr, bl_sym, n_batches, epe, step0)
 
 
-def _launch(w, h, opt, rx_epochs, amps, amp_mean, var, P, lr, bl_sym, n_batches, epe, step0):
+def siso_clocks(w, h, opt, rx_epochs, amps, amp_mean: float, var: float, P, lr: float, *,
+                bl_sym: int, n_batches: int, epe: int, step0: int = 0) -> dict:
+    """Kernel G once on CUDA tensors (the arguments of
+    ``vae_siso_experiment_train``) with its phase clocks: {phase: clock64()
+    cycles per step} of run 0's block. For measurement only (chip_smoke.py,
+    tools/); the runners never ask for it."""
+    clocks = torch.zeros(len(SISO_CLOCK_PHASES), dtype=torch.int64, device=rx_epochs.device)
+    _launch(w, h, opt, rx_epochs, amps, amp_mean, var, P, lr, bl_sym, n_batches, epe, step0, clocks)
+    steps = rx_epochs.shape[1] * n_batches
+    return {k: c / steps for k, c in zip(SISO_CLOCK_PHASES, clocks.tolist())}
+
+
+def _launch(w, h, opt, rx_epochs, amps, amp_mean, var, P, lr, bl_sym, n_batches, epe, step0,
+            clocks=None):
     """Check the arguments, allocate the outputs and launch kernel G."""
     dev = rx_epochs.device
     R, n_epochs, _, n_total = rx_epochs.shape
@@ -145,7 +161,8 @@ def _launch(w, h, opt, rx_epochs, amps, amp_mean, var, P, lr, bl_sym, n_batches,
     rc = lib.vae_siso_experiment_launch(
         R, n_epochs, n_batches, bl_sym, m, n_lev, n_total, epe, n_evals,
         *(t.data_ptr() for t in ins + outs), amps.data_ptr(), P.data_ptr(), float(amp_mean),
-        float(var), float(lr), int(step0), _build.stream(dev))
+        float(var), float(lr), int(step0), None if clocks is None else clocks.data_ptr(),
+        _build.stream(dev))
     _build.check(rc, "vae_siso_experiment_launch")
     vae_siso_experiment_train.launches += 1
     return new["w"], new["h"], {k: new[k] for k in _MOMENTS}, losses, w_ev, h_ev
