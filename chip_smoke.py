@@ -10,7 +10,8 @@ its frame mode (kernel B) and its per-step mode (kernel A), the CMA /
 CMAbatch / CMAflex baselines on the same channel (``run_cma_dp``, 5 runs),
 the AWGN VAE-LE experiment (``train_vae_le_awgn``, 20 runs), the AWGN VAE-NN
 experiment (``train_vae_nn_awgn``, Net and Net_BN, 8 runs), the streaming DP
-receiver (``models.streaming.StreamingReceiver``) and VAEflex
+receiver (``models.streaming.StreamingReceiver``, kernel B adapting each
+block and kernel E equalizing it) and VAEflex
 (``train_vae_flex_dp``, 8 runs, kernel B with stride_sym = 10, and kernel A
 per window), kernel B's per-run constants and the Eval_run_DP sweep driver
 (``drivers/eval_run_dp.py``: the lr, SNR and nu axes batched into the runs
@@ -55,11 +56,20 @@ of one kernel B launch per frame). One line per phase:
      path      24 dB, 500 epochs x 13 steps, 250 evals), Net then Net_BN, R = 8,
                use_pallas="frame": one kernel H launch each, last-25-evals SER
                band, final MI; channel / kernel / eval split
- 15. kernel E  vs plain: one output pass at the streaming shapes, sps 2 and 1
+ 15. kernel E  vs plain: one output pass at the streaming shapes, sps 2 and 1;
+               two launches bit for bit; the whole call's and the launch's
+               times beside an empty launch; the block's clock64() cycles per
+               phase (butterfly_clocks)
  16. streaming DpConfig()'s channel as one continuous stream of 120 blocks of
      path      2,000 symbols through StreamingReceiver(adapt=True,
-               use_pallas=True): one kernel E launch per block, last-10-block
-               SER band; adapt / output ms per block
+               use_pallas=True), adapt route B: one kernel B launch (the
+               block's 20 Adam steps) and one kernel E launch per block,
+               last-10-block SER band; the receiver's own ms per block (CUDA
+               events around rxr.step), split into adapt / output; B's launch
+               alone; the autograd route (use_pallas=False) for 3 blocks, its
+               ms per block; (b) route B vs the autograd route on block 0 from
+               the Dirac start; (c) kernel B at R = 1 vs plain from the
+               stream's final state, times and cycles per phase
  17. per-step  train_vae_dp(use_pallas=True), the full 170 frames, R = 8: one
      path      kernel A launch per minibatch (17,000), soft SER band, MI;
                channel / kernel A / Adam / eval split; use_pallas=False
@@ -547,9 +557,10 @@ def _all_counters() -> tuple:
             vae_nn_experiment_train)
 
 
-def _counted(path_kernel, n_expect: int, fn):
+def _counted(path_kernel, n_expect: int, fn, also: tuple = ()):
     """Run fn with every launch count at 0; the path must launch path_kernel
-    n_expect times and nothing else. Returns (fn's result, wall seconds)."""
+    n_expect times, each (kernel, count) of ``also`` count times, and nothing
+    else. Returns (fn's result, wall seconds)."""
     import torch
 
     counters = _all_counters()
@@ -563,8 +574,9 @@ def _counted(path_kernel, n_expect: int, fn):
     counts = {c.__name__: c.launches for c in counters}
     for c in counters:
         c.launches = 0
-    if counts[path_kernel.__name__] != n_expect or sum(counts.values()) != n_expect:
-        raise AssertionError(f"launches {counts}, expected {n_expect} of {path_kernel.__name__}")
+    expect = {path_kernel.__name__: n_expect, **{k.__name__: n for k, n in also}}
+    if any(counts[k] != n for k, n in expect.items()) or sum(counts.values()) != sum(expect.values()):
+        raise AssertionError(f"launches {counts}, expected {expect}")
     return res, wall
 
 
@@ -733,9 +745,32 @@ def _nn_phases(card: str) -> list:
     return entries
 
 
+def _empty_launch_ms(blocks: int, threads: int, reps: int = 50) -> float:
+    """Median CUDA-event time of an empty kernel's launch at the given grid
+    (``csrc/butterfly_kernel.cu: butterfly_empty_launch``): the floor of a
+    launch on this card, beside kernel E's launch alone."""
+    import torch
+
+    from vae_equalizer_tpu_torch.ops import _build
+
+    lib, stream, times = _build.load(), _build.stream(torch.device(DEVICE)), []
+    for i in range(reps + 1):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        _build.check(lib.butterfly_empty_launch(blocks, threads, stream), "butterfly_empty_launch")
+        end.record()
+        torch.cuda.synchronize()
+        if i:  # the first is a warm-up
+            times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 def _stream_phases(card: str) -> list:
-    """Phases 15-16: kernel E against its plain version, then the streaming
-    receiver over a continuous DP stream, counted. Returns E's JSON entry."""
+    """Phases 15-16b: kernel E against its plain version; the streaming
+    receiver over a continuous DP stream, counted (one kernel-B launch for
+    the adaptation and one kernel-E launch for the output per block), timed
+    against the autograd route; route B against the autograd route on block
+    0. Returns E's JSON entry and B's on the streaming path."""
     import numpy as np
     import torch
 
@@ -745,8 +780,14 @@ def _stream_phases(card: str) -> list:
     from vae_equalizer_tpu_torch.models import butterfly_init
     from vae_equalizer_tpu_torch.models.streaming import StreamingReceiver
     from vae_equalizer_tpu_torch.ops.butterfly_kernel import (
+        butterfly_clocks,
         vae_le_dp_forward_fused,
         vae_le_dp_forward_plain,
+    )
+    from vae_equalizer_tpu_torch.ops.frame_kernel import (
+        frame_clocks,
+        vae_dp_frame_train,
+        vae_dp_frame_train_plain,
     )
     from vae_equalizer_tpu_torch.train.eval_utils import margin_weight_maxshift
     from vae_equalizer_tpu_torch.utils import DpConfig
@@ -764,70 +805,186 @@ def _stream_phases(card: str) -> list:
     # ---- 15. kernel E vs plain: one output pass at the streaming shapes (a
     # 2,000-symbol block + the M - 1 tail), sps 2 and sps 1 (float32 sums in
     # another order through the softmin: q rtol 5e-4 / atol 2e-6, out rtol
-    # 1e-4 / atol 1e-6, the JAX test's, tests/test_streaming.py:78-79)
+    # 1e-4 / atol 1e-6, the JAX test's, tests/test_streaming.py:78-79); two
+    # launches bit for bit; the whole call, the launch alone beside an empty
+    # launch at E's grid (32 symbols, 128 threads a block), and block 0's
+    # thread 0 cycles per phase
     e_res = {}
     for sps in (2, 1):
         w = (butterfly_init(M, dev) + 0.05 * torch.randn((2, 4, M), generator=gen, device=dev)).contiguous()
         x = torch.randn((2, 2, M - 1 + block * sps), generator=gen, device=dev)
         e_args = (w, x, amps, var, const.nu_sc, sps)
-        got = vae_le_dp_forward_fused(*e_args)
+        got, again = vae_le_dp_forward_fused(*e_args), vae_le_dp_forward_fused(*e_args)
+        if not all(torch.equal(u, v) for u, v in zip(got, again)):
+            raise AssertionError(f"kernel E sps {sps}: two launches differ")
         torch.cuda.synchronize()
         want = vae_le_dp_forward_plain(*e_args)
         errs: dict = {}
         _check("q", got[0], want[0], 5e-4, 2e-6, errs)
         _check("out", got[1], want[1], 1e-4, 1e-6, errs)
-        ms_e = _time_ms(lambda: vae_le_dp_forward_fused(*e_args), reps=50)
+        call = lambda: vae_le_dp_forward_fused(*e_args)  # noqa: E731
+        ms_e = _time_ms(call, reps=50)
+        ms_launch = _launch_alone_ms(call, "butterfly_demap_launch", reps=50)
         ms_e_plain = _time_ms(lambda: vae_le_dp_forward_plain(*e_args), reps=50)
         n_out = got[1].shape[-1]
+        ms_empty = _empty_launch_ms(-(-n_out // 32), 128)
         # per symbol: 4 outputs x 4 rows x M multiply-adds, 4 softmin demappers of ~8 ops per level
         bound_e = _bound(n_out * (4 * 4 * M * 2 + 4 * amps.shape[0] * 8), _nbytes(e_args, got))
         e_res[sps] = (max(errs["q"][0], errs["out"][0]), ms_e, ms_e_plain, bound_e)
-        _line(f"15 kernel E sps {sps}", ok=True, n_out=n_out, errs_abs_rel=_fmt(errs),
-              ms=f"{ms_e:.4f}", plain_ms=f"{ms_e_plain:.4f}", bound_ms=f"{bound_e['bound_ms']:.6f}")
+        _line(f"15 kernel E sps {sps}", ok=True, n_out=n_out, errs_abs_rel=_fmt(errs), bit_identical=True,
+              ms=f"{ms_e:.4f}", launch_ms=f"{ms_launch:.4f}", empty_launch_ms=f"{ms_empty:.4f}",
+              plain_ms=f"{ms_e_plain:.4f}", bound_ms=f"{bound_e['bound_ms']:.6f}",
+              **_clocks_kv(butterfly_clocks(*e_args)))
 
     # ---- 16. the streaming path: a continuous stream of STREAM_BLOCKS blocks
+    # through route B (one kernel-B launch adapts a block, one kernel-E launch
+    # outputs it); the receiver's own time per block from CUDA events around
+    # rxr.step (and after its adaptation), apart from the per-block SER
+    # evaluation that the wall includes; then the autograd route
+    # (use_pallas=False, plain output pass) on the same stream for 3 blocks
     h_up, _ = channel_ir(cfg.channel, cfg.sps)
     sim = make_dp_simulator(const, cfg.snr_db, h_up, STREAM_BLOCKS * block, cfg.sps, cfg.symb_rate,
                             cfg.tau_cd, cfg.tau_pmd, np.asarray(cfg.phi_iq), device=dev)
     rx, tx, _ = sim(gen, float(np.float32(cfg.theta)), 1)
     rx, tx = rx[0], tx[0]
-    rxr = StreamingReceiver(amps, P, var, const.nu_sc, m_est=M, sps=cfg.sps, block_len=block,
-                            lr=cfg.lr, adapt=True, use_pallas=True, device=DEVICE)
+    kw = dict(m_est=M, sps=cfg.sps, block_len=block, lr=cfg.lr, adapt=True, device=DEVICE)
+    rxr = StreamingReceiver(amps, P, var, const.nu_sc, use_pallas=True, **kw)
+    rxr_ag = StreamingReceiver(amps, P, var, const.nu_sc, use_pallas=False, **kw)
+    if (rxr.adapt_route, rxr_ag.adapt_route) != ("B", "autograd"):
+        raise AssertionError(f"adapt routes {rxr.adapt_route}, {rxr_ag.adapt_route}: expected B, autograd")
     t_pos = torch.arange(block, device=dev)
     blk = lambda b: rx[:, :, b * block * cfg.sps : (b + 1) * block * cfg.sps]
+    events = []  # per block: before step, after its adaptation, after step
 
-    def run_stream():
-        state, sers = rxr.init(), []
-        for b in range(STREAM_BLOCKS):
-            state, q, _ = rxr.step(state, blk(b))
-            txb = tx[:, :, b * block : (b + 1) * block]
-            shift, r = find_shift_dp(q, txb, 21, amps)
-            q = torch.roll(q, int(r), dims=0)
-            q = torch.stack([torch.roll(q[i], -int(shift[i]), dims=-1) for i in range(2)])
-            wgt = margin_weight_maxshift(block, int(shift.abs().max()), t=t_pos)
-            sers.append(float(ser_iqflip(q, txb, weight=wgt).mean()))
+    def mark_adapt(r):
+        adapt = r.adapt_block
+
+        def marked(state, b_):
+            state = adapt(state, b_)
+            events[-1][1].record()
+            return state
+        r.adapt_block = marked
+
+    def run_stream(r, n_blocks, ser=True):
+        state, sers = r.init(), []
+        for b in range(n_blocks):
+            events.append([torch.cuda.Event(enable_timing=True) for _ in range(3)])
+            events[-1][0].record()
+            state, q, _ = r.step(state, blk(b))
+            events[-1][2].record()
+            if ser:
+                txb = tx[:, :, b * block : (b + 1) * block]
+                shift, rot = find_shift_dp(q, txb, 21, amps)
+                q = torch.roll(q, int(rot), dims=0)
+                q = torch.stack([torch.roll(q[i], -int(shift[i]), dims=-1) for i in range(2)])
+                wgt = margin_weight_maxshift(block, int(shift.abs().max()), t=t_pos)
+                sers.append(float(ser_iqflip(q, txb, weight=wgt).mean()))
         return state, np.asarray(sers)
 
-    (state, sers), wall = _counted(vae_le_dp_forward_fused, STREAM_BLOCKS, run_stream)
+    def split_ms():
+        torch.cuda.synchronize()
+        ms = np.asarray([[a.elapsed_time(b), b.elapsed_time(c)] for a, b, c in events])
+        events.clear()
+        return ms.sum(1), ms[:, 0], ms[:, 1]
+
+    mark_adapt(rxr)
+    (state, sers), wall = _counted(vae_le_dp_forward_fused, STREAM_BLOCKS,
+                                   lambda: run_stream(rxr, STREAM_BLOCKS),
+                                   also=((vae_dp_frame_train, STREAM_BLOCKS),))
+    blk_ms, adapt_ms, out_ms = split_ms()
     last = sers[-10:]
     settled = int(np.argmax(sers < AWGN_STUCK_SER)) if np.any(sers < AWGN_STUCK_SER) else -1
     if not (STREAM_BAND[0] <= last.mean() <= STREAM_BAND[1] and last.max() <= STREAM_BLOCK_MAX):
         raise AssertionError(f"streaming: last-10-block SER mean {last.mean():.6f} (band {STREAM_BAND}), "
                              f"max {last.max():.6f} (at most {STREAM_BLOCK_MAX}); first block below "
                              f"{AWGN_STUCK_SER}: {settled}")
-    ms_adapt = _time_ms(lambda: rxr.adapt_block(state, blk(0)), reps=5)
+    del rxr.adapt_block  # the receiver's own method again
+    blk0 = blk(0).contiguous()
+    adapt_call = lambda: rxr.adapt_block(state, blk0)  # noqa: E731
+    ms_adapt = _time_ms(adapt_call, reps=20)
+    ms_b_launch = _launch_alone_ms(adapt_call, "vae_dp_frame_launch", reps=20)
     with torch.no_grad():
-        ms_out = _time_ms(lambda: rxr.output_block(state, blk(0)), reps=20)
+        ms_out = _time_ms(lambda: rxr.output_block(state, blk0), reps=20)
+    # the autograd route on the same stream, 3 blocks after a warm-up step,
+    # timed as the route B blocks were (no kernel launched)
+    rxr_ag.step(rxr_ag.init(), blk0)
+    mark_adapt(rxr_ag)
+    _, wall_ag = _counted(vae_dp_frame_train, 0, lambda: run_stream(rxr_ag, 3, ser=False))
+    ag_ms, ag_adapt_ms, ag_out_ms = split_ms()
+    del rxr_ag.adapt_block
+    med = lambda a: f"{float(np.median(a)):.4f}"  # noqa: E731
     _line("16 streaming path", ok=True, mod=cfg.mod, blocks=STREAM_BLOCKS, block=block,
-          kernel_e_launches=STREAM_BLOCKS, ser_last10_mean=f"{last.mean():.6f}",
-          ser_last10_max=f"{last.max():.6f}", band=STREAM_BAND, first_block_below_0p05=settled,
-          wall_s=f"{wall:.3f}", block_wall_ms=f"{1e3 * wall / STREAM_BLOCKS:.3f}",
-          adapt_ms=f"{ms_adapt:.3f}", output_ms=f"{ms_out:.4f}", card=repr(card))
+          adapt_route=rxr.adapt_route, kernel_b_launches=STREAM_BLOCKS, kernel_e_launches=STREAM_BLOCKS,
+          ser_last10_mean=f"{last.mean():.6f}", ser_last10_max=f"{last.max():.6f}", band=STREAM_BAND,
+          first_block_below_0p05=settled, wall_s=f"{wall:.3f}",
+          block_wall_ms=f"{1e3 * wall / STREAM_BLOCKS:.3f}", rx_block_ms_median=med(blk_ms),
+          rx_block_ms_mean=f"{blk_ms.mean():.4f}", rx_block_ms_max=f"{blk_ms.max():.4f}",
+          rx_adapt_ms_median=med(adapt_ms), rx_output_ms_median=med(out_ms),
+          adapt_block_ms=f"{ms_adapt:.4f}", b_launch_alone_ms=f"{ms_b_launch:.4f}",
+          output_block_ms=f"{ms_out:.4f}", autograd_block_ms=",".join(f"{v:.3f}" for v in ag_ms),
+          autograd_adapt_ms=",".join(f"{v:.3f}" for v in ag_adapt_ms),
+          autograd_output_ms=",".join(f"{v:.3f}" for v in ag_out_ms), autograd_wall_s=f"{wall_ag:.3f}",
+          card=repr(card))
+
+    # ---- 16b. route B against the autograd route on block 0 from the Dirac
+    # start: 20 Adam steps, under the ~150 at which two roundings part, but
+    # from zero moments, whose first steps amplify rounding (a sign flip of a
+    # ~0 gradient moves a tap by ~lr). So each of taps, moments, q and out is
+    # held to 4x the distance at which the autograd route parts from itself
+    # with w moved by 1e-7 (relative) on the same block: phase 18b's rule,
+    # doubled for the cold start (on the card the two routes part by 0.7-2.0x
+    # that distance; q's largest gap sits where an output lies between two
+    # levels and the softmin's 1 / (2 var) ~ 80 magnifies out's)
+    runs = {}
+    for name, r, w_scale in (("B", rxr, 1.0), ("autograd", rxr_ag, 1.0), ("perturbed", rxr_ag, 1 + 1e-7)):
+        st0 = r.init()
+        st0["params"]["w"] = st0["params"]["w"] * w_scale
+        st1, q1, o1 = r.step(st0, blk0)
+        runs[name] = {**st1["params"], **{k: st1["opt"][k] for k in ("mw", "vw", "mh", "vh")},
+                      "q": q1, "out": o1}
+    errs_r: dict = {}
+    pert = {k: float((runs["perturbed"][k] - v).abs().max()) for k, v in runs["autograd"].items()}
+    for k, v in runs["autograd"].items():
+        _check(k, runs["B"][k], v, 0.0, 4 * pert[k], errs_r)
+    _line("16b stream B vs autograd", ok=True, steps=block // rxr.adapt_batch, errs_abs_rel=_fmt(errs_r),
+          perturbed_autograd_abs=",".join(f"{k}:{v:.2e}" for k, v in pert.items()),
+          ratio=",".join(f"{k}:{errs_r[k][0] / pert[k]:.2f}" for k in pert))
+
+
+    # kernel B at the streaming shapes (R = 1, 20 windows of 100 symbols)
+    # against its plain version, from the stream's final state on block 0:
+    # phase 4b's criteria (losses rtol 1e-3, decisions 99.9 % equal)
+    one = lambda t: t[None]  # noqa: E731
+    b_args = (one(state["params"]["w"]), one(state["params"]["h"]),
+              {k: one(state["opt"][k]) for k in ("mw", "vw", "mh", "vh")}, one(blk0), amps,
+              *rxr._b_consts, state["opt"]["step"], float("inf"))
+    got = vae_dp_frame_train(*b_args, bl_sym=rxr.adapt_batch)
+    torch.cuda.synchronize()
+    want = vae_dp_frame_train_plain(*b_args, bl_sym=rxr.adapt_batch)
+    errs_bs: dict = {}
+    _check("losses", got[3], want[3], 1e-3, 0.0, errs_bs)
+    agree = float((got[6] == want[6]).float().mean())
+    if agree < 0.999:
+        raise AssertionError(f"streaming kernel B: dec agreement {agree:.5f} < 0.999")
+    taps_err = max(float((got[i] - want[i]).abs().max()) for i in (0, 1))
+    ms_bs = _time_ms(lambda: vae_dp_frame_train(*b_args, bl_sym=rxr.adapt_batch), reps=20)
+    ms_bs_plain = _time_ms(lambda: vae_dp_frame_train_plain(*b_args, bl_sym=rxr.adapt_batch), reps=5)
+    m_b = got[3].shape[0]
+    bound_bs = _bound(m_b * (_dp_step_flops(rxr.adapt_batch, M, amps.shape[0]) + 12 * 16 * M),
+                      _nbytes(b_args, got))
+    _line("16c kernel B streaming", ok=True, R=1, steps=m_b, errs_abs_rel=_fmt(errs_bs), taps_abs=f"{taps_err:.2e}",
+          dec_agree=f"{agree:.6f}", ms=f"{ms_bs:.4f}", plain_ms=f"{ms_bs_plain:.3f}",
+          bound_ms=f"{bound_bs['bound_ms']:.6f}",
+          **_clocks_kv(frame_clocks(*b_args, bl_sym=rxr.adapt_batch)))
     err, ms_e, ms_e_plain, bound_e = e_res[2]
     return [{"name": "vae_le_dp_forward_fused", "route": "cuda",
              "source": "vae_equalizer_tpu_torch/csrc/butterfly_kernel.cu",
              "replaces": "vae_equalizer_tpu/ops/butterfly_kernel.py:135", "launches": STREAM_BLOCKS,
-             "max_abs_err": max(err, e_res[1][0]), "ms": ms_e, "plain_ms": ms_e_plain, **bound_e}]
+             "max_abs_err": max(err, e_res[1][0]), "ms": ms_e, "plain_ms": ms_e_plain, **bound_e},
+            {"name": "vae_dp_frame_train[streaming]", "route": "cuda",
+             "source": "vae_equalizer_tpu_torch/csrc/dp_kernels.cu",
+             "replaces": "vae_equalizer_tpu/ops/frame_kernel.py:1024", "launches": STREAM_BLOCKS,
+             "max_abs_err": taps_err, "ms": ms_bs, "plain_ms": ms_bs_plain, **bound_bs}]
 
 
 def _awgn_split(mode, cfg, train_awgn, sims, draws, amps, P, var, const, w0, h0, step_kernel,

@@ -1,0 +1,31 @@
+"""The port's runners take the JAX runners' parameters in JAX's order.
+
+Each port runner's parameter names equal its JAX counterpart's with the
+seed in the key's place, ``device`` inserted third and the port's own
+parameters last, so a positional call written for JAX binds the same
+arguments (the AWGN runners once passed ``mesh`` as ``use_pallas``).
+"""
+
+import inspect
+
+import pytest
+
+import vae_equalizer_tpu.train as jtrain
+import vae_equalizer_tpu_torch.train as ptrain
+
+# runner -> the port's own parameters, after JAX's
+PORT_ONLY = {
+    "train_vae_le_awgn": ["draws"],
+    "train_vae_nn_awgn": ["params_init", "draws"],
+    "train_vae_dp": ["draws"],
+    "train_vae_flex_dp": ["draws"],
+    "run_cma_dp": ["draws"],
+}
+
+
+@pytest.mark.parametrize("runner", sorted(PORT_ONLY))
+def test_runner_takes_jax_argument_order(runner):
+    jax_names = list(inspect.signature(getattr(jtrain, runner)).parameters)
+    port_names = list(inspect.signature(getattr(ptrain, runner)).parameters)
+    assert jax_names[:2] == ["cfg", "key"]
+    assert port_names == ["cfg", "seed", "device", *jax_names[2:], *PORT_ONLY[runner]]

@@ -91,8 +91,11 @@ _SIGNATURES = {
         "vae_nn_experiment_launch": [_I] * 7 + [_LL, _I, _I, _I, _P, _F, _F, _LL, _P, _P],
     },
     "butterfly": {
-        # n_out, m, sps, n_lev, l_in, w, x, amps, var, nu_sc, q, out, stream
-        "butterfly_demap_launch": [_I] * 5 + [_P] * 4 + [_F, _P, _P, _P],
+        # n_out, m, sps, n_lev, l_in, w, x, amps, var, nu_sc, q, out, clocks (int64
+        # per phase, or null), stream
+        "butterfly_demap_launch": [_I] * 5 + [_P] * 4 + [_F, _P, _P, _P, _P],
+        # blocks, threads, stream: an empty kernel (the launch floor)
+        "butterfly_empty_launch": [_I, _I, _P],
     },
 }
 

@@ -7,9 +7,12 @@ streaming receiver (``models/streaming.py``). Same shapes as the JAX
 function: w (2, 4, M), x (2, 2, L) -> q (2, 2n, N), out (2, 2, N) with
 N = (L + 2 (M // 2) - M) // sps + 1, any sps.
 
-On the card (``csrc/butterfly_kernel.cu``): one thread per output symbol
-computes the four butterfly outputs and their four softmin demappers; the
-pass is a few MFLOP over a few hundred KB, so its launch bounds it.
+On the card (``csrc/butterfly_kernel.cu``): one thread per (output,
+symbol), 32 symbols a block, computes one butterfly output from the block's
+input window staged in shared memory and its softmin demapper, with
+branch-free exact divisions; the pass is a few MFLOP over a few hundred KB,
+so a launch bounds it. ``butterfly_clocks`` runs it once with block 0's
+thread 0 clock64() cycles per phase (measurement only).
 
 Dispatch: CPU tensors take ``vae_le_dp_forward_plain`` (the model's
 ``vae_le_dp_forward``); CUDA tensors launch the kernel or raise.
@@ -22,7 +25,10 @@ import torch
 from ..models.vae_le import vae_le_dp_forward
 from . import _build
 
-__all__ = ["vae_le_dp_forward_fused", "vae_le_dp_forward_plain"]
+__all__ = ["CLOCK_PHASES", "butterfly_clocks", "vae_le_dp_forward_fused", "vae_le_dp_forward_plain"]
+
+# kernel E's phases, in the order of csrc/butterfly_kernel.cu
+CLOCK_PHASES = ("stage", "FIR", "metric/min", "exp/sum", "normalize/store")
 
 
 # the plain version of kernel E is the model's forward itself
@@ -34,6 +40,20 @@ def vae_le_dp_forward_fused(w, x, amps, var, nu_sc: float, sps: int):
     CUDA ``x``, plain on the CPU."""
     if not x.is_cuda:
         return vae_le_dp_forward_plain(w, x, amps, var, nu_sc, sps)
+    return _launch(w, x, amps, var, nu_sc, sps)
+
+
+def butterfly_clocks(w, x, amps, var, nu_sc: float, sps: int) -> dict:
+    """Kernel E once on CUDA tensors (the arguments of
+    ``vae_le_dp_forward_fused``) with its phase clocks: {phase: clock64()
+    cycles} of block 0's thread 0. For measurement only (chip_smoke.py,
+    tools/); the receiver never asks for it."""
+    clocks = torch.zeros(len(CLOCK_PHASES), dtype=torch.int64, device=x.device)
+    _launch(w, x, amps, var, nu_sc, sps, clocks)
+    return dict(zip(CLOCK_PHASES, clocks.tolist()))
+
+
+def _launch(w, x, amps, var, nu_sc, sps, clocks=None):
     dev = x.device
     m, n_lev, l_in = w.shape[-1], amps.shape[0], x.shape[-1]
     n_out = (l_in + 2 * (m // 2) - m) // sps + 1
@@ -45,7 +65,8 @@ def vae_le_dp_forward_fused(w, x, amps, var, nu_sc: float, sps: int):
     out = torch.empty((2, 2, n_out), dtype=torch.float32, device=dev)
     rc = lib.butterfly_demap_launch(n_out, m, sps, n_lev, l_in, w.data_ptr(), x.data_ptr(),
                                     amps.data_ptr(), var.data_ptr(), float(nu_sc), q.data_ptr(),
-                                    out.data_ptr(), _build.stream(dev))
+                                    out.data_ptr(), None if clocks is None else clocks.data_ptr(),
+                                    _build.stream(dev))
     _build.check(rc, "butterfly_demap_launch")
     vae_le_dp_forward_fused.launches += 1
     return q, out

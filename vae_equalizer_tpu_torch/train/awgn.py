@@ -177,11 +177,15 @@ def _default_draws(sims, seed: int, device):
 
 
 def train_vae_le_awgn(cfg: AwgnVaeLeConfig, seed: int, device="cuda", progress: Progress = None,
-                      runs: int | None = None, use_pallas=False, runs_batch: int | None = None,
-                      params_init=None, draws=None, mesh=None, compiled: bool = False,
-                      checkpoint=None, checkpoint_every: int = 0,
-                      timings: dict | None = None) -> dict:
+                      runs: int | None = None, mesh=None, params_init=None, compiled: bool = False,
+                      use_pallas=False, checkpoint=None, checkpoint_every: int = 0,
+                      timings: dict | None = None, runs_batch: int | None = None,
+                      draws=None) -> dict:
     """VAE-LE training on the AWGN ISI channel (use_pallas: see the module docstring).
+
+    The parameters come in JAX's order (``train/awgn.py: train_vae_le_awgn``)
+    with ``device`` inserted third and the port's own ``draws`` last, so a
+    positional call written for JAX binds the same arguments.
 
     The channel draws come from a ``torch.Generator`` seeded with ``seed``,
     or from ``draws(kind, index, R) -> (levels (R, 2, n_conv), noise
@@ -252,12 +256,14 @@ def _nn_evaluate(cfg, net, rs, valid_draws, sim, const, amps, P) -> torch.Tensor
 
 
 def train_vae_nn_awgn(cfg: AwgnVaeNnConfig, seed: int, device="cuda", progress: Progress = None,
-                      runs: int | None = None, use_pallas=False, params_init=None, draws=None,
-                      mesh=None, compiled: bool = False, checkpoint=None, checkpoint_every: int = 0,
-                      timings: dict | None = None) -> dict:
+                      runs: int | None = None, mesh=None, compiled: bool = False, use_pallas=False,
+                      checkpoint=None, checkpoint_every: int = 0, timings: dict | None = None,
+                      params_init=None, draws=None) -> dict:
     """VAE-NN (Net, or Net_BN with ``cfg.batchnorm``) training on the AWGN ISI
     channel, uniform constellation, fixed-noise convention, uniform-prior
-    ELBO (use_pallas: False or "frame", see the module docstring).
+    ELBO (use_pallas: False or "frame", see the module docstring). The
+    parameters come in JAX's order with ``device`` inserted third and the
+    port's own ``params_init`` and ``draws`` last.
 
     Draws as in ``train_vae_le_awgn``. The filters are Xavier-uniform from a
     ``torch.Generator`` seeded with ``seed`` (one start shared by all runs,
