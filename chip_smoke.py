@@ -15,10 +15,13 @@ block and kernel E equalizing it) and VAEflex
 (``train_vae_flex_dp``, 8 runs, kernel B with stride_sym = 10, and kernel A
 per window), kernel B's per-run constants and the Eval_run_DP sweep driver
 (``drivers/eval_run_dp.py``: the lr, SNR and nu axes batched into the runs
-of one kernel B launch per frame). One line per phase:
+of one kernel B launch per frame), the AWGN CMA experiment
+(``run_cma_awgn``, 8 runs, kernel I), the LMMSE / DFE sweep
+(``train.dfe.run_lmmse_dfe``, kernel J) and the four AWGN drivers. One line
+per phase:
 
   1. device    card name and power limit (nvidia-smi)
-  2. build     nvcc build of kernels A-H (one nvcc per source, in parallel),
+  2. build     nvcc build of kernels A-J (one nvcc per source, in parallel),
                seconds, ptxas resource use
   3. kernel A  vs plain (one minibatch of R = 8 runs, one launch), errors
                and CUDA-event times
@@ -96,6 +99,20 @@ of one kernel B launch per frame). One line per phase:
  24. nu sweep  --batch-nu-axis over nu 0 and 0.0270955: 10 runs; soft SER and
                MI against JAX's; each of 22-24 with wall, symbols/s and a
                per-frame channel / kernel B / eval split
+ 25. kernel I  vs plain: 2 epochs of AwgnCmaConfig() (8,000 dependent symbols),
+               R = 8; two launches bit for bit; the whole call's and the
+               launch's times; lane 0's clock64() cycles per symbol and phase
+ 26. AWGN CMA  run_cma_awgn(AwgnCmaConfig(), runs=8): 500 epochs x 4,000
+     path      symbols, 250 evals, one kernel I launch; every run's last-25-
+               evals SER in the JAX band, final MI; wall, symbols/s and a
+               channel / kernel I / eval split
+ 27. kernel J  vs plain: the 40 decision chains (8 SNRs x 5 epochs x 128,000
+               symbols) of LmmseDfeConfig(), decisions bit for bit; times
+ 28. DFE path  run_lmmse_dfe(LmmseDfeConfig()): one kernel J launch; per SNR
+               the LMMSE and DFE SER against JAX's; wall, symbols/s
+ 29. drivers   eval_run_shaping_cma, eval_run_shaping_vaele --pallas-frame,
+               eval_run_vaenn --pallas-frame and eval_run_dfe with --quick on
+               the card: JSONL and .mat written, one I / G / H / J launch each
 
 then the kernels' JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises (non-zero exit,
@@ -180,6 +197,32 @@ SNR_CURVE_SER = {16: 0.3281, 17: 0.2571, 18: 0.1943, 19: 0.1391, 20: 0.0956, 21:
 # nu -> (soft SER within +-SWEEP_TOL, floor of the last-20-frame MI); the heavy-
 # shaping points 0.0872449 and 0.1222578 diverge in every mode (:1072-1084)
 NU_SWEEP = {0.0: (0.0313, 5.70), 0.0270955: (0.0129, 5.53)}  # :1074-1075
+# Phases 25-26: the AWGN CMA experiment (AwgnCmaConfig(): 64-QAM, h1, 22 dB,
+# 500 epochs of 4,000 symbols, 250 evals), kernel I. The JAX package on the CPU
+# (tools/jax_bands.py cma_awgn, keys 0-7, runs 4: 32 runs, PERF.md): per run
+# the mean SER of the last 25 evals 0.064896-0.068068 (mean 0.066477; the
+# reference gave 0.06639, JAX 0.06700, PARITY_RESULTS.md:40-48) and the final
+# MI 3.7007-4.0532 bits. Band = the SER spread widened 2x about its middle,
+# rounded outward, for every run; MI floor = the lowest less the spread.
+CMA_AWGN_RUNS = 8
+CMA_AWGN_BAND = (0.06330, 0.06966)
+CMA_AWGN_MI_MIN = 3.34
+CMA_AWGN_CHECK_EPOCHS = 2  # kernel I vs its plain version (8,000 dependent symbols)
+# Phases 27-28: run_lmmse_dfe(LmmseDfeConfig()) (PCS 64-QAM nu = 0.0270955, h1,
+# 8 SNRs x 5 epochs x 128,000 symbols), kernel J. The JAX package's mean SER
+# over the epochs per SNR, (LMMSE, DFE) (PARITY_RESULTS.md:64-69); the port's
+# must lie within 3 sqrt(DFE_DISPERSION 2 p (1 - p) / 640,000) of each (two
+# independent estimates of 640,000 symbols). The per-frame SER varies more than
+# a binomial count: error bursts through the feedback state, the measured noise
+# power and the sync. Over 13 sweeps of this configuration on the CPU
+# (tools/dfe_dispersion.py: the port at seeds 0-9, JAX at keys 0-2; PERF.md)
+# the pooled per-epoch variance was 0.96-2.46x the binomial at each point, and
+# with the binomial tolerance alone the worst point of those sweeps sat at 1.45x
+# its tolerance; with the variance x4, at 0.72x.
+DFE_DISPERSION = 4.0
+DFE_JAX_SER = {15: (0.3170, 0.3309), 16: (0.2420, 0.2505), 17: (0.1727, 0.1740),
+               18: (0.1130, 0.1080), 19: (0.0680, 0.0596), 20: (0.0357, 0.0278),
+               21: (0.0159, 0.0108), 22: (0.0061, 0.0034)}
 # Published peaks of one H100 SXM (NVIDIA's datasheet) for each
 # kernel's bound: float32 outside the tensor cores and HBM.
 F32_FLOPS = 67e12
@@ -380,6 +423,226 @@ def _nn_step_flops(n_sym: int, m: int, n_lev: int, k1: int, batchnorm: bool) -> 
         _elbo_flops(n_samp, m, n_lev, 1)
 
 
+def _cma_siso_flops(n_sym: int, m: int) -> float:
+    """Kernel I, one run over n_sym symbols: the complex FIR output (4m
+    multiply-adds), the error (4 ops) and the tap update (per tap and plane
+    2 multiplies, an add, a multiply by 2 lr e and the add: 10m)."""
+    return n_sym * (8 * m + 4 + 10 * m)
+
+
+def _dfe_flops(n_sym: int, k2: int, n_points: int) -> float:
+    """Kernel J, one chain over n_sym symbols: the correction (4 K2 multiply-
+    adds and 4 ops), the distances (5 ops a point) and the argmin (1 a point)."""
+    return n_sym * (8 * k2 + 4 + 6 * n_points)
+
+
+def _cma_awgn_phases(card: str) -> list:
+    """Phases 25-26: kernel I against its plain version, then the AWGN CMA
+    experiment, counted (one kernel I launch). Returns I's JSON entry."""
+    import numpy as np
+    import torch
+
+    from vae_equalizer_tpu_torch.models import dirac_taps_siso
+    from vae_equalizer_tpu_torch.ops.cma_siso_kernel import (
+        cma_siso_clocks,
+        cma_siso_experiment,
+        cma_siso_experiment_plain,
+    )
+    from vae_equalizer_tpu_torch.train import awgn as train_awgn
+    from vae_equalizer_tpu_torch.utils import AwgnCmaConfig
+
+    dev = torch.device(DEVICE)
+    cfg = AwgnCmaConfig()
+    const, sims, amps, P, var = train_awgn._setup(cfg, dev)
+    R, M = CMA_AWGN_RUNS, cfg.m_est
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2468)
+    rng = torch.Generator(device=dev)
+    rng.manual_seed(13)
+    draws = lambda kind, index, runs: sims[kind].draws(gen, runs)  # noqa: E731
+    h0 = dirac_taps_siso(M, dev) + 0.01 * torch.randn((R, 2, M), generator=rng, device=dev)
+
+    # ---- 25. kernel I vs plain: 2 epochs (8,000 dependent symbols), R = 8
+    # (rtol 1e-4 with an absolute floor of 1e-6 of each tensor's scale, phase
+    # 7's tolerance for C: float32 sums in another order, no Adam to amplify them)
+    rx2 = train_awgn._frame_train_data(sims["train"], draws, R, CMA_AWGN_CHECK_EPOCHS)
+    i_args = (rx2, h0, cfg.R, cfg.lr, cfg.sps, 1)  # epe 1: a snapshot after each epoch
+    got = cma_siso_experiment(*i_args)
+    again = cma_siso_experiment(*i_args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a_, b_) for a_, b_ in zip(got, again)):
+        raise AssertionError("kernel I: two launches on the same inputs differ")
+    want = cma_siso_experiment_plain(*i_args)
+    errs_i: dict = {}
+    for name, g_, w_ in zip(("h", "h_ev", "loss"), got, want):
+        _check(name, g_, w_, 1e-4, 1e-6 * float(w_.abs().max()), errs_i)
+    ms_i = _time_ms(lambda: cma_siso_experiment(*i_args))
+    ms_i_launch = _launch_alone_ms(lambda: cma_siso_experiment(*i_args),
+                                   "cma_siso_experiment_launch")
+    ms_i_plain = _time_ms(lambda: cma_siso_experiment_plain(*i_args), reps=1, warmup=False)
+    n_sym = cfg.n_train
+    bound_i = _bound(R * CMA_AWGN_CHECK_EPOCHS * _cma_siso_flops(n_sym, M), _nbytes(i_args[:2], got))
+    _line("25 kernel I", ok=True, R=R, epochs=CMA_AWGN_CHECK_EPOCHS, errs_abs_rel=_fmt(errs_i),
+          bit_identical=True, ms=f"{ms_i:.3f}", launch_ms=f"{ms_i_launch:.3f}",
+          plain_ms=f"{ms_i_plain:.1f}", bound_ms=f"{bound_i['bound_ms']:.6f}",
+          **_clocks_kv(cma_siso_clocks(*i_args)), card=repr(card))
+
+    # ---- 26. the AWGN CMA path: the full experiment, one kernel I launch
+    n_evals = cfg.num_epochs // cfg.epe
+    res, wall = _counted(cma_siso_experiment, 1, lambda: train_awgn.run_cma_awgn(
+        cfg, seed=0, device=DEVICE, runs=R))
+    for k in ("ser", "mi"):
+        if res[k].shape != (R, n_evals) or not np.all(np.isfinite(res[k])):
+            raise AssertionError(f"AWGN CMA {k}: shape {res[k].shape} or non-finite values")
+    if tuple(res["taps"].shape) != (R, 2, M) or not bool(torch.isfinite(res["taps"]).all()):
+        raise AssertionError("AWGN CMA taps: shape or non-finite values")
+    ser25 = res["ser"][:, -25:].mean(-1)  # (R,) last-25-evals mean SER per run
+    lo, hi = CMA_AWGN_BAND
+    mi_last = res["mi"][:, -1]
+    if not (np.all((lo <= ser25) & (ser25 <= hi)) and np.all(mi_last > CMA_AWGN_MI_MIN)):
+        raise AssertionError(f"AWGN CMA: last-25-evals SER per run {ser25} (band {CMA_AWGN_BAND}), "
+                             f"final MI {mi_last} (floor {CMA_AWGN_MI_MIN})")
+    # channel / kernel I / eval split at the path's shapes (CUDA events, once each)
+    st = {}
+
+    def channel():
+        st["rx"] = train_awgn._frame_train_data(sims["train"], draws, R, cfg.num_epochs)
+
+    def kernel():
+        st["k"] = cma_siso_experiment(st["rx"], h0, cfg.R, cfg.lr, cfg.sps, cfg.epe)
+
+    var_q = torch.full((1,), var, dtype=torch.float32, device=dev)
+
+    def evaluate():
+        train_awgn._batched_evals(n_evals, R, draws, lambda sl, vd: train_awgn._cma_evaluate(
+            cfg, st["k"][1][sl], vd, sims["valid"], amps, P, var_q, const.nu_sc))
+
+    ms_ch, ms_k, ms_ev = (_time_ms(f, reps=1, warmup=False) for f in (channel, kernel, evaluate))
+    n_train_sym = R * cfg.num_epochs * cfg.n_train
+    _line("26 AWGN CMA path", ok=True, runs=R, epochs=cfg.num_epochs, evals=n_evals, launches=1,
+          ser_last25_mean=f"{ser25.mean():.6f}", ser_last25_min_max=f"{ser25.min():.6f}/{ser25.max():.6f}",
+          band=CMA_AWGN_BAND, mi_final_min=f"{mi_last.min():.4f}", wall_s=f"{wall:.3f}",
+          train_sym_per_s=f"{n_train_sym / wall:.0f}", channel_ms=f"{ms_ch:.1f}",
+          kernel_i_ms=f"{ms_k:.1f}", eval_ms=f"{ms_ev:.1f}",
+          kernel_i_sym_per_s=f"{n_train_sym / (1e-3 * ms_k):.0f}", card=repr(card))
+    # no TPU kernel and no single PyTorch call computes this recurrence
+    return [{"name": "cma_siso_experiment", "route": "cuda",
+             "source": "vae_equalizer_tpu_torch/csrc/cma_kernels.cu",
+             "replaces": "none (a lax.scan in JAX): vae_equalizer_tpu/models/cma.py:63",
+             "launches": 1, "max_abs_err": max(a for a, _ in errs_i.values()), "ms": ms_i,
+             "plain_ms": ms_i_plain, **bound_i}]
+
+
+def _dfe_phases(card: str) -> list:
+    """Phases 27-28: kernel J against its plain version on the main path's 40
+    chains, then the LMMSE / DFE sweep, counted (one kernel J launch).
+    Returns J's JSON entry."""
+    import numpy as np
+    import torch
+
+    from vae_equalizer_tpu_torch.ops.dfe_kernel import dfe_decide, dfe_decide_plain
+    from vae_equalizer_tpu_torch.train import dfe as train_dfe
+    from vae_equalizer_tpu_torch.utils import LmmseDfeConfig
+
+    dev = torch.device(DEVICE)
+    cfg = LmmseDfeConfig()
+    n = cfg.n_valid
+
+    # ---- 27. kernel J vs plain: every chain of the sweep (8 SNRs x 5 epochs),
+    # decisions equal bit for bit
+    c = train_dfe._dfe_chains(cfg, 97, dev)
+    k2 = c["fb"].shape[-1]
+    n_chains = c["ff_out"].shape[0] * c["ff_out"].shape[1]
+    j_args = (c["ff_out"].reshape(n_chains, 2, n).contiguous(),
+              c["fb"].expand(-1, cfg.num_epochs, -1, -1).reshape(n_chains, 2, k2).contiguous(),
+              c["points"].contiguous(), c["init_idx"].reshape(n_chains, n).contiguous())
+    got = dfe_decide(*j_args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = dfe_decide_plain(*j_args)
+    torch.cuda.synchronize()
+    ms_j_plain = 1e3 * (time.perf_counter() - t0)
+    if not torch.equal(got, want):
+        bad = got != want
+        raise AssertionError(f"kernel J: {int(bad.sum())} of {bad.numel()} decisions differ from "
+                             f"the plain version's (first in chain {int(bad.any(-1).nonzero()[0])})")
+    ms_j = _time_ms(lambda: dfe_decide(*j_args), reps=3)
+    n_points = c["points"].shape[-1]
+    bound_j = _bound(n_chains * _dfe_flops(n - k2, k2, n_points), _nbytes(j_args, got))
+    _line("27 kernel J", ok=True, chains=n_chains, symbols=n, k2=k2, points=n_points,
+          bit_identical=True, ms=f"{ms_j:.3f}", plain_ms=f"{ms_j_plain:.1f}",
+          bound_ms=f"{bound_j['bound_ms']:.6f}", card=repr(card))
+
+    # ---- 28. the LMMSE / DFE path: 8 SNRs x 5 epochs, one kernel J launch
+    res, wall = _counted(dfe_decide, 1, lambda: train_dfe.run_lmmse_dfe(cfg, seed=0, device=DEVICE))
+    n_snr = len(train_dfe.SNR_VEC)
+    for k in ("ser_mmse", "ser_dfe"):
+        if res[k].shape != (n_snr, cfg.num_epochs) or not np.all(np.isfinite(res[k])):
+            raise AssertionError(f"DFE {k}: shape {res[k].shape} or non-finite values")
+    n_sym = cfg.num_epochs * n
+    rows, bad = [], []
+    for i, snr in enumerate(res["snrs"]):
+        for j, name in enumerate(("ser_mmse", "ser_dfe")):
+            p_ref = DFE_JAX_SER[int(snr)][j]
+            got_p = float(res[name][i].mean())
+            tol = 3 * float(np.sqrt(DFE_DISPERSION * 2 * p_ref * (1 - p_ref) / n_sym))
+            rows.append(f"{int(snr)}:{name[4:]}={got_p:.5f}")
+            if abs(got_p - p_ref) > tol:
+                bad.append(f"SNR {snr} {name}: {got_p:.5f} vs JAX {p_ref} (tolerance {tol:.5f})")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    _line("28 DFE path", ok=True, snrs=n_snr, epochs=cfg.num_epochs, symbols=n, launches=1,
+          ser=",".join(rows), wall_s=f"{wall:.3f}", sym_per_s=f"{n_snr * n_sym / wall:.0f}",
+          card=repr(card))
+    return [{"name": "dfe_decide", "route": "cuda",
+             "source": "vae_equalizer_tpu_torch/csrc/dfe_kernel.cu",
+             "replaces": "none (a lax.scan in JAX): vae_equalizer_tpu/models/lmmse_dfe.py:91",
+             "launches": 1, "max_abs_err": 0.0, "ms": ms_j, "plain_ms": ms_j_plain, **bound_j}]
+
+
+def _drivers_phase(card: str) -> None:
+    """Phase 29: the four AWGN drivers with --quick on the card, each counted:
+    its JSONL and .mat written, the CMA driver through kernel I, the VAE-LE
+    and VAE-NN drivers' --pallas-frame through G and H, the DFE driver
+    through J (one launch each: the quick sweeps have one grid point)."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+
+    from vae_equalizer_tpu_torch.drivers import (
+        eval_run_dfe,
+        eval_run_shaping_cma,
+        eval_run_shaping_vaele,
+        eval_run_vaenn,
+    )
+    from vae_equalizer_tpu_torch.ops.cma_siso_kernel import cma_siso_experiment
+    from vae_equalizer_tpu_torch.ops.dfe_kernel import dfe_decide
+    from vae_equalizer_tpu_torch.ops.nn_frame_kernel import vae_nn_experiment_train
+    from vae_equalizer_tpu_torch.ops.siso_frame_kernel import vae_siso_experiment_train
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_drivers_")
+    try:
+        walls = {}
+        for name, mod, extra, kern, jsonl in (
+                ("shaping_cma", eval_run_shaping_cma, [], cma_siso_experiment, "sweep_*.jsonl"),
+                ("shaping_vaele", eval_run_shaping_vaele, ["--pallas-frame"],
+                 vae_siso_experiment_train, "sweep_*.jsonl"),
+                ("vaenn", eval_run_vaenn, ["--pallas-frame"], vae_nn_experiment_train,
+                 "sweep_*.jsonl"),
+                ("dfe", eval_run_dfe, [], dfe_decide, "lmmse_dfe.jsonl")):
+            out = os.path.join(tmp, name)
+            mat, wall = _counted(kern, 1, lambda mod=mod, extra=extra, out=out: mod.main(
+                ["--quick", "--device", DEVICE, "--out", out, *extra]))
+            if not (os.path.exists(mat) and glob.glob(os.path.join(out, jsonl))):
+                raise AssertionError(f"eval_run_{name}: no .mat or JSONL in {out}")
+            walls[name] = f"{wall:.2f}"
+        _line("29 drivers", ok=True, quick_wall_s=",".join(f"{k}:{v}" for k, v in walls.items()),
+              card=repr(card))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _awgn_phases(card: str) -> list:
     """Phases 10-12: kernels F and G against their plain versions, then the
     AWGN VAE-LE path in both kernel modes, counted. Returns the kernels' JSON
@@ -542,10 +805,12 @@ def _awgn_phases(card: str) -> list:
 
 
 def _all_counters() -> tuple:
-    """Every kernel wrapper's launch counter holder, A-H."""
+    """Every kernel wrapper's launch counter holder, A-J."""
     from vae_equalizer_tpu_torch.ops.butterfly_kernel import vae_le_dp_forward_fused
     from vae_equalizer_tpu_torch.ops.cma_frame_kernel import cma_chunked_frame
     from vae_equalizer_tpu_torch.ops.cma_kernel import cma_dp_kernel
+    from vae_equalizer_tpu_torch.ops.cma_siso_kernel import cma_siso_experiment
+    from vae_equalizer_tpu_torch.ops.dfe_kernel import dfe_decide
     from vae_equalizer_tpu_torch.ops.elbo_kernel import vae_dp_loss_and_grad
     from vae_equalizer_tpu_torch.ops.elbo_siso_kernel import vae_siso_loss_and_grad
     from vae_equalizer_tpu_torch.ops.frame_kernel import vae_dp_frame_train
@@ -554,7 +819,7 @@ def _all_counters() -> tuple:
 
     return (vae_dp_loss_and_grad, vae_dp_frame_train, cma_dp_kernel, cma_chunked_frame,
             vae_le_dp_forward_fused, vae_siso_loss_and_grad, vae_siso_experiment_train,
-            vae_nn_experiment_train)
+            vae_nn_experiment_train, cma_siso_experiment, dfe_decide)
 
 
 def _counted(path_kernel, n_expect: int, fn, also: tuple = ()):
@@ -1791,6 +2056,9 @@ def main() -> int:
     flex_kernels = _vaeflex_phases(card, cfg, sim, gen, w0, h0, const, amps, var, P)
     per_run = _per_run_phase(card, cfg, sim, gen, w0, h0, const, amps, P, f_args)
     sweep_kernel = _sweep_phases(card, cfg, const, amps, var, w0, h0, per_run)
+    cma_awgn_kernels = _cma_awgn_phases(card)
+    dfe_kernels = _dfe_phases(card)
+    _drivers_phase(card)
 
     kernels = {"kernels": [
         {"name": "vae_dp_loss_and_grad", "route": "cuda",
@@ -1813,7 +2081,8 @@ def main() -> int:
          "replaces": "vae_equalizer_tpu/ops/cma_frame_kernel.py:404", "launches": cma_launches[v],
          "max_abs_err": d_res[v][0], "ms": d_res[v][1], "plain_ms": d_res[v][2], **d_res[v][3]}
         for v in ("CMAbatch", "CMAflex")
-    ] + flex_kernels + [sweep_kernel] + awgn_kernels + nn_kernels + stream_kernels}
+    ] + flex_kernels + [sweep_kernel] + awgn_kernels + nn_kernels + stream_kernels
+        + cma_awgn_kernels + dfe_kernels}
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

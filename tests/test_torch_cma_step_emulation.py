@@ -1,4 +1,4 @@
-"""Kernels C and D's CUDA blocks, compiled for the host.
+"""Kernels C, D and I's CUDA blocks, compiled for the host.
 
 ``csrc/cma_step.cuh`` compiles as plain C++ under ``CMA_HOST_EMULATION``, in
 which one thread runs every item of every phase and computes each item's
@@ -8,13 +8,15 @@ butterfly, so the card's lane partition and summation order are reproduced
 wraps it in the cma library's C launchers; the test builds it with the
 host's C++ compiler, patches ``ops/_build.py``'s ``load`` / ``stream`` to
 return it, and runs the wrappers' own launch code (``ops/cma_kernel.py:
-_launch``, ``ops/cma_frame_kernel.py: _launch``) on CPU tensors against
-``cma_dp_plain`` / ``cma_chunked_frame_plain`` at chip_smoke.py's phase 7 / 8
-tolerances (out, h and e at rtol 1e-4 over 1e-6 of each tensor's scale). It
+_launch``, ``ops/cma_frame_kernel.py: _launch``, ``ops/cma_siso_kernel.py:
+_launch``) on CPU tensors against ``cma_dp_plain`` /
+``cma_chunked_frame_plain`` / ``cma_siso_experiment_plain`` at chip_smoke.py's
+phase 7 / 8 / 25 tolerances (rtol 1e-4 over 1e-6 of each tensor's scale). It
 is the CPU's only check of the blocks' index arithmetic (tiles, the o / e
-ring, the rolled storage, the prefix and the tail); the card runs the same
-source (``tests/test_torch_cma_kernels.py``, ``chip_smoke.py``). It skips
-where no C++ compiler is found.
+ring, the rolled storage, the prefix and the tail; I's per-epoch window
+restart, its frame edges and eval slots); the card runs the same source
+(``tests/test_torch_cma_kernels.py``, ``tests/test_torch_cma_awgn.py``,
+``chip_smoke.py``). It skips where no C++ compiler is found.
 """
 
 import ctypes
@@ -27,11 +29,12 @@ import pytest
 import torch
 
 import chip_smoke
-from vae_equalizer_tpu_torch.models import dirac_taps_dp
+from vae_equalizer_tpu_torch.models import dirac_taps_dp, dirac_taps_siso
 from vae_equalizer_tpu_torch.models.cma import chunk_schedule
 from vae_equalizer_tpu_torch.ops import _build
 from vae_equalizer_tpu_torch.ops import cma_frame_kernel as cfk
 from vae_equalizer_tpu_torch.ops import cma_kernel as ck
+from vae_equalizer_tpu_torch.ops import cma_siso_kernel as ik
 
 torch.set_num_threads(1)
 
@@ -61,7 +64,7 @@ def emulated(host_lib, monkeypatch):
     are restored afterwards (other tests of the process read them)."""
     monkeypatch.setattr(_build, "load", lambda: host_lib)
     monkeypatch.setattr(_build, "stream", lambda dev: None)
-    for wrapper in (ck.cma_dp_kernel, cfk.cma_chunked_frame):
+    for wrapper in (ck.cma_dp_kernel, cfk.cma_chunked_frame, ik.cma_siso_experiment):
         monkeypatch.setattr(wrapper, "launches", wrapper.launches)
     return host_lib
 
@@ -150,3 +153,49 @@ def test_runs_are_single_run_calls_and_repeat(emulated, kernel):
     for a, b in zip(again, full):
         assert torch.equal(a, b)
     assert clocks.tolist() == [0] * len(phases)
+
+
+def _epochs(R, E, n_sym, m=25, sps=2, seed=21):
+    """R runs of E Gaussian frames and a perturbed Dirac SISO start (numpy seed)."""
+    rng = np.random.default_rng(seed)
+    rx = torch.from_numpy((0.7 * rng.normal(size=(R, E, 2, n_sym * sps))).astype(np.float32))
+    h0 = dirac_taps_siso(m) + torch.from_numpy((0.01 * rng.normal(size=(R, 2, m))).astype(np.float32))
+    return rx, h0.contiguous()
+
+
+I_CASES = {
+    "m25_epe2": dict(m=25, sps=2, E=5, epe=2),  # epoch 4 trains without an eval slot
+    "m41_epe1": dict(m=41, sps=2, E=3, epe=1),  # two taps per lane
+    "m9_sps1": dict(m=9, sps=1, E=4, epe=3),
+    "m24_even": dict(m=24, sps=2, E=2, epe=1),
+}
+
+
+@pytest.mark.parametrize("case", list(I_CASES), ids=list(I_CASES))
+def test_kernel_i_block_matches_plain(emulated, case):
+    """Kernel I's whole experiment (R = 2, 600 symbols an epoch) against the
+    per-epoch plain loop: final taps, eval slots and per-epoch mean |e|."""
+    c = I_CASES[case]
+    rx, h0 = _epochs(2, c["E"], 600, c["m"], c["sps"])
+    args = (rx, h0, 1.0, 1e-3, c["sps"], c["epe"])
+    got, want = ik._launch(*args), ik.cma_siso_experiment_plain(*args)
+    errs: dict = {}
+    for name, g, w in zip(("h", "h_ev", "loss"), got, want):
+        assert g.shape == w.shape, name
+        chip_smoke._check(name, g, w, 1e-4, 1e-6 * float(w.abs().max()), errs)
+
+
+def test_kernel_i_runs_are_single_run_calls_and_repeat(emulated):
+    """R = 3 in one call equals three single-run calls bit for bit; two calls
+    give the same bits; the clocks pointer changes no output."""
+    rx, h0 = _epochs(3, 3, 500)
+    full = ik._launch(rx, h0, 1.0, 1e-3, 2, 1)
+    for r in range(3):
+        h, h_ev, loss = ik._launch(rx[r : r + 1].contiguous(), h0[r : r + 1].contiguous(), 1.0,
+                                   1e-3, 2, 1)
+        assert torch.equal(h[0], full[0][r]) and torch.equal(h_ev[:, 0], full[1][:, r])
+        assert torch.equal(loss[0], full[2][r])
+    clocks = torch.ones(len(ik.I_CLOCK_PHASES), dtype=torch.int64)
+    again = ik._launch(rx, h0, 1.0, 1e-3, 2, 1, clocks)
+    assert all(torch.equal(a, b) for a, b in zip(again, full))
+    assert clocks.tolist() == [0] * len(ik.I_CLOCK_PHASES)

@@ -11,7 +11,9 @@ import inspect
 import pytest
 
 import vae_equalizer_tpu.train as jtrain
+import vae_equalizer_tpu.train.dfe as jdfe
 import vae_equalizer_tpu_torch.train as ptrain
+import vae_equalizer_tpu_torch.train.dfe as pdfe
 
 # runner -> the port's own parameters, after JAX's
 PORT_ONLY = {
@@ -20,12 +22,17 @@ PORT_ONLY = {
     "train_vae_dp": ["draws"],
     "train_vae_flex_dp": ["draws"],
     "run_cma_dp": ["draws"],
+    "run_cma_awgn": ["draws"],
+    "run_lmmse_dfe": ["draws"],
 }
+# runners outside the train packages' exports (JAX keeps run_lmmse_dfe in train/dfe.py only)
+MODULES = {"run_lmmse_dfe": (jdfe, pdfe)}
 
 
 @pytest.mark.parametrize("runner", sorted(PORT_ONLY))
 def test_runner_takes_jax_argument_order(runner):
-    jax_names = list(inspect.signature(getattr(jtrain, runner)).parameters)
-    port_names = list(inspect.signature(getattr(ptrain, runner)).parameters)
+    jmod, pmod = MODULES.get(runner, (jtrain, ptrain))
+    jax_names = list(inspect.signature(getattr(jmod, runner)).parameters)
+    port_names = list(inspect.signature(getattr(pmod, runner)).parameters)
     assert jax_names[:2] == ["cfg", "key"]
     assert port_names == ["cfg", "seed", "device", *jax_names[2:], *PORT_ONLY[runner]]

@@ -161,7 +161,7 @@ def test_io_round_trips_torch_and_numpy(tmp_path):
 
 
 def test_unported_runners_and_checkpoints_raise(tmp_path):
-    for name in ("CMA-AWGN", "VAE-SP", "VAEflex-SP"):
+    for name in ("VAE-SP", "VAEflex-SP"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             run_sweep(name, DpConfig(**TINY), {"lr": [1e-3]}, 1, 0, out_dir=tmp_path, device="cpu")
     with pytest.raises(NotImplementedError, match="checkpoint.*ROADMAP"):

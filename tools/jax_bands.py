@@ -15,6 +15,10 @@ Runs one experiment of the JAX package and prints one JSON line:
       the DP channel of DpConfig() (23 dB, h0, CD/PMD, theta = pi/10) as one
       continuous stream through StreamingReceiver(adapt=True): the SER of
       every 2,000-symbol block (find_shift_dp -> roll_dp -> ser_iqflip).
+  PYTHONPATH=. python tools/jax_bands.py cma_awgn --key 0 --runs 2
+      run_cma_awgn(AwgnCmaConfig(), compiled=True) (64-QAM, h1, 22 dB, 500
+      epochs of 4,000 symbols, 250 evals): per run the mean SER of the last 25
+      evals and the final MI.
 
 JAX is pinned to the CPU.
 """
@@ -60,6 +64,15 @@ def run_vaeflex(key: int, runs: int) -> dict:
             "mi_final": mi[:, :, -1].mean(-1).tolist()}
 
 
+def run_cma_awgn(key: int, runs: int) -> dict:
+    from vae_equalizer_tpu.train.awgn import run_cma_awgn
+    from vae_equalizer_tpu.utils.config import AwgnCmaConfig
+
+    r = run_cma_awgn(AwgnCmaConfig(), jax.random.PRNGKey(key), runs=runs, compiled=True)
+    ser, mi = np.asarray(r["ser"]), np.asarray(r["mi"])  # (runs, n_evals)
+    return {"ser_last25": ser[:, -25:].mean(-1).tolist(), "mi_final": mi[:, -1].tolist()}
+
+
 def run_stream(key: int, blocks: int, mod: str, block: int = 2000) -> dict:
     from vae_equalizer_tpu.channels import channel_ir, make_dp_simulator
     from vae_equalizer_tpu.core import make_constellation
@@ -94,7 +107,7 @@ def run_stream(key: int, blocks: int, mod: str, block: int = 2000) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("what", choices=("nn", "stream", "vaeflex"))
+    ap.add_argument("what", choices=("cma_awgn", "nn", "stream", "vaeflex"))
     ap.add_argument("--key", type=int, default=0)
     ap.add_argument("--runs", type=int, default=4)
     ap.add_argument("--bn", action="store_true")
@@ -105,6 +118,8 @@ def main() -> None:
     if a.what == "nn":
         out = {"what": "nn_bn" if a.bn else "nn", "key": a.key, "runs": a.runs,
                **run_nn(a.key, a.runs, a.bn)}
+    elif a.what == "cma_awgn":
+        out = {"what": "cma_awgn", "key": a.key, "runs": a.runs, **run_cma_awgn(a.key, a.runs)}
     elif a.what == "vaeflex":
         out = {"what": "vaeflex", "key": a.key, "runs": a.runs, **run_vaeflex(a.key, a.runs)}
     else:

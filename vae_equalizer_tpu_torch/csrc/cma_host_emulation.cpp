@@ -1,4 +1,4 @@
-// Kernels C and D's blocks (cma_step.cuh) on the host, for checking their
+// Kernels C, D and I's blocks (cma_step.cuh) on the host, for checking their
 // arithmetic without a GPU: a drop-in for the cma library with the
 // launchers' C signatures (csrc/cma_kernels.cu, ops/_build.py:
 // _SIGNATURES["cma"]), in which one thread runs every item of every phase,
@@ -65,6 +65,27 @@ int cma_chunked_launch(int R, int n_sym, int m, int sps, long long lp, int j0, i
     }
   }
   free(smem);
+  return 0;
+}
+
+int cma_siso_experiment_launch(int R, int n_epochs, int m, int sps, long long n_total, int epe,
+                               int n_evals, const float* rx, const float* h_in, float* h_out,
+                               float* h_ev, float* loss, float big_r, float lr2,
+                               long long* clocks, void*) {
+  const long long n_sym = n_total / sps;
+  if (R < 1 || n_epochs < 1 || m < 1 || m > cma::MAX_M || sps < 1 || n_sym < 1 ||
+      n_sym > 0x7fffffff || epe < 1 || n_evals < 0 || n_evals > n_epochs / epe)
+    return 1;  // cudaErrorInvalidValue
+  for (int r = 0; r < R; ++r) {
+    const cma::IArgs a = {rx + (long long)r * n_epochs * 2 * n_total, n_total, n_epochs,
+                          (int)n_sym, m, sps, m / 2, epe, n_evals, (long long)R * 2 * m,
+                          h_in + r * 2 * m, h_out + r * 2 * m, h_ev + r * 2 * m,
+                          loss + (long long)r * n_epochs, big_r, lr2, r == 0 ? clocks : nullptr};
+    if (m <= 32)
+      cma::cma_siso_run<true, 1>(0, a);
+    else
+      cma::cma_siso_run<true, 2>(0, a);
+  }
   return 0;
 }
 

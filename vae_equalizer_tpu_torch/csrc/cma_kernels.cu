@@ -1,7 +1,7 @@
-// Kernels C and D for NVIDIA Hopper (sm_90a): the CMA family's 2x2 butterfly
-// equalizers, behind a plain C interface loaded with ctypes
-// (vae_equalizer_tpu_torch/ops/_build.py). The block bodies are in
-// cma_step.cuh.
+// Kernels C, D and I for NVIDIA Hopper (sm_90a): the CMA family's 2x2
+// butterfly equalizers and the SISO CMA experiment, behind a plain C
+// interface loaded with ctypes (vae_equalizer_tpu_torch/ops/_build.py). The
+// block bodies are in cma_step.cuh.
 //
 // C (cma_dp_kernel) replaces vae_equalizer_tpu/ops/cma_kernel.py:
 //   cma_dp_pallas — the per-symbol CMA recurrence over a whole frame, for R
@@ -18,6 +18,14 @@
 //   chunk's outputs and its window span resident in shared memory. Bound by
 //   the chain of 3 barrier-separated phases per chunk (~10^3 chunks a frame),
 //   each at the instruction rate of one SM.
+//
+// I (cma_siso_experiment_kernel) has no TPU kernel to replace: it is the
+//   JAX package's per-epoch lax.scan of models/cma.py: cma_siso, run over
+//   every epoch of the AWGN CMA experiment (train/awgn.py: run_cma_awgn).
+//   One warp per run, for the whole experiment (E x n_sym dependent symbol
+//   steps: 2 M at the defaults), the taps in registers. Bound by that latency
+//   chain (per symbol the lane partials, a butterfly of 2 trees, the error,
+//   the tap updates), not by bytes or FLOPs; R runs fill R SMs.
 //
 // Layouts (float32, contiguous): y (R, 4, lp) rows nu*2 + c of the
 // normalized, zero-padded signal; taps (R, 8, m) rows chi*4 + nu*2 + c
@@ -41,6 +49,18 @@ __global__ void __launch_bounds__(32) cma_dp_kernel(cma::CArgs a) {
   a.e += r * 2 * a.n_sym;
   if (r != 0) a.clocks = nullptr;
   cma::cma_symbols_run<CLK, TPL, UPD>(threadIdx.x, a);
+}
+
+template <bool CLK, int TPL>
+__global__ void __launch_bounds__(32) cma_siso_experiment_kernel(cma::IArgs a) {
+  const long long r = blockIdx.x;
+  a.rx += r * a.n_epochs * 2 * a.n_total;
+  a.h_in += r * 2 * a.m;
+  a.h_out += r * 2 * a.m;
+  a.h_ev += r * 2 * a.m;
+  a.loss += r * a.n_epochs;
+  if (r != 0) a.clocks = nullptr;
+  cma::cma_siso_run<CLK, TPL>(threadIdx.x, a);
 }
 
 template <bool CLK, int KA>
@@ -111,6 +131,28 @@ int cma_chunked_launch(int R, int n_sym, int m, int sps, long long lp, int j0, i
   cudaError_t err = fit_smem(kernel, bytes);
   if (err != cudaSuccess) return (int)err;
   kernel<<<R, cma::kChunkThreads, bytes, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// rx (R, E, 2, n_total) every epoch's frame; h_in / h_out (R, 2, m); h_ev
+// (n_evals, R, 2, m) the taps after epoch i*epe; loss (R, E) each epoch's
+// mean |e|.
+int cma_siso_experiment_launch(int R, int n_epochs, int m, int sps, long long n_total, int epe,
+                               int n_evals, const float* rx, const float* h_in, float* h_out,
+                               float* h_ev, float* loss, float big_r, float lr2,
+                               long long* clocks, void* stream) {
+  const long long n_sym = n_total / sps;
+  if (R < 1 || n_epochs < 1 || m < 1 || m > cma::MAX_M || sps < 1 || n_sym < 1 ||
+      n_sym > 0x7fffffff || epe < 1 || n_evals < 0 || n_evals > n_epochs / epe)
+    return (int)cudaErrorInvalidValue;
+  const cma::IArgs a = {rx,    n_total, n_epochs, (int)n_sym, m,    sps,   m / 2,
+                        epe,   n_evals, (long long)R * 2 * m, h_in, h_out, h_ev,
+                        loss, big_r, lr2, clocks};
+  // kernels[clocks][taps per lane - 1]
+  static void (*const kernels[2][2])(cma::IArgs) = {
+      {cma_siso_experiment_kernel<false, 1>, cma_siso_experiment_kernel<false, 2>},
+      {cma_siso_experiment_kernel<true, 1>, cma_siso_experiment_kernel<true, 2>}};
+  kernels[clocks != nullptr][m > 32]<<<R, 32, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
-// The block bodies of kernels C and D (csrc/cma_kernels.cu), in a header so
+// The block bodies of kernels C, D and I (csrc/cma_kernels.cu), in a header so
 // that the host emulation (csrc/cma_host_emulation.cpp) compiles the same
-// source. Layouts (float32, contiguous): y (4, lp) rows nu*2 + c of the
+// source. C and D's layouts (float32, contiguous; I's are with its body): y (4, lp) rows nu*2 + c of the
 // normalized, zero-padded signal of one run; taps (8, m) rows
 // chi*4 + nu*2 + c (= h (2, 2, 2, m)); out (4, n_sym) rows chi*2 + comp and
 // e (n_sym, 2), both at the reference's rolled storage index
@@ -630,6 +630,152 @@ CMA_DEV void chunked_block(float* smem, int tid, int nt, const DArgs& a) {
   outputs(g, j0 + a.n_full * S + 1, a.tail - 1, 1, ib + 1 == lb ? 0 : ib + 1);
   for (int i = tid; i < hm; i += nt) a.h_out[i] = h[i];
   ck.mark(D_TAIL);
+  ck.store(a.clocks);
+}
+
+// ---------------------------------------------------------------------------
+// Kernel I: the whole AWGN CMA experiment (SISO), one warp per run — the SISO
+// form of kernel C's body (models/cma.py: cma_siso, once per epoch). Lane l
+// owns the taps k = l + 32 j (j < TPL) of both planes in registers, for the
+// whole experiment. Per epoch the window index restarts on that epoch's frame
+// (the reference's y = pad(rx, M//2) per call: samples outside the frame read
+// as 0). Per symbol, on the dependent chain: each lane's o_re / o_im over its
+// taps (w_I.h_re - w_Q.h_im, w_I.h_im + w_Q.h_re, closed before the
+// butterfly: 2 trees of 5 levels), the error, the tap updates (each lane its
+// own taps, no barrier); the next symbol's window is read from device memory
+// through L1 before the butterfly. Lane 0 sums |e| over the epoch in double
+// (the epoch's mean |e|, the experiment's loss); after epoch i*epe (i <
+// n_evals) every lane writes its taps to eval slot i.
+
+enum IPhase { I_DOT, I_REDUCE, I_ERR, I_UPDATE, I_NEXT, I_N_PHASES };
+
+struct IArgs {
+  const float* rx;  // (E, 2, n_total): this run's frames
+  long long n_total;
+  int n_epochs, n_sym, m, sps, mh, epe, n_evals;
+  long long ev_stride;  // floats between eval slots (R * 2 * m)
+  const float* h_in;    // (2, m)
+  float* h_out;         // (2, m)
+  float* h_ev;          // slot i at h_ev + i * ev_stride, (2, m)
+  float* loss;          // (E,)
+  float big_r, lr2;
+  long long* clocks;
+};
+
+template <int TPL>
+struct ILane {
+  float h[2][TPL];   // taps, rows re / im
+  float w[2][TPL];   // this symbol's window, rows I / Q
+  float wn[2][TPL];  // the next symbol's
+};
+
+template <bool CLK, int TPL>
+CMA_DEV void cma_siso_run(int lane, const IArgs& a) {
+  const int m = a.m, n_sym = a.n_sym;
+  Clock<CLK, I_N_PHASES> ck;
+  ck.start(a.clocks != nullptr && lane == 0);
+#ifdef CMA_HOST_EMULATION
+  ILane<TPL> st[kWarp];
+  auto each = [&](auto&& f) {
+    for (int l = 0; l < kWarp; ++l) f(l, st[l]);
+  };
+#else
+  ILane<TPL> st[1];
+  auto each = [&](auto&& f) { f(lane, st[0]); };
+#endif
+  // symbol u's window of frame x: samples u sps + k - mh, zero outside the frame
+  auto window = [&](int l, const float* x, int u, float (&win)[2][TPL]) {
+    const long long base = (long long)u * a.sps - a.mh;
+#pragma unroll
+    for (int j = 0; j < TPL; ++j) {
+      const int k = l + kWarp * j;
+      const long long i = base + k;
+      const bool in = k < m && i >= 0 && i < a.n_total;
+      win[0][j] = in ? x[i] : 0.f;
+      win[1][j] = in ? x[a.n_total + i] : 0.f;
+    }
+  };
+  each([&](int l, ILane<TPL>& ls) {
+#pragma unroll
+    for (int j = 0; j < TPL; ++j) {
+      const int k = l + kWarp * j;
+#pragma unroll
+      for (int row = 0; row < 2; ++row) ls.h[row][j] = k < m ? a.h_in[row * m + k] : 0.f;
+    }
+  });
+  for (int ep = 0; ep < a.n_epochs; ++ep) {
+    const float* x = a.rx + (long long)ep * 2 * a.n_total;
+    each([&](int l, ILane<TPL>& ls) { window(l, x, 0, ls.w); });
+    double esum = 0.0;
+    ck.mark(I_NEXT);
+    for (int s = 0; s < n_sym; ++s) {
+      Parts<2> ps;  // o_re, o_im
+      each([&](int l, ILane<TPL>& ls) {
+        float p0 = 0.f, p1 = 0.f, p2 = 0.f, p3 = 0.f;  // w_I.h_re, w_Q.h_im, w_I.h_im, w_Q.h_re
+#pragma unroll
+        for (int j = 0; j < TPL; ++j) {
+          const float wi = ls.w[0][j], wq = ls.w[1][j], hre = ls.h[0][j], him = ls.h[1][j];
+          p0 += wi * hre;
+          p1 += wq * him;
+          p2 += wi * him;
+          p3 += wq * hre;
+        }
+        ps.of(l).v[0] = p0 - p1;
+        ps.of(l).v[1] = p2 + p3;
+      });
+      if (s + 1 < n_sym) each([&](int l, ILane<TPL>& ls) { window(l, x, s + 1, ls.wn); });
+      ck.mark(I_DOT);
+      const Vec<2> o = group_tree<2>(ps, kWarp);
+      ck.mark(I_REDUCE);
+      const float o_re = o.v[0], o_im = o.v[1];
+      const float err = a.big_r - o_re * o_re - o_im * o_im;
+      if (lane == 0) esum += err < 0.f ? -(double)err : (double)err;
+      ck.mark(I_ERR);
+      const float sc = a.lr2 * err;
+      each([&](int, ILane<TPL>& ls) {
+#pragma unroll
+        for (int j = 0; j < TPL; ++j) {
+          const float wi = ls.w[0][j], wq = ls.w[1][j];
+          ls.h[0][j] = ls.h[0][j] + sc * (o_re * wi + o_im * wq);
+          ls.h[1][j] = ls.h[1][j] + sc * (o_im * wi - o_re * wq);
+        }
+      });
+      ck.mark(I_UPDATE);
+      if (s + 1 < n_sym)
+        each([&](int, ILane<TPL>& ls) {
+#pragma unroll
+          for (int j = 0; j < TPL; ++j) {
+            ls.w[0][j] = ls.wn[0][j];
+            ls.w[1][j] = ls.wn[1][j];
+          }
+        });
+      ck.mark(I_NEXT);
+    }
+    if (lane == 0) a.loss[ep] = (float)(esum / n_sym);
+    if (ep % a.epe == 0 && ep / a.epe < a.n_evals) {
+      float* slot = a.h_ev + (long long)(ep / a.epe) * a.ev_stride;
+      each([&](int l, ILane<TPL>& ls) {
+#pragma unroll
+        for (int j = 0; j < TPL; ++j) {
+          const int k = l + kWarp * j;
+          if (k < m) {
+            slot[k] = ls.h[0][j];
+            slot[m + k] = ls.h[1][j];
+          }
+        }
+      });
+    }
+  }
+  each([&](int l, ILane<TPL>& ls) {
+#pragma unroll
+    for (int j = 0; j < TPL; ++j) {
+      const int k = l + kWarp * j;
+      if (k < m) {
+        a.h_out[k] = ls.h[0][j];
+        a.h_out[m + k] = ls.h[1][j];
+      }
+    }
+  });
   ck.store(a.clocks);
 }
 

@@ -29,7 +29,7 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
                    help="reuse the newest sweep JSONL: skip finished grid points")
     p.add_argument("--checkpoint-every", type=int, default=0, metavar="K",
                    help="persist per-point training state every K frames (the runners defer "
-                        "checkpointing: ROADMAP.md, queue 1, item 2)")
+                        "checkpointing: ROADMAP.md, queue 1: 'Checkpoint/resume')")
     return p
 
 

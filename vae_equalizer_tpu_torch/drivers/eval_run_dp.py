@@ -66,7 +66,8 @@ def main(argv=None):
     p.add_argument("--frames-per-call", type=int, default=1, metavar="K",
                    help="K frames per call (not ported: CUDA-graph capture, ROADMAP.md)")
     p.add_argument("--sp", type=int, default=1,
-                   help="sequence-parallel degree (not ported: ROADMAP.md, queue 1, item 6)")
+                   help="sequence-parallel degree (not ported: ROADMAP.md, queue 1: "
+                        "'Sequence parallelism')")
     args = p.parse_args(argv)
     if args.pallas and args.pallas_frame:
         p.error("--pallas and --pallas-frame are mutually exclusive")

@@ -1,10 +1,11 @@
-"""Viterbi-Viterbi carrier-phase estimation (CPE), dual polarization.
+"""Viterbi-Viterbi carrier-phase estimation (CPE), dual and single polarization.
 
-Port of ``vae_equalizer_tpu/metrics/cpe.py: cpe_dp`` with any leading batch
-dims. Raise each pol's signal to the 4th power to strip the square-QAM
-modulation, moving-average it ('same', zero padded, M_MA = 501),
-phi = atan2(Im, -Re) / 4, remove the +-pi/2 jumps with a cumulative sum of
-jump indicators (the reference's unwrap loop, shared_funcs.py:140-186), and
+Port of ``vae_equalizer_tpu/metrics/cpe.py: cpe_dp, cpe_siso`` with any
+leading batch dims. Raise each pol's signal to the 4th power to strip the
+square-QAM modulation, moving-average it ('same', zero padded, M_MA = 501),
+phi = atan2(Im, -Re) / 4, for DP remove the +-pi/2 jumps with a cumulative
+sum of jump indicators (the reference's unwrap loop, shared_funcs.py:140-186;
+the SISO reference does not unwrap, func_CMA_MQAM_shaping.py:170-196), and
 de-rotate. The moving average is ``avg_pool1d`` with zero padding counted:
 a plain float32 window sum (a cuDNN convolution would run in TF32 by
 default on the card).
@@ -17,7 +18,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-__all__ = ["M_MA", "cpe_dp"]
+__all__ = ["M_MA", "cpe_dp", "cpe_siso"]
 
 M_MA = 501  # moving-average filter length
 
@@ -54,4 +55,12 @@ def cpe_dp(y: torch.Tensor) -> torch.Tensor:
     a, b = y[..., 0, :], y[..., 1, :]  # (..., pol, N)
     ma = _moving_average(torch.stack(_pow4(a, b), dim=-2))  # (..., pol, re/im, N)
     phi = _unwrap_quarter(torch.atan2(ma[..., 1, :], -ma[..., 0, :]) / 4)
+    return torch.stack(_derotate(a, b, phi), dim=-2)
+
+
+def cpe_siso(y: torch.Tensor) -> torch.Tensor:
+    """SISO Viterbi-Viterbi CPE, no unwrapping. y (..., 2, N) -> same shape."""
+    a, b = y[..., 0, :], y[..., 1, :]
+    ma = _moving_average(torch.stack(_pow4(a, b), dim=-2))  # (..., re/im, N)
+    phi = torch.atan2(ma[..., 1, :], -ma[..., 0, :]) / 4
     return torch.stack(_derotate(a, b, phi), dim=-2)

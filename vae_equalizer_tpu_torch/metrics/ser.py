@@ -1,13 +1,14 @@
 """Symbol-error rates robust to the blind-equalization ambiguities.
 
 Port of ``vae_equalizer_tpu/metrics/ser.py`` (``_decode_levels``,
-``_wmean``, ``_phase_variants``, ``ser_q_siso``, ``ser_iqflip``,
-``ser_iqflip_from_dec``, ``ser_constell_shaping``) with any leading batch
-dims. The DP estimators evaluate the 4 rotations x 2 IQ-flips and return
+``_wmean``, ``_phase_variants``, ``ser_q_siso``, ``ser_const_siso``,
+``ser_symb_siso``, ``ser_iqflip``, ``ser_iqflip_from_dec``,
+``ser_constell_shaping``) with any leading batch dims. The DP estimators evaluate the 4 rotations x 2 IQ-flips and return
 the minimum per polarization, the SISO one the 4 phase rotations;
 ``weight`` masks emulate the reference's data-dependent slicing
 (optical_DP_channel/shared_funcs.py:188-287,
-AWGN_channel/func_VAELE_MQAM_shaping.py:97-123).
+AWGN_channel/func_VAELE_MQAM_shaping.py:97-186,
+func_CMA_MQAM_shaping.py:63-93).
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ import math
 
 import torch
 
-__all__ = ["ser_q_siso", "ser_iqflip", "ser_iqflip_from_dec", "ser_constell_shaping"]
+__all__ = ["ser_q_siso", "ser_const_siso", "ser_symb_siso", "ser_iqflip", "ser_iqflip_from_dec",
+           "ser_constell_shaping"]
 
 
 def _wmean(err: torch.Tensor, weight: torch.Tensor | None, dim) -> torch.Tensor:
@@ -58,6 +60,41 @@ def ser_q_siso(q: torch.Tensor, tx: torch.Tensor, num_lev: int,
                        torch.argmax(q[..., num_lev:, :], dim=-2)], dim=-2)
     err = torch.any(_phase_variants(dec, num_lev) != data, dim=-2)  # (4, ..., N)
     return _wmean(err, weight, -1).min(dim=0).values
+
+
+def _ser_nearest(sig: torch.Tensor, tx: torch.Tensor, amps: torch.Tensor,
+                 weight: torch.Tensor | None) -> torch.Tensor:
+    """SISO SER of nearest-level decisions on sig (..., 2, N) against tx
+    levels, min over the 4 phase rotations (first level on ties)."""
+    num_lev = amps.shape[0]
+    data = _decode_levels(tx, num_lev).to(torch.int64)
+    dec = torch.argmin((sig[..., None, :] - amps[:, None]).abs(), dim=-2)  # (..., 2, N)
+    err = torch.any(_phase_variants(dec, num_lev) != data, dim=-2)  # (4, ..., N)
+    return _wmean(err, weight, -1).min(dim=0).values
+
+
+def ser_const_siso(rx: torch.Tensor, tx: torch.Tensor, amps: torch.Tensor,
+                   weight: torch.Tensor | None = None) -> torch.Tensor:
+    """SER from the SISO constellation output rx (..., 2, N), scaled to tx's
+    mean magnitude, against tx (..., 2, N) levels (func_CMA_MQAM_shaping.py:
+    63-93, func_VAELE_MQAM_shaping.py:156-186); weight broadcastable to
+    (..., N). Returns (...)."""
+    txf = tx.to(torch.float32)
+    mag_tx = _wmean(torch.sqrt(txf[..., 0, :] ** 2 + txf[..., 1, :] ** 2), weight, -1)
+    mag_rx = _wmean(torch.sqrt(rx[..., 0, :] ** 2 + rx[..., 1, :] ** 2), weight, -1)
+    return _ser_nearest(rx * (mag_tx / mag_rx)[..., None, None], tx, amps, weight)
+
+
+def ser_symb_siso(rx: torch.Tensor, tx: torch.Tensor, amps: torch.Tensor, sps: int,
+                  weight: torch.Tensor | None = None) -> torch.Tensor:
+    """SER of the raw oversampled channel output rx (..., 2, sps N) against tx
+    (..., 2, N): every sps-th sample, each component divided by
+    sqrt(2 E[rx_c^2]), nearest level (the reference's unprocessed SER,
+    func_VAELE_MQAM_shaping.py:125-154). Returns (...)."""
+    n = tx.shape[-1]
+    sig = rx[..., : n * sps : sps]
+    sig = sig / torch.sqrt(2 * torch.mean(sig**2, dim=-1, keepdim=True))
+    return _ser_nearest(sig, tx, amps, weight)
 
 
 def ser_iqflip_from_dec(dec: torch.Tensor, tx: torch.Tensor | None, num_lev: int,

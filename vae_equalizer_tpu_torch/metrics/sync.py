@@ -1,8 +1,8 @@
 """Time-shift (and, for DP, polarization-assignment) search by correlation.
 
 Port of ``vae_equalizer_tpu/metrics/sync.py: expectation_i, _roll_stack,
-find_shift_siso, _dp_shift_core, find_shift_dp, find_shift_symb_dp`` with any leading batch
-dims (the runs axis). The equalizer output (E_q[x^I] or the in-phase
+find_shift_siso, find_shift_symb_siso, _dp_shift_core, find_shift_dp,
+find_shift_symb_dp`` with any leading batch dims (the runs axis). The equalizer output (E_q[x^I] or the in-phase
 constellation output) is
 correlated against the known transmitted symbols over ``n_shift`` cyclic
 shifts of the first ``corr_len`` symbols; argmaxes take the first maximum and
@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["expectation_i", "find_shift_dp", "find_shift_siso", "find_shift_symb_dp"]
+__all__ = ["expectation_i", "find_shift_dp", "find_shift_siso", "find_shift_symb_dp",
+           "find_shift_symb_siso"]
 
 
 def expectation_i(q: torch.Tensor, amps: torch.Tensor) -> torch.Tensor:
@@ -46,6 +47,27 @@ def find_shift_siso(q: torch.Tensor, tx: torch.Tensor, n_shift: int, amps: torch
     s_q = n_shift // 2 - torch.argmax(corr_q, dim=-1)
     max_i = corr_i.max(dim=-1).values
     use_i = max_i >= 0.02 * q.shape[-1]
+    use_q = corr_q.max(dim=-1).values >= max_i
+    return torch.where(use_i, s_i, torch.where(use_q, s_q, s_i)).to(torch.int32)
+
+
+def find_shift_symb_siso(rx: torch.Tensor, tx: torch.Tensor, n_shift: int,
+                         corr_len: int = 1000) -> torch.Tensor:
+    """Time shift from the raw SISO constellation output rx (..., 2, L) against
+    tx (..., 2, L) (func_CMA_MQAM_shaping.py:127-140): correlates the windows
+    rx^I[i : corr_len - n_shift//2 + i] with tx[n_shift//2 : corr_len]; a
+    positive result means rx lags tx. Falls back to the Q component where the
+    I peak is weak (below 0.02 L). Returns (...) int32.
+    """
+    m = corr_len - n_shift // 2
+    mat = rx[..., 0, : m + n_shift - 1].unfold(-1, n_shift, 1)  # (..., m, n_shift)
+    txc = tx[..., n_shift // 2 : corr_len].to(torch.float32)
+    corr_i = torch.einsum("...l,...ls->...s", txc[..., 0, :], mat).abs()
+    corr_q = torch.einsum("...l,...ls->...s", txc[..., 1, :], mat).abs()
+    s_i = torch.argmax(corr_i, dim=-1) - n_shift // 2
+    s_q = torch.argmax(corr_q, dim=-1) - n_shift // 2
+    max_i = corr_i.max(dim=-1).values
+    use_i = max_i >= 0.02 * rx.shape[-1]
     use_q = corr_q.max(dim=-1).values >= max_i
     return torch.where(use_i, s_i, torch.where(use_q, s_q, s_i)).to(torch.int32)
 

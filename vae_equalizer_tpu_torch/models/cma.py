@@ -1,8 +1,13 @@
-"""CMA (constant modulus algorithm) 2x2 butterfly equalizers, DP.
+"""CMA (constant modulus algorithm) equalizers: the SISO form and the 2x2
+butterfly (DP) forms.
 
-Port of ``vae_equalizer_tpu/models/cma.py`` (the DP half) with any leading
-batch dims (the runs axis). Three update granularities, as in the reference
-(shared_funcs.py:341-488):
+Port of ``vae_equalizer_tpu/models/cma.py`` with any leading batch dims (the
+runs axis). ``cma_siso`` is the single-polarization per-symbol form of the
+AWGN experiment (func_CMA_MQAM_shaping.py:142-168): a Python loop over
+symbols with update=True (the plain version of kernel I,
+``ops/cma_siso_kernel.py``, one epoch), one product over every symbol window
+with frozen taps. The DP forms come in three update granularities, as in the
+reference (shared_funcs.py:341-488):
 
   * ``cma_dp`` — per-symbol LMS updates; the taps feed back into the next
     output, so this plain version is a Python loop over symbols (the
@@ -25,7 +30,7 @@ order (shared_funcs.py:355-357), and the ``k % B`` update condition of
 CMAbatch/CMAflex fires ``offset`` symbols late. Both quirks are kept exactly
 (the downstream sync search absorbs the roll).
 
-Shapes: rx (..., 2 pol, 2 I/Q, N) at ``sps`` samples per symbol; h
+DP shapes: rx (..., 2 pol, 2 I/Q, N) at ``sps`` samples per symbol; h
 (..., 2 out-pol chi, 2 in-pol nu, 2 re/im, M). Returns (out (..., 2, 2,
 N//sps), h, e (..., N//sps, 2)).
 """
@@ -35,7 +40,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["dirac_taps_siso", "dirac_taps_dp", "cma_dp", "cma_batch_dp", "cma_flex_dp"]
+__all__ = ["dirac_taps_siso", "dirac_taps_dp", "cma_siso", "cma_dp", "cma_batch_dp", "cma_flex_dp"]
 
 
 def dirac_taps_siso(m_est: int, device="cpu") -> torch.Tensor:
@@ -52,6 +57,46 @@ def dirac_taps_dp(m_est: int, device="cpu") -> torch.Tensor:
     h[0, 0, 0, m_est // 2] = 1.0
     h[1, 1, 0, m_est // 2] = 1.0
     return h
+
+
+def cma_siso(rx, R: float, h, lr, sps: int, update: bool = True):
+    """Per-symbol CMA, single polarization.
+
+    rx (..., 2 re/im, N) at ``sps`` samples per symbol (not normalized); h
+    (..., 2 re/im, M). With y = rx zero-padded by M//2 on both sides, per
+    symbol s the window w = y[..., s sps : s sps + M], o = w . h (complex),
+    e = R - |o|^2 and, with ``update``, h += 2 lr e o conj(w), i.e.
+    (o_re w_I + o_im w_Q, o_im w_I - o_re w_Q). Returns (out (..., 2,
+    N//sps), h, e (..., N//sps)) in the reference's rolled storage order.
+    """
+    m = h.shape[-1]
+    mh = m // 2
+    y = F.pad(rx, (mh, mh))
+    n_sym = rx.shape[-1] // sps
+    offset = mh - mh // sps
+    if not update:  # frozen taps: every symbol's output in one product
+        w = y.unfold(-1, m, sps)[..., :n_sym, :]  # (..., 2, T, M)
+        dot = lambda a, b: (a @ b[..., :, None])[..., 0]  # noqa: E731
+        o_re = dot(w[..., 0, :, :], h[..., 0, :]) - dot(w[..., 1, :, :], h[..., 1, :])
+        o_im = dot(w[..., 0, :, :], h[..., 1, :]) + dot(w[..., 1, :, :], h[..., 0, :])
+        e = R - o_re * o_re - o_im * o_im
+        out = torch.stack([o_re, o_im], dim=-2)
+        return torch.roll(out, -offset, dims=-1), h, torch.roll(e, -offset, dims=-1)
+    # the recurrence in complex arithmetic: o = w . h, h += 2 lr e o conj(w)
+    wins = torch.complex(y[..., 0, :], y[..., 1, :]).unfold(-1, m, sps)  # (..., T, M)
+    hc = torch.complex(h[..., 0, :], h[..., 1, :])
+    outs, es = [], []
+    for k in range(n_sym):
+        w = wins[..., k, :]
+        o = (w * hc).sum(-1)
+        e = R - (o.real * o.real + o.imag * o.imag)
+        hc = hc + ((2 * lr) * e * o)[..., None] * w.conj()
+        outs.append(o)
+        es.append(e)
+    o = torch.stack(outs, dim=-1)  # (..., T)
+    out = torch.stack([o.real, o.imag], dim=-2)
+    h = torch.stack([hc.real, hc.imag], dim=-2)
+    return torch.roll(out, -offset, dims=-1), h, torch.roll(torch.stack(es, dim=-1), -offset, dims=-1)
 
 
 def _normalize_dp(rx: torch.Tensor, mh: int) -> torch.Tensor:

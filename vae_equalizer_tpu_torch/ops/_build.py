@@ -6,10 +6,11 @@ repository root, named by a hash of its sources and flags so an edit
 rebuilds:
 
   * ``dp``  — ``csrc/dp_kernels.cu`` (+ ``dp_step.cuh``): kernels A and B;
-  * ``cma`` — ``csrc/cma_kernels.cu`` (+ ``cma_step.cuh``): kernels C and D;
+  * ``cma`` — ``csrc/cma_kernels.cu`` (+ ``cma_step.cuh``): kernels C, D and I;
   * ``siso`` — ``csrc/siso_kernels.cu`` (+ ``siso_step.cuh``): kernels F and G;
   * ``nn``  — ``csrc/nn_kernels.cu`` (+ ``nn_step.cuh``, ``siso_step.cuh``): kernel H;
-  * ``butterfly`` — ``csrc/butterfly_kernel.cu``: kernel E.
+  * ``butterfly`` — ``csrc/butterfly_kernel.cu``: kernel E;
+  * ``dfe`` — ``csrc/dfe_kernel.cu`` (+ ``dfe_step.cuh``): kernel J.
 
 The compiles of all libraries that need one start together and run in
 parallel. The libraries are loaded with ``ctypes`` with typed entry points
@@ -45,6 +46,7 @@ LIBRARIES = {
     "siso": ("siso_kernels.cu", ("siso_step.cuh",)),
     "nn": ("nn_kernels.cu", ("nn_step.cuh", "siso_step.cuh")),
     "butterfly": ("butterfly_kernel.cu", ()),
+    "dfe": ("dfe_kernel.cu", ("dfe_step.cuh",)),
 }
 # --fmad=false: no multiply-add contraction, so the kernels' elementwise math
 # (demapper metric, Adam / AMSGrad, CMA updates) rounds op for op like the plain
@@ -72,6 +74,9 @@ _SIGNATURES = {
         # R, n_sym, m, sps, lp, j0, S, n_full, n_slots, tail, y, h_in, h_out, out,
         # e, big_r, lr2, clocks (int64 per phase, or null), stream
         "cma_chunked_launch": [_I, _I, _I, _I, _LL] + [_I] * 5 + [_P] * 5 + [_F, _F, _P, _P],
+        # R, n_epochs, m, sps, n_total, epe, n_evals, rx, h_in, h_out, h_ev, loss,
+        # big_r, lr2, clocks (int64 per phase, or null), stream
+        "cma_siso_experiment_launch": [_I] * 4 + [_LL, _I, _I] + [_P] * 5 + [_F, _F, _P, _P],
     },
     "siso": {
         # R, n_sym, m, n_lev, x, w, h, amps, P, amp_mean, var, loss, gw, gh, q, out,
@@ -96,6 +101,10 @@ _SIGNATURES = {
         "butterfly_demap_launch": [_I] * 5 + [_P] * 4 + [_F, _P, _P, _P, _P],
         # blocks, threads, stream: an empty kernel (the launch floor)
         "butterfly_empty_launch": [_I, _I, _P],
+    },
+    "dfe": {
+        # B, n, k2, n_points, ff, fb, points, init, idx, stream
+        "dfe_decide_launch": [_I] * 4 + [_P] * 6,
     },
 }
 

@@ -30,7 +30,14 @@ import time
 
 import numpy as np
 
-from ..train import run_cma_dp, train_vae_dp, train_vae_flex_dp, train_vae_le_awgn, train_vae_nn_awgn
+from ..train import (
+    run_cma_awgn,
+    run_cma_dp,
+    train_vae_dp,
+    train_vae_flex_dp,
+    train_vae_le_awgn,
+    train_vae_nn_awgn,
+)
 from ..utils import io
 
 __all__ = ["RUNNERS", "assemble_mat", "expand_grid", "point_seed", "run_sweep"]
@@ -38,6 +45,7 @@ __all__ = ["RUNNERS", "assemble_mat", "expand_grid", "point_seed", "run_sweep"]
 RUNNERS = {
     "VAE-LE-AWGN": train_vae_le_awgn,
     "VAE-NN-AWGN": train_vae_nn_awgn,
+    "CMA-AWGN": run_cma_awgn,
     "VAE": train_vae_dp,
     "VAEflex": train_vae_flex_dp,
     "CMA": run_cma_dp,
@@ -46,9 +54,8 @@ RUNNERS = {
 }
 # the JAX package's other runners, not ported yet
 _UNPORTED = {
-    "CMA-AWGN": "run_cma_awgn (ROADMAP.md, queue 1, item 4)",
-    "VAE-SP": "sequence parallelism (ROADMAP.md, queue 1, item 6)",
-    "VAEflex-SP": "sequence parallelism (ROADMAP.md, queue 1, item 6)",
+    "VAE-SP": "sequence parallelism (ROADMAP.md, queue 1: 'Sequence parallelism')",
+    "VAEflex-SP": "sequence parallelism (ROADMAP.md, queue 1: 'Sequence parallelism')",
 }
 
 
@@ -211,7 +218,7 @@ def run_sweep(runner_name: str, base_cfg, axes: dict, iters: int, seed: int, mes
                     handled.add(tuple(coords[j]))
                 continue
         # checkpoint_every reaches the runner, which defers checkpointing
-        # (ROADMAP.md, queue 1, item 2: mid-point resume and its state files)
+        # (ROADMAP.md, queue 1: 'Checkpoint/resume', mid-point resume and its state files)
         kwargs = {"checkpoint_every": checkpoint_every} if checkpoint_every else {}
         res, wall = call(cfg, i, runs=iters, **kwargs)
         write_record(cfg, coord, res, wall)

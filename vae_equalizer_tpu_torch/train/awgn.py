@@ -1,11 +1,12 @@
-"""The AWGN experiments: VAE-LE (the reference's ``Eval_run_shaping_vaele``)
-and VAE-NN (``Eval_run_vaenn``).
+"""The AWGN experiments: VAE-LE (the reference's ``Eval_run_shaping_vaele``),
+VAE-NN (``Eval_run_vaenn``) and CMA (``Eval_run_shaping_cma``).
 
 Port of ``vae_equalizer_tpu/train/awgn.py: train_vae_le_awgn`` (with
 ``_run_epochs`` in loop mode, ``_siso_eval_pack`` and
-``_run_siso_frame_experiment``) and ``train_vae_nn_awgn`` (with
-``_run_nn_frame_experiment``). Semantics follow the reference
-(func_VAELE_MQAM_shaping.py:235-324, func_VAENN_MQAM.py:215-297): every
+``_run_siso_frame_experiment``), ``train_vae_nn_awgn`` (with
+``_run_nn_frame_experiment``) and ``run_cma_awgn``. Semantics follow the
+reference (func_VAELE_MQAM_shaping.py:235-324, func_VAENN_MQAM.py:215-297,
+func_CMA_MQAM_shaping.py:201-256): every
 epoch draws a fresh training frame of ``n_train`` symbols and trains its
 ``n_train // batch_len`` minibatches with AMSGrad; every ``epe`` epochs a
 fresh ``n_valid``-symbol frame measures SER and MI of the posteriors (train
@@ -24,6 +25,11 @@ VAE-NN modes: False (autograd through ``models/vae_nn.py: vae_nn_forward``
 + the uniform-prior ``elbo_siso``) and "frame" (kernel H,
 ``ops/nn_frame_kernel.py``, one launch for all runs); True raises, as in
 JAX: there is no per-step VAE-NN kernel.
+The CMA experiment has no gradient and one route: every epoch's channel
+data is drawn up front, kernel I (``ops/cma_siso_kernel.py``) adapts the
+taps over every epoch for all runs in one launch and streams out the taps
+at the eval points, and the evaluations (frozen-taps FIR, CPE, sync, SER,
+MI) run afterwards, batched over runs x evals.
 A kernel mode launches the CUDA kernel for a CUDA ``device`` and takes its
 plain version on the CPU. Every mode shares one AMSGrad (optax semantics,
 ``ops/siso_frame_kernel.py: amsgrad``). ``device`` defaults to the card;
@@ -37,9 +43,24 @@ import torch
 
 from ..channels import channel_ir, make_awgn_simulator
 from ..core import make_constellation, resolve_device
-from ..metrics import find_shift_siso, mutual_information_ambiguity, ser_q_siso
-from ..models import dirac_taps_siso, elbo_siso, siso_fir_init, vae_le_siso_forward
+from ..metrics import (
+    cpe_siso,
+    find_shift_siso,
+    find_shift_symb_siso,
+    mutual_information_ambiguity,
+    ser_const_siso,
+    ser_q_siso,
+)
+from ..models import (
+    cma_siso,
+    dirac_taps_siso,
+    elbo_siso,
+    siso_fir_init,
+    soft_demap_dp,
+    vae_le_siso_forward,
+)
 from ..models.vae_nn import vae_nn_forward, vae_nn_init
+from ..ops.cma_siso_kernel import cma_siso_experiment
 from ..ops.elbo_siso_kernel import vae_siso_loss_and_grad
 from ..ops.nn_frame_kernel import (
     flatten_nn_params,
@@ -49,11 +70,11 @@ from ..ops.nn_frame_kernel import (
     vae_nn_experiment_train_plain,
 )
 from ..ops.siso_frame_kernel import amsgrad, siso_frame_opt_init, vae_siso_experiment_train
-from ..utils.config import AwgnVaeLeConfig, AwgnVaeNnConfig
+from ..utils.config import AwgnCmaConfig, AwgnVaeLeConfig, AwgnVaeNnConfig
 from .eval_utils import margin_weight, roll_time
 from .harness import Progress
 
-__all__ = ["train_vae_le_awgn", "train_vae_nn_awgn"]
+__all__ = ["run_cma_awgn", "train_vae_le_awgn", "train_vae_nn_awgn"]
 
 _EVAL_NAMES = ("ser", "mi", "shift")
 # frame mode: validation frames (runs x evals) per batched evaluation; at
@@ -61,6 +82,7 @@ _EVAL_NAMES = ("ser", "mi", "shift")
 _EVAL_BATCH = 100
 _DEFERRED = "not ported yet (ROADMAP.md, queue 1: 'Deferred train_vae_le_awgn options')"
 _DEFERRED_NN = "not ported yet (ROADMAP.md, queue 1: 'Deferred train_vae_nn_awgn options')"
+_DEFERRED_CMA = "not ported yet (ROADMAP.md, queue 1: 'Deferred run_cma_awgn options')"
 
 
 def _setup(cfg, device, fixed_noise: bool = False):
@@ -352,3 +374,64 @@ def train_vae_nn_awgn(cfg: AwgnVaeNnConfig, seed: int, device="cuda", progress: 
         params = {k: {kk: first(vv) for kk, vv in v.items()} if isinstance(v, dict) else v[0]
                   for k, v in params.items()}
     return {"ser": packed[..., 0], "mi": packed[..., 1], "params": params}
+
+
+def _cma_evaluate(cfg, h, valid_draws, sim, amps, P, var_q, nu_sc: float) -> torch.Tensor:
+    """Validation frames (*b, ...) through the frozen taps h (*b, 2, M): CPE,
+    sync, the masked constellation SER and the MI of the soft demapper's
+    posteriors on the synchronized output (awgn.py:660-671), packed (*b, 3)."""
+    rx, tx, _ = sim.physics(*valid_draws)
+    out = cpe_siso(cma_siso(rx, cfg.R, h, cfg.lr, cfg.sps, update=False)[0])
+    shift = find_shift_symb_siso(out, tx, 21)
+    out_r = roll_time(out, shift)
+    w = margin_weight(cfg.n_valid, shift)
+    ser = ser_const_siso(out_r, tx, amps, weight=w)
+    q = soft_demap_dp(out_r.unsqueeze(-3), amps, var_q, nu_sc)[..., 0, :, :]
+    mi = mutual_information_ambiguity(q, tx, amps, P, weight=w)
+    return torch.stack([ser, mi, shift.to(torch.float32)], dim=-1)
+
+
+def run_cma_awgn(cfg: AwgnCmaConfig, seed: int, device="cuda", progress: Progress = None,
+                 runs: int | None = None, mesh=None, compiled: bool = False, checkpoint=None,
+                 checkpoint_every: int = 0, timings: dict | None = None, draws=None) -> dict:
+    """CMA baseline on the AWGN ISI channel (no autograd): per-epoch tap
+    adaptation on fresh data from the Dirac taps, evaluation on frozen taps
+    after Viterbi-Viterbi CPE (func_CMA_MQAM_shaping.py:201-256), and the MI
+    of the soft demapper's posteriors on the CPE output (a capability the
+    reference lacks for SISO CMA, as in JAX).
+
+    The parameters come in JAX's order (``train/awgn.py: run_cma_awgn``) with
+    ``device`` inserted third and the port's own ``draws`` last. Draws as in
+    ``train_vae_le_awgn``. Training is one kernel I launch for all runs
+    (its plain version on the CPU); ``progress(epoch, metrics)`` is called
+    for each eval epoch after the evaluations, with that epoch's mean |e| as
+    "loss".
+
+    Returns {"ser" (..., n_evals), "mi" (..., n_evals), "taps" (..., 2, M)}
+    with a leading runs axis iff ``runs``.
+    """
+    for name, is_set in {"checkpoint": checkpoint is not None or checkpoint_every != 0,
+                         "compiled": compiled, "mesh": mesh is not None,
+                         "timings": timings is not None}.items():
+        if is_set:
+            raise NotImplementedError(f"{name}: {_DEFERRED_CMA}")
+    device = resolve_device(device)
+    R = 1 if runs is None else runs
+    const, sims, amps, P, var = _setup(cfg, device)
+    draws = draws or _default_draws(sims, seed, device)
+    var_q = torch.full((1,), var, dtype=torch.float32, device=device)
+    n_evals = cfg.num_epochs // cfg.epe
+
+    rx_epochs = _frame_train_data(sims["train"], draws, R, cfg.num_epochs)
+    h0 = _per_run(dirac_taps_siso(cfg.m_est), R, 2, device)
+    taps, h_ev, loss = cma_siso_experiment(rx_epochs, h0, cfg.R, cfg.lr, cfg.sps, cfg.epe)
+    packed = _batched_evals(n_evals, R, draws, lambda sl, vd: _cma_evaluate(
+        cfg, h_ev[sl], vd, sims["valid"], amps, P, var_q, const.nu_sc))
+    loss = loss.cpu().numpy()
+    if runs is None:
+        packed, taps, loss = packed[0], taps[0], loss[0]
+    if progress:
+        for i in range(n_evals):
+            progress(i * cfg.epe, {"loss": loss[..., i * cfg.epe],
+                                   **{n: packed[..., i, j] for j, n in enumerate(_EVAL_NAMES)}})
+    return {"ser": packed[..., 0], "mi": packed[..., 1], "taps": taps}

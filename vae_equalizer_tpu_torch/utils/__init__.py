@@ -1,5 +1,5 @@
 """Configurations, weight conversion (``convert``) and results IO (``io``)."""
 
-from .config import AwgnVaeLeConfig, AwgnVaeNnConfig, DpConfig
+from .config import AwgnCmaConfig, AwgnVaeLeConfig, AwgnVaeNnConfig, DpConfig, LmmseDfeConfig
 
-__all__ = ["AwgnVaeLeConfig", "AwgnVaeNnConfig", "DpConfig"]
+__all__ = ["AwgnCmaConfig", "AwgnVaeLeConfig", "AwgnVaeNnConfig", "DpConfig", "LmmseDfeConfig"]

@@ -1,10 +1,12 @@
 """Typed experiment configurations: the DP flagship (``Eval_run_DP``), the
-AWGN VAE-LE experiment (``Eval_run_shaping_vaele``) and the AWGN VAE-NN
-experiment (``Eval_run_vaenn``).
+AWGN VAE-LE experiment (``Eval_run_shaping_vaele``), the AWGN VAE-NN
+experiment (``Eval_run_vaenn``), the AWGN CMA experiment
+(``Eval_run_shaping_cma``) and the LMMSE / DFE baseline
+(``DFE_MQAM_shaping``).
 
 Field-for-field the JAX package's ``utils/config.py: DpConfig,
-AwgnVaeLeConfig, AwgnVaeNnConfig``, so one configuration drives both
-packages.
+AwgnVaeLeConfig, AwgnVaeNnConfig, AwgnCmaConfig, LmmseDfeConfig``, so one
+configuration drives both packages.
 """
 
 from __future__ import annotations
@@ -53,6 +55,24 @@ class AwgnVaeNnConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class AwgnCmaConfig:
+    """Eval_run_shaping_cma defaults (Eval_run_shaping_cma.py:19-34)."""
+
+    mod: str = "64-QAM"
+    sps: int = 2
+    snr_db: float = 22.0
+    nu: float = 0.0
+    m_est: int = 25
+    lr: float = 0.5e-4
+    n_valid: int = 15000
+    n_train: int = 4000
+    num_epochs: int = 500
+    epe: int = 2
+    channel: str = "h1"
+    R: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
 class DpConfig:
     """Eval_run_DP defaults (Eval_run_DP.py:18-47); algorithm via ``loss_type``."""
 
@@ -77,3 +97,17 @@ class DpConfig:
     phi_iq: tuple[float, float] = (0.0314, 0.0314)
     n_cut: int = 10
     R: float = 1.0  # CMA modulus
+
+
+@dataclasses.dataclass(frozen=True)
+class LmmseDfeConfig:
+    """DFE_MQAM_shaping main-part defaults (DFE_MQAM_shaping.py:246-258)."""
+
+    mod: str = "64-QAM"
+    nu: float = 0.0270955
+    channel: str = "h1"
+    n_valid: int = 128000
+    n_cut: int = 20
+    lmmse_order: int = 20
+    m_dfe: int = 11
+    num_epochs: int = 5
