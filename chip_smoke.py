@@ -113,6 +113,19 @@ per phase:
  29. drivers   eval_run_shaping_cma, eval_run_shaping_vaele --pallas-frame,
                eval_run_vaenn --pallas-frame and eval_run_dfe with --quick on
                the card: JSONL and .mat written, one I / G / H / J launch each
+ 30. resume    checkpoint/resume inside a point: each run uninterrupted (its
+               default draws on a CUDA generator, run twice), then with a
+               checkpoint, killed after a save, then resumed; resumed and
+               uninterrupted bit for bit (every history, the final params or
+               taps), the resumed call launching only the frames left: (a)
+               train_vae_dp(DpConfig(num_frames=12), runs=8, "frame"), K = 5,
+               killed at frame 8, B 7 times; (b) the same call SIGKILLed in a
+               child process after its first save, resumed here; (c) run_cma_dp
+               CMA (kernel C), R = 5, 12 frames, K = 5; (d) train_vae_le_awgn(
+               num_epochs=20, runs=20, use_pallas=True) (F), K = 6, killed at
+               epoch 14; (e) run_cma_awgn(num_epochs=40, runs=8), K = 10: kernel I
+               in 4 segments against one launch, killed in segment 3; per
+               sub-phase the save points, bytes and ms per save
 
 then the kernels' JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises (non-zero exit,
@@ -639,6 +652,245 @@ def _drivers_phase(card: str) -> None:
             walls[name] = f"{wall:.2f}"
         _line("29 drivers", ok=True, quick_wall_s=",".join(f"{k}:{v}" for k, v in walls.items()),
               card=repr(card))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+class _Kill(RuntimeError):
+    """Raised from a run's ``progress`` (or a wrapper) to kill it after a save."""
+
+
+def _killer(at: int):
+    def progress(i, m):
+        if i == at:
+            raise _Kill(f"killed at {at}")
+    return progress
+
+
+def _max_diff(got, want) -> float:
+    """Largest |got - want| over every array, tensor and number of two
+    runner results (nested dicts); inf where shapes differ."""
+    import numpy as np
+    import torch
+
+    if isinstance(want, dict):
+        if sorted(got) != sorted(want):
+            return float("inf")
+        return max((_max_diff(got[k], want[k]) for k in want), default=0.0)
+    g, w = (torch.as_tensor(x).detach().cpu().double().numpy() for x in (got, want))
+    if g.shape != w.shape:
+        return float("inf")
+    if np.array_equal(g, w, equal_nan=True):
+        return 0.0
+    d = np.abs(g - w)
+    return float(d.max()) if np.isfinite(d).all() else float("inf")
+
+
+class _SaveTimer:
+    """Records every ``Checkpoint.save`` made inside the block: ``.saves``,
+    (frame or epoch saved at, milliseconds of the save: the device-to-host
+    copy and the file write)."""
+
+    def __enter__(self):
+        from vae_equalizer_tpu_torch.train.harness import Checkpoint
+
+        self.cls, self.real, self.saves = Checkpoint, Checkpoint.save, []
+
+        def timed(ck, done, *a, **k):
+            t0 = time.perf_counter()
+            self.real(ck, done, *a, **k)
+            self.saves.append((done, 1e3 * (time.perf_counter() - t0)))
+
+        Checkpoint.save = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.save = self.real
+
+
+def _resume_case(label: str, card: str, call, full, rerun_diff: float, ckpt, every: int,
+                 kill: dict, path_kernel, launches_left, **kv) -> None:
+    """One sub-phase of phase 30: ``call(checkpoint=, checkpoint_every=,
+    **kill)`` dies with ``_Kill`` after a save; the resumed call, counted,
+    launches ``path_kernel`` ``launches_left(resumed_from)`` times and
+    nothing else, and its result must be within ``rerun_diff`` of ``full``
+    (the distance between two uninterrupted runs: 0.0 where they are bit for
+    bit). Prints the phase line."""
+    import numpy as np
+
+    with _SaveTimer() as t:
+        try:
+            call(checkpoint=ckpt, checkpoint_every=every, **kill)
+        except _Kill:
+            pass
+        else:
+            raise AssertionError(f"30{label}: the kill did not fire")
+    with np.load(ckpt) as d:
+        resumed_from = int(d["frame"])
+    size = ckpt.stat().st_size
+    n_left = launches_left(resumed_from)
+    res, wall = _counted(path_kernel, n_left, lambda: call(checkpoint=ckpt, checkpoint_every=every))
+    diff = _max_diff(res, full)
+    if diff > rerun_diff:
+        raise AssertionError(f"30{label}: the resumed run is {diff} from the uninterrupted one "
+                             f"(two uninterrupted runs: {rerun_diff})")
+    save_ms = statistics.mean(ms for _, ms in t.saves)
+    _line(f"30{label} resume", ok=True, **kv, every=every,
+          saved_at=",".join(str(d) for d, _ in t.saves), resumed_from=resumed_from,
+          launches=f"{path_kernel.__name__}:{n_left}", max_abs_diff=diff,
+          rerun_max_abs_diff=rerun_diff, state_bytes=size, save_ms=f"{save_ms:.3f}",
+          resumed_wall_s=f"{wall:.3f}", card=repr(card))
+
+
+_CHILD = """
+import sys, time, torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from vae_equalizer_tpu_torch.train import train_vae_dp
+from vae_equalizer_tpu_torch.utils import DpConfig
+def slow(frame, m):  # every frame: the parent's SIGKILL lands between two frames
+    time.sleep(0.3)
+train_vae_dp(DpConfig(num_frames={frames}), seed=0, device="cuda", use_pallas="frame", runs={runs},
+             checkpoint=sys.argv[1], checkpoint_every={every}, progress=slow)
+"""
+
+
+def _resume_phases(card: str) -> None:
+    """Phase 30: kill and resume four kernel paths on the card. Each
+    uninterrupted run (default draws, a CUDA generator) is run, then the same
+    call with a checkpoint, killed after a save, then resumed; the two
+    results must agree bit for bit (every history and the final parameters
+    or taps), and the resumed call launches only the remaining frames'
+    kernels. (a) the flagship frame mode, killed from ``progress``; (b) the
+    same call killed by SIGKILL in a child process, resumed here; (c) CMA
+    through kernel C; (d) the AWGN VAE-LE through kernel F; (e) the AWGN CMA
+    through kernel I in segments, held against one whole launch."""
+    import os
+    import pathlib
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+
+    from vae_equalizer_tpu_torch.ops.cma_kernel import cma_dp_kernel
+    from vae_equalizer_tpu_torch.ops.cma_siso_kernel import cma_siso_experiment
+    from vae_equalizer_tpu_torch.ops.elbo_siso_kernel import vae_siso_loss_and_grad
+    from vae_equalizer_tpu_torch.ops.frame_kernel import vae_dp_frame_train
+    from vae_equalizer_tpu_torch.train import awgn as train_awgn
+    from vae_equalizer_tpu_torch.train import dp as train_dp
+    from vae_equalizer_tpu_torch.utils import AwgnCmaConfig, AwgnVaeLeConfig, DpConfig
+
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_resume_"))
+    t_phase = time.perf_counter()
+    try:
+        # ---- 30a. the flagship, 12 frames of 10,000 symbols, R = 8, K = 5
+        frames, runs, every = 12, 8, 5
+        cfg = DpConfig(num_frames=frames)
+
+        def flagship(**kw):
+            return train_dp.train_vae_dp(cfg, seed=0, device=DEVICE, use_pallas="frame", runs=runs,
+                                         **kw)
+
+        full, _ = _counted(vae_dp_frame_train, frames, flagship)
+        rerun = _max_diff(flagship(), full)
+        _resume_case("a", card, flagship, full, rerun, tmp / "a.npz", every,
+                     {"progress": _killer(8)}, vae_dp_frame_train, lambda f: frames - f,
+                     frames=frames, runs=runs)
+
+        # ---- 30b. the same call, SIGKILLed in a child process after its first save
+        ckpt = tmp / "b.npz"
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [os.path.dirname(os.path.abspath(__file__)), os.environ.get("PYTHONPATH", "")]))
+        child = subprocess.Popen(
+            [sys.executable, "-c", _CHILD.format(frames=frames, runs=runs, every=every), str(ckpt)],
+            env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        try:
+            t0 = time.time()
+            while not ckpt.exists():
+                if child.poll() is not None:
+                    raise AssertionError(f"30b: the child ended ({child.returncode}) before its "
+                                         f"first save: {child.stderr.read()[-2000:]}")
+                if time.time() - t0 > 300:
+                    raise AssertionError("30b: no state file after 300 s")
+                time.sleep(0.01)
+            os.kill(child.pid, signal.SIGKILL)
+        finally:
+            if child.poll() is None:
+                child.kill()
+            child.communicate(timeout=60)
+        rc = child.returncode
+        if rc != -signal.SIGKILL:
+            raise AssertionError(f"30b: the child exited with {rc}, not by SIGKILL")
+        tmp_left = ckpt.with_name(ckpt.name + ".tmp").exists()
+        with np.load(ckpt) as d:
+            resumed_from = int(d["frame"])
+        res, wall = _counted(vae_dp_frame_train, frames - resumed_from,
+                             lambda: flagship(checkpoint=ckpt, checkpoint_every=every))
+        diff = _max_diff(res, full)
+        if diff > rerun:
+            raise AssertionError(f"30b: the resumed run is {diff} from the uninterrupted one")
+        _line("30b resume SIGKILL", ok=True, frames=frames, runs=runs, every=every,
+              child_rc=rc, resumed_from=resumed_from, tmp_left=tmp_left,
+              launches=f"vae_dp_frame_train:{frames - resumed_from}", max_abs_diff=diff,
+              state_bytes=ckpt.stat().st_size, resumed_wall_s=f"{wall:.3f}", card=repr(card))
+
+        # ---- 30c. CMA through kernel C, R = 5, 12 frames, K = 5
+        cfg_c = dataclasses.replace(cfg, loss_type="CMA", lr=CMA_VARIANTS["CMA"][1])
+
+        def cma(**kw):
+            return train_dp.run_cma_dp(cfg_c, seed=0, device=DEVICE, runs=CMA_RUNS, use_pallas=True,
+                                       **kw)
+
+        full, _ = _counted(cma_dp_kernel, frames, cma)
+        _resume_case("c", card, cma, full, _max_diff(cma(), full), tmp / "c.npz", every,
+                     {"progress": _killer(8)}, cma_dp_kernel, lambda f: frames - f, frames=frames,
+                     runs=CMA_RUNS)
+
+        # ---- 30d. the AWGN VAE-LE through kernel F, R = 20, 20 epochs, K = 6
+        cfg_d = AwgnVaeLeConfig(num_epochs=20)
+        steps = cfg_d.n_train // cfg_d.batch_len
+
+        def vaele(**kw):
+            return train_awgn.train_vae_le_awgn(cfg_d, seed=0, device=DEVICE, runs=AWGN_RUNS,
+                                                use_pallas=True, **kw)
+
+        full, _ = _counted(vae_siso_loss_and_grad, cfg_d.num_epochs * steps, vaele)
+        _resume_case("d", card, vaele, full, _max_diff(vaele(), full), tmp / "d.npz", 6,
+                     {"progress": _killer(14)}, vae_siso_loss_and_grad,
+                     lambda e: (cfg_d.num_epochs - e) * steps, epochs=cfg_d.num_epochs,
+                     runs=AWGN_RUNS)
+
+        # ---- 30e. the AWGN CMA through kernel I in segments, R = 8, 40 epochs, K = 10
+        cfg_e = AwgnCmaConfig(num_epochs=40)
+
+        def cma_awgn(**kw):
+            return train_awgn.run_cma_awgn(cfg_e, seed=0, device=DEVICE, runs=CMA_AWGN_RUNS, **kw)
+
+        whole, _ = _counted(cma_siso_experiment, 1, cma_awgn)
+        segmented, _ = _counted(cma_siso_experiment, 4, lambda: cma_awgn(
+            checkpoint=tmp / "e_segmented.npz", checkpoint_every=10))
+        seg_diff = _max_diff(segmented, whole)
+        if seg_diff != 0.0:
+            raise AssertionError(f"30e: 4 segments of kernel I are {seg_diff} from one launch")
+        real, calls = train_awgn.cma_siso_experiment, []
+
+        def dies_in_segment_3(*a):
+            calls.append(1)
+            if len(calls) == 3:
+                raise _Kill("killed in segment 3")
+            return real(*a)
+
+        # the kill: the killed run's 3rd launch raises; the resumed run's
+        # launches (the 4th and 5th calls) go through
+        train_awgn.cma_siso_experiment = dies_in_segment_3
+        try:
+            _resume_case("e", card, cma_awgn, whole, 0.0, tmp / "e.npz", 10, {}, cma_siso_experiment,
+                         lambda e: -(-(cfg_e.num_epochs - e) // 10), epochs=cfg_e.num_epochs,
+                         runs=CMA_AWGN_RUNS, segments_vs_whole_max_abs_diff=seg_diff)
+        finally:
+            train_awgn.cma_siso_experiment = real
+        _line("30 resume", ok=True, wall_s=f"{time.perf_counter() - t_phase:.1f}", card=repr(card))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2059,6 +2311,7 @@ def main() -> int:
     cma_awgn_kernels = _cma_awgn_phases(card)
     dfe_kernels = _dfe_phases(card)
     _drivers_phase(card)
+    _resume_phases(card)
 
     kernels = {"kernels": [
         {"name": "vae_dp_loss_and_grad", "route": "cuda",

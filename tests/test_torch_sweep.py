@@ -160,13 +160,96 @@ def test_io_round_trips_torch_and_numpy(tmp_path):
     assert d["SER"][0, 0].shape == (4, 2) and d["SNR"][0, 0].shape == (1, 1)
 
 
-def test_unported_runners_and_checkpoints_raise(tmp_path):
+def test_unported_runners_and_checkpoints_raise(monkeypatch, tmp_path):
+    """The SP runners are not ported; ``checkpoint_every`` gives a point its
+    state file, which the runner writes and the sweep removes when the point
+    finishes; batched axes still refuse it (JAX's ValueError)."""
     for name in ("VAE-SP", "VAEflex-SP"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             run_sweep(name, DpConfig(**TINY), {"lr": [1e-3]}, 1, 0, out_dir=tmp_path, device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint.*ROADMAP"):
-        run_sweep("VAE", DpConfig(**TINY), {"lr": [1e-3]}, 1, 0, out_dir=tmp_path, device="cpu",
-                  checkpoint_every=1)
+    real, seen = sweep.RUNNERS["VAE"], []
+
+    def runner(cfg, seed, **kw):
+        res = real(cfg, seed, **kw)
+        seen.append((kw["checkpoint"], kw["checkpoint"].exists(), kw["checkpoint_every"]))
+        return res
+
+    monkeypatch.setitem(sweep.RUNNERS, "VAE", runner)
+    results, _, _ = run_sweep("VAE", DpConfig(**TINY), {"lr": [1e-3]}, 1, 0, out_dir=tmp_path,
+                              tag="ck", device="cpu", checkpoint_every=1)
+    ((state, made, every),) = seen
+    assert made and every == 1 and state.parent == tmp_path and not state.exists()
+    assert state.name.startswith("state_ck_0_") and len(state.stem) == len("state_ck_0_") + 10
+    assert len(results) == 1 and np.all(np.isfinite(results[0]["ser"]))
+    with pytest.raises(ValueError, match="incompatible with checkpoint_every"):
+        run_sweep("VAE", DpConfig(**TINY), {"lr": [1e-3, 2e-3]}, 1, 0, out_dir=tmp_path,
+                  device="cpu", runner_kwargs=FRAME, batch_lr_axis=True, checkpoint_every=1)
     with pytest.raises(ValueError, match="has no lr_vec support"):
         run_sweep("CMAbatch", DpConfig(**{**TINY, "loss_type": "CMAbatch"}), {"lr": [1e-3, 2e-3]},
                   1, 0, out_dir=tmp_path, device="cpu", batch_lr_axis=True)
+
+
+def test_sweep_resume_mid_grid_and_mid_point(tmp_path):
+    """skip_done + checkpoint_every (JAX tests/test_sweep.py:113): a killed
+    sweep resumes past its finished grid point AND inside the interrupted
+    one, and the final .mat tensor equals an uninterrupted sweep's, bit for
+    bit."""
+    base = DpConfig(**{**TINY, "num_frames": 6})
+    axes = {"lr": [2.5e-3, 2e-3]}
+    kw = dict(iters=2, seed=5, tag="t", checkpoint_every=2, device="cpu")
+    ref_results, axes_values, _ = run_sweep("VAE", base, axes, out_dir=tmp_path / "ref", **kw)
+
+    class Boom(RuntimeError):
+        pass
+
+    calls = {"n": 0}
+
+    def killer(frame, m):
+        calls["n"] += 1
+        if calls["n"] == 10:  # inside grid point 2 (6 frames each), after its save at frame 2
+            raise Boom()
+
+    out = tmp_path / "resumable"
+    with pytest.raises(Boom):
+        run_sweep("VAE", base, axes, out_dir=out, progress=killer, **kw)
+    assert len(list(out.glob("state_t_*.npz"))) == 1  # point 2 left its state
+    results, axes_values2, _ = run_sweep("VAE", base, axes, out_dir=out, skip_done=True, **kw)
+    assert len(results) == 2
+    assert not list(out.glob("state_t_*"))  # removed once the point finished
+    np.testing.assert_array_equal(assemble_mat(results, axes_values2, 2, (4,)),
+                                  assemble_mat(ref_results, axes_values, 2, (4,)))
+
+
+def test_sweep_resume_rejects_other_runner_mode(monkeypatch, tmp_path):
+    """A grid point finished in one runner mode does not satisfy a skip_done
+    resume in another (JAX tests/test_sweep.py:160), and a point's state
+    file is never loaded by another mode: runner_kwargs are part of the
+    state file's hash."""
+    base = DpConfig(**TINY)
+    axes = {"lr": [2.5e-3]}
+    out = tmp_path / "s"
+    kw = dict(iters=1, seed=6, out_dir=out, tag="t", device="cpu")
+    r1, _, jsonl1 = run_sweep("VAE", base, axes, **kw)
+    assert r1[0]["runner_kwargs"] == {}
+    r2, _, jsonl2 = run_sweep("VAE", base, axes, skip_done=True, **kw)  # same mode: skipped
+    assert jsonl2 == jsonl1 and r2[0] is not r1[0] and r2[0]["coords"] == [0]
+    assert r2[0]["wall_s"] == r1[0]["wall_s"]  # not re-run
+    r3, _, _ = run_sweep("VAE", base, axes, skip_done=True, runner_kwargs=FRAME, **kw)
+    assert r3[0]["runner_kwargs"] == FRAME and r3[0]["wall_s"] != r1[0]["wall_s"]
+
+    # a point killed in use_pallas=True mode leaves its state file; the
+    # "frame" resume names another file and runs the point from frame 0
+    fresh = dict(kw, out_dir=tmp_path / "k", checkpoint_every=1)
+
+    def killer(frame, m):
+        raise KeyboardInterrupt
+
+    with pytest.raises(KeyboardInterrupt):
+        run_sweep("VAE", base, axes, progress=killer, runner_kwargs={"use_pallas": True}, **fresh)
+    (stale,) = (tmp_path / "k").glob("state_t_*.npz")
+    calls = _counting(monkeypatch)
+    (rec,), _, _ = run_sweep("VAE", base, axes, skip_done=True, runner_kwargs=FRAME, **fresh)
+    assert calls[0][2]["checkpoint"] != stale and stale.exists()
+    (want,), _, _ = run_sweep("VAE", base, axes, runner_kwargs=FRAME,
+                              **dict(fresh, out_dir=tmp_path / "w"))
+    np.testing.assert_array_equal(rec["ser"], want["ser"])

@@ -143,8 +143,7 @@ def test_vae_modes_follow_the_table():
 
 def test_deferred_options_and_bad_arguments_raise():
     cfg = _tiny("CMAbatch")
-    for kw in ({"mesh": object()}, {"compiled": True}, {"chunk_frames": 2},
-               {"checkpoint": "x.npz"}, {"timings": {}}):
+    for kw in ({"mesh": object()}, {"compiled": True}, {"chunk_frames": 2}, {"timings": {}}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             run_cma_dp(cfg, 0, device="cpu", **kw)
     with pytest.raises(ValueError, match="runs_batch"):

@@ -109,8 +109,7 @@ def test_deferred_options_raise():
     """Options still deferred raise NotImplementedError naming ROADMAP.md;
     the runs-batched kernel's options without runs raise JAX's ValueErrors."""
     cfg = DpConfig(mod="4-QAM", **SMALL)
-    for kw in ({"compiled": True}, {"chunk_frames": 2}, {"checkpoint": "x.npz"}, {"mesh": object()},
-               {"timings": {}}):
+    for kw in ({"compiled": True}, {"chunk_frames": 2}, {"mesh": object()}, {"timings": {}}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             train_vae_dp(cfg, 0, device="cpu", **kw)
     for kw in ({"stream_bf16": True}, {"lr_vec": [1e-3]}):

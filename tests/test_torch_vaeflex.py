@@ -156,13 +156,22 @@ def test_train_vae_flex_dp_modes_match_jax_on_jax_draws():
                                 {"stream_bf16": True}, {"lr_vec": [1e-3]}, {"snr_vec": [20.0]},
                                 {"nu_vec": [0.0]}, {"mesh": object()}, {"compiled": True},
                                 {"chunk_frames": 2}, {"runs_batch": 2}, {"timings": {}}])
-def test_flex_deferred_options_raise(kw):
+def test_flex_deferred_options_raise(kw, tmp_path):
     """Options still deferred raise NotImplementedError naming ROADMAP's list;
     the runs-batched kernel's options, misused, raise JAX's ValueErrors
-    (JAX train/dp.py:323-337, 676-677)."""
+    (JAX train/dp.py:323-337, 676-677); ``checkpoint`` writes its state file,
+    and ``checkpoint_every`` without a file runs."""
     cfg = DpConfig(**FLEX)
     name = next(iter(kw))
-    if name in ("stream_bf16", "lr_vec", "snr_vec", "nu_vec"):
+    if name == "checkpoint":
+        ckpt = tmp_path / kw[name]
+        res = train_vae_flex_dp(cfg, 0, device="cpu", checkpoint=ckpt, checkpoint_every=1)
+        assert ckpt.exists() and not list(tmp_path.glob("*.tmp"))
+        assert np.all(np.isfinite(res["ser"]))
+    elif name == "checkpoint_every":
+        res = train_vae_flex_dp(cfg, 0, device="cpu", **kw)
+        assert res["ser"].shape == (4, cfg.num_frames) and np.all(np.isfinite(res["ser"]))
+    elif name in ("stream_bf16", "lr_vec", "snr_vec", "nu_vec"):
         with pytest.raises(ValueError, match=r"the runs-batched kernel \(set runs\)"):
             train_vae_flex_dp(cfg, 0, device="cpu", use_pallas="frame", **kw)
         if name != "stream_bf16":

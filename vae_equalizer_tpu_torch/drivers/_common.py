@@ -26,10 +26,11 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
     p.add_argument("--compiled", action="store_true",
                    help="whole-experiment capture (not ported: CUDA-graph capture, ROADMAP.md)")
     p.add_argument("--resume", action="store_true",
-                   help="reuse the newest sweep JSONL: skip finished grid points")
+                   help="reuse the newest sweep JSONL: skip finished grid points and, with "
+                        "--checkpoint-every, resume the interrupted point from its state file")
     p.add_argument("--checkpoint-every", type=int, default=0, metavar="K",
-                   help="persist per-point training state every K frames (the runners defer "
-                        "checkpointing: ROADMAP.md, queue 1: 'Checkpoint/resume')")
+                   help="persist each grid point's training state every K frames / epochs "
+                        "(a killed point resumes in the middle with --resume)")
     return p
 
 

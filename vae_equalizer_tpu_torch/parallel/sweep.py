@@ -23,8 +23,10 @@ point index into its key, ``jax.random.fold_in(key, i)``).
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import inspect
 import itertools
+import json
 import pathlib
 import time
 
@@ -98,9 +100,15 @@ def run_sweep(runner_name: str, base_cfg, axes: dict, iters: int, seed: int, mes
     done if its stored config and runner kwargs match the current grid
     point's, so a resumed sweep with changed axes, values or runner mode
     re-runs (never silently reuses) mismatching points. ``checkpoint_every``
-    > 0 is passed to the runner, which defers checkpointing (it raises
-    NotImplementedError naming ROADMAP.md). ``save_params`` writes each
-    point's trained parameters to an .npz.
+    = K > 0 gives each point of a runner that takes ``checkpoint`` its
+    state file ``state_{tag}_{coord}_{hash}.npz`` in ``out_dir``, saved every
+    K frames or epochs: a killed sweep resumed with ``skip_done`` also
+    resumes its interrupted point in the middle. The hash is of (config,
+    iters), and of the runner kwargs too where there are any, so a file is
+    only ever resumed by the same point of the same experiment in the same
+    runner mode; a fresh sweep deletes a stale file, and a finished point
+    removes its own. ``save_params`` writes each point's trained parameters
+    to an .npz.
 
     ``batch_lr_axis`` / ``batch_snr_axis`` / ``batch_nu_axis``: grid points
     that differ ONLY along the ``lr`` / ``snr_db`` / ``nu`` axes run as ONE
@@ -116,6 +124,8 @@ def run_sweep(runner_name: str, base_cfg, axes: dict, iters: int, seed: int, mes
         raise NotImplementedError(f"runner {runner_name!r}: not ported yet, {_UNPORTED[runner_name]}")
     runner = RUNNERS[runner_name]
     runner_params = inspect.signature(runner).parameters
+    has_kw = lambda kw: kw in runner_params or any(  # noqa: E731
+        p.kind is inspect.Parameter.VAR_KEYWORD for p in runner_params.values())
     configs, coords, axes_values = expand_grid(base_cfg, **axes)
     out_dir = pathlib.Path(out_dir)
     stamp = time.strftime("%y%m%d%H%M%S")
@@ -177,8 +187,6 @@ def run_sweep(runner_name: str, base_cfg, axes: dict, iters: int, seed: int, mes
     if want:
         if checkpoint_every:
             raise ValueError("batch_lr_axis/batch_snr_axis are incompatible with checkpoint_every")
-        has_kw = lambda kw: kw in runner_params or any(
-            p.kind is inspect.Parameter.VAR_KEYWORD for p in runner_params.values())
         names = list(axes)
         for field, kw in want:
             if field in names and len(axes_values[field]) > 1:
@@ -217,11 +225,22 @@ def run_sweep(runner_name: str, base_cfg, axes: dict, iters: int, seed: int, mes
                     write_record(configs[j], coords[j], res_j, wall / n_pt)
                     handled.add(tuple(coords[j]))
                 continue
-        # checkpoint_every reaches the runner, which defers checkpointing
-        # (ROADMAP.md, queue 1: 'Checkpoint/resume', mid-point resume and its state files)
-        kwargs = {"checkpoint_every": checkpoint_every} if checkpoint_every else {}
+        kwargs, state_file = {}, None
+        if checkpoint_every and has_kw("checkpoint"):
+            # the point's identity names its state file: runner_kwargs count
+            # (use_pallas changes the carry), and without them the hash is of
+            # (cfg, iters) alone, as the JAX package names its files
+            ident = (cfg_json(cfg), iters) if not runner_kwargs else (
+                cfg_json(cfg), iters, runner_kwargs)
+            h = hashlib.sha1(json.dumps(ident, sort_keys=True, default=str).encode())
+            state_file = out_dir / f"state_{tag}_{'_'.join(map(str, coord))}_{h.hexdigest()[:10]}.npz"
+            if not skip_done and state_file.exists():
+                state_file.unlink()  # a fresh sweep never resumes stale state
+            kwargs = dict(checkpoint=state_file, checkpoint_every=checkpoint_every)
         res, wall = call(cfg, i, runs=iters, **kwargs)
         write_record(cfg, coord, res, wall)
+        if state_file is not None and state_file.exists():
+            state_file.unlink()  # the point finished: drop its resume state
     return results, axes_values, jsonl
 
 

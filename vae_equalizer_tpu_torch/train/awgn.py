@@ -33,7 +33,9 @@ MI) run afterwards, batched over runs x evals.
 A kernel mode launches the CUDA kernel for a CUDA ``device`` and takes its
 plain version on the CPU. Every mode shares one AMSGrad (optax semantics,
 ``ops/siso_frame_kernel.py: amsgrad``). ``device`` defaults to the card;
-``device="cpu"`` runs the plain versions.
+``device="cpu"`` runs the plain versions. The loop modes and the CMA
+experiment take JAX's ``checkpoint`` / ``checkpoint_every`` (``harness.py:
+Checkpoint``); the VAE runners' frame mode refuses them, as in JAX.
 """
 
 from __future__ import annotations
@@ -72,7 +74,7 @@ from ..ops.nn_frame_kernel import (
 from ..ops.siso_frame_kernel import amsgrad, siso_frame_opt_init, vae_siso_experiment_train
 from ..utils.config import AwgnCmaConfig, AwgnVaeLeConfig, AwgnVaeNnConfig
 from .eval_utils import margin_weight, roll_time
-from .harness import Progress
+from .harness import Checkpoint, Progress
 
 __all__ = ["run_cma_awgn", "train_vae_le_awgn", "train_vae_nn_awgn"]
 
@@ -124,35 +126,51 @@ def _evaluate(cfg, w, valid_draws, sim, const, amps, P, var) -> torch.Tensor:
     return _siso_eval_pack(q, tx, cfg.n_valid, const, amps, P)
 
 
-def _run_epochs(cfg, step_fn, params, draws, sims, const, amps, P, var, R: int,
-                progress: Progress) -> tuple[dict, np.ndarray]:
-    """Loop mode: per epoch a training frame and its minibatch steps
-    (``step_fn(w, h, x) -> (loss, gw, gh)`` + AMSGrad with a global step
-    count); after epoch k*epe an evaluation. Returns (params, packed
-    (R, n_evals, 3))."""
+def _run_epochs(cfg, epoch_step, eval_step, carry, R: int, progress: Progress,
+                ckpt: Checkpoint):
+    """Loop mode (JAX ``_run_epochs``): ``epoch_step(carry, epoch) -> (carry,
+    loss)`` trains one epoch; after epoch k*epe, ``eval_step(carry, k) ->
+    (R, 3)`` evaluates. ``ckpt`` resumes from its file and saves after every
+    K-th epoch, after that epoch's eval and ``progress`` (JAX's order): the
+    train and valid draws share one generator, so its state is taken past
+    the eval's draw. Returns (carry, packed (R, n_evals, 3))."""
     n_evals = cfg.num_epochs // cfg.epe
+    hist = {"packed": np.zeros((R, n_evals, len(_EVAL_NAMES)), np.float32)}
+    start, carry = ckpt.resume(carry, hist)
+    packed = hist["packed"]
+    for epoch in range(start, cfg.num_epochs):
+        carry, loss = epoch_step(carry, epoch)
+        if epoch % cfg.epe == 0 and epoch // cfg.epe < n_evals:
+            i = epoch // cfg.epe
+            packed[:, i] = eval_step(carry, i).cpu().numpy()  # one device-to-host copy per eval
+            if progress:
+                progress(epoch, {"loss": loss.cpu().numpy(),
+                                 **{n: packed[:, i, j] for j, n in enumerate(_EVAL_NAMES)}})
+        if ckpt.due(epoch + 1, cfg.num_epochs):
+            ckpt.save(epoch + 1, carry, hist)
+    return carry, packed
+
+
+def _vae_le_epoch(cfg, step_fn, draws, sim, R: int):
+    """One VAE-LE epoch of the loop mode: a training frame and its minibatch
+    steps (``step_fn(w, h, x) -> (loss, gw, gh)`` + AMSGrad with a global
+    step count) over the carry ({"w", "h"}, AMSGrad moments, step)."""
     n_batches = cfg.n_train // cfg.batch_len
     mb_len = cfg.batch_len * cfg.sps
-    w, h = params["w"], params["h"]
-    opt = siso_frame_opt_init(params)
-    mw, vw, xw, mh, vh, xh = (opt[k] for k in ("mw", "vw", "xw", "mh", "vh", "xh"))
-    packed = np.zeros((R, n_evals, len(_EVAL_NAMES)), np.float32)
-    step = 0
-    for epoch in range(cfg.num_epochs):
-        rx, _, _ = sims["train"].physics(*draws("train", epoch, R))
+
+    def epoch_step(carry, epoch):
+        params, opt, step = carry
+        w, h = params["w"], params["h"]
+        mw, vw, xw, mh, vh, xh = (opt[k] for k in ("mw", "vw", "xw", "mh", "vh", "xh"))
+        rx, _, _ = sim.physics(*draws("train", epoch, R))
         for b in range(n_batches):
             loss, gw, gh = step_fn(w, h, rx[..., b * mb_len : (b + 1) * mb_len].contiguous())
             w, mw, vw, xw = amsgrad(w, mw, vw, xw, gw, cfg.lr, step)
             h, mh, vh, xh = amsgrad(h, mh, vh, xh, gh, cfg.lr, step)
             step += 1
-        if epoch % cfg.epe == 0 and epoch // cfg.epe < n_evals:
-            i = epoch // cfg.epe
-            packed[:, i] = _evaluate(cfg, w, draws("valid", i, R), sims["valid"], const, amps, P,
-                                     var).cpu().numpy()  # one device-to-host copy per eval
-            if progress:
-                progress(epoch, {"loss": loss.cpu().numpy(),
-                                 **{n: packed[:, i, j] for j, n in enumerate(_EVAL_NAMES)}})
-    return {"w": w, "h": h}, packed
+        opt = dict(zip(("mw", "vw", "xw", "mh", "vh", "xh"), (mw, vw, xw, mh, vh, xh)))
+        return ({"w": w, "h": h}, opt, step), loss
+    return epoch_step
 
 
 def _frame_train_data(sim, draws, R: int, n_epochs: int) -> torch.Tensor:
@@ -193,9 +211,17 @@ def _frame_evals(cfg, w_ev, draws, sim, const, amps, P, var) -> np.ndarray:
 
 
 def _default_draws(sims, seed: int, device):
+    """(draws, rng): the train and valid draws in sequence from one
+    ``torch.Generator`` seeded with ``seed`` (its state is part of a checkpoint)."""
     rng = torch.Generator(device=device)
     rng.manual_seed(seed)
-    return lambda kind, index, R: sims[kind].draws(rng, R)
+    return (lambda kind, index, R: sims[kind].draws(rng, R)), rng
+
+
+def _frame_refuses_checkpoint(use_pallas, checkpoint) -> None:
+    if use_pallas == "frame" and checkpoint:
+        raise ValueError('use_pallas="frame" runs the whole experiment in one call; '
+                         "checkpointing is unavailable")
 
 
 def train_vae_le_awgn(cfg: AwgnVaeLeConfig, seed: int, device="cuda", progress: Progress = None,
@@ -216,12 +242,17 @@ def train_vae_le_awgn(cfg: AwgnVaeLeConfig, seed: int, device="cuda", progress: 
     ``params_init`` {"w" (R?, 1, 2, M), "h" (R?, 2, M)}, numpy or torch.
     ``runs_batch`` (frame mode): runs per kernel G launch (default: all).
     ``progress(epoch, metrics)`` is called after each loop-mode eval.
+    ``checkpoint`` / ``checkpoint_every`` = K (loop modes, JAX's contract):
+    the state after every K-th epoch (w, h, the AMSGrad moments and step,
+    the evals so far and the generator's state, taken after the epoch's
+    eval) goes to the file ``checkpoint``, and a call that finds the file
+    resumes from it, bit for bit as the uninterrupted run; frame mode
+    refuses a checkpoint with JAX's ``ValueError``.
 
     Returns {"ser" (..., n_evals), "mi" (..., n_evals), "params" {"w"
     (..., 1, 2, M), "h" (..., 2, M)}} with a leading runs axis iff ``runs``.
     """
-    for name, is_set in {"checkpoint": checkpoint is not None or checkpoint_every != 0,
-                         "compiled": compiled, "mesh": mesh is not None,
+    for name, is_set in {"compiled": compiled, "mesh": mesh is not None,
                          "timings": timings is not None}.items():
         if is_set:
             raise NotImplementedError(f"{name}: {_DEFERRED}")
@@ -229,11 +260,14 @@ def train_vae_le_awgn(cfg: AwgnVaeLeConfig, seed: int, device="cuda", progress: 
         raise ValueError(f"use_pallas={use_pallas!r}: expected False, True or 'frame'")
     if use_pallas and (cfg.sps != 2 or cfg.m_est % 2 == 0):
         raise ValueError("use_pallas requires sps=2 and odd M_est")
+    _frame_refuses_checkpoint(use_pallas, checkpoint)
 
     device = resolve_device(device)
     R = 1 if runs is None else runs
     const, sims, amps, P, var = _setup(cfg, device)
-    draws = draws or _default_draws(sims, seed, device)
+    rng = None
+    if draws is None:
+        draws, rng = _default_draws(sims, seed, device)
     params = params_init or {"w": siso_fir_init(cfg.m_est), "h": dirac_taps_siso(cfg.m_est)}
     params = {"w": _per_run(params["w"], R, 3, device), "h": _per_run(params["h"], R, 2, device)}
 
@@ -255,8 +289,12 @@ def train_vae_le_awgn(cfg: AwgnVaeLeConfig, seed: int, device="cuda", progress: 
                 loss = elbo_siso(q, x, h_, amps, P)  # (R,): runs are independent
                 gw, gh = torch.autograd.grad(loss.sum(), (w_, h_))
                 return loss.detach(), gw, gh
-        params, packed = _run_epochs(cfg, step_fn, params, draws, sims, const, amps, P, var, R,
-                                     progress)
+        ckpt = Checkpoint(checkpoint, checkpoint_every, rng, f"VAE-LE use_pallas={use_pallas!r}")
+        (params, _, _), packed = _run_epochs(
+            cfg, _vae_le_epoch(cfg, step_fn, draws, sims["train"], R),
+            lambda c, i: _evaluate(cfg, c[0]["w"], draws("valid", i, R), sims["valid"], const, amps,
+                                   P, var),
+            (params, siso_frame_opt_init(params), 0), R, progress, ckpt)
 
     if runs is None:
         packed = packed[0]
@@ -293,13 +331,15 @@ def train_vae_nn_awgn(cfg: AwgnVaeNnConfig, seed: int, device="cuda", progress: 
     "b1", "w2", "b2"[, "bn_scale", "bn_bias"]}, "h" (R?, 2, M)[, "bn":
     {"mean", "var", "momentum"}]}, numpy or torch (``utils/convert.py:
     nn_params_from_jax``). ``progress(epoch, metrics)`` is called after each
-    loop-mode eval.
+    loop-mode eval. ``checkpoint`` / ``checkpoint_every`` as in
+    ``train_vae_le_awgn`` (the loop mode's carry: W1', W2', h, the BN
+    parameters and running statistics, the AMSGrad moments; the step
+    follows from the epoch).
 
     Returns {"ser" (..., n_evals), "mi" (..., n_evals), "params" {"net",
     "h"[, "bn"]}} with a leading runs axis iff ``runs``.
     """
-    for name, is_set in {"checkpoint": checkpoint is not None or checkpoint_every != 0,
-                         "compiled": compiled, "mesh": mesh is not None,
+    for name, is_set in {"compiled": compiled, "mesh": mesh is not None,
                          "timings": timings is not None}.items():
         if is_set:
             raise NotImplementedError(f"{name}: {_DEFERRED_NN}")
@@ -309,11 +349,14 @@ def train_vae_nn_awgn(cfg: AwgnVaeNnConfig, seed: int, device="cuda", progress: 
         raise ValueError(f"use_pallas={use_pallas!r}: expected False or 'frame'")
     if use_pallas == "frame" and (cfg.sps != 2 or cfg.m_est % 2 == 0 or cfg.kernel_2 != 3):
         raise ValueError('use_pallas="frame" requires sps=2, odd m_est and kernel_2=3')
+    _frame_refuses_checkpoint(use_pallas, checkpoint)
 
     device = resolve_device(device)
     R = 1 if runs is None else runs
     const, sims, amps, P, _ = _setup(cfg, device, fixed_noise=True)
-    draws = draws or _default_draws(sims, seed, device)
+    rng = None
+    if draws is None:
+        draws, rng = _default_draws(sims, seed, device)
     if params_init is None:
         gen = torch.Generator()
         gen.manual_seed(seed ^ 0x5EED)
@@ -350,20 +393,24 @@ def train_vae_nn_awgn(cfg: AwgnVaeNnConfig, seed: int, device="cuda", progress: 
             sims["valid"], const, amps, P))
     else:
         bnp, rs = bn if bn is not None else (w1f.new_zeros((R, ch, 2)),) * 2
-        packed = np.zeros((R, n_evals, len(_EVAL_NAMES)), np.float32)
-        for epoch in range(cfg.num_epochs):
+
+        def epoch_step(carry, epoch):
+            w1f, w2f, h, bnp, rs, opt = carry
             rx, _, _ = sims["train"].physics(*draws("train", epoch, R))
             w1f, w2f, h, bnp, rs, opt, losses, *_ = vae_nn_experiment_train_plain(
                 w1f, w2f, h, opt, rx[:, None], amps, cfg.lr, (bnp, rs) if bn is not None else None,
                 momentum, epe=1, step0=epoch * n_batches, **kw)
-            if epoch % cfg.epe == 0 and epoch // cfg.epe < n_evals:
-                i = epoch // cfg.epe
-                packed[:, i] = _nn_evaluate(cfg, nn_net(w1f, w2f, bnp, k1, cfg.batchnorm), rs,
-                                            draws("valid", i, R), sims["valid"], const, amps,
-                                            P).cpu().numpy()  # one device-to-host copy per eval
-                if progress:
-                    progress(epoch, {"loss": losses[-1].cpu().numpy(),
-                                     **{n: packed[:, i, j] for j, n in enumerate(_EVAL_NAMES)}})
+            return (w1f, w2f, h, bnp, rs, opt), losses[-1]
+
+        def eval_step(carry, i):
+            w1f, w2f, _, bnp, rs, _ = carry
+            return _nn_evaluate(cfg, nn_net(w1f, w2f, bnp, k1, cfg.batchnorm), rs,
+                                draws("valid", i, R), sims["valid"], const, amps, P)
+
+        ckpt = Checkpoint(checkpoint, checkpoint_every, rng,
+                          f"VAE-NN batchnorm={cfg.batchnorm} use_pallas={use_pallas!r}")
+        (w1f, w2f, h, bnp, rs, _), packed = _run_epochs(
+            cfg, epoch_step, eval_step, (w1f, w2f, h, bnp, rs, opt), R, progress, ckpt)
 
     params = {"net": nn_net(w1f, w2f, bnp, k1, cfg.batchnorm), "h": h}
     if cfg.batchnorm:
@@ -391,6 +438,38 @@ def _cma_evaluate(cfg, h, valid_draws, sim, amps, P, var_q, nu_sc: float) -> tor
     return torch.stack([ser, mi, shift.to(torch.float32)], dim=-1)
 
 
+def _cma_train(cfg, rx_epochs, h0, ckpt: Checkpoint):
+    """Kernel I over every epoch: one launch, or with a checkpoint one launch
+    per segment, the taps carried from one to the next and the losses and
+    eval snapshots joined. A segment ends at each save point rounded up to a
+    multiple of epe, so every segment starts on an eval slot and each launch
+    computes what the whole launch computes for its epochs: the rounding
+    moves when the state file is written (next epoch, taps, losses and
+    snapshots so far), never what the run computes. Returns (taps, h_ev
+    (n_evals, R, 2, M), loss (R, E))."""
+    n_epochs, epe = cfg.num_epochs, cfg.epe
+    ends = {n_epochs}
+    if ckpt.path and ckpt.every:
+        ends |= {min(n_epochs, -(-s // epe) * epe) for s in range(ckpt.every, n_epochs, ckpt.every)}
+    R, dev = h0.shape[0], h0.device
+    hist = {"loss": np.zeros((R, n_epochs), np.float32),
+            "h_ev": np.zeros((n_epochs // epe, R, 2, cfg.m_est), np.float32)}
+    e0, taps = ckpt.resume(h0, hist)
+    h_ev = [torch.from_numpy(hist["h_ev"][: e0 // epe]).to(dev)]
+    loss = [torch.from_numpy(hist["loss"][:, :e0]).to(dev)]
+    for e1 in sorted(e for e in ends if e > e0):
+        taps, h_ev_s, loss_s = cma_siso_experiment(rx_epochs[:, e0:e1].contiguous(), taps, cfg.R,
+                                                   cfg.lr, cfg.sps, epe)
+        h_ev.append(h_ev_s)
+        loss.append(loss_s)
+        if e1 < n_epochs:
+            hist["h_ev"][: e1 // epe] = torch.cat(h_ev).cpu().numpy()
+            hist["loss"][:, :e1] = torch.cat(loss, dim=1).cpu().numpy()
+            ckpt.save(e1, taps, hist)
+        e0 = e1
+    return taps, torch.cat(h_ev), torch.cat(loss, dim=1)
+
+
 def run_cma_awgn(cfg: AwgnCmaConfig, seed: int, device="cuda", progress: Progress = None,
                  runs: int | None = None, mesh=None, compiled: bool = False, checkpoint=None,
                  checkpoint_every: int = 0, timings: dict | None = None, draws=None) -> dict:
@@ -405,26 +484,30 @@ def run_cma_awgn(cfg: AwgnCmaConfig, seed: int, device="cuda", progress: Progres
     ``train_vae_le_awgn``. Training is one kernel I launch for all runs
     (its plain version on the CPU); ``progress(epoch, metrics)`` is called
     for each eval epoch after the evaluations, with that epoch's mean |e| as
-    "loss".
+    "loss". ``checkpoint`` / ``checkpoint_every`` = K: kernel I runs in
+    segments, saving the state at the end of each (``_cma_train``), and a
+    call that finds the file resumes from it, bit for bit as the
+    uninterrupted run; every epoch's data is drawn up front from ``seed`` on
+    each call, so the file needs no generator state.
 
     Returns {"ser" (..., n_evals), "mi" (..., n_evals), "taps" (..., 2, M)}
     with a leading runs axis iff ``runs``.
     """
-    for name, is_set in {"checkpoint": checkpoint is not None or checkpoint_every != 0,
-                         "compiled": compiled, "mesh": mesh is not None,
+    for name, is_set in {"compiled": compiled, "mesh": mesh is not None,
                          "timings": timings is not None}.items():
         if is_set:
             raise NotImplementedError(f"{name}: {_DEFERRED_CMA}")
     device = resolve_device(device)
     R = 1 if runs is None else runs
     const, sims, amps, P, var = _setup(cfg, device)
-    draws = draws or _default_draws(sims, seed, device)
+    draws = draws or _default_draws(sims, seed, device)[0]
     var_q = torch.full((1,), var, dtype=torch.float32, device=device)
     n_evals = cfg.num_epochs // cfg.epe
 
     rx_epochs = _frame_train_data(sims["train"], draws, R, cfg.num_epochs)
     h0 = _per_run(dirac_taps_siso(cfg.m_est), R, 2, device)
-    taps, h_ev, loss = cma_siso_experiment(rx_epochs, h0, cfg.R, cfg.lr, cfg.sps, cfg.epe)
+    taps, h_ev, loss = _cma_train(cfg, rx_epochs, h0,
+                                  Checkpoint(checkpoint, checkpoint_every, ident="CMA-AWGN"))
     packed = _batched_evals(n_evals, R, draws, lambda sl, vd: _cma_evaluate(
         cfg, h_ev[sl], vd, sims["valid"], amps, P, var_q, const.nu_sc))
     loss = loss.cpu().numpy()

@@ -52,7 +52,7 @@ from ..ops.elbo_kernel import vae_dp_loss_and_grad
 from ..ops.frame_kernel import adam_update, frame_opt_init, vae_dp_frame_train
 from ..utils.config import DpConfig
 from .eval_utils import align_idx_dp, align_tx_dp, batch_cut_weight, margin_weight_maxshift
-from .harness import Progress, pack_metrics, run_frame_loop
+from .harness import Checkpoint, Progress, pack_metrics, run_frame_loop
 from .modes import check_pallas_mode
 
 __all__ = ["run_cma_dp", "train_vae_dp", "train_vae_flex_dp"]
@@ -329,13 +329,14 @@ def _step_train(cfg, const, amps, P, var, *, use_kernel, n_steps, stride_sym, cr
 
 
 def _run_vae_experiment(cfg, gen, var, draws, train, *, steps_per_frame, params, runs, progress,
-                        snr_lin=None, var_runs=None):
+                        ckpt, snr_lin=None, var_runs=None):
     """The VAE / VAEflex frame loop for every mode: the carry is (params, Adam
     moments, global step count), so the lr schedule and bias correction
-    continue across frames; ``train(params, opt, count, rx, tx, sigma) ->
-    (params, opt, packed)`` trains and evaluates one frame of all runs;
-    ``snr_lin`` (R,) is the channel's per-run SNR, ``var_runs`` the per-run
-    demapper variance the result reports."""
+    continue across frames, and a resume (``ckpt``) restores all three;
+    ``train(params, opt, count, rx, tx, sigma) -> (params, opt, packed)``
+    trains and evaluates one frame of all runs; ``snr_lin`` (R,) is the
+    channel's per-run SNR, ``var_runs`` the per-run demapper variance the
+    result reports."""
     R = 1 if runs is None else runs
     tail = {"w": 3, "h": 4}  # w (2, 4, M), h (2, 2, 2, M), with or without a runs axis
     params = {k: v.expand((R,) + v.shape[-tail[k]:]).contiguous() for k, v in params.items()}
@@ -352,7 +353,7 @@ def _run_vae_experiment(cfg, gen, var, draws, train, *, steps_per_frame, params,
 
     (params, _, _), hist = run_frame_loop(
         frame_step, carry, (range(cfg.num_frames), _frame_inputs(cfg, var.device)), _VAE_FIELDS,
-        runs=runs, progress=progress)
+        runs=runs, progress=progress, ckpt=ckpt)
     if runs is None:
         params = {k: v[0] for k, v in params.items()}
     return _dp_result(hist, var, params=params, var_runs=var_runs)
@@ -370,11 +371,12 @@ def _raise_deferred(deferred: dict, where: str) -> None:
 
 
 def _default_draws(gen, seed: int, device, P=None):
-    """Draws from a ``torch.Generator`` seeded with ``seed``; ``P`` (R, n) a
+    """(draws, rng): draws in sequence from ``rng``, a ``torch.Generator``
+    seeded with ``seed`` (its state is part of a checkpoint); ``P`` (R, n) a
     per-run sampling pmf."""
     rng = torch.Generator(device=device)
     rng.manual_seed(seed)
-    return lambda frame, R: gen.draws(rng, R, P)
+    return (lambda frame, R: gen.draws(rng, R, P)), rng
 
 
 def _run_consts(cfg: DpConfig, const, var, runs, lr_vec, snr_vec, nu_vec, device) -> dict:
@@ -426,8 +428,8 @@ def _vae_setup(loss_type, cfg, seed, device, params_init, use_pallas, draws, run
     """What both VAE runners share: the mode and option checks (JAX's
     refusals, train/dp.py:323-331, 565-566), then (device, n_frame,
     constellation, demapper var, simulator, amps, run constants, params,
-    draws) for frames of n_frame = (n_frame_max // batch_len) * batch_len
-    symbols."""
+    draws, the default draws' generator or None) for frames of n_frame =
+    (n_frame_max // batch_len) * batch_len symbols."""
     check_pallas_mode(loss_type, use_pallas)
     _raise_deferred(deferred, _DEFERRED)
     if use_pallas and (cfg.sps != 2 or cfg.m_est % 2 == 0):
@@ -446,13 +448,14 @@ def _vae_setup(loss_type, cfg, seed, device, params_init, use_pallas, draws, run
     rc = _run_consts(cfg, const, var, runs, *vecs, device)
     params = params_init or {"w": butterfly_init(cfg.m_est, device), "h": dirac_taps_dp(cfg.m_est, device)}
     params = {k: torch.as_tensor(v, dtype=torch.float32).to(device) for k, v in params.items()}
-    draws = draws or _default_draws(gen, seed, device, rc["P_draw"])
-    return device, n_frame, const, var, gen, amps, rc, params, draws
+    rng = None
+    if draws is None:
+        draws, rng = _default_draws(gen, seed, device, rc["P_draw"])
+    return device, n_frame, const, var, gen, amps, rc, params, draws, rng
 
 
-def _deferred_options(checkpoint, checkpoint_every, mesh, compiled, chunk_frames, timings) -> dict:
+def _deferred_options(mesh, compiled, chunk_frames, timings) -> dict:
     return {
-        "checkpoint": checkpoint is not None or checkpoint_every != 0,
         "mesh": mesh is not None,
         "compiled/chunk_frames": compiled or chunk_frames != 1,
         "timings": timings is not None,
@@ -460,10 +463,10 @@ def _deferred_options(checkpoint, checkpoint_every, mesh, compiled, chunk_frames
 
 
 def _vae_runner(loss_type, cfg, seed, device, progress, runs, params_init, use_pallas, draws,
-                runs_batch, stream_bf16, vecs, deferred):
+                runs_batch, stream_bf16, vecs, deferred, checkpoint, checkpoint_every):
     """``train_vae_dp`` (batch_len windows back to back) and
     ``train_vae_flex_dp`` (windows every flex_step, central crop)."""
-    device, n_frame, const, var, gen, amps, rc, params, draws = _vae_setup(
+    device, n_frame, const, var, gen, amps, rc, params, draws, rng = _vae_setup(
         loss_type, cfg, seed, device, params_init, use_pallas, draws, runs, runs_batch, stream_bf16,
         vecs, deferred)
     bl = cfg.batch_len
@@ -484,8 +487,9 @@ def _vae_runner(loss_type, cfg, seed, device, progress, runs, params_init, use_p
                                     stream_bf16=stream_bf16, **kw)
     else:
         train = _step_train(cfg, const, amps, rc["P"], var, use_kernel=use_pallas, n_steps=n_steps, **kw)
+    ckpt = Checkpoint(checkpoint, checkpoint_every, rng, f"{loss_type} use_pallas={use_pallas!r}")
     return _run_vae_experiment(cfg, gen, var, draws, train, steps_per_frame=n_steps, params=params,
-                               runs=runs, progress=progress, snr_lin=rc["snr_lin"],
+                               runs=runs, progress=progress, ckpt=ckpt, snr_lin=rc["snr_lin"],
                                var_runs=rc["var_runs"])
 
 
@@ -518,14 +522,22 @@ def train_vae_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progress = N
     or from ``draws(frame, runs) -> (levels (R, 4, n_conv), noise (R, 2, 2,
     sig_len))`` where given (how tests feed the JAX package's draws).
 
+    ``checkpoint`` / ``checkpoint_every`` = K (JAX's contract): the state
+    after every K-th frame (params, Adam moments and step count, histories,
+    the generator's state) goes to the file ``checkpoint``, and a call that
+    finds the file resumes from it, bit for bit as the uninterrupted run
+    (``train/harness.py: Checkpoint``); a file of another mode raises
+    ``ValueError``.
+
     Returns {"ser" (..., 4, F), "mi" (..., 2, F), "var_est" (..., 2, F),
     "var" (2,), "params" {"w", "h"}} with a leading runs axis iff ``runs``,
     and "var_runs" (runs, 2), the per-run demapper variance, whenever
     ``snr_vec`` or ``nu_vec`` is set.
     """
-    deferred = _deferred_options(checkpoint, checkpoint_every, mesh, compiled, chunk_frames, timings)
+    deferred = _deferred_options(mesh, compiled, chunk_frames, timings)
     return _vae_runner("VAE", cfg, seed, device, progress, runs, params_init, use_pallas, draws,
-                       runs_batch, stream_bf16, (lr_vec, snr_vec, nu_vec), deferred)
+                       runs_batch, stream_bf16, (lr_vec, snr_vec, nu_vec), deferred, checkpoint,
+                       checkpoint_every)
 
 
 def train_vae_flex_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progress = None,
@@ -546,9 +558,10 @@ def train_vae_flex_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progres
     runs as one kernel A launch; ``False`` takes each window's gradient by
     autograd. Arguments, draws and returns as ``train_vae_dp``.
     """
-    deferred = _deferred_options(checkpoint, checkpoint_every, mesh, compiled, chunk_frames, timings)
+    deferred = _deferred_options(mesh, compiled, chunk_frames, timings)
     return _vae_runner("VAEflex", cfg, seed, device, progress, runs, params_init, use_pallas, draws,
-                       runs_batch, stream_bf16, (lr_vec, snr_vec, nu_vec), deferred)
+                       runs_batch, stream_bf16, (lr_vec, snr_vec, nu_vec), deferred, checkpoint,
+                       checkpoint_every)
 
 
 def run_cma_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progress = None,
@@ -569,7 +582,9 @@ def run_cma_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progress = Non
     kernel for a CUDA ``device`` and takes its plain version on the CPU.
     All ``runs`` go through one launch per frame, or one per group of
     ``runs_batch``. The draws come from a ``torch.Generator`` seeded with
-    ``seed``, or from ``draws(frame, R)`` as in ``train_vae_dp``.
+    ``seed``, or from ``draws(frame, R)`` as in ``train_vae_dp``;
+    ``checkpoint`` / ``checkpoint_every`` as there (the carry is the taps;
+    each frame's lr follows from its index).
     ``taps_init`` (2, 2, 2, M) or (runs, 2, 2, 2, M), numpy or torch.
 
     Returns {"ser" (..., 4, F), "mi" (..., 2, F), "var_est" (zeros,
@@ -580,7 +595,6 @@ def run_cma_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progress = Non
     _raise_deferred({
         "mesh": mesh is not None,
         "compiled/chunk_frames": compiled or chunk_frames != 1,
-        "checkpoint": checkpoint is not None or checkpoint_every != 0,
         "timings": timings is not None,
     }, _DEFERRED_CMA)
     step = cfg.batch_len if cfg.loss_type == "CMAbatch" else cfg.flex_step
@@ -604,7 +618,9 @@ def run_cma_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progress = Non
     n_frame = cfg.n_frame_max
     n_eval = n_frame - 2 * cfg.n_cut  # symbols per frame after the edge cut
     const, var, gen, amps, P = _setup(cfg, n_frame, device)
-    draws = draws or _default_draws(gen, seed, device)
+    rng = None
+    if draws is None:
+        draws, rng = _default_draws(gen, seed, device)
     h = dirac_taps_dp(cfg.m_est, device) if taps_init is None else taps_init
     if not isinstance(h, torch.Tensor):
         h = torch.from_numpy(np.array(h, np.float32))  # a copy: JAX arrays are read-only
@@ -621,7 +637,8 @@ def run_cma_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progress = Non
         packed = _finish_cma_frame(out, e, tx, sigma, const, amps, P, var, cfg.n_cut, weight_fn)
         return h, packed if runs is not None else packed[0]
 
+    ckpt = Checkpoint(checkpoint, checkpoint_every, rng, f"{cfg.loss_type} use_pallas={use_pallas!r}")
     h, hist = run_frame_loop(
         frame_step, h, (range(cfg.num_frames), _frame_inputs(cfg, device), lrs), _CMA_FIELDS,
-        runs=runs, progress=progress)
+        runs=runs, progress=progress, ckpt=ckpt)
     return _dp_result(hist, var, taps=h if runs is not None else h[0])
