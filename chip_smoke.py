@@ -126,6 +126,20 @@ per phase:
                epoch 14; (e) run_cma_awgn(num_epochs=40, runs=8), K = 10: kernel I
                in 4 segments against one launch, killed in segment 3; per
                sub-phase the save points, bytes and ms per save
+ 31. graphs    CUDA-graph replay (``compiled`` / ``chunk_frames`` /
+               ``timings``), each held to its loop mode bit for bit (max
+               abs diff 0.0): (a) the flagship, 170 frames, R = 8, loop /
+               compiled / loop / compiled walls in turns, compiled with
+               timings (compile_s, run_s) and chunk_frames = 16, B 170
+               launches counted as replays; the device's busy share over 20
+               frames, loop and replay (torch.profiler); (b) compiled with
+               timings against the loop: flagship True (A), VAEflex "frame"
+               (B), CMA (C), CMAbatch and CMAflex (D) at 12 frames, the AWGN
+               VAE-LE True (F) at its 500 epochs, the VAE-NN loop (Net) at
+               12 epochs, the AWGN CMA (I) at 120; (c) timings on the G and
+               H experiments (100 epochs): the keys, run_s at most the
+               plain run's wall, the same result; (d) eval_run_dp --quick
+               --compiled and --frames-per-call 4: every point's SER equal
 
 then the kernels' JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises (non-zero exit,
@@ -895,6 +909,217 @@ def _resume_phases(card: str) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+GRAPH_DEPTH = 12  # frames (epochs) of phase 31 (b)'s runs
+GRAPH_CHUNK = 16  # phase 31 (a)'s chunk_frames: not a divisor of 170
+GRAPH_TIMED_EPOCHS = 100  # phase 31 (c)'s G and H experiments (50 evals)
+
+
+def _device_time(fn) -> tuple:
+    """(the kernels' summed device seconds over ``fn()``, from torch.profiler
+    (CUPTI; nan where it shows none), the wall seconds)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us = 0.0
+    for ev in prof.key_averages():
+        dev_us += getattr(ev, "self_device_time_total", None) or getattr(ev, "self_cuda_time_total", 0.0)
+    return (dev_us * 1e-6 if dev_us > 0 else float("nan")), wall
+
+
+def _graph_phases(card: str) -> None:
+    """Phase 31: the loops as CUDA-graph replay (``train/harness.py``). Each
+    graph-mode run is held to its loop-mode run on the same seed, bit for bit
+    (``_max_diff`` 0.0 over every history and the final params or taps).
+    Launch counts: a capture records its kernels' launches, and each replay
+    adds them to the wrappers' counts (captured launches x replays), so
+    ``_counted`` reads a compiled run's launches as a loop's; the warm-up's
+    launches are not counted. ``timings`` runs the whole experiment 3 times
+    (3 x the launches)."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from vae_equalizer_tpu_torch.drivers import eval_run_dp
+    from vae_equalizer_tpu_torch.ops.cma_frame_kernel import cma_chunked_frame
+    from vae_equalizer_tpu_torch.ops.cma_kernel import cma_dp_kernel
+    from vae_equalizer_tpu_torch.ops.cma_siso_kernel import cma_siso_experiment
+    from vae_equalizer_tpu_torch.ops.elbo_kernel import vae_dp_loss_and_grad
+    from vae_equalizer_tpu_torch.ops.elbo_siso_kernel import vae_siso_loss_and_grad
+    from vae_equalizer_tpu_torch.ops.frame_kernel import vae_dp_frame_train
+    from vae_equalizer_tpu_torch.ops.nn_frame_kernel import vae_nn_experiment_train
+    from vae_equalizer_tpu_torch.ops.siso_frame_kernel import vae_siso_experiment_train
+    from vae_equalizer_tpu_torch.train import awgn as train_awgn
+    from vae_equalizer_tpu_torch.train import dp as train_dp
+    from vae_equalizer_tpu_torch.utils import (
+        AwgnCmaConfig,
+        AwgnVaeLeConfig,
+        AwgnVaeNnConfig,
+        DpConfig,
+    )
+
+    def same(label, got, want):
+        diff = {k: _max_diff(got[k], want[k]) for k in want}
+        if any(d != 0.0 for d in diff.values()):
+            raise AssertionError(f"31{label}: graph replay differs from the loop mode: {diff}")
+        return diff
+
+    # (a) the flagship at full width, 170 frames, R = 8: loop, compiled,
+    # loop, compiled (walls in turns), then compiled with timings and
+    # chunk_frames = 16
+    cfg, R = DpConfig(), 8
+    n_sym = cfg.n_frame_max // cfg.batch_len * cfg.batch_len
+    F = cfg.num_frames
+    flag = lambda **kw: train_dp.train_vae_dp(cfg, seed=0, device=DEVICE, use_pallas="frame",  # noqa: E731
+                                              runs=R, **kw)
+    walls = {"loop": [], "compiled": []}
+    res = {}
+    for mode in ("loop", "compiled", "loop", "compiled"):
+        res[mode], wall = _counted(vae_dp_frame_train, F, lambda mode=mode: flag(
+            compiled=mode == "compiled"))
+        walls[mode].append(wall)
+    ref = res["loop"]
+    timings = {}
+    timed, wall_t = _counted(vae_dp_frame_train, 3 * F, lambda: flag(compiled=True, timings=timings))
+    chunked, wall_k = _counted(vae_dp_frame_train, F, lambda: flag(chunk_frames=GRAPH_CHUNK))
+    diffs = {}
+    for label, got in (("compiled", res["compiled"]), ("timed", timed), ("chunked", chunked)):
+        d = same("a", got, ref)
+        diffs[label] = ",".join(f"{k}:{d[k]}" for k in ("ser", "mi", "var_est", "params"))
+    soft = float(ref["ser"][:, 2:, -20:].mean())
+    if not SER_BAND[0] <= soft <= SER_BAND[1]:
+        raise AssertionError(f"31a: last-20-frame soft SER {soft:.5f} outside {SER_BAND}")
+    if set(timings) != {"compile_s", "run_s"} or not min(timings.values()) > 0:
+        raise AssertionError(f"31a: timings {timings}")
+    # the device's busy share over 20 frames (torch.profiler): the loop's
+    # kernel time over its wall; under replay, a compiled run with timings
+    # (the warm-up's frame and 3 replays of the 20) is profiled, and its
+    # kernel time per frame is set against run_s per frame
+    f20 = 20
+    cfg20 = dataclasses.replace(cfg, num_frames=f20)
+    run20 = lambda **kw: train_dp.train_vae_dp(  # noqa: E731
+        cfg20, seed=0, device=DEVICE, use_pallas="frame", runs=R, **kw)
+    dev_loop, wall_loop20 = _device_time(run20)
+    busy_loop = dev_loop / wall_loop20
+    t20 = {}
+    dev_graph, _ = _device_time(lambda: run20(compiled=True, timings=t20))
+    dev_frame_graph = dev_graph / (3 * f20 + 1)
+    busy_graph = dev_frame_graph * f20 / t20["run_s"]
+    _line("31a graphs flagship", ok=True, runs=R, frames=F, kernel_b_launches=F,
+          max_abs_diff=repr(diffs), soft_ser_last20=f"{soft:.5f}",
+          wall_s_turns="loop:{:.3f},compiled:{:.3f},loop:{:.3f},compiled:{:.3f}".format(
+              walls["loop"][0], walls["compiled"][0], walls["loop"][1], walls["compiled"][1]),
+          frame_ms_loop=f"{1e3 * min(walls['loop']) / F:.3f}",
+          frame_ms_compiled=f"{1e3 * min(walls['compiled']) / F:.3f}",
+          compile_s=f"{timings['compile_s']:.3f}", run_s=f"{timings['run_s']:.3f}",
+          timed_wall_s=f"{wall_t:.3f}", chunk_frames=GRAPH_CHUNK, chunked_wall_s=f"{wall_k:.3f}",
+          busy_share_loop=f"{busy_loop:.3f}", busy_share_replay=f"{busy_graph:.3f}",
+          device_ms_per_frame=f"loop:{1e3 * dev_loop / f20:.3f},replay:{1e3 * dev_frame_graph:.3f}",
+          replay_ms_per_frame=f"{1e3 * timings['run_s'] / F:.3f}",
+          sym_per_s_compiled=f"{R * F * n_sym / min(walls['compiled']):.0f}", card=repr(card))
+
+    # (b) the other modes at the same widths, depth cut to GRAPH_DEPTH
+    # frames (epochs; the AWGN VAE-LE True at its full 500): compiled with
+    # timings against the loop, bit for bit; per frame (epoch) the loop's
+    # wall and the replay's run_s
+    D = GRAPH_DEPTH
+    cfg_d = dataclasses.replace(cfg, num_frames=D)
+    cases = [
+        ("VAE True (A)", vae_dp_loss_and_grad, D * (n_sym // cfg.batch_len),
+         lambda kw: train_dp.train_vae_dp(cfg_d, seed=0, device=DEVICE, use_pallas=True, runs=R,
+                                          **kw)),
+        ("VAEflex frame (B)", vae_dp_frame_train, D,
+         lambda kw: train_dp.train_vae_flex_dp(cfg_d, seed=0, device=DEVICE, use_pallas="frame",
+                                               runs=R, **kw)),
+    ]
+    for v, (mode, lr_v, _) in CMA_VARIANTS.items():
+        cfg_v = dataclasses.replace(cfg_d, loss_type=v, lr=lr_v)
+        cases.append((f"{v} ({'C' if v == 'CMA' else 'D'})",
+                      cma_dp_kernel if v == "CMA" else cma_chunked_frame, D,
+                      lambda kw, cfg_v=cfg_v, mode=mode: train_dp.run_cma_dp(
+                          cfg_v, seed=0, device=DEVICE, runs=CMA_RUNS, use_pallas=mode, **kw)))
+    cfg_le = AwgnVaeLeConfig()
+    steps_le = cfg_le.num_epochs * (cfg_le.n_train // cfg_le.batch_len)
+    cases.append(("AWGN VAE-LE True (F)", vae_siso_loss_and_grad, steps_le,
+                  lambda kw: train_awgn.train_vae_le_awgn(cfg_le, seed=0, device=DEVICE,
+                                                          runs=AWGN_RUNS, use_pallas=True, **kw)))
+    cfg_nn = dataclasses.replace(AwgnVaeNnConfig(), num_epochs=D)
+    cases.append(("AWGN VAE-NN loop (Net)", None, 0,
+                  lambda kw: train_awgn.train_vae_nn_awgn(cfg_nn, seed=0, device=DEVICE,
+                                                          runs=NN_RUNS, **kw)))
+    cfg_i = dataclasses.replace(AwgnCmaConfig(), num_epochs=10 * D)
+    cases.append(("AWGN CMA (I)", cma_siso_experiment, 1,
+                  lambda kw: train_awgn.run_cma_awgn(cfg_i, seed=0, device=DEVICE,
+                                                     runs=CMA_AWGN_RUNS, **kw)))
+    for label, kern, n, fn in cases:
+        t = {}
+        graph_fn = lambda fn=fn, t=t: fn({"compiled": True, "timings": t})  # noqa: E731
+        if kern is None:  # the plain engine: no kernel of the table is launched
+            loop, wall_l = _counted(vae_dp_frame_train, 0, lambda fn=fn: fn({}))
+            graph, wall_g = _counted(vae_dp_frame_train, 0, graph_fn)
+        else:
+            loop, wall_l = _counted(kern, n, lambda fn=fn: fn({}))
+            graph, wall_g = _counted(kern, 3 * n, graph_fn)
+        diff = same("b", graph, loop)
+        for k in ("ser", "mi"):
+            if not np.all(np.isfinite(np.asarray(loop[k]))):
+                raise AssertionError(f"31b {label}: non-finite {k}")
+        depth = cfg_le.num_epochs if "VAE-LE" in label else (10 * D if "(I)" in label else D)
+        _line("31b graphs", ok=True, path=repr(label), depth=depth,
+              launches=f"{kern.__name__}:{n}" if kern else "none",
+              max_abs_diff=max(diff.values()), loop_wall_s=f"{wall_l:.3f}",
+              compile_s=f"{t['compile_s']:.3f}", run_s=f"{t['run_s']:.3f}",
+              ms_per_step=f"loop:{1e3 * wall_l / depth:.3f},replay:{1e3 * t['run_s'] / depth:.3f}",
+              card=repr(card))
+
+    # (c) timings on the one-program G and H experiments: the keys, run_s at
+    # most the plain run's wall, the timed result equal to the plain run
+    De = GRAPH_TIMED_EPOCHS
+    for label, kern, fn in (
+            ("G", vae_siso_experiment_train, lambda **kw: train_awgn.train_vae_le_awgn(
+                dataclasses.replace(AwgnVaeLeConfig(), num_epochs=De), seed=0, device=DEVICE,
+                runs=AWGN_RUNS, use_pallas="frame", **kw)),
+            ("H", vae_nn_experiment_train, lambda **kw: train_awgn.train_vae_nn_awgn(
+                dataclasses.replace(AwgnVaeNnConfig(), num_epochs=De), seed=0, device=DEVICE,
+                runs=NN_RUNS, use_pallas="frame", **kw))):
+        plain, wall_p = _counted(kern, 1, fn)
+        t = {}
+        timed, wall_t = _counted(kern, 3, lambda fn=fn, t=t: fn(timings=t))
+        same("c", timed, plain)
+        if set(t) != {"compile_s", "run_s"} or not t["run_s"] <= wall_p:
+            raise AssertionError(f"31c {label}: timings {t}, the plain run's wall {wall_p:.3f} s")
+        _line("31c graphs timings", ok=True, kernel=label, epochs=De, compile_s=f"{t['compile_s']:.3f}",
+              run_s=f"{t['run_s']:.3f}", plain_wall_s=f"{wall_p:.3f}", max_abs_diff=0.0,
+              card=repr(card))
+
+    # (d) the Eval_run_DP driver, --quick on the card: --compiled and
+    # --frames-per-call 4 give every point's SER of the run without them
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_graphs_")
+    try:
+        sers = {}
+        for name, extra in (("loop", []), ("compiled", ["--compiled"]),
+                            ("chunked", ["--frames-per-call", "4"])):
+            out = os.path.join(tmp, name)
+            eval_run_dp.main(["--quick", "--pallas-frame", "--device", DEVICE, "--out", out, *extra])
+            (jsonl,) = [f for f in os.listdir(out) if f.endswith(".jsonl")]
+            with open(os.path.join(out, jsonl)) as f:
+                sers[name] = [json.loads(ln)["ser"] for ln in f if ln.strip()]
+        if not sers["compiled"] == sers["chunked"] == sers["loop"]:
+            raise AssertionError("31d: eval_run_dp --compiled / --frames-per-call 4 SER differs "
+                                 "from the run without the flag")
+        _line("31d graphs driver", ok=True, points=len(sers["loop"]), max_abs_diff=0.0,
+              card=repr(card))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _awgn_phases(card: str) -> list:
     """Phases 10-12: kernels F and G against their plain versions, then the
     AWGN VAE-LE path in both kernel modes, counted. Returns the kernels' JSON
@@ -1077,7 +1302,10 @@ def _all_counters() -> tuple:
 def _counted(path_kernel, n_expect: int, fn, also: tuple = ()):
     """Run fn with every launch count at 0; the path must launch path_kernel
     n_expect times, each (kernel, count) of ``also`` count times, and nothing
-    else. Returns (fn's result, wall seconds)."""
+    else. Returns (fn's result, wall seconds). A path run as CUDA-graph
+    replay (``compiled`` / ``chunk_frames``) counts the same: each replay adds
+    the launches its capture recorded (``train/harness.py: StepGraphs``),
+    i.e. captured launches x replays; the warm-up's are not counted."""
     import torch
 
     counters = _all_counters()
@@ -2312,6 +2540,7 @@ def main() -> int:
     dfe_kernels = _dfe_phases(card)
     _drivers_phase(card)
     _resume_phases(card)
+    _graph_phases(card)
 
     kernels = {"kernels": [
         {"name": "vae_dp_loss_and_grad", "route": "cuda",

@@ -6,7 +6,8 @@ against the JAX package's, and the sweeps they and ``eval_run_dp`` drive.
   same name, keys, shapes and types as JAX's own ``--quick`` run, the same
   axis values) and its JSONL; the VAE-LE and VAE-NN drivers with
   ``--pallas-frame`` (kernels G and H's plain versions on the CPU);
-* the JAX drivers' refusals and the options the runners defer;
+* the JAX drivers' refusals, ``--compiled`` (the loop's .mat) and
+  ``--checkpoint-every``;
 * ``run_sweep("CMA-AWGN", ...)``: one ``run_cma_awgn`` call per grid point
   with the iters as runs, each point from its own seed;
 * the lr and nu axes of the DP sweep batched together: one runner call for
@@ -93,12 +94,18 @@ def test_cli_refusals_equal_jaxs(capsys):
 @pytest.mark.parametrize("flag", [["--compiled"], ["--checkpoint-every", "2"]],
                          ids=["compiled", "checkpoint"])
 def test_deferred_options_raise(driver, flag, tmp_path):
-    """``--compiled`` is deferred; ``--checkpoint-every`` runs each point with
-    its state file (loop modes) and removes it when the point finishes."""
+    """``--compiled`` runs the one-program experiment (the loop modes'
+    graphs replayed) and gives the .mat of the run without it; ``--checkpoint-every``
+    runs each point with its state file (loop modes) and removes it when the
+    point finishes."""
     argv = ["--quick", "--device", "cpu", *flag, "--out", str(tmp_path)]
     if flag[0] == "--compiled":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            DRIVERS[driver][0].main(argv)
+        got = _mat(DRIVERS[driver][0].main(argv))
+        want = _mat(DRIVERS[driver][0].main(["--quick", "--device", "cpu",
+                                              "--out", str(tmp_path / "loop")]))
+        for k in got:
+            if k.startswith("SER"):
+                np.testing.assert_array_equal(got[k], want[k], err_msg=k)
         return
     DRIVERS[driver][0].main(argv)
     assert len(list(tmp_path.glob(DRIVERS[driver][4]))) == 1

@@ -1,8 +1,9 @@
 """The port's ``Eval_run_DP`` driver (``drivers/eval_run_dp.py``) against the
 JAX package's: the same .mat keys, shapes and types from a ``--quick`` run
 (the port's ``--pallas-frame`` on the CPU, i.e. kernel B's plain version;
-JAX's default mode), the same ``p.error`` refusals, and the options not
-ported yet raising NotImplementedError. Also: no module of the port imports
+JAX's default mode), the same ``p.error`` refusals, ``--sp`` (not ported
+yet) raising NotImplementedError, and ``--compiled`` / ``--frames-per-call``
+giving the loop's SER. Also: no module of the port imports
 JAX or the JAX package (a grep of its sources).
 """
 
@@ -78,9 +79,19 @@ def test_cli_refusals_equal_jaxs(argv, capsys):
 
 
 @pytest.mark.parametrize("argv", [["--sp", "2"], ["--compiled"], ["--frames-per-call", "2"]])
-def test_unported_options_raise(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        eval_run_dp.main(argv + ["--device", "cpu", "--out", "unused"])
+def test_unported_options_raise(argv, tmp_path):
+    """``--sp`` is not ported (ROADMAP.md); ``--compiled`` and
+    ``--frames-per-call K`` (CUDA-graph replay) run, every point's SER equal
+    to the run without the flag."""
+    if argv[0] == "--sp":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            eval_run_dp.main(argv + ["--device", "cpu", "--out", "unused"])
+        return
+    quick = ["--quick", "--pallas-frame", "--device", "cpu", "--no-mesh"]
+    got = _mat(eval_run_dp.main(quick + argv + ["--out", str(tmp_path / "graph")]))
+    want = _mat(eval_run_dp.main(quick + ["--out", str(tmp_path / "loop")]))
+    np.testing.assert_array_equal(got["SER"], want["SER"])
+    np.testing.assert_array_equal(got["Var_est"], want["Var_est"])
 
 
 def test_port_sources_import_no_jax():

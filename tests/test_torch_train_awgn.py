@@ -121,10 +121,19 @@ def test_frame_mode_statistically_matches_loop():
 
 
 def test_options_and_modes_raise():
+    """``mesh`` raises (deferred); ``compiled`` and ``timings`` run, the
+    loop mode's results bit for bit; bad modes and shapes raise."""
     cfg = AwgnVaeLeConfig(**SMALL)
-    for kw in ({"compiled": True}, {"mesh": object()}, {"timings": {}}):
-        with pytest.raises(NotImplementedError, match="Deferred `?train_vae_le_awgn`? options"):
-            train_vae_le_awgn(cfg, 0, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="Deferred `?train_vae_le_awgn`? options"):
+        train_vae_le_awgn(cfg, 0, device="cpu", mesh=object())
+    ref = train_vae_le_awgn(cfg, 0, device="cpu", use_pallas=True)
+    timings = {}
+    for kw in ({"compiled": True}, {"compiled": True, "timings": timings}):
+        res = train_vae_le_awgn(cfg, 0, device="cpu", use_pallas=True, **kw)
+        np.testing.assert_array_equal(res["ser"], ref["ser"])
+        np.testing.assert_array_equal(res["mi"], ref["mi"])
+        assert all(torch.equal(res["params"][k], ref["params"][k]) for k in ("w", "h"))
+    assert set(timings) == {"compile_s", "run_s"}
     for mode in (True, "frame"):
         for bad in (AwgnVaeLeConfig(**{**SMALL, "sps": 1}), AwgnVaeLeConfig(**{**SMALL, "m_est": 24})):
             with pytest.raises(ValueError, match="sps=2 and odd M_est"):

@@ -142,10 +142,20 @@ def test_vae_modes_follow_the_table():
 
 
 def test_deferred_options_and_bad_arguments_raise():
+    """``mesh`` raises (deferred, ROADMAP.md); ``compiled``, ``chunk_frames``
+    and ``timings`` run and give the loop mode's results bit for bit; bad
+    arguments raise."""
     cfg = _tiny("CMAbatch")
-    for kw in ({"mesh": object()}, {"compiled": True}, {"chunk_frames": 2}, {"timings": {}}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run_cma_dp(cfg, 0, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run_cma_dp(cfg, 0, device="cpu", mesh=object())
+    ref = run_cma_dp(cfg, 0, device="cpu", use_pallas="frame")
+    timings = {}
+    for kw in ({"compiled": True}, {"chunk_frames": 2}, {"compiled": True, "timings": timings}):
+        res = run_cma_dp(cfg, 0, device="cpu", use_pallas="frame", **kw)
+        for k in ("ser", "mi"):
+            np.testing.assert_array_equal(res[k], ref[k], err_msg=f"{kw} {k}")
+        assert torch.equal(res["taps"], ref["taps"]), kw
+    assert set(timings) == {"compile_s", "run_s"}
     with pytest.raises(ValueError, match="runs_batch"):
         run_cma_dp(cfg, 0, device="cpu", runs=4, runs_batch=3, use_pallas="frame")
     with pytest.raises(ValueError, match="CMA variant"):

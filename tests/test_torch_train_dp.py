@@ -106,12 +106,22 @@ def test_weight_conversion_checks_shapes():
 
 
 def test_deferred_options_raise():
-    """Options still deferred raise NotImplementedError naming ROADMAP.md;
-    the runs-batched kernel's options without runs raise JAX's ValueErrors."""
+    """``mesh``, still deferred, raises NotImplementedError naming ROADMAP.md;
+    ``compiled``, ``chunk_frames`` and ``timings`` run and give the loop
+    mode's results bit for bit; the runs-batched kernel's options without
+    runs raise JAX's ValueErrors."""
     cfg = DpConfig(mod="4-QAM", **SMALL)
-    for kw in ({"compiled": True}, {"chunk_frames": 2}, {"mesh": object()}, {"timings": {}}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train_vae_dp(cfg, 0, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        train_vae_dp(cfg, 0, device="cpu", mesh=object())
+    ref = train_vae_dp(cfg, 0, device="cpu")
+    timings = {}
+    for kw in ({"compiled": True}, {"chunk_frames": 2}, {"compiled": True, "timings": timings}):
+        res = train_vae_dp(cfg, 0, device="cpu", **kw)
+        for k in ("ser", "mi", "var_est"):
+            np.testing.assert_array_equal(res[k], ref[k], err_msg=f"{kw} {k}")
+        for k in ("w", "h"):
+            assert torch.equal(res["params"][k], ref["params"][k]), (kw, k)
+    assert set(timings) == {"compile_s", "run_s"} and min(timings.values()) > 0
     for kw in ({"stream_bf16": True}, {"lr_vec": [1e-3]}):
         with pytest.raises(ValueError, match=r"the runs-batched kernel \(set runs\)"):
             train_vae_dp(cfg, 0, device="cpu", use_pallas="frame", **kw)

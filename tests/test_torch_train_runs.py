@@ -154,7 +154,8 @@ def test_default_mode_is_jax_default():
     for name in ("runs_batch", "timings", "stream_bf16", "lr_vec", "snr_vec", "nu_vec"):
         assert name in inspect.signature(train_vae_dp).parameters
         assert name in inspect.signature(train_vae_flex_dp).parameters
-    with pytest.raises(NotImplementedError, match="timings"):
-        train_vae_dp(DpConfig(**SMALL), 0, device="cpu", timings={})
+    timings = {}  # compiled mode fills timings
+    train_vae_dp(DpConfig(**SMALL), 0, device="cpu", compiled=True, timings=timings)
+    assert set(timings) == {"compile_s", "run_s"} and min(timings.values()) > 0
     with pytest.raises(ValueError, match="lr_vec must have shape"):
         _run(lr_vec=[1e-3] * 3)

@@ -106,9 +106,18 @@ def test_default_init_and_raises():
     for bad in (AwgnVaeNnConfig(**{**TINY, "kernel_2": 5}), AwgnVaeNnConfig(**{**TINY, "m_est": 8})):
         with pytest.raises(ValueError, match="kernel_2=3"):
             train_vae_nn_awgn(bad, 0, device="cpu", use_pallas="frame")
-    for kw in ({"compiled": True}, {"mesh": object()}, {"timings": {}}):
-        with pytest.raises(NotImplementedError, match="Deferred train_vae_nn_awgn options"):
-            train_vae_nn_awgn(cfg, 0, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="Deferred train_vae_nn_awgn options"):
+        train_vae_nn_awgn(cfg, 0, device="cpu", mesh=object())
+    for mode in (False, "frame"):  # compiled / timings: the same results bit for bit
+        timings = {}
+        ref = train_vae_nn_awgn(cfg, 3, device="cpu", use_pallas=mode)
+        got = train_vae_nn_awgn(cfg, 3, device="cpu", use_pallas=mode, compiled=True,
+                                timings=timings)
+        np.testing.assert_array_equal(got["ser"], ref["ser"])
+        np.testing.assert_array_equal(got["mi"], ref["mi"])
+        assert all(torch.equal(got["params"]["net"][k], ref["params"]["net"][k])
+                   for k in ref["params"]["net"])
+        assert set(timings) == {"compile_s", "run_s"}
     if not torch.cuda.is_available():  # the card is the default, and nothing falls back
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train_vae_nn_awgn(cfg, 0)

@@ -157,10 +157,12 @@ def test_train_vae_flex_dp_modes_match_jax_on_jax_draws():
                                 {"nu_vec": [0.0]}, {"mesh": object()}, {"compiled": True},
                                 {"chunk_frames": 2}, {"runs_batch": 2}, {"timings": {}}])
 def test_flex_deferred_options_raise(kw, tmp_path):
-    """Options still deferred raise NotImplementedError naming ROADMAP's list;
-    the runs-batched kernel's options, misused, raise JAX's ValueErrors
-    (JAX train/dp.py:323-337, 676-677); ``checkpoint`` writes its state file,
-    and ``checkpoint_every`` without a file runs."""
+    """``mesh``, still deferred, raises NotImplementedError naming ROADMAP's
+    list; the runs-batched kernel's options, misused, raise JAX's
+    ValueErrors (JAX train/dp.py:323-337, 676-677); ``checkpoint`` writes its
+    state file, and ``checkpoint_every`` without a file runs; ``compiled``,
+    ``chunk_frames`` and ``timings`` (with ``compiled``) run and give the
+    loop mode's results bit for bit."""
     cfg = DpConfig(**FLEX)
     name = next(iter(kw))
     if name == "checkpoint":
@@ -180,6 +182,15 @@ def test_flex_deferred_options_raise(kw, tmp_path):
     elif name == "runs_batch":
         with pytest.raises(ValueError, match="runs_batch=2 must divide runs=3"):
             train_vae_flex_dp(cfg, 0, device="cpu", use_pallas="frame", runs=3, **kw)
+    elif name in ("compiled", "chunk_frames", "timings"):
+        run = lambda **o: train_vae_flex_dp(cfg, 0, device="cpu", use_pallas="frame", **o)
+        res = run(**kw, **({"compiled": True} if name == "timings" else {}))
+        ref = run()
+        for k in ("ser", "mi", "var_est"):
+            np.testing.assert_array_equal(res[k], ref[k], err_msg=k)
+        assert all(torch.equal(res["params"][k], ref["params"][k]) for k in ("w", "h"))
+        if name == "timings":
+            assert set(kw["timings"]) == {"compile_s", "run_s"}
     else:
         with pytest.raises(NotImplementedError, match="Deferred train_vae_dp / train_vae_flex_dp"):
             train_vae_flex_dp(cfg, 0, device="cpu", **kw)

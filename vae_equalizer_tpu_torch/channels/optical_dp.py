@@ -91,8 +91,10 @@ class DpSimulator:
         self._d0 = torch.complex(pmd_re, pmd_im)
         self._d1 = torch.complex(pmd_re, -pmd_im)
         e_re, e_im = np.cos(phi).astype(np.float32), (-np.sin(phi)).astype(np.float32)
-        self._e0 = complex(float(e_re[0]), float(e_im[0]))
-        self._e1 = complex(float(e_re[1]), float(e_im[1]))
+        # the static IQ phases as complex64 scalars on the device, built once: a
+        # host-to-device copy per call could not be captured in a CUDA graph
+        self._e0 = torch.complex(f32(e_re[0]), f32(e_im[0]))
+        self._e1 = torch.complex(f32(e_re[1]), f32(e_im[1]))
 
     def draws(self, gen: torch.Generator, runs: int, P=None) -> tuple[torch.Tensor, torch.Tensor]:
         """(levels (R, 4, n_conv), unit noise (R, 2, 2, sig_len)) from ``gen``;
@@ -106,8 +108,10 @@ class DpSimulator:
 
     def physics(self, theta, levels: torch.Tensor, noise: torch.Tensor, snr_lin=None):
         """Deterministic channel: (theta, levels, noise) -> (rx, tx, sigma).
-        ``snr_lin`` (R,) float32, a per-run linear SNR (the sweep's SNR axis
-        batched as runs), else the configured one."""
+        ``theta`` a float or a float32 tensor on the device (no copy: the
+        runners pass their frame's row of a device table); ``snr_lin`` (R,)
+        float32, a per-run linear SNR (the sweep's SNR axis batched as runs),
+        else the configured one."""
         R = levels.shape[0]
         sps, dev = self.sps, self.device
         d4 = levels.reshape(R, 2, 2, self.n_conv)
@@ -119,9 +123,7 @@ class DpSimulator:
 
         th = torch.as_tensor(theta, dtype=torch.float32, device=dev)
         ct, st = torch.cos(th), torch.sin(th)
-        e0 = torch.tensor(self._e0, dtype=torch.complex64, device=dev)
-        e1 = torch.tensor(self._e1, dtype=torch.complex64, device=dev)
-        d0, d1, cdz = self._d0, self._d1, self._cd
+        e0, e1, d0, d1, cdz = self._e0, self._e1, self._d0, self._d1, self._cd
         # H = R^T diag(d0, d1) R with R = [[ct e0, st e0], [-st e1, ct e1]]
         h00 = ct * e0 * d0 * ct * e0 + (-st * e0) * d1 * (-st * e1)
         h01 = ct * e0 * d0 * st * e0 + (-st * e0) * d1 * ct * e1

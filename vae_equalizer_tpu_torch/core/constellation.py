@@ -106,12 +106,27 @@ def levels_from_uniform(u: torch.Tensor, amps: np.ndarray, P: np.ndarray) -> tor
     a = torch.full(u.shape, float(amps32[0]), dtype=torch.float32, device=u.device)
     zero = torch.zeros((), dtype=torch.float32, device=u.device)
     if cum.ndim > 1:  # per run: edges (R, 1, ..., 1) against u (R, ...)
-        cum = torch.from_numpy(cum).to(u.device).reshape(cum.shape[:1] + (1,) * (u.dim() - 1) + cum.shape[1:])
+        cum = _edges_on(cum, u.device).reshape(cum.shape[:1] + (1,) * (u.dim() - 1) + cum.shape[1:])
     for lev in range(1, amps32.shape[0]):
-        step = torch.tensor(float(steps[lev - 1]), dtype=torch.float32, device=u.device)
+        # filled in on the device (no host-to-device copy, which a CUDA graph
+        # could not capture): the same float32 step
+        step = torch.full((), float(steps[lev - 1]), dtype=torch.float32, device=u.device)
         edge = float(cum[lev - 1]) if isinstance(cum, np.ndarray) else cum[..., lev - 1]
         a = a + torch.where(u >= edge, step, zero)
     return a
+
+
+_EDGES: dict = {}
+
+
+def _edges_on(cum: np.ndarray, device) -> torch.Tensor:
+    """The per-run CDF edges (R, n) float32 on ``device``, copied there once
+    per device and pmf: the draws of every later frame reuse the copy, so a
+    frame captured in a CUDA graph holds no host-to-device copy."""
+    key = (str(torch.device(device)), cum.shape, cum.tobytes())
+    if key not in _EDGES:
+        _EDGES[key] = torch.from_numpy(cum).to(device)
+    return _EDGES[key]
 
 
 def sample_levels(gen: torch.Generator, amps: np.ndarray, P: np.ndarray, shape,

@@ -22,8 +22,8 @@
 extern "C" {
 
 int cma_dp_launch(int R, int n_sym, int m, int sps, long long lp, const float* y,
-                  const float* h_in, float* h_out, float* out, float* e, float big_r, float lr2,
-                  int update, long long* clocks, void*) {
+                  const float* h_in, float* h_out, float* out, float* e, float big_r,
+                  const float* lr, int update, long long* clocks, void*) {
   if (R < 1 || n_sym < 1 || m < 1 || m > cma::MAX_M || sps < 1 ||
       lp < (long long)(n_sym - 1) * sps + m)
     return 1;  // cudaErrorInvalidValue
@@ -31,7 +31,7 @@ int cma_dp_launch(int R, int n_sym, int m, int sps, long long lp, const float* y
   for (int r = 0; r < R; ++r) {
     const cma::CArgs a = {y + (long long)r * 4 * lp, lp, n_sym, m, sps, mh - mh / sps,
                           h_in + r * 8 * m, h_out + r * 8 * m, out + (long long)r * 4 * n_sym,
-                          e + (long long)r * 2 * n_sym, big_r, lr2, update,
+                          e + (long long)r * 2 * n_sym, big_r, 2.0f * *lr, update,
                           r == 0 ? clocks : nullptr};
     if (m <= 32)
       update ? cma::cma_symbols_run<true, 1, true>(0, a) : cma::cma_symbols_run<true, 1, false>(0, a);
@@ -43,7 +43,8 @@ int cma_dp_launch(int R, int n_sym, int m, int sps, long long lp, const float* y
 
 int cma_chunked_launch(int R, int n_sym, int m, int sps, long long lp, int j0, int S, int n_full,
                        int n_slots, int tail, const float* y, const float* h_in, float* h_out,
-                       float* out, float* e, float big_r, float lr2, long long* clocks, void*) {
+                       float* out, float* e, float big_r, const float* lr, long long* clocks,
+                       void*) {
   if (R < 1 || m < 1 || m > cma::MAX_M || sps < 1 || S < 1 || n_slots < 1 || n_full < 0 ||
       tail < 1 || tail > S || j0 < n_slots * S || n_sym != j0 + n_full * S + tail ||
       lp < (long long)(n_sym - 1) * sps + m)
@@ -56,7 +57,8 @@ int cma_chunked_launch(int R, int n_sym, int m, int sps, long long lp, int j0, i
     const cma::DArgs a = {y + (long long)r * 4 * lp, lp, n_sym, m, sps, mh - mh / sps, j0, S,
                           n_full, n_slots, tail, cma::d_split(m, S), h_in + r * 8 * m,
                           h_out + r * 8 * m, out + (long long)r * 4 * n_sym,
-                          e + (long long)r * 2 * n_sym, big_r, lr2, r == 0 ? clocks : nullptr};
+                          e + (long long)r * 2 * n_sym, big_r, 2.0f * *lr,
+                          r == 0 ? clocks : nullptr};
     switch (cma::d_taps_per_lane(m)) {
       case 1: cma::chunked_block<true, 1>(smem, 0, 1, a); break;
       case 2: cma::chunked_block<true, 2>(smem, 0, 1, a); break;

@@ -30,7 +30,10 @@
 // Layouts (float32, contiguous): y (R, 4, lp) rows nu*2 + c of the
 // normalized, zero-padded signal; taps (R, 8, m) rows chi*4 + nu*2 + c
 // (= h (R, 2, 2, 2, m)); out (R, 4, n_sym) and e (R, n_sym, 2) in the
-// reference's rolled storage order. `clocks` (int64 per phase, or null): run
+// reference's rolled storage order. C and D read their learning rate from
+// device memory (one float32; the update's 2 lr is formed in the kernel, an
+// exact doubling), so a launch captured in a CUDA graph adapts each replay's
+// frame at the rate the replayed graph has looked up for it. `clocks` (int64 per phase, or null): run
 // 0's clock64() cycles per phase, summed over the frame (measurement only; a
 // launch without it runs the body compiled without clocks). Each launcher
 // returns cudaGetLastError() so the wrapper can raise on a refused launch.
@@ -40,8 +43,9 @@
 namespace {
 
 template <bool CLK, int TPL, bool UPD>
-__global__ void __launch_bounds__(32) cma_dp_kernel(cma::CArgs a) {
+__global__ void __launch_bounds__(32) cma_dp_kernel(cma::CArgs a, const float* lr) {
   const long long r = blockIdx.x;
+  a.lr2 = 2.0f * *lr;
   a.y += r * 4 * a.lp;
   a.h_in += r * 8 * a.m;
   a.h_out += r * 8 * a.m;
@@ -64,9 +68,11 @@ __global__ void __launch_bounds__(32) cma_siso_experiment_kernel(cma::IArgs a) {
 }
 
 template <bool CLK, int KA>
-__global__ void __launch_bounds__(cma::kChunkThreads, 1) cma_chunked_kernel(cma::DArgs a) {
+__global__ void __launch_bounds__(cma::kChunkThreads, 1) cma_chunked_kernel(cma::DArgs a,
+                                                                              const float* lr) {
   extern __shared__ float4 smem_d[];
   const long long r = blockIdx.x;
+  a.lr2 = 2.0f * *lr;
   a.y += r * 4 * a.lp;
   a.h_in += r * 8 * a.m;
   a.h_out += r * 8 * a.m;
@@ -89,27 +95,27 @@ cudaError_t fit_smem(K kernel, size_t bytes) {
 extern "C" {
 
 int cma_dp_launch(int R, int n_sym, int m, int sps, long long lp, const float* y,
-                  const float* h_in, float* h_out, float* out, float* e, float big_r, float lr2,
-                  int update, long long* clocks, void* stream) {
+                  const float* h_in, float* h_out, float* out, float* e, float big_r,
+                  const float* lr, int update, long long* clocks, void* stream) {
   if (R < 1 || n_sym < 1 || m < 1 || m > cma::MAX_M || sps < 1 ||
       lp < (long long)(n_sym - 1) * sps + m)
     return (int)cudaErrorInvalidValue;
   const int mh = m / 2;
   const cma::CArgs a = {y,   lp, n_sym, m,     sps,   mh - mh / sps, h_in, h_out, out,
-                        e, big_r, lr2, update, clocks};
+                        e, big_r, 0.0f, update, clocks};  // lr2 = 2 *lr, set in the kernel
   // kernels[clocks][taps per lane - 1][update]
-  static void (*const kernels[2][2][2])(cma::CArgs) = {
+  static void (*const kernels[2][2][2])(cma::CArgs, const float*) = {
       {{cma_dp_kernel<false, 1, false>, cma_dp_kernel<false, 1, true>},
        {cma_dp_kernel<false, 2, false>, cma_dp_kernel<false, 2, true>}},
       {{cma_dp_kernel<true, 1, false>, cma_dp_kernel<true, 1, true>},
        {cma_dp_kernel<true, 2, false>, cma_dp_kernel<true, 2, true>}}};
-  kernels[clocks != nullptr][m > 32][update != 0]<<<R, 32, 0, (cudaStream_t)stream>>>(a);
+  kernels[clocks != nullptr][m > 32][update != 0]<<<R, 32, 0, (cudaStream_t)stream>>>(a, lr);
   return (int)cudaGetLastError();
 }
 
 int cma_chunked_launch(int R, int n_sym, int m, int sps, long long lp, int j0, int S, int n_full,
                        int n_slots, int tail, const float* y, const float* h_in, float* h_out,
-                       float* out, float* e, float big_r, float lr2, long long* clocks,
+                       float* out, float* e, float big_r, const float* lr, long long* clocks,
                        void* stream) {
   if (R < 1 || m < 1 || m > cma::MAX_M || sps < 1 || S < 1 || n_slots < 1 || n_full < 0 ||
       tail < 1 || tail > S || j0 < n_slots * S || n_sym != j0 + n_full * S + tail ||
@@ -118,10 +124,10 @@ int cma_chunked_launch(int R, int n_sym, int m, int sps, long long lp, int j0, i
   const int mh = m / 2;
   const cma::DArgs a = {y,    lp,      n_sym, m,    sps,   mh - mh / sps,        j0,  S,
                         n_full, n_slots, tail, cma::d_split(m, S), h_in, h_out, out, e,
-                        big_r,  lr2,     clocks};
+                        big_r,  0.0f,    clocks};  // lr2 = 2 *lr, set in the kernel
   const size_t bytes = sizeof(float) * (size_t)cma::d_smem_floats(m, sps, S, n_slots);
   // kernels[clocks][log2(taps per lane in A)]
-  static void (*const kernels[2][4])(cma::DArgs) = {
+  static void (*const kernels[2][4])(cma::DArgs, const float*) = {
       {cma_chunked_kernel<false, 1>, cma_chunked_kernel<false, 2>, cma_chunked_kernel<false, 4>,
        cma_chunked_kernel<false, 8>},
       {cma_chunked_kernel<true, 1>, cma_chunked_kernel<true, 2>, cma_chunked_kernel<true, 4>,
@@ -130,7 +136,7 @@ int cma_chunked_launch(int R, int n_sym, int m, int sps, long long lp, int j0, i
   auto kernel = kernels[clocks != nullptr][ka == 1 ? 0 : ka == 2 ? 1 : ka == 4 ? 2 : 3];
   cudaError_t err = fit_smem(kernel, bytes);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<R, cma::kChunkThreads, bytes, (cudaStream_t)stream>>>(a);
+  kernel<<<R, cma::kChunkThreads, bytes, (cudaStream_t)stream>>>(a, lr);
   return (int)cudaGetLastError();
 }
 

@@ -55,7 +55,7 @@ int vae_dp_frame_launch(int R, int m_max, int n_sym, int stride_sym, int m, int 
                         float* mw_out, float* vw_out, float* mh_out, float* vh_out,
                         float* losses, float* var_est, void* out, void* dec, void* eq, float* mm,
                         float* s1, const float* amps, const float* P, const float* var,
-                        const float* nu_sc, const float* lr, long long step0,
+                        const float* nu_sc, const float* lr, const long long* step0,
                         double lr_half_step, int stream_bf16, long long* clocks, void*) {
   if (R < 1 || m_max < 1 || stride_sym < 1 ||
       n_total < 2 * ((long long)stride_sym * (m_max - 1) + n_sym))
@@ -68,13 +68,13 @@ int vae_dp_frame_launch(int R, int m_max, int n_sym, int stride_sym, int m, int 
           smem, 0, 1, r, R, m_max, n_sym, stride_sym, m, n_lev, n_total, rx, w_in, h_in, mw_in,
           vw_in, mh_in, vh_in, w_out, h_out, mw_out, vw_out, mh_out, vh_out, losses, var_est,
           static_cast<dp::bf16*>(out), static_cast<dp::bf16*>(dec), static_cast<dp::bf16*>(eq), mm,
-          s1, amps, P, var, nu_sc, lr, step0, lr_half_step, clocks);
+          s1, amps, P, var, nu_sc, lr, *step0, lr_half_step, clocks);
     else
       dp::frame_block<float, int>(
           smem, 0, 1, r, R, m_max, n_sym, stride_sym, m, n_lev, n_total, rx, w_in, h_in, mw_in,
           vw_in, mh_in, vh_in, w_out, h_out, mw_out, vw_out, mh_out, vh_out, losses, var_est,
           static_cast<float*>(out), static_cast<int*>(dec), static_cast<float*>(eq), mm, s1, amps,
-          P, var, nu_sc, lr, step0, lr_half_step, clocks);
+          P, var, nu_sc, lr, *step0, lr_half_step, clocks);
   }
   free(smem);
   return 0;

@@ -17,7 +17,9 @@
 //   its own lr, demapper variance, nu_sc and prior P (the sweep's lr / SNR /
 //   nu axes batched as runs). The out / dec / eq streams are float32 / int32,
 //   or bfloat16 with stream_bf16. The step count is an integer (step0 + mb),
-//   so no float32 step-counter limit applies.
+//   so no float32 step-counter limit applies. step0 is read from device
+//   memory (one int64), so a launch captured in a CUDA graph trains each
+//   replay's frame at the step that the replayed graph has advanced it to.
 //
 // Both run the shared step body of dp_step.cuh (its notes say what bounds a
 // step and how the design answers it), 512 threads per block. B also takes
@@ -58,7 +60,7 @@ vae_dp_frame_kernel(int R, int m_max, int n_sym, int stride_sym, int m, int n_le
                     float* vw_out, float* mh_out, float* vh_out, float* losses, float* var_est,
                     void* out, void* dec, void* eq, float* mm, float* s1, const float* amps,
                     const float* P, const float* var, const float* nu_sc, const float* lr,
-                    long long step0, double lr_half_step, long long* clocks) {
+                    const long long* step0, double lr_half_step, long long* clocks) {
   using SF = typename std::conditional<BF16, dp::bf16, float>::type;
   using SD = typename std::conditional<BF16, dp::bf16, int>::type;
   extern __shared__ __align__(16) float smem[];
@@ -66,7 +68,7 @@ vae_dp_frame_kernel(int R, int m_max, int n_sym, int stride_sym, int m, int n_le
                           m, n_lev, n_total, rx, w_in, h_in, mw_in, vw_in, mh_in, vh_in, w_out,
                           h_out, mw_out, vw_out, mh_out, vh_out, losses, var_est,
                           static_cast<SF*>(out), static_cast<SD*>(dec), static_cast<SF*>(eq), mm,
-                          s1, amps, P, var, nu_sc, lr, step0, lr_half_step, clocks);
+                          s1, amps, P, var, nu_sc, lr, *step0, lr_half_step, clocks);
 }
 
 // Dynamic shared memory for one block, with the opt-in above 48 KB.
@@ -105,7 +107,7 @@ int vae_dp_frame_launch(int R, int m_max, int n_sym, int stride_sym, int m, int 
                         float* mw_out, float* vw_out, float* mh_out, float* vh_out,
                         float* losses, float* var_est, void* out, void* dec, void* eq, float* mm,
                         float* s1, const float* amps, const float* P, const float* var,
-                        const float* nu_sc, const float* lr, long long step0,
+                        const float* nu_sc, const float* lr, const long long* step0,
                         double lr_half_step, int stream_bf16, long long* clocks, void* stream) {
   // the last window, samples [2 stride_sym (m_max - 1), + 2 n_sym), must lie in the row
   if (R < 1 || m_max < 1 || stride_sym < 1 ||

@@ -24,7 +24,9 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
                    help="accepted for the JAX CLI's sake; one card has no mesh to shard over")
     p.add_argument("--verbose", action="store_true", help="print per-frame progress")
     p.add_argument("--compiled", action="store_true",
-                   help="whole-experiment capture (not ported: CUDA-graph capture, ROADMAP.md)")
+                   help="whole-experiment run: a loop's steps captured as CUDA graphs and "
+                        "replayed back to back (the loop mode's results bit for bit; no "
+                        "per-frame progress)")
     p.add_argument("--resume", action="store_true",
                    help="reuse the newest sweep JSONL: skip finished grid points and, with "
                         "--checkpoint-every, resume the interrupted point from its state file")

@@ -7,8 +7,10 @@ driver's (Eval_run_DP.py:18-114): the algorithm is selected with
 one experiment on the card. With ``--pallas-frame --batch-lr-axis`` (or
 ``--batch-snr-axis`` / ``--batch-nu-axis``) the points of that axis run
 too as runs of one experiment: one kernel B launch per frame for the whole
-grid. ``--sp``, ``--compiled`` and ``--frames-per-call`` > 1 are not ported
-(ROADMAP.md).
+grid. ``--compiled`` runs each experiment as one CUDA graph of a frame,
+replayed over every frame; ``--frames-per-call K`` replays it K frames per
+chunk (both give the loop mode's results bit for bit, ``train/harness.py``).
+``--sp`` is not ported (ROADMAP.md: sequence parallelism).
 
     python -m vae_equalizer_tpu_torch.drivers.eval_run_dp --pallas-frame --batch-snr-axis \\
         --snr 16 17 18 19 20 21 22 23 --lr 2.5e-3
@@ -64,7 +66,8 @@ def main(argv=None):
                    help="store the frame kernel's out / dec / eq streams as bfloat16 (with "
                         "--pallas-frame + runs); mm / s1 stay float32")
     p.add_argument("--frames-per-call", type=int, default=1, metavar="K",
-                   help="K frames per call (not ported: CUDA-graph capture, ROADMAP.md)")
+                   help="K frames per call: a frame's CUDA graph replayed K times, one "
+                        "device-to-host copy and per-frame progress per chunk")
     p.add_argument("--sp", type=int, default=1,
                    help="sequence-parallel degree (not ported: ROADMAP.md, queue 1: "
                         "'Sequence parallelism')")
@@ -101,11 +104,9 @@ def main(argv=None):
                     "(the sharded step has no fused-kernel path)")
         if args.loss_type == "VAEflex" and any(b % f for b in args.batch_len for f in args.flex_step):
             p.error("--sp (VAEflex) needs batch-len divisible by flex-step")
-    for flag, is_set in (("--sp", args.sp > 1), ("--compiled", args.compiled),
-                         ("--frames-per-call", args.frames_per_call > 1)):
-        if is_set:
-            raise NotImplementedError(f"{flag}: not ported yet (ROADMAP.md: sequence parallelism "
-                                      "and CUDA-graph capture)")
+    if args.sp > 1:
+        raise NotImplementedError("--sp: not ported yet (ROADMAP.md, queue 1: 'Sequence "
+                                  "parallelism')")
 
     iters = args.iters or 5
     if args.quick:
@@ -121,12 +122,14 @@ def main(argv=None):
         args.loss_type, base, axes, iters, seed, out_dir=args.out,
         tag=f"{args.loss_type}_DP_{args.mod}", progress=make_progress(args.verbose),
         batch_lr_axis=args.batch_lr_axis, batch_snr_axis=args.batch_snr_axis,
-        batch_nu_axis=args.batch_nu_axis, device=device, **sweep_resume_kwargs(args),
+        batch_nu_axis=args.batch_nu_axis, device=device, compiled=args.compiled,
+        **sweep_resume_kwargs(args),
         runner_kwargs={
             **({"use_pallas": True} if args.pallas else {}),
             **({"use_pallas": "frame"} if args.pallas_frame else {}),
             **({"runs_batch": args.runs_batch} if args.runs_batch else {}),
             **({"stream_bf16": True} if args.stream_bf16 else {}),
+            **({"chunk_frames": args.frames_per_call} if args.frames_per_call > 1 else {}),
         } or None,
     )
     ser = assemble_mat(results, axes_values, iters, (4,))

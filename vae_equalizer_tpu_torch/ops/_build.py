@@ -35,7 +35,8 @@ import types
 
 import torch
 
-__all__ = ["CSRC", "BUILD_DIR", "build", "load", "check", "check_tensor", "stream"]
+__all__ = ["CSRC", "BUILD_DIR", "COUNTED", "build", "load", "check", "check_tensor", "counted",
+           "device_scalar", "stream"]
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
@@ -62,18 +63,20 @@ _SIGNATURES = {
         "vae_dp_step_launch": [_I, _P, _LL, _LL] + [_P] * 5 + [_F, _I, _I, _I] + [_P] * 6,
         # R, m_max, n_sym, stride_sym, m, n_lev, n_total, rx, w, h, mw, vw, mh,
         # vh (in), w, h, mw, vw, mh, vh (out), losses, var_est, out, dec, eq, mm,
-        # s1, amps, P (R, n), var (R, 2), nu_sc (R,), lr (R,), step0, lr_half_step,
-        # stream_bf16, clocks (int64 per phase, or null), stream
+        # s1, amps, P (R, n), var (R, 2), nu_sc (R,), lr (R,), step0 (one int64 on
+        # the card), lr_half_step, stream_bf16, clocks (int64 per phase, or null),
+        # stream
         "vae_dp_frame_launch": [_I] * 6 + [_LL] + [_P] * 7 + [_P] * 6 + [_P] * 7
-        + [_P] * 5 + [_LL, _D, _I, _P, _P],
+        + [_P] * 5 + [_P, _D, _I, _P, _P],
     },
     "cma": {
-        # R, n_sym, m, sps, lp, y, h_in, h_out, out, e, big_r, lr2, update, clocks
-        # (int64 per phase, or null), stream
-        "cma_dp_launch": [_I, _I, _I, _I, _LL, _P, _P, _P, _P, _P, _F, _F, _I, _P, _P],
+        # R, n_sym, m, sps, lp, y, h_in, h_out, out, e, big_r, lr (one float32 on
+        # the card), update, clocks (int64 per phase, or null), stream
+        "cma_dp_launch": [_I, _I, _I, _I, _LL, _P, _P, _P, _P, _P, _F, _P, _I, _P, _P],
         # R, n_sym, m, sps, lp, j0, S, n_full, n_slots, tail, y, h_in, h_out, out,
-        # e, big_r, lr2, clocks (int64 per phase, or null), stream
-        "cma_chunked_launch": [_I, _I, _I, _I, _LL] + [_I] * 5 + [_P] * 5 + [_F, _F, _P, _P],
+        # e, big_r, lr (one float32 on the card), clocks (int64 per phase, or
+        # null), stream
+        "cma_chunked_launch": [_I, _I, _I, _I, _LL] + [_I] * 5 + [_P] * 5 + [_F, _P, _P, _P],
         # R, n_epochs, m, sps, n_total, epe, n_evals, rx, h_in, h_out, h_ev, loss,
         # big_r, lr2, clocks (int64 per phase, or null), stream
         "cma_siso_experiment_launch": [_I] * 4 + [_LL, _I, _I] + [_P] * 5 + [_F, _F, _P, _P],
@@ -107,6 +110,19 @@ _SIGNATURES = {
         "dfe_decide_launch": [_I] * 4 + [_P] * 6,
     },
 }
+
+
+# every kernel wrapper with a launch count (``counted``): the wrapper adds one to
+# its ``launches`` where it launches its kernel; a CUDA graph that captured the
+# launch adds its captured count at each replay (``train/harness.py: StepGraphs``)
+COUNTED: list = []
+
+
+def counted(wrapper):
+    """Give a kernel wrapper its ``launches`` count (0) and list it in ``COUNTED``."""
+    wrapper.launches = 0
+    COUNTED.append(wrapper)
+    return wrapper
 
 
 def _nvcc() -> str:
@@ -185,6 +201,19 @@ def check_tensor(name: str, t, shape, device) -> None:
                          f"{t.dtype} on {t.device}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def device_scalar(name: str, v, dtype: torch.dtype, device) -> torch.Tensor:
+    """A launcher's per-call scalar as the one-element tensor on ``device`` that
+    the kernel reads by pointer. A one-element tensor is used as it is, with no
+    copy, so a launch captured in a CUDA graph reads the value that the replayed
+    step wrote there; a Python number is filled in on the device."""
+    if not torch.is_tensor(v):
+        return torch.full((1,), v, dtype=dtype, device=device)
+    if v.numel() != 1 or v.dtype != dtype or v.device != device:
+        raise ValueError(f"{name}: needs a Python number or a one-element {dtype} tensor on "
+                         f"{device}, got {tuple(v.shape)} {v.dtype} on {v.device}")
+    return v.reshape(1)
 
 
 def stream(device) -> int:

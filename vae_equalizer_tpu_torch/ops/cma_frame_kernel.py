@@ -51,8 +51,9 @@ def cma_chunked_frame(rx, R: float, h, lr, batch_len: int, symb_step: int, sps: 
     ``rx``, plain on the CPU.
 
     rx (runs, 2, 2, N) or (2, 2, N); h (runs, 2, 2, 2, M) or (2, 2, 2, M);
-    B a multiple of S. Returns (out (runs?, 2, 2, N//sps), h, e (runs?,
-    N//sps, 2)) with the reference's storage roll.
+    B a multiple of S; lr a float or a one-element float32 tensor on rx's
+    device (``cma_dp_kernel``). Returns (out (runs?, 2, 2, N//sps), h, e
+    (runs?, N//sps, 2)) with the reference's storage roll.
     """
     if not rx.is_cuda:
         return cma_chunked_frame_plain(rx, R, h, lr, batch_len, symb_step, sps)
@@ -90,13 +91,14 @@ def _launch(rx, R: float, h, lr, batch_len: int, symb_step: int, sps: int, clock
     h_out = torch.empty_like(h)
     out = torch.empty((runs, 2, 2, n_sym), dtype=torch.float32, device=dev)
     e = torch.empty((runs, n_sym, 2), dtype=torch.float32, device=dev)
+    lr = _build.device_scalar("lr", lr, torch.float32, dev)
     rc = lib.cma_chunked_launch(runs, n_sym, m, sps, lp, j0, S, n_full, B // S, tail, y.data_ptr(),
                                 h.data_ptr(), h_out.data_ptr(), out.data_ptr(), e.data_ptr(),
-                                float(R), float(2 * lr), None if clocks is None else clocks.data_ptr(),
+                                float(R), lr.data_ptr(), None if clocks is None else clocks.data_ptr(),
                                 _build.stream(dev))
     _build.check(rc, "cma_chunked_launch")
     cma_chunked_frame.launches += 1
     return out, h_out, e
 
 
-cma_chunked_frame.launches = 0
+_build.counted(cma_chunked_frame)

@@ -43,8 +43,9 @@ def cma_dp_kernel(rx, R: float, h, lr, sps: int, update: bool = True):
     """Per-symbol CMA of a frame. Kernel C on a CUDA ``rx``, plain on the CPU.
 
     rx (runs, 2, 2, N) or (2, 2, N); h (runs, 2, 2, 2, M) or (2, 2, 2, M);
-    R the CMA modulus; lr a float. Returns (out (runs?, 2, 2, N//sps), h,
-    e (runs?, N//sps, 2)) with the reference's storage roll.
+    R the CMA modulus; lr a float, or a one-element float32 tensor on rx's
+    device (how a CUDA graph feeds each frame its rate). Returns (out (runs?,
+    2, 2, N//sps), h, e (runs?, N//sps, 2)) with the reference's storage roll.
     """
     if not rx.is_cuda:
         return cma_dp_plain(rx, R, h, lr, sps, update)
@@ -77,12 +78,13 @@ def _launch(rx, R: float, h, lr, sps: int, update: bool, clocks=None):
     h_out = torch.empty_like(h)
     out = torch.empty((runs, 2, 2, n_sym), dtype=torch.float32, device=dev)
     e = torch.empty((runs, n_sym, 2), dtype=torch.float32, device=dev)
+    lr = _build.device_scalar("lr", lr, torch.float32, dev)
     rc = lib.cma_dp_launch(runs, n_sym, m, sps, lp, y.data_ptr(), h.data_ptr(), h_out.data_ptr(),
-                           out.data_ptr(), e.data_ptr(), float(R), float(2 * lr), int(update),
+                           out.data_ptr(), e.data_ptr(), float(R), lr.data_ptr(), int(update),
                            None if clocks is None else clocks.data_ptr(), _build.stream(dev))
     _build.check(rc, "cma_dp_launch")
     cma_dp_kernel.launches += 1
     return out, h_out, e
 
 
-cma_dp_kernel.launches = 0
+_build.counted(cma_dp_kernel)

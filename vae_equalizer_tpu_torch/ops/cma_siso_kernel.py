@@ -107,4 +107,4 @@ def _launch(rx_epochs, h, R: float, lr: float, sps: int, epe: int, clocks=None):
     return h_out, h_ev, loss
 
 
-cma_siso_experiment.launches = 0
+_build.counted(cma_siso_experiment)

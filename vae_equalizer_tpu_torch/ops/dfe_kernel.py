@@ -103,4 +103,4 @@ def _launch(ff_out, fb, points, init_idx):
     return idx
 
 
-dfe_decide.launches = 0
+_build.counted(dfe_decide)

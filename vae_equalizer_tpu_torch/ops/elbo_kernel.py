@@ -201,7 +201,7 @@ def _launch(w, h, x, amps, var, nu_sc: float, P):
     return stats[..., 0], stats[..., 1:3], gw, gh, q, out
 
 
-vae_dp_loss_and_grad.launches = 0
+_build.counted(vae_dp_loss_and_grad)
 
 
 class VaeDpLoss(torch.autograd.Function):

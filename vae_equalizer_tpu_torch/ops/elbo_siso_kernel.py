@@ -186,4 +186,4 @@ def _launch(w, h, x, amps, amp_mean: float, var: float, P, clocks=None):
     return loss, gw, gh, q, out
 
 
-vae_siso_loss_and_grad.launches = 0
+_build.counted(vae_siso_loss_and_grad)

@@ -56,8 +56,8 @@ import torch
 from . import _build
 from .elbo_kernel import dp_step_plain
 
-__all__ = ["CLOCK_PHASES", "adam_update", "frame_clocks", "frame_opt_init", "vae_dp_frame_train",
-           "vae_dp_frame_train_plain"]
+__all__ = ["CLOCK_PHASES", "adam_schedule", "adam_update", "frame_clocks", "frame_opt_init",
+           "vae_dp_frame_train", "vae_dp_frame_train_plain"]
 
 # kernel B's step phases, in the order of csrc/dp_step.cuh: enum Phase
 CLOCK_PHASES = ("forward", "demap", "D/S/C", "scalars", "gout", "gw/gh", "Adam/streams/x")
@@ -75,18 +75,36 @@ def frame_opt_init(params: dict) -> dict:
     }
 
 
-def adam_update(params: dict, opt: dict, grads: dict, lr, step: int,
+def adam_schedule(n_steps: int, lr_half_step: float, device) -> torch.Tensor:
+    """Adam's per-step scalars of global steps 0 .. n_steps - 1 as a float32
+    table (n_steps, 3) on ``device``: the bias corrections 1 - b1^t and
+    1 - b2^t (t = step + 1) and w's lr factor (0.5 from ``lr_half_step`` on,
+    else 1), each folded in float64 on the host as ``adam_update`` folds an
+    int step, then rounded to float32. Row ``step`` is that step's device
+    form: a CUDA graph reads it by a step count on the card, where an int
+    step would be frozen into the capture."""
+    rows = [(1.0 - _B1 ** (s + 1), 1.0 - _B2 ** (s + 1), 0.5 if s >= lr_half_step else 1.0)
+            for s in range(n_steps)]
+    return torch.tensor(rows, dtype=torch.float32, device=device)
+
+
+def adam_update(params: dict, opt: dict, grads: dict, lr, step,
                 lr_half_step: float = float("inf")) -> tuple[dict, dict]:
     """One Adam update of {"w", "h"} at global step ``step`` with optax
     semantics (b1 .9, b2 .999, eps 1e-8 outside the sqrt, bias correction
     with t = step + 1); w's lr halves once ``step`` reaches ``lr_half_step``,
-    h keeps the base lr (JAX ``train/dp.py: _vae_optimizer``). ``lr`` is a
-    float, or a float32 tensor (R,) of per-run rates over the params' leading
-    runs axis. Moments {"mw","vw","mh","vh"} as ``frame_opt_init``. Returns
-    (params', opt')."""
-    bc1 = 1.0 - _B1 ** (step + 1)
-    bc2 = 1.0 - _B2 ** (step + 1)
-    lr_w = lr * (0.5 if step >= lr_half_step else 1.0)
+    h keeps the base lr (JAX ``train/dp.py: _vae_optimizer``). ``step`` is an
+    int, or its row (3,) of ``adam_schedule`` (whose table already holds the
+    halving; ``lr_half_step`` is then unused). ``lr`` is a float, or a float32
+    tensor (R,) of per-run rates over the params' leading runs axis. Moments
+    {"mw","vw","mh","vh"} as ``frame_opt_init``. Returns (params', opt')."""
+    if torch.is_tensor(step):
+        bc1, bc2, half = step.unbind(-1)
+        lr_w = lr * half
+    else:
+        bc1 = 1.0 - _B1 ** (step + 1)
+        bc2 = 1.0 - _B2 ** (step + 1)
+        lr_w = lr * (0.5 if step >= lr_half_step else 1.0)
     new_p, new_o = {}, {}
     for k, lr_k in (("w", lr_w), ("h", lr)):
         if torch.is_tensor(lr_k):  # per run: over the leading runs axis
@@ -126,7 +144,7 @@ def _windows(n_total: int, bl_sym: int, stride_sym: int | None) -> tuple[int, in
     return (n_total // 2 - bl_sym) // stride_sym, stride_sym
 
 
-def vae_dp_frame_train_plain(w, h, opt, rx, amps, var, nu_sc, P, lr, step0: int,
+def vae_dp_frame_train_plain(w, h, opt, rx, amps, var, nu_sc, P, lr, step0,
                              lr_half_step: float, *, bl_sym: int, stride_sym: int | None = None,
                              stream_bf16: bool = False):
     """Plain version of kernel B (same arguments and returns as
@@ -148,7 +166,7 @@ def vae_dp_frame_train_plain(w, h, opt, rx, amps, var, nu_sc, P, lr, step0: int,
             s["dec"].to(ddt), s["eq"][..., 0, :].to(sdt), s["mm"], s["s1"])
 
 
-def vae_dp_frame_train(w, h, opt, rx, amps, var, nu_sc, P, lr, step0: int,
+def vae_dp_frame_train(w, h, opt, rx, amps, var, nu_sc, P, lr, step0,
                        lr_half_step: float, *, bl_sym: int, stride_sym: int | None = None,
                        stream_bf16: bool = False):
     """Train one frame of R runs. Kernel B on a CUDA ``rx``, plain on the CPU.
@@ -157,7 +175,10 @@ def vae_dp_frame_train(w, h, opt, rx, amps, var, nu_sc, P, lr, step0: int,
     shapes; rx (R, 2, 2, Nsamp); amps (n,); the run constants shared or per
     run (module docstring): lr a float or (R,), var (2,) or (R, 2), nu_sc a
     float or (R,), P (n,) or (R, n), tensors on rx's device; step0 = global
-    step of the frame's first minibatch. Minibatches: m_max = Nsamp // (2
+    step of the frame's first minibatch, an int or a one-element int64
+    tensor on rx's device (the kernel reads it from device memory, so a
+    launch captured in a CUDA graph takes each replay's step from the
+    counter the graph advances). Minibatches: m_max = Nsamp // (2
     bl_sym) back-to-back windows, or with ``stride_sym`` (a divisor of
     bl_sym; VAEflex) m_max = (Nsamp / 2 - bl_sym) // stride_sym windows of
     bl_sym symbols starting every stride_sym symbols.
@@ -219,6 +240,7 @@ def _launch(w, h, opt, rx, amps, var, nu_sc, P, lr, step0, lr_half_step, bl_sym,
         _build.check_tensor(name, t, shape, dev)
     consts = (_per_run("P", P, R, (n_lev,), dev), _per_run("var", var, R, (2,), dev),
               _per_run("nu_sc", nu_sc, R, (), dev), _per_run("lr", lr, R, (), dev))
+    step0 = _build.device_scalar("step0", step0, torch.int64, dev)
     lib = _build.load()
     f32 = dict(dtype=torch.float32, device=dev)
     sdt, ddt = (torch.bfloat16, torch.bfloat16) if stream_bf16 else (torch.float32, torch.int32)
@@ -235,7 +257,7 @@ def _launch(w, h, opt, rx, amps, var, nu_sc, P, lr, step0, lr_half_step, bl_sym,
             dec, eq, mm, s1)
     rc = lib.vae_dp_frame_launch(
         R, m_max, n_sym, fs, m, n_lev, n_total, *(t.data_ptr() for t in ins + outs), amps.data_ptr(),
-        *(t.data_ptr() for t in consts), int(step0), float(lr_half_step), int(bool(stream_bf16)),
+        *(t.data_ptr() for t in consts), step0.data_ptr(), float(lr_half_step), int(bool(stream_bf16)),
         None if clocks is None else clocks.data_ptr(), _build.stream(dev))
     _build.check(rc, "vae_dp_frame_launch")
     vae_dp_frame_train.launches += 1
@@ -243,4 +265,4 @@ def _launch(w, h, opt, rx, amps, var, nu_sc, P, lr, step0, lr_half_step, bl_sym,
     return new["w"], new["h"], opt_new, losses, var_est, out, dec, eq, mm, s1
 
 
-vae_dp_frame_train.launches = 0
+_build.counted(vae_dp_frame_train)

@@ -131,9 +131,11 @@ def nn_step_plain(w1f, w2f, h, bnp, rs, x, amps, momentum: float, k1: int, batch
 
 def vae_nn_experiment_train_plain(w1f, w2f, h, opt, rx_epochs, amps, lr: float, bn=None,
                                   momentum: float = 0.1, *, bl_sym: int, n_batches: int, epe: int,
-                                  k1: int, step0: int = 0):
+                                  k1: int, step0: int = 0, bias=None):
     """Plain version of kernel H (same arguments and returns as
-    ``vae_nn_experiment_train``)."""
+    ``vae_nn_experiment_train``); ``bias`` (E n_batches, 2), rows of
+    ``amsgrad_schedule``, gives the steps' bias corrections in place of
+    ``step0`` (the device form the loop mode's CUDA graph reads)."""
     n_epochs = rx_epochs.shape[1]
     n_evals = n_epochs // epe
     n_samp = 2 * bl_sym
@@ -156,7 +158,7 @@ def vae_nn_experiment_train_plain(w1f, w2f, h, opt, rx_epochs, amps, lr: float, 
             loss, *g, rs = nn_step_plain(p["1"], p["2"], p["h"], p["b"], rs, x, amps, momentum, k1,
                                          batchnorm)
             losses.append(loss)
-            step = step0 + e * n_batches + b
+            step = step0 + e * n_batches + b if bias is None else bias[e * n_batches + b]
             for k in keys:
                 p[k], mom["m" + k], mom["v" + k], mom["x" + k] = amsgrad(
                     p[k], mom["m" + k], mom["v" + k], mom["x" + k], g["12hb".index(k)], lr, step)
@@ -247,4 +249,4 @@ def _launch(w1f, w2f, h, opt, rx_epochs, amps, lr, bn, momentum, *, bl_sym, n_ba
     return (*new[:5], opt_new, losses, *evs)
 
 
-vae_nn_experiment_train.launches = 0
+_build.counted(vae_nn_experiment_train)

@@ -47,6 +47,7 @@ from .elbo_siso_kernel import SISO_CLOCK_PHASES, siso_step_plain
 
 __all__ = [
     "amsgrad",
+    "amsgrad_schedule",
     "siso_clocks",
     "siso_frame_opt_init",
     "vae_siso_experiment_train",
@@ -65,11 +66,25 @@ def siso_frame_opt_init(params: dict) -> dict:
     return {k: torch.zeros_like(params["w" if k[1] == "w" else "h"]) for k in _MOMENTS}
 
 
-def amsgrad(p, mu, nu, nu_max, g, lr: float, step: int):
-    """One optax.amsgrad update at global step ``step`` (t = step + 1):
-    returns (p', mu', nu', nu_max'). Op for op as the kernel's."""
-    bc1 = 1.0 - _B1 ** (step + 1)
-    bc2 = 1.0 - _B2 ** (step + 1)
+def amsgrad_schedule(n_steps: int, device) -> torch.Tensor:
+    """AMSGrad's bias corrections 1 - b1^t, 1 - b2^t (t = step + 1) of global
+    steps 0 .. n_steps - 1 as a float32 table (n_steps, 2) on ``device``,
+    folded in float64 on the host as ``amsgrad`` folds an int step: row
+    ``step`` is that step's device form, read by a step count on the card
+    under a CUDA graph."""
+    rows = [(1.0 - _B1 ** (s + 1), 1.0 - _B2 ** (s + 1)) for s in range(n_steps)]
+    return torch.tensor(rows, dtype=torch.float32, device=device)
+
+
+def amsgrad(p, mu, nu, nu_max, g, lr: float, step):
+    """One optax.amsgrad update at global step ``step`` (t = step + 1), an
+    int or its row (2,) of ``amsgrad_schedule``: returns (p', mu', nu',
+    nu_max'). Op for op as the kernel's."""
+    if torch.is_tensor(step):
+        bc1, bc2 = step.unbind(-1)
+    else:
+        bc1 = 1.0 - _B1 ** (step + 1)
+        bc2 = 1.0 - _B2 ** (step + 1)
     mu = _B1 * mu + (1 - _B1) * g
     nu = _B2 * nu + (1 - _B2) * g * g
     nu_max = torch.maximum(nu_max, nu / bc2)
@@ -168,4 +183,4 @@ def _launch(w, h, opt, rx_epochs, amps, amp_mean, var, P, lr, bl_sym, n_batches,
     return new["w"], new["h"], {k: new[k] for k in _MOMENTS}, losses, w_ev, h_ev
 
 
-vae_siso_experiment_train.launches = 0
+_build.counted(vae_siso_experiment_train)

@@ -36,6 +36,18 @@ plain version on the CPU. Every mode shares one AMSGrad (optax semantics,
 ``device="cpu"`` runs the plain versions. The loop modes and the CMA
 experiment take JAX's ``checkpoint`` / ``checkpoint_every`` (``harness.py:
 Checkpoint``); the VAE runners' frame mode refuses them, as in JAX.
+
+``compiled=True`` (JAX's one-program experiment): a loop mode captures its
+training epoch and its eval as two CUDA graphs (``harness.py:
+StepGraphs``) and replays them over the experiment back to back, each
+superstep [train epoch, eval, train x (epe - 1)], the trailing partial block
+trained without an eval as the loop mode trains it, with one device-to-host
+copy at the end: the loop mode's results bit for bit. The frame modes and
+the CMA experiment are one program already and run as they do. ``timings``
+(a dict): "compile_s" and "run_s" (the best of 3 whole experiments from the
+same state and draws): for the loop modes under ``compiled``, the warm-up
+and capture, then the replays; for the one-program experiments, the build
+and a warm-up run, then the runs.
 """
 
 from __future__ import annotations
@@ -71,10 +83,15 @@ from ..ops.nn_frame_kernel import (
     vae_nn_experiment_train,
     vae_nn_experiment_train_plain,
 )
-from ..ops.siso_frame_kernel import amsgrad, siso_frame_opt_init, vae_siso_experiment_train
+from ..ops.siso_frame_kernel import (
+    amsgrad,
+    amsgrad_schedule,
+    siso_frame_opt_init,
+    vae_siso_experiment_train,
+)
 from ..utils.config import AwgnCmaConfig, AwgnVaeLeConfig, AwgnVaeNnConfig
 from .eval_utils import margin_weight, roll_time
-from .harness import Checkpoint, Progress
+from .harness import Checkpoint, Progress, StepGraphs, _leaves, _rebuild, table_rows
 
 __all__ = ["run_cma_awgn", "train_vae_le_awgn", "train_vae_nn_awgn"]
 
@@ -85,6 +102,11 @@ _EVAL_BATCH = 100
 _DEFERRED = "not ported yet (ROADMAP.md, queue 1: 'Deferred train_vae_le_awgn options')"
 _DEFERRED_NN = "not ported yet (ROADMAP.md, queue 1: 'Deferred train_vae_nn_awgn options')"
 _DEFERRED_CMA = "not ported yet (ROADMAP.md, queue 1: 'Deferred run_cma_awgn options')"
+
+
+def _refuse_mesh(mesh, where: str) -> None:
+    if mesh is not None:
+        raise NotImplementedError(f"mesh: {where}")
 
 
 def _setup(cfg, device, fixed_noise: bool = False):
@@ -127,50 +149,119 @@ def _evaluate(cfg, w, valid_draws, sim, const, amps, P, var) -> torch.Tensor:
 
 
 def _run_epochs(cfg, epoch_step, eval_step, carry, R: int, progress: Progress,
-                ckpt: Checkpoint):
-    """Loop mode (JAX ``_run_epochs``): ``epoch_step(carry, epoch) -> (carry,
-    loss)`` trains one epoch; after epoch k*epe, ``eval_step(carry, k) ->
-    (R, 3)`` evaluates. ``ckpt`` resumes from its file and saves after every
-    K-th epoch, after that epoch's eval and ``progress`` (JAX's order): the
-    train and valid draws share one generator, so its state is taken past
-    the eval's draw. Returns (carry, packed (R, n_evals, 3))."""
-    n_evals = cfg.num_epochs // cfg.epe
+                ckpt: Checkpoint, draws=None, compiled: bool = False, timings: dict | None = None):
+    """JAX ``_run_epochs``: ``epoch_step(carry, epoch, *drawn) -> (carry, loss
+    (R,))`` trains one epoch (``epoch`` the epoch counter on the device);
+    after epoch k*epe, ``eval_step(carry, *drawn) -> (R, 3)`` evaluates.
+    ``drawn`` is the caller's ``draws("train", epoch, R)`` / ``draws("valid",
+    k, R)`` where given, else empty (the steps draw from ``ckpt.rng``).
+
+    Loop mode: ``ckpt`` resumes from its file and saves after every K-th
+    epoch, after that epoch's eval and ``progress`` (JAX's order): the train
+    and valid draws share one generator, so its state is taken past the
+    eval's draw. ``compiled``: both steps are captured as CUDA graphs and
+    replayed in the loop mode's order (module docstring; ``progress`` and
+    ``ckpt`` unused, ``timings`` filled), the caller's draws stacked up front
+    and read by the counters. Returns (carry, packed (R, n_evals, 3))."""
+    E, epe = cfg.num_epochs, cfg.epe
+    n_evals = E // epe
     hist = {"packed": np.zeros((R, n_evals, len(_EVAL_NAMES)), np.float32)}
-    start, carry = ckpt.resume(carry, hist)
-    packed = hist["packed"]
-    for epoch in range(start, cfg.num_epochs):
-        carry, loss = epoch_step(carry, epoch)
-        if epoch % cfg.epe == 0 and epoch // cfg.epe < n_evals:
-            i = epoch // cfg.epe
-            packed[:, i] = eval_step(carry, i).cpu().numpy()  # one device-to-host copy per eval
-            if progress:
-                progress(epoch, {"loss": loss.cpu().numpy(),
-                                 **{n: packed[:, i, j] for j, n in enumerate(_EVAL_NAMES)}})
-        if ckpt.due(epoch + 1, cfg.num_epochs):
-            ckpt.save(epoch + 1, carry, hist)
-    return carry, packed
+    start, carry = (0, carry) if compiled else ckpt.resume(carry, hist)
+    leaves = [leaf.clone() for leaf in _leaves(carry)]
+    static = _rebuild(carry, iter(leaves))
+    dev = leaves[0].device
+    e_t = torch.full((1,), start, dtype=torch.int64, device=dev)
+    tables = {"train": (), "valid": ()}
+    if compiled and draws is not None:
+        for kind, n in (("train", E), ("valid", n_evals)):
+            tables[kind] = tuple(torch.stack(c) for c in zip(*(draws(kind, i, R) for i in range(n))))
+    buf: dict = {}
+
+    def train(epoch=None):
+        drawn = draws("train", epoch, R) if epoch is not None and draws else table_rows(
+            tables["train"], e_t)
+        new, buf["loss"] = epoch_step(static, e_t, *drawn)
+        for s, v in zip(leaves, _leaves(new)):
+            s.copy_(v)
+        e_t.add_(1)
+
+    def evaluate(i=None):
+        slot = torch.div(e_t - 1, epe, rounding_mode="floor")  # eval k follows epoch k*epe
+        drawn = draws("valid", i, R) if i is not None and draws else table_rows(tables["valid"], slot)
+        packed = eval_step(static, *drawn)
+        if "hist" not in buf:
+            buf["hist"] = torch.zeros((n_evals,) + tuple(packed.shape), dtype=torch.float32,
+                                      device=dev)
+        buf["hist"].index_copy_(0, slot, packed[None])
+
+    def evals_after(epoch: int) -> bool:
+        return epoch % epe == 0 and epoch // epe < n_evals
+
+    if not compiled:
+        for epoch in range(start, E):
+            train(epoch)
+            if evals_after(epoch):
+                i = epoch // epe
+                evaluate(i)
+                hist["packed"][:, i] = buf["hist"][i].cpu().numpy()  # one copy per eval
+                if progress:
+                    progress(epoch, {"loss": buf["loss"].cpu().numpy(),
+                                     **{n: hist["packed"][:, i, j] for j, n in enumerate(_EVAL_NAMES)}})
+            if ckpt.due(epoch + 1, E):
+                ckpt.save(epoch + 1, static, hist)
+        return static, hist["packed"]
+
+    graphs = StepGraphs({"train": train, "eval": evaluate}, leaves + [e_t], ckpt.rng, dev, graph=True)
+    graphs.build(timings)
+
+    def run_all():
+        for epoch in range(E):
+            graphs.run("train")
+            if evals_after(epoch):
+                graphs.run("eval")
+
+    graphs.timed(run_all, timings)
+    return static, buf["hist"].movedim(0, 1).cpu().numpy()  # one device-to-host copy
 
 
-def _vae_le_epoch(cfg, step_fn, draws, sim, R: int):
-    """One VAE-LE epoch of the loop mode: a training frame and its minibatch
-    steps (``step_fn(w, h, x) -> (loss, gw, gh)`` + AMSGrad with a global
-    step count) over the carry ({"w", "h"}, AMSGrad moments, step)."""
+def _vae_le_epoch(cfg, step_fn, sim, rng, R: int):
+    """One VAE-LE epoch of the loop modes: a training frame (the caller's
+    draws, or drawn from ``rng``) and its minibatch steps (``step_fn(w, h,
+    x) -> (loss, gw, gh)`` + AMSGrad at the global step in the carry, its
+    bias corrections read from ``amsgrad_schedule``'s table by that count on
+    the device) over the carry ({"w", "h"}, AMSGrad moments, step)."""
     n_batches = cfg.n_train // cfg.batch_len
     mb_len = cfg.batch_len * cfg.sps
+    dev = sim.device
+    sched = amsgrad_schedule(cfg.num_epochs * n_batches, dev)
+    offsets = torch.arange(n_batches, device=dev)
 
-    def epoch_step(carry, epoch):
+    def epoch_step(carry, epoch, *drawn):
         params, opt, step = carry
         w, h = params["w"], params["h"]
         mw, vw, xw, mh, vh, xh = (opt[k] for k in ("mw", "vw", "xw", "mh", "vh", "xh"))
-        rx, _, _ = sim.physics(*draws("train", epoch, R))
+        rx, _, _ = sim.physics(*(drawn or sim.draws(rng, R)))
+        scalars = sched.index_select(0, step + offsets)  # (n_batches, 2): this epoch's steps
         for b in range(n_batches):
             loss, gw, gh = step_fn(w, h, rx[..., b * mb_len : (b + 1) * mb_len].contiguous())
-            w, mw, vw, xw = amsgrad(w, mw, vw, xw, gw, cfg.lr, step)
-            h, mh, vh, xh = amsgrad(h, mh, vh, xh, gh, cfg.lr, step)
-            step += 1
+            w, mw, vw, xw = amsgrad(w, mw, vw, xw, gw, cfg.lr, scalars[b])
+            h, mh, vh, xh = amsgrad(h, mh, vh, xh, gh, cfg.lr, scalars[b])
         opt = dict(zip(("mw", "vw", "xw", "mh", "vh", "xh"), (mw, vw, xw, mh, vh, xh)))
-        return ({"w": w, "h": h}, opt, step), loss
+        return ({"w": w, "h": h}, opt, step + n_batches), loss
     return epoch_step
+
+
+def _one_program(run, rng, device, timings: dict | None):
+    """``run()`` once, or with ``timings`` timed as JAX times a one-program
+    experiment (``StepGraphs`` with one step and no graph): "compile_s" the
+    kernels' build and a warm-up run (its draws and launches put back),
+    "run_s" the best of 3 runs, each from the same generator state; returns
+    the last run's result."""
+    if timings is None:
+        return run()
+    program = StepGraphs({"run": run}, [], rng, device, graph=False)
+    program.build(timings)
+    return program.timed(run, timings)
 
 
 def _frame_train_data(sim, draws, R: int, n_epochs: int) -> torch.Tensor:
@@ -212,7 +303,8 @@ def _frame_evals(cfg, w_ev, draws, sim, const, amps, P, var) -> np.ndarray:
 
 def _default_draws(sims, seed: int, device):
     """(draws, rng): the train and valid draws in sequence from one
-    ``torch.Generator`` seeded with ``seed`` (its state is part of a checkpoint)."""
+    ``torch.Generator`` seeded with ``seed`` (its state is part of a
+    checkpoint, and a CUDA graph registers it)."""
     rng = torch.Generator(device=device)
     rng.manual_seed(seed)
     return (lambda kind, index, R: sims[kind].draws(rng, R)), rng
@@ -247,15 +339,14 @@ def train_vae_le_awgn(cfg: AwgnVaeLeConfig, seed: int, device="cuda", progress: 
     the evals so far and the generator's state, taken after the epoch's
     eval) goes to the file ``checkpoint``, and a call that finds the file
     resumes from it, bit for bit as the uninterrupted run; frame mode
-    refuses a checkpoint with JAX's ``ValueError``.
+    refuses a checkpoint with JAX's ``ValueError``. ``compiled`` /
+    ``timings``: the module docstring (the loop modes replay CUDA graphs, the
+    frame mode is one program).
 
     Returns {"ser" (..., n_evals), "mi" (..., n_evals), "params" {"w"
     (..., 1, 2, M), "h" (..., 2, M)}} with a leading runs axis iff ``runs``.
     """
-    for name, is_set in {"compiled": compiled, "mesh": mesh is not None,
-                         "timings": timings is not None}.items():
-        if is_set:
-            raise NotImplementedError(f"{name}: {_DEFERRED}")
+    _refuse_mesh(mesh, _DEFERRED)
     if use_pallas not in (False, True, "frame"):
         raise ValueError(f"use_pallas={use_pallas!r}: expected False, True or 'frame'")
     if use_pallas and (cfg.sps != 2 or cfg.m_est % 2 == 0):
@@ -265,7 +356,7 @@ def train_vae_le_awgn(cfg: AwgnVaeLeConfig, seed: int, device="cuda", progress: 
     device = resolve_device(device)
     R = 1 if runs is None else runs
     const, sims, amps, P, var = _setup(cfg, device)
-    rng = None
+    caller_draws, rng = draws, None
     if draws is None:
         draws, rng = _default_draws(sims, seed, device)
     params = params_init or {"w": siso_fir_init(cfg.m_est), "h": dirac_taps_siso(cfg.m_est)}
@@ -275,9 +366,13 @@ def train_vae_le_awgn(cfg: AwgnVaeLeConfig, seed: int, device="cuda", progress: 
         rb = runs_batch or R
         if R % rb != 0:
             raise ValueError(f"runs_batch={rb} must divide runs={R}")
-        rx_epochs = _frame_train_data(sims["train"], draws, R, cfg.num_epochs)
-        params, w_ev = _frame_train(cfg, params, rx_epochs, amps, P, var, const.amp_mean, rb)
-        packed = _frame_evals(cfg, w_ev, draws, sims["valid"], const, amps, P, var)
+
+        def experiment():
+            rx_epochs = _frame_train_data(sims["train"], draws, R, cfg.num_epochs)
+            p, w_ev = _frame_train(cfg, params, rx_epochs, amps, P, var, const.amp_mean, rb)
+            return p, _frame_evals(cfg, w_ev, draws, sims["valid"], const, amps, P, var)
+
+        params, packed = _one_program(experiment, rng, device, timings)
     else:
         if use_pallas:
             def step_fn(w, h, x):
@@ -290,11 +385,13 @@ def train_vae_le_awgn(cfg: AwgnVaeLeConfig, seed: int, device="cuda", progress: 
                 gw, gh = torch.autograd.grad(loss.sum(), (w_, h_))
                 return loss.detach(), gw, gh
         ckpt = Checkpoint(checkpoint, checkpoint_every, rng, f"VAE-LE use_pallas={use_pallas!r}")
+        step0 = torch.zeros((1,), dtype=torch.int64, device=device)
         (params, _, _), packed = _run_epochs(
-            cfg, _vae_le_epoch(cfg, step_fn, draws, sims["train"], R),
-            lambda c, i: _evaluate(cfg, c[0]["w"], draws("valid", i, R), sims["valid"], const, amps,
-                                   P, var),
-            (params, siso_frame_opt_init(params), 0), R, progress, ckpt)
+            cfg, _vae_le_epoch(cfg, step_fn, sims["train"], rng, R),
+            lambda c, *drawn: _evaluate(cfg, c[0]["w"], drawn or sims["valid"].draws(rng, R),
+                                        sims["valid"], const, amps, P, var),
+            (params, siso_frame_opt_init(params), step0), R, progress, ckpt, caller_draws, compiled,
+            timings)
 
     if runs is None:
         packed = packed[0]
@@ -334,15 +431,12 @@ def train_vae_nn_awgn(cfg: AwgnVaeNnConfig, seed: int, device="cuda", progress: 
     loop-mode eval. ``checkpoint`` / ``checkpoint_every`` as in
     ``train_vae_le_awgn`` (the loop mode's carry: W1', W2', h, the BN
     parameters and running statistics, the AMSGrad moments; the step
-    follows from the epoch).
+    follows from the epoch); ``compiled`` / ``timings`` as there.
 
     Returns {"ser" (..., n_evals), "mi" (..., n_evals), "params" {"net",
     "h"[, "bn"]}} with a leading runs axis iff ``runs``.
     """
-    for name, is_set in {"compiled": compiled, "mesh": mesh is not None,
-                         "timings": timings is not None}.items():
-        if is_set:
-            raise NotImplementedError(f"{name}: {_DEFERRED_NN}")
+    _refuse_mesh(mesh, _DEFERRED_NN)
     if use_pallas is True:
         raise ValueError("VAE-NN has no per-step kernel mode; use use_pallas='frame'")
     if use_pallas not in (False, "frame"):
@@ -354,7 +448,7 @@ def train_vae_nn_awgn(cfg: AwgnVaeNnConfig, seed: int, device="cuda", progress: 
     device = resolve_device(device)
     R = 1 if runs is None else runs
     const, sims, amps, P, _ = _setup(cfg, device, fixed_noise=True)
-    rng = None
+    caller_draws, rng = draws, None
     if draws is None:
         draws, rng = _default_draws(sims, seed, device)
     if params_init is None:
@@ -384,33 +478,38 @@ def train_vae_nn_awgn(cfg: AwgnVaeNnConfig, seed: int, device="cuda", progress: 
     kw = dict(bl_sym=cfg.batch_len, n_batches=n_batches, k1=k1)
 
     if use_pallas == "frame":
-        rx_epochs = _frame_train_data(sims["train"], draws, R, cfg.num_epochs)
-        w1f, w2f, h, bnp, rs, _, _, *evs = vae_nn_experiment_train(
-            w1f, w2f, h, opt, rx_epochs, amps, cfg.lr, bn, momentum, epe=cfg.epe, **kw)
-        w1_ev, w2_ev, _, bnp_ev, rs_ev = evs
-        packed = _batched_evals(n_evals, R, draws, lambda sl, vd: _nn_evaluate(
-            cfg, nn_net(w1_ev[sl], w2_ev[sl], bnp_ev[sl], k1, cfg.batchnorm), rs_ev[sl], vd,
-            sims["valid"], const, amps, P))
+        def experiment():
+            rx_epochs = _frame_train_data(sims["train"], draws, R, cfg.num_epochs)
+            *out, _, _, w1_ev, w2_ev, _, bnp_ev, rs_ev = vae_nn_experiment_train(
+                w1f, w2f, h, opt, rx_epochs, amps, cfg.lr, bn, momentum, epe=cfg.epe, **kw)
+            return out, _batched_evals(n_evals, R, draws, lambda sl, vd: _nn_evaluate(
+                cfg, nn_net(w1_ev[sl], w2_ev[sl], bnp_ev[sl], k1, cfg.batchnorm), rs_ev[sl], vd,
+                sims["valid"], const, amps, P))
+
+        (w1f, w2f, h, bnp, rs), packed = _one_program(experiment, rng, device, timings)
     else:
         bnp, rs = bn if bn is not None else (w1f.new_zeros((R, ch, 2)),) * 2
+        sched = amsgrad_schedule(cfg.num_epochs * n_batches, device)
+        offsets = torch.arange(n_batches, device=device)
 
-        def epoch_step(carry, epoch):
+        def epoch_step(carry, epoch, *drawn):
             w1f, w2f, h, bnp, rs, opt = carry
-            rx, _, _ = sims["train"].physics(*draws("train", epoch, R))
+            rx, _, _ = sims["train"].physics(*(drawn or sims["train"].draws(rng, R)))
             w1f, w2f, h, bnp, rs, opt, losses, *_ = vae_nn_experiment_train_plain(
                 w1f, w2f, h, opt, rx[:, None], amps, cfg.lr, (bnp, rs) if bn is not None else None,
-                momentum, epe=1, step0=epoch * n_batches, **kw)
+                momentum, epe=1, bias=sched.index_select(0, epoch * n_batches + offsets), **kw)
             return (w1f, w2f, h, bnp, rs, opt), losses[-1]
 
-        def eval_step(carry, i):
+        def eval_step(carry, *drawn):
             w1f, w2f, _, bnp, rs, _ = carry
             return _nn_evaluate(cfg, nn_net(w1f, w2f, bnp, k1, cfg.batchnorm), rs,
-                                draws("valid", i, R), sims["valid"], const, amps, P)
+                                drawn or sims["valid"].draws(rng, R), sims["valid"], const, amps, P)
 
         ckpt = Checkpoint(checkpoint, checkpoint_every, rng,
                           f"VAE-NN batchnorm={cfg.batchnorm} use_pallas={use_pallas!r}")
         (w1f, w2f, h, bnp, rs, _), packed = _run_epochs(
-            cfg, epoch_step, eval_step, (w1f, w2f, h, bnp, rs, opt), R, progress, ckpt)
+            cfg, epoch_step, eval_step, (w1f, w2f, h, bnp, rs, opt), R, progress, ckpt,
+            caller_draws, compiled, timings)
 
     params = {"net": nn_net(w1f, w2f, bnp, k1, cfg.batchnorm), "h": h}
     if cfg.batchnorm:
@@ -488,32 +587,38 @@ def run_cma_awgn(cfg: AwgnCmaConfig, seed: int, device="cuda", progress: Progres
     segments, saving the state at the end of each (``_cma_train``), and a
     call that finds the file resumes from it, bit for bit as the
     uninterrupted run; every epoch's data is drawn up front from ``seed`` on
-    each call, so the file needs no generator state.
+    each call, so the file needs no generator state. ``compiled=True`` runs
+    the same one-launch experiment (bit for bit; ``progress`` unavailable
+    and ``checkpoint`` ignored, as in JAX); ``timings`` (a dict, where the
+    experiment is one program: compiled, or without a checkpoint) as in
+    ``train_vae_le_awgn``'s frame mode.
 
     Returns {"ser" (..., n_evals), "mi" (..., n_evals), "taps" (..., 2, M)}
     with a leading runs axis iff ``runs``.
     """
-    for name, is_set in {"compiled": compiled, "mesh": mesh is not None,
-                         "timings": timings is not None}.items():
-        if is_set:
-            raise NotImplementedError(f"{name}: {_DEFERRED_CMA}")
+    _refuse_mesh(mesh, _DEFERRED_CMA)
     device = resolve_device(device)
     R = 1 if runs is None else runs
     const, sims, amps, P, var = _setup(cfg, device)
-    draws = draws or _default_draws(sims, seed, device)[0]
+    rng = None
+    if draws is None:
+        draws, rng = _default_draws(sims, seed, device)
     var_q = torch.full((1,), var, dtype=torch.float32, device=device)
     n_evals = cfg.num_epochs // cfg.epe
-
-    rx_epochs = _frame_train_data(sims["train"], draws, R, cfg.num_epochs)
+    ckpt = Checkpoint() if compiled else Checkpoint(checkpoint, checkpoint_every, ident="CMA-AWGN")
     h0 = _per_run(dirac_taps_siso(cfg.m_est), R, 2, device)
-    taps, h_ev, loss = _cma_train(cfg, rx_epochs, h0,
-                                  Checkpoint(checkpoint, checkpoint_every, ident="CMA-AWGN"))
-    packed = _batched_evals(n_evals, R, draws, lambda sl, vd: _cma_evaluate(
-        cfg, h_ev[sl], vd, sims["valid"], amps, P, var_q, const.nu_sc))
+
+    def experiment():
+        rx_epochs = _frame_train_data(sims["train"], draws, R, cfg.num_epochs)
+        taps, h_ev, loss = _cma_train(cfg, rx_epochs, h0, ckpt)
+        return taps, loss, _batched_evals(n_evals, R, draws, lambda sl, vd: _cma_evaluate(
+            cfg, h_ev[sl], vd, sims["valid"], amps, P, var_q, const.nu_sc))
+
+    taps, loss, packed = _one_program(experiment, rng, device, None if ckpt.path else timings)
     loss = loss.cpu().numpy()
     if runs is None:
         packed, taps, loss = packed[0], taps[0], loss[0]
-    if progress:
+    if progress and not compiled:
         for i in range(n_evals):
             progress(i * cfg.epe, {"loss": loss[..., i * cfg.epe],
                                    **{n: packed[..., i, j] for j, n in enumerate(_EVAL_NAMES)}})

@@ -49,7 +49,7 @@ from ..models import (
 from ..ops.cma_frame_kernel import cma_chunked_frame
 from ..ops.cma_kernel import cma_dp_kernel
 from ..ops.elbo_kernel import vae_dp_loss_and_grad
-from ..ops.frame_kernel import adam_update, frame_opt_init, vae_dp_frame_train
+from ..ops.frame_kernel import adam_schedule, adam_update, frame_opt_init, vae_dp_frame_train
 from ..utils.config import DpConfig
 from .eval_utils import align_idx_dp, align_tx_dp, batch_cut_weight, margin_weight_maxshift
 from .harness import Checkpoint, Progress, pack_metrics, run_frame_loop
@@ -295,8 +295,13 @@ def _step_train(cfg, const, amps, P, var, *, use_kernel, n_steps, stride_sym, cr
     place (its plain version on a CPU tensor). False: autograd through the
     model and the ELBO (``jax.value_and_grad(loss_fn)``, train/dp.py:570-591)
     — not kernel A's closed form, so the two modes witness each other. The
-    q and out streams, cropped to ``crop``, are evaluated time-major."""
+    q and out streams, cropped to ``crop``, are evaluated time-major. Adam
+    reads each step's scalars from ``adam_schedule``'s table by the step
+    count on the device (``count``), so a CUDA graph of the frame replays
+    every frame at its own steps."""
     mb_len, hop = cfg.batch_len * cfg.sps, stride_sym * cfg.sps
+    sched = adam_schedule(cfg.num_frames * n_steps, thresh, var.device)
+    offsets = torch.arange(n_steps, device=var.device)
 
     def kernel_step(params, x):
         loss, var_est, gw, gh, q, out = vae_dp_loss_and_grad(
@@ -314,9 +319,10 @@ def _step_train(cfg, const, amps, P, var, *, use_kernel, n_steps, stride_sym, cr
 
     def train(params, opt, count, rx, tx, sigma):
         losses, var_est, q, out = [], [], [], []
+        scalars = sched.index_select(0, count + offsets)  # (n_steps, 3): this frame's steps
         for m in range(n_steps):
             loss_m, var_m, grads, q_m, out_m = step(params, rx[..., m * hop : m * hop + mb_len])
-            params, opt = adam_update(params, opt, grads, cfg.lr, count + m, thresh)
+            params, opt = adam_update(params, opt, grads, cfg.lr, scalars[m])
             losses.append(loss_m)
             var_est.append(var_m)
             q.append(q_m[..., crop])
@@ -329,22 +335,27 @@ def _step_train(cfg, const, amps, P, var, *, use_kernel, n_steps, stride_sym, cr
 
 
 def _run_vae_experiment(cfg, gen, var, draws, train, *, steps_per_frame, params, runs, progress,
-                        ckpt, snr_lin=None, var_runs=None):
+                        ckpt, graph_opts, P_draw=None, snr_lin=None, var_runs=None):
     """The VAE / VAEflex frame loop for every mode: the carry is (params, Adam
-    moments, global step count), so the lr schedule and bias correction
-    continue across frames, and a resume (``ckpt``) restores all three;
-    ``train(params, opt, count, rx, tx, sigma) -> (params, opt, packed)``
-    trains and evaluates one frame of all runs; ``snr_lin`` (R,) is the
-    channel's per-run SNR, ``var_runs`` the per-run demapper variance the
-    result reports."""
+    moments, global step count on the device), so the lr schedule and bias
+    correction continue across frames, and a resume (``ckpt``) restores all
+    three; ``train(params, opt, count, rx, tx, sigma) -> (params, opt,
+    packed)`` trains and evaluates one frame of all runs; ``draws`` the
+    caller's ``draws(frame, R)`` or None (the default draws from
+    ``ckpt.rng``); ``graph_opts`` ``run_frame_loop``'s compiled /
+    chunk_frames / timings; ``P_draw`` (R, n) the default draws' per-run
+    pmf, ``snr_lin`` (R,) the channel's per-run SNR, ``var_runs`` the
+    per-run demapper variance the result reports."""
     R = 1 if runs is None else runs
     tail = {"w": 3, "h": 4}  # w (2, 4, M), h (2, 2, 2, M), with or without a runs axis
     params = {k: v.expand((R,) + v.shape[-tail[k]:]).contiguous() for k, v in params.items()}
-    carry = (params, frame_opt_init(params), 0)
+    count = torch.zeros((1,), dtype=torch.int64, device=var.device)
+    carry = (params, frame_opt_init(params), count)
+    rng = ckpt.rng
 
-    def frame_step(carry, frame, theta):
+    def frame_step(carry, theta, *drawn):
         params, opt, count = carry
-        levels, noise = draws(frame, R)
+        levels, noise = drawn or gen.draws(rng, R, P_draw)
         rx, tx, sigma = gen.physics(theta, levels, noise, snr_lin)
         params, opt, packed = train(params, opt, count, rx, tx, sigma)
         if runs is None:
@@ -352,8 +363,9 @@ def _run_vae_experiment(cfg, gen, var, draws, train, *, steps_per_frame, params,
         return (params, opt, count + steps_per_frame), packed
 
     (params, _, _), hist = run_frame_loop(
-        frame_step, carry, (range(cfg.num_frames), _frame_inputs(cfg, var.device)), _VAE_FIELDS,
-        runs=runs, progress=progress, ckpt=ckpt)
+        frame_step, carry, (_frame_inputs(cfg, var.device),), _VAE_FIELDS,
+        num_frames=cfg.num_frames, runs=runs, progress=progress, ckpt=ckpt,
+        host_rows=None if rng is not None else (lambda f: draws(f, R)), **graph_opts)
     if runs is None:
         params = {k: v[0] for k, v in params.items()}
     return _dp_result(hist, var, params=params, var_runs=var_runs)
@@ -364,19 +376,23 @@ _DEFERRED = ("not ported yet (ROADMAP.md, queue 1: 'Deferred train_vae_dp / trai
 _DEFERRED_CMA = "not ported yet (ROADMAP.md, queue 1: 'Deferred run_cma_dp options')"
 
 
-def _raise_deferred(deferred: dict, where: str) -> None:
-    for name, is_set in deferred.items():
-        if is_set:
-            raise NotImplementedError(f"{name}: {where}")
+def _raise_deferred(mesh, where: str) -> None:
+    if mesh is not None:
+        raise NotImplementedError(f"mesh: {where}")
 
 
-def _default_draws(gen, seed: int, device, P=None):
-    """(draws, rng): draws in sequence from ``rng``, a ``torch.Generator``
-    seeded with ``seed`` (its state is part of a checkpoint); ``P`` (R, n) a
-    per-run sampling pmf."""
+def _default_draws(seed: int, device) -> torch.Generator:
+    """The default draws' ``torch.Generator``, seeded with ``seed``: every
+    frame draws in sequence from it (its state is part of a checkpoint, and
+    a CUDA graph registers it)."""
     rng = torch.Generator(device=device)
     rng.manual_seed(seed)
-    return (lambda frame, R: gen.draws(rng, R, P)), rng
+    return rng
+
+
+def _graph_opts(compiled: bool, chunk_frames: int, timings) -> dict:
+    """``run_frame_loop``'s graph-mode options of a runner's call."""
+    return dict(compiled=bool(compiled), chunk_frames=int(chunk_frames), timings=timings)
 
 
 def _run_consts(cfg: DpConfig, const, var, runs, lr_vec, snr_vec, nu_vec, device) -> dict:
@@ -424,14 +440,14 @@ def _run_consts(cfg: DpConfig, const, var, runs, lr_vec, snr_vec, nu_vec, device
 
 
 def _vae_setup(loss_type, cfg, seed, device, params_init, use_pallas, draws, runs, runs_batch,
-               stream_bf16, vecs, deferred):
+               stream_bf16, vecs, mesh):
     """What both VAE runners share: the mode and option checks (JAX's
     refusals, train/dp.py:323-331, 565-566), then (device, n_frame,
     constellation, demapper var, simulator, amps, run constants, params,
-    draws, the default draws' generator or None) for frames of n_frame =
-    (n_frame_max // batch_len) * batch_len symbols."""
+    the caller's draws or None, the default draws' generator or None) for
+    frames of n_frame = (n_frame_max // batch_len) * batch_len symbols."""
     check_pallas_mode(loss_type, use_pallas)
-    _raise_deferred(deferred, _DEFERRED)
+    _raise_deferred(mesh, _DEFERRED)
     if use_pallas and (cfg.sps != 2 or cfg.m_est % 2 == 0):
         raise ValueError("use_pallas requires sps=2 and odd M_est")
     has_vec = any(v is not None for v in vecs)
@@ -448,27 +464,17 @@ def _vae_setup(loss_type, cfg, seed, device, params_init, use_pallas, draws, run
     rc = _run_consts(cfg, const, var, runs, *vecs, device)
     params = params_init or {"w": butterfly_init(cfg.m_est, device), "h": dirac_taps_dp(cfg.m_est, device)}
     params = {k: torch.as_tensor(v, dtype=torch.float32).to(device) for k, v in params.items()}
-    rng = None
-    if draws is None:
-        draws, rng = _default_draws(gen, seed, device, rc["P_draw"])
+    rng = _default_draws(seed, device) if draws is None else None
     return device, n_frame, const, var, gen, amps, rc, params, draws, rng
 
 
-def _deferred_options(mesh, compiled, chunk_frames, timings) -> dict:
-    return {
-        "mesh": mesh is not None,
-        "compiled/chunk_frames": compiled or chunk_frames != 1,
-        "timings": timings is not None,
-    }
-
-
 def _vae_runner(loss_type, cfg, seed, device, progress, runs, params_init, use_pallas, draws,
-                runs_batch, stream_bf16, vecs, deferred, checkpoint, checkpoint_every):
+                runs_batch, stream_bf16, vecs, mesh, checkpoint, checkpoint_every, graph_opts):
     """``train_vae_dp`` (batch_len windows back to back) and
     ``train_vae_flex_dp`` (windows every flex_step, central crop)."""
     device, n_frame, const, var, gen, amps, rc, params, draws, rng = _vae_setup(
         loss_type, cfg, seed, device, params_init, use_pallas, draws, runs, runs_batch, stream_bf16,
-        vecs, deferred)
+        vecs, mesh)
     bl = cfg.batch_len
     if loss_type == "VAE":
         n_steps = n_frame // bl
@@ -489,8 +495,8 @@ def _vae_runner(loss_type, cfg, seed, device, progress, runs, params_init, use_p
         train = _step_train(cfg, const, amps, rc["P"], var, use_kernel=use_pallas, n_steps=n_steps, **kw)
     ckpt = Checkpoint(checkpoint, checkpoint_every, rng, f"{loss_type} use_pallas={use_pallas!r}")
     return _run_vae_experiment(cfg, gen, var, draws, train, steps_per_frame=n_steps, params=params,
-                               runs=runs, progress=progress, ckpt=ckpt, snr_lin=rc["snr_lin"],
-                               var_runs=rc["var_runs"])
+                               runs=runs, progress=progress, ckpt=ckpt, graph_opts=graph_opts,
+                               P_draw=rc["P_draw"], snr_lin=rc["snr_lin"], var_runs=rc["var_runs"])
 
 
 def train_vae_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progress = None,
@@ -529,15 +535,26 @@ def train_vae_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progress = N
     (``train/harness.py: Checkpoint``); a file of another mode raises
     ``ValueError``.
 
+    ``compiled=True`` runs the experiment as one CUDA graph of a frame,
+    captured once and replayed over every frame back to back, with one
+    device-to-host copy of the histories at the end (``progress``
+    unavailable, ``checkpoint`` ignored, as in JAX); ``chunk_frames=k``
+    replays it k frames per chunk, one copy per chunk, ``progress`` per
+    frame and the checkpoint saved at chunk ends (JAX's rule: once K frames
+    have run since the last save). Both give the loop mode's results bit for
+    bit (``train/harness.py``); on the CPU they run the same step eagerly.
+    ``timings`` (a dict, compiled mode): "compile_s" (warm-up and capture)
+    and "run_s" (the best of 3 replays of the whole experiment, each from
+    the initial state and draws; the result is the last one's).
+
     Returns {"ser" (..., 4, F), "mi" (..., 2, F), "var_est" (..., 2, F),
     "var" (2,), "params" {"w", "h"}} with a leading runs axis iff ``runs``,
     and "var_runs" (runs, 2), the per-run demapper variance, whenever
     ``snr_vec`` or ``nu_vec`` is set.
     """
-    deferred = _deferred_options(mesh, compiled, chunk_frames, timings)
     return _vae_runner("VAE", cfg, seed, device, progress, runs, params_init, use_pallas, draws,
-                       runs_batch, stream_bf16, (lr_vec, snr_vec, nu_vec), deferred, checkpoint,
-                       checkpoint_every)
+                       runs_batch, stream_bf16, (lr_vec, snr_vec, nu_vec), mesh, checkpoint,
+                       checkpoint_every, _graph_opts(compiled, chunk_frames, timings))
 
 
 def train_vae_flex_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progress = None,
@@ -556,12 +573,12 @@ def train_vae_flex_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progres
     ``use_pallas``: ``"frame"`` runs all windows (incl. Adam) as one kernel B
     launch with ``stride_sym = flex_step``; ``True`` runs each window of all
     runs as one kernel A launch; ``False`` takes each window's gradient by
-    autograd. Arguments, draws and returns as ``train_vae_dp``.
+    autograd. Arguments, draws, the graph modes and returns as
+    ``train_vae_dp``.
     """
-    deferred = _deferred_options(mesh, compiled, chunk_frames, timings)
     return _vae_runner("VAEflex", cfg, seed, device, progress, runs, params_init, use_pallas, draws,
-                       runs_batch, stream_bf16, (lr_vec, snr_vec, nu_vec), deferred, checkpoint,
-                       checkpoint_every)
+                       runs_batch, stream_bf16, (lr_vec, snr_vec, nu_vec), mesh, checkpoint,
+                       checkpoint_every, _graph_opts(compiled, chunk_frames, timings))
 
 
 def run_cma_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progress = None,
@@ -584,7 +601,9 @@ def run_cma_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progress = Non
     ``runs_batch``. The draws come from a ``torch.Generator`` seeded with
     ``seed``, or from ``draws(frame, R)`` as in ``train_vae_dp``;
     ``checkpoint`` / ``checkpoint_every`` as there (the carry is the taps;
-    each frame's lr follows from its index).
+    each frame's lr follows from its index); ``compiled`` / ``chunk_frames``
+    / ``timings`` as there (a graph reads each frame's lr from a device
+    table by its frame counter).
     ``taps_init`` (2, 2, 2, M) or (runs, 2, 2, 2, M), numpy or torch.
 
     Returns {"ser" (..., 4, F), "mi" (..., 2, F), "var_est" (zeros,
@@ -592,11 +611,7 @@ def run_cma_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progress = Non
     axis iff ``runs``.
     """
     check_pallas_mode(cfg.loss_type, use_pallas)
-    _raise_deferred({
-        "mesh": mesh is not None,
-        "compiled/chunk_frames": compiled or chunk_frames != 1,
-        "timings": timings is not None,
-    }, _DEFERRED_CMA)
+    _raise_deferred(mesh, _DEFERRED_CMA)
     step = cfg.batch_len if cfg.loss_type == "CMAbatch" else cfg.flex_step
     if use_pallas == "frame":
         equalize = lambda rx, h, lr: cma_chunked_frame(rx, cfg.R, h, lr, cfg.batch_len, step, cfg.sps)
@@ -618,9 +633,7 @@ def run_cma_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progress = Non
     n_frame = cfg.n_frame_max
     n_eval = n_frame - 2 * cfg.n_cut  # symbols per frame after the edge cut
     const, var, gen, amps, P = _setup(cfg, n_frame, device)
-    rng = None
-    if draws is None:
-        draws, rng = _default_draws(gen, seed, device)
+    rng = _default_draws(seed, device) if draws is None else None
     h = dirac_taps_dp(cfg.m_est, device) if taps_init is None else taps_init
     if not isinstance(h, torch.Tensor):
         h = torch.from_numpy(np.array(h, np.float32))  # a copy: JAX arrays are read-only
@@ -629,16 +642,18 @@ def run_cma_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progress = Non
     weight_fn = _margin_weight_fn(n_eval)
     lrs = (np.float32(cfg.lr) * 0.5 ** (np.arange(cfg.num_frames) // cfg.n_lrhalf)).astype(np.float32)
 
-    def frame_step(h, frame, theta, lr):
-        levels, noise = draws(frame, R)
+    def frame_step(h, theta, lr, *drawn):
+        levels, noise = drawn or gen.draws(rng, R)
         rx, tx, sigma = gen.physics(theta, levels, noise)
-        groups = [equalize(rx[g : g + rb], h[g : g + rb], float(lr)) for g in range(0, R, rb)]
+        groups = [equalize(rx[g : g + rb], h[g : g + rb], lr) for g in range(0, R, rb)]
         out, h, e = (torch.cat(parts) for parts in zip(*groups))
         packed = _finish_cma_frame(out, e, tx, sigma, const, amps, P, var, cfg.n_cut, weight_fn)
         return h, packed if runs is not None else packed[0]
 
     ckpt = Checkpoint(checkpoint, checkpoint_every, rng, f"{cfg.loss_type} use_pallas={use_pallas!r}")
     h, hist = run_frame_loop(
-        frame_step, h, (range(cfg.num_frames), _frame_inputs(cfg, device), lrs), _CMA_FIELDS,
-        runs=runs, progress=progress, ckpt=ckpt)
+        frame_step, h, (_frame_inputs(cfg, device), torch.from_numpy(lrs).to(device)), _CMA_FIELDS,
+        num_frames=cfg.num_frames, runs=runs, progress=progress, ckpt=ckpt,
+        host_rows=None if rng is not None else (lambda f: draws(f, R)),
+        **_graph_opts(compiled, chunk_frames, timings))
     return _dp_result(hist, var, taps=h if runs is not None else h[0])
