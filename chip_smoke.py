@@ -17,8 +17,9 @@ per window), kernel B's per-run constants and the Eval_run_DP sweep driver
 (``drivers/eval_run_dp.py``: the lr, SNR and nu axes batched into the runs
 of one kernel B launch per frame), the AWGN CMA experiment
 (``run_cma_awgn``, 8 runs, kernel I), the LMMSE / DFE sweep
-(``train.dfe.run_lmmse_dfe``, kernel J) and the four AWGN drivers. One line
-per phase:
+(``train.dfe.run_lmmse_dfe``, kernel J), the four AWGN drivers, and the dp x
+sp sharded VAE and VAEflex runners (``parallel/seqpar.py``) on gloo ranks
+sharing the card. One line per phase:
 
   1. device    card name and power limit (nvidia-smi)
   2. build     nvcc build of kernels A-J (one nvcc per source, in parallel),
@@ -140,6 +141,18 @@ per phase:
                H experiments (100 epochs): the keys, run_s at most the
                plain run's wall, the same result; (d) eval_run_dp --quick
                --compiled and --frames-per-call 4: every point's SER equal
+ 32. seqpar    sequence parallelism (``parallel/seqpar.py``), every rank a gloo
+               rank sharing the card, at the flagship's width: (a) one sharded
+               step, dp 1 x sp 2 and dp 2 x sp 2, against the unsharded
+               autograd step (loss, var_est, raw gradients and their ratio to
+               the unsharded ones, params after Adam); (b) train_vae_dp_sharded
+               and train_vae_flex_dp_sharded, R = 2, 6 frames, dp 1 x sp 2,
+               against the unsharded autograd runners frame by frame (SER
+               within 2e-3, or 4x the distance at which the unsharded runner
+               parts from itself with w moved by 1e-7), every frame finite;
+               the wall per frame of both and the sharded training's share in
+               collectives; (c) dryrun_multichip(2); the path launches none of
+               the kernels A-J (the sharded step is autograd, as in JAX)
 
 then the kernels' JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises (non-zero exit,
@@ -1118,6 +1131,140 @@ def _graph_phases(card: str) -> None:
               card=repr(card))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+SP_FRAMES = 6  # phase 32b's frames of DpConfig() (10,000 symbols), R = 2
+# 32b holds the sharded runners' SER, frame by frame, to the unsharded
+# runners': within SP_SER_TOL, or, where the unsharded runner's own rounding
+# parts further, within SP_CHAOS times the distance at which it parts from
+# itself with w moved by 1e-7 (phase 16b's cold-start rule). A frame is 100
+# dependent Adam steps of VAE and 990 of VAEflex from zero moments, and past
+# ~150 two float32 roundings part: on the card the unsharded VAE parts from
+# itself so moved by 0.00134 / 0.00379 on frames 0 / 1, VAEflex by 0.034 /
+# 0.381 (tools/first_check_seqpar.py's run and phase 32's first run, PR 15)
+SP_SER_TOL = 2e-3
+SP_CHAOS = 4.0
+SP_STEP_TOL = {"loss": 2e-5, "var_est": 2e-5, "grad": 1e-4}  # 32a, relative (grad: to max |g|)
+
+
+def _seqpar_phases(card: str) -> None:
+    """Phase 32: sequence parallelism (``parallel/seqpar.py``), every rank a
+    gloo rank on the one card, at the flagship's width (DpConfig(): 64-QAM,
+    sps 2, M 25, 23 dB, minibatch 100). The sharded step is autograd plus
+    collectives, as in JAX: it launches none of the kernels A-J (counted on
+    rank 0, this process). Two ranks on one card measure correctness, not the
+    speed of sp: their collectives go through the host under gloo."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from vae_equalizer_tpu_torch.models import (
+        butterfly_init,
+        dirac_taps_dp,
+        elbo_dp,
+        vae_le_dp_forward,
+    )
+    from vae_equalizer_tpu_torch.ops.elbo_kernel import vae_dp_loss_and_grad
+    from vae_equalizer_tpu_torch.ops.frame_kernel import adam_update
+    from vae_equalizer_tpu_torch.parallel.dryrun import dryrun_multichip
+    from vae_equalizer_tpu_torch.parallel.mesh import make_mesh_2d, run_ranks
+    from vae_equalizer_tpu_torch.parallel.seqpar import make_sp_dp_train_step, sharded_call
+    from vae_equalizer_tpu_torch.train import dp as train_dp
+    from vae_equalizer_tpu_torch.utils import DpConfig
+
+    dev = torch.device(f"{DEVICE}:0")
+    on_card = lambda w: make_mesh_2d(w // 2, 2, devices=[str(dev)] * w)  # noqa: E731
+    cfg, R = DpConfig(), 2
+    n_sym = cfg.n_frame_max // cfg.batch_len * cfg.batch_len
+    const, var, sim, amps, P = train_dp._setup(cfg, n_sym, dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(32)
+    rx_frame = sim.physics(torch.tensor(cfg.theta, device=dev), *sim.draws(g, R))[0]
+    mb = rx_frame[..., : cfg.batch_len * cfg.sps].contiguous()  # the frame's first minibatch
+
+    def unsharded_step(params, opt):
+        w, h = (params[k].to(dev).requires_grad_() for k in ("w", "h"))
+        q, _ = vae_le_dp_forward(w, mb, amps, var, const.nu_sc, cfg.sps)
+        loss, var_est = elbo_dp(q, mb, h, amps, P)
+        gw, gh = torch.autograd.grad(loss.sum(), (w, h))
+        moments = {k: v.to(dev) for k, v in opt.items()}
+        new_p, _ = adam_update({"w": w.detach(), "h": h.detach()}, moments, {"w": gw, "h": gh},
+                               cfg.lr, 0)
+        return loss.detach(), var_est, {"w": gw, "h": gh}, new_p
+
+    def check_step(label, st, params, opt):
+        loss, var_est, grads, new_p = unsharded_step(params, opt)
+        rel = lambda a, b: float((a - b).abs().max() / b.abs().max())  # noqa: E731
+        err = {"loss": rel(st["loss"], loss), "var_est": rel(st["var_est"], var_est),
+               "gw": rel(st["grads"]["w"], grads["w"]), "gh": rel(st["grads"]["h"], grads["h"])}
+        ratio = {k: float((st["grads"][k] * grads[k]).sum() / (grads[k] * grads[k]).sum())
+                 for k in ("w", "h")}
+        p_err = {k: float((st["params"][k] - new_p[k]).abs().max()) for k in ("w", "h")}
+        bad = [k for k, e in err.items() if e > SP_STEP_TOL["grad" if k[0] == "g" else k]]
+        if bad or any(abs(r - 1) > SP_STEP_TOL["grad"] for r in ratio.values()) or max(
+                p_err.values()) > 2e-6 + 1e-4 * max(float(v.abs().max()) for v in new_p.values()):
+            raise AssertionError(f"32a {label}: sharded step vs unsharded {err}, grad ratio "
+                                 f"{ratio}, params after Adam {p_err}")
+        _line(f"32a seqpar step {label}", ok=True, runs=R, samples=mb.shape[-1],
+              rel_err=",".join(f"{k}:{v:.2e}" for k, v in err.items()), tol=SP_STEP_TOL,
+              grad_ratio=",".join(f"{k}:{v:.7f}" for k, v in ratio.items()),
+              adam_abs_err=",".join(f"{k}:{v:.2e}" for k, v in p_err.items()), card=repr(card))
+        return max(err["gw"], err["gh"])
+
+    # (a) dp 2 x sp 2 (four ranks on the card) alone; dp 1 x sp 2 rides (b)'s ranks
+    step4 = make_sp_dp_train_step(on_card(4), mod=cfg.mod, snr_db=cfg.snr_db, m_est=cfg.m_est,
+                                  sps=cfg.sps, lr=cfg.lr)
+    params, opt = step4.init(R)
+    st4, wall4 = _counted(vae_dp_loss_and_grad, 0, lambda: step4(params, opt, mb))
+    grad_err = check_step("dp2xsp2", st4, params, opt)
+
+    # (b) the sharded runners, dp 1 x sp 2, against the unsharded autograd runners
+    mesh = on_card(2)
+    step2 = dc.replace(step4, mesh=mesh)
+    cfg_b = dc.replace(cfg, num_frames=SP_FRAMES)
+    stats = {"VAE": {}, "VAEflex": {}}
+    calls = [step2.call(params, opt, mb)] + [
+        sharded_call(cfg_b, 0, device=DEVICE, runs=R, mesh=mesh, flex_windows=name == "VAEflex",
+                     stats=stats[name])[1] for name in stats]
+    (st2, vae, flex), wall_sp = _counted(vae_dp_loss_and_grad, 0, lambda: run_ranks(mesh, calls))
+    grad_err = max(grad_err, check_step("dp1xsp2", st2, params, opt))
+    g.manual_seed(33)
+    w_moved = {"w": butterfly_init(cfg.m_est, dev) + 1e-7 * torch.randn(
+        (2, 4, cfg.m_est), generator=g, device=dev), "h": dirac_taps_dp(cfg.m_est, dev)}
+    for name, got, runner in (("VAE", vae, train_dp.train_vae_dp),
+                              ("VAEflex", flex, train_dp.train_vae_flex_dp)):
+        ref, wall = _counted(vae_dp_loss_and_grad, 0, lambda runner=runner: runner(
+            cfg_b, 0, device=DEVICE, runs=R))
+        moved = runner(cfg_b, 0, device=DEVICE, runs=R, params_init=w_moved)
+        d = np.abs(got["ser"] - ref["ser"]).max(axis=(0, 1))  # per frame
+        d_self = np.abs(moved["ser"] - ref["ser"]).max(axis=(0, 1))
+        tol = np.maximum(SP_SER_TOL, SP_CHAOS * d_self)
+        if got["ser"].shape != (R, 4, SP_FRAMES) or not (
+                np.all(np.isfinite(got["ser"])) and np.all(np.isfinite(got["mi"]))):
+            raise AssertionError(f"32b {name}: SER {got['ser'].shape}, not all finite")
+        if np.any(d > tol):
+            raise AssertionError(f"32b {name}: sharded SER vs unsharded per frame {d.tolist()} "
+                                 f"beyond {tol.tolist()} (unsharded vs itself with w moved by "
+                                 f"1e-7: {d_self.tolist()})")
+        st = stats[name]
+        _line(f"32b seqpar {name}", ok=True, mesh="dp1xsp2", runs=R, frames=SP_FRAMES,
+              max_dser_per_frame=",".join(f"{v:.5f}" for v in d),
+              unsharded_moved_dser=",".join(f"{v:.5f}" for v in d_self),
+              tol=",".join(f"{v:.5f}" for v in tol),
+              soft_ser_last=f"{float(got['ser'][:, 2:, -1].mean()):.5f}",
+              sharded_train_ms_per_frame=f"{1e3 * st['train_s'] / st['frames']:.1f}",
+              collective_share=f"{st['collective_s'] / st['train_s']:.3f}",
+              unsharded_ms_per_frame=f"{1e3 * wall / SP_FRAMES:.1f}", launches=0, card=repr(card))
+    _line("32b seqpar call", ok=True, ranks=2, calls=3, wall_s=f"{wall_sp:.2f}",
+          dp2xsp2_step_wall_s=f"{wall4:.2f}", card=repr(card))
+
+    # (c) the dryrun's self-certification on the card
+    res, wall_c = _counted(vae_dp_loss_and_grad, 0, lambda: dryrun_multichip(
+        2, device=DEVICE, devices=[str(dev)] * 2))
+    _line("32c seqpar dryrun", ok=True, mesh=f"dp{res['n_dp']}xsp{res['n_sp']}",
+          d_ser=f"{res['d_ser']:.5f}", tol=f"{res['tol']:.5f}", wall_s=f"{wall_c:.2f}",
+          max_grad_rel_err=f"{grad_err:.2e}", card=repr(card))
 
 
 def _awgn_phases(card: str) -> list:
@@ -2541,6 +2688,7 @@ def main() -> int:
     _drivers_phase(card)
     _resume_phases(card)
     _graph_phases(card)
+    _seqpar_phases(card)
 
     kernels = {"kernels": [
         {"name": "vae_dp_loss_and_grad", "route": "cuda",

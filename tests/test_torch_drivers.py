@@ -1,9 +1,9 @@
 """The port's ``Eval_run_DP`` driver (``drivers/eval_run_dp.py``) against the
 JAX package's: the same .mat keys, shapes and types from a ``--quick`` run
 (the port's ``--pallas-frame`` on the CPU, i.e. kernel B's plain version;
-JAX's default mode), the same ``p.error`` refusals, ``--sp`` (not ported
-yet) raising NotImplementedError, and ``--compiled`` / ``--frames-per-call``
-giving the loop's SER. Also: no module of the port imports
+JAX's default mode), the same ``p.error`` refusals, ``--sp 2`` on two gloo
+ranks of the CPU writing JAX's layout, and ``--compiled`` /
+``--frames-per-call`` giving the loop's SER. Also: no module of the port imports
 JAX or the JAX package (a grep of its sources).
 """
 
@@ -80,12 +80,24 @@ def test_cli_refusals_equal_jaxs(argv, capsys):
 
 @pytest.mark.parametrize("argv", [["--sp", "2"], ["--compiled"], ["--frames-per-call", "2"]])
 def test_unported_options_raise(argv, tmp_path):
-    """``--sp`` is not ported (ROADMAP.md); ``--compiled`` and
+    """``--sp 2 --device cpu`` runs the sharded VAE on two gloo ranks and
+    writes JAX's .mat layout (keys, shapes, dtypes of JAX's ``--quick``),
+    its SER on frames 0-1 that of the unsharded autograd run (the same
+    seeds, so the same draws) and the same var_real; ``--compiled`` and
     ``--frames-per-call K`` (CUDA-graph replay) run, every point's SER equal
     to the run without the flag."""
     if argv[0] == "--sp":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            eval_run_dp.main(argv + ["--device", "cpu", "--out", "unused"])
+        quick = ["--quick", "--device", "cpu", "--no-mesh"]
+        got = _mat(eval_run_dp.main(quick + argv + ["--out", str(tmp_path / "sp")]))
+        want = _mat(eval_run_dp.main(quick + ["--out", str(tmp_path / "plain")]))
+        j_eval_run_dp.main(["--quick", "--no-mesh", "--out", str(tmp_path / "jax")])
+        j_want = _mat(next((tmp_path / "jax").glob("*.mat")))
+        assert list(got) == list(j_want)
+        for k in j_want:
+            assert got[k].shape == j_want[k].shape and got[k].dtype == j_want[k].dtype, k
+        np.testing.assert_allclose(got["SER"][..., :2], want["SER"][..., :2], atol=1e-6)
+        np.testing.assert_array_equal(got["var_real"], want["var_real"])
+        assert np.all(np.isfinite(got["SER"]))
         return
     quick = ["--quick", "--pallas-frame", "--device", "cpu", "--no-mesh"]
     got = _mat(eval_run_dp.main(quick + argv + ["--out", str(tmp_path / "graph")]))

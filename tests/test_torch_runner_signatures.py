@@ -10,8 +10,10 @@ import inspect
 
 import pytest
 
+import vae_equalizer_tpu.parallel.seqpar as jseqpar
 import vae_equalizer_tpu.train as jtrain
 import vae_equalizer_tpu.train.dfe as jdfe
+import vae_equalizer_tpu_torch.parallel.seqpar as pseqpar
 import vae_equalizer_tpu_torch.train as ptrain
 import vae_equalizer_tpu_torch.train.dfe as pdfe
 
@@ -24,15 +26,27 @@ PORT_ONLY = {
     "run_cma_dp": ["draws"],
     "run_cma_awgn": ["draws"],
     "run_lmmse_dfe": ["draws"],
+    "train_vae_dp_sharded": ["draws"],
+    "train_vae_flex_dp_sharded": ["draws"],
 }
 # runners outside the train packages' exports (JAX keeps run_lmmse_dfe in train/dfe.py only)
-MODULES = {"run_lmmse_dfe": (jdfe, pdfe)}
+MODULES = {"run_lmmse_dfe": (jdfe, pdfe), "train_vae_dp_sharded": (jseqpar, pseqpar),
+           "train_vae_flex_dp_sharded": (jseqpar, pseqpar)}
+
+
+def _jax_names(jmod, runner) -> list:
+    """JAX's parameter names; its ``train_vae_flex_dp_sharded(cfg, key,
+    **kwargs)`` passes on ``train_vae_dp_sharded``'s, less flex_windows."""
+    if runner == "train_vae_flex_dp_sharded":
+        names = _jax_names(jmod, "train_vae_dp_sharded")
+        return [n for n in names if n != "flex_windows"]
+    return list(inspect.signature(getattr(jmod, runner)).parameters)
 
 
 @pytest.mark.parametrize("runner", sorted(PORT_ONLY))
 def test_runner_takes_jax_argument_order(runner):
     jmod, pmod = MODULES.get(runner, (jtrain, ptrain))
-    jax_names = list(inspect.signature(getattr(jmod, runner)).parameters)
+    jax_names = _jax_names(jmod, runner)
     port_names = list(inspect.signature(getattr(pmod, runner)).parameters)
     assert jax_names[:2] == ["cfg", "key"]
     assert port_names == ["cfg", "seed", "device", *jax_names[2:], *PORT_ONLY[runner]]

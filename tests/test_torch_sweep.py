@@ -3,7 +3,7 @@
 
 ``expand_grid`` and ``assemble_mat`` are held to JAX's on the same grid and
 the same records. ``run_sweep`` drives the port's ``train_vae_dp("frame")``
-at a tiny size (4-QAM, 200-symbol frames, 2 frames): the lr / SNR / nu axis
+(and the sharded ``VAE-SP`` / ``VAEflex-SP`` on two gloo ranks) at a tiny size (4-QAM, 200-symbol frames, 2 frames): the lr / SNR / nu axis
 batching makes one runner call per group, as JAX's ``test_sweep_batch_*``
 count it, with one record per point; resume skips finished points and gives
 the rest the seeds of an uninterrupted sweep.
@@ -12,16 +12,20 @@ the rest the seeds of an uninterrupted sweep.
 import dataclasses
 import json
 
+import jax
 import numpy as np
 import pytest
 import scipy.io as sio
 import torch
 
 from vae_equalizer_tpu.parallel.sweep import assemble_mat as j_assemble_mat
+from vae_equalizer_tpu.parallel.seqpar import make_mesh_2d as j_make_mesh_2d
 from vae_equalizer_tpu.parallel.sweep import expand_grid as j_expand_grid
+from vae_equalizer_tpu.parallel.sweep import run_sweep as j_run_sweep
 from vae_equalizer_tpu.utils.config import DpConfig as JDpConfig
 from vae_equalizer_tpu_torch.core import demapper_noise_var, make_constellation
 from vae_equalizer_tpu_torch.parallel import sweep
+from vae_equalizer_tpu_torch.parallel.mesh import make_mesh_2d
 from vae_equalizer_tpu_torch.parallel.sweep import assemble_mat, expand_grid, point_seed, run_sweep
 from vae_equalizer_tpu_torch.utils import DpConfig, io
 
@@ -161,12 +165,31 @@ def test_io_round_trips_torch_and_numpy(tmp_path):
 
 
 def test_unported_runners_and_checkpoints_raise(monkeypatch, tmp_path):
-    """The SP runners are not ported; ``checkpoint_every`` gives a point its
-    state file, which the runner writes and the sweep removes when the point
+    """The SP runners run on a mesh of two gloo ranks on the CPU and write
+    JAX's records (the fields and shapes of JAX's ``VAE-SP`` sweep on its
+    own 1 x 2 mesh), each point's SER that of the unsharded runner on the
+    same seed (the same draws) and their state files refused (deferred);
+    ``checkpoint_every`` gives a point of an unsharded runner its state
+    file, which the runner writes and the sweep removes when the point
     finishes; batched axes still refuse it (JAX's ValueError)."""
-    for name in ("VAE-SP", "VAEflex-SP"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            run_sweep(name, DpConfig(**TINY), {"lr": [1e-3]}, 1, 0, out_dir=tmp_path, device="cpu")
+    mesh = make_mesh_2d(1, 2, devices="cpu")
+    kw = dict(iters=2, seed=0, mesh=mesh, device="cpu")
+    (j_rec,), _, _ = j_run_sweep("VAE-SP", JDpConfig(**TINY), {"lr": [1e-3]}, 2,
+                                 jax.random.PRNGKey(0), mesh=j_make_mesh_2d(1, 2),
+                                 out_dir=tmp_path / "jax")
+    for name, plain in (("VAE-SP", "VAE"), ("VAEflex-SP", "VAEflex")):
+        (rec,), _, jsonl = run_sweep(name, DpConfig(**TINY), {"lr": [1e-3]}, out_dir=tmp_path / name,
+                                     **kw)
+        assert sorted(io.read_jsonl(jsonl)[0]) == sorted(json.loads(
+            next((tmp_path / "jax").glob("sweep_VAE-SP_*.jsonl")).read_text().splitlines()[0]))
+        assert {k: np.shape(v) for k, v in rec.items()} == {k: np.shape(v) for k, v in j_rec.items()}
+        (ref,), _, _ = run_sweep(plain, DpConfig(**TINY), {"lr": [1e-3]}, 2, 0,
+                                 out_dir=tmp_path / plain, device="cpu")
+        np.testing.assert_allclose(rec["ser"], ref["ser"], atol=1e-6)
+        np.testing.assert_array_equal(rec["var"], ref["var"])
+        with pytest.raises(NotImplementedError, match="Deferred sharded-runner options"):
+            run_sweep(name, DpConfig(**TINY), {"lr": [1e-3]}, out_dir=tmp_path / "ck",
+                      checkpoint_every=1, **kw)
     real, seen = sweep.RUNNERS["VAE"], []
 
     def runner(cfg, seed, **kw):

@@ -10,7 +10,9 @@ too as runs of one experiment: one kernel B launch per frame for the whole
 grid. ``--compiled`` runs each experiment as one CUDA graph of a frame,
 replayed over every frame; ``--frames-per-call K`` replays it K frames per
 chunk (both give the loop mode's results bit for bit, ``train/harness.py``).
-``--sp`` is not ported (ROADMAP.md: sequence parallelism).
+``--sp S`` runs the dp x sp sharded runners (``parallel/seqpar.py``): on the
+card S must divide the card count and the runs go over dp = cards / S
+(JAX's rule); with ``--device cpu`` dp is 1 and S gloo ranks run on the CPU.
 
     python -m vae_equalizer_tpu_torch.drivers.eval_run_dp --pallas-frame --batch-snr-axis \\
         --snr 16 17 18 19 20 21 22 23 --lr 2.5e-3
@@ -19,7 +21,9 @@ chunk (both give the loop mode's results bit for bit, ``train/harness.py``).
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from ..parallel.mesh import make_mesh_2d
 from ..parallel.sweep import assemble_mat, run_sweep
 from ..train.modes import PALLAS_MODES
 from ..utils.config import DpConfig
@@ -68,9 +72,11 @@ def main(argv=None):
     p.add_argument("--frames-per-call", type=int, default=1, metavar="K",
                    help="K frames per call: a frame's CUDA graph replayed K times, one "
                         "device-to-host copy and per-frame progress per chunk")
-    p.add_argument("--sp", type=int, default=1,
-                   help="sequence-parallel degree (not ported: ROADMAP.md, queue 1: "
-                        "'Sequence parallelism')")
+    p.add_argument("--sp", type=int, default=1, metavar="S",
+                   help="sequence-parallel degree: each minibatch's samples split over S ranks "
+                        "(VAE/VAEflex, autograd). On the card S must divide the card count, "
+                        "dp = cards / S, iters rounded up to a multiple of dp; with --device cpu "
+                        "dp = 1 and S gloo ranks run on the CPU")
     args = p.parse_args(argv)
     if args.pallas and args.pallas_frame:
         p.error("--pallas and --pallas-frame are mutually exclusive")
@@ -104,9 +110,6 @@ def main(argv=None):
                     "(the sharded step has no fused-kernel path)")
         if args.loss_type == "VAEflex" and any(b % f for b in args.batch_len for f in args.flex_step):
             p.error("--sp (VAEflex) needs batch-len divisible by flex-step")
-    if args.sp > 1:
-        raise NotImplementedError("--sp: not ported yet (ROADMAP.md, queue 1: 'Sequence "
-                                  "parallelism')")
 
     iters = args.iters or 5
     if args.quick:
@@ -118,8 +121,21 @@ def main(argv=None):
     axes = dict(snr_db=args.snr, symb_rate=args.symb_rate, nu=args.nu, theta_diff=args.theta_diff,
                 m_est=args.M, lr=args.lr, batch_len=args.batch_len, flex_step=args.flex_step)
     device, seed = setup(args)
+    runner_name, mesh = args.loss_type, None
+    if args.sp > 1:
+        if device.type == "cuda":
+            n_dev = torch.cuda.device_count()
+            if n_dev % args.sp != 0:
+                p.error(f"--sp {args.sp} must divide the device count ({n_dev})")
+            mesh = make_mesh_2d(n_dev // args.sp, args.sp)
+        else:
+            mesh = make_mesh_2d(1, args.sp, devices=device)
+        runner_name = f"{args.loss_type}-SP"
+        if iters % mesh.n_dp:
+            iters = (iters // mesh.n_dp + 1) * mesh.n_dp
+            print(f"# --sp: rounding iters up to {iters} (multiple of dp={mesh.n_dp})")
     results, axes_values, jsonl = run_sweep(
-        args.loss_type, base, axes, iters, seed, out_dir=args.out,
+        runner_name, base, axes, iters, seed, mesh=mesh, out_dir=args.out,
         tag=f"{args.loss_type}_DP_{args.mod}", progress=make_progress(args.verbose),
         batch_lr_axis=args.batch_lr_axis, batch_snr_axis=args.batch_snr_axis,
         batch_nu_axis=args.batch_nu_axis, device=device, compiled=args.compiled,

@@ -54,18 +54,22 @@ def _arrangements(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return x_i, x_q
 
 
-def _im2col(x: torch.Tensor, m: int, stride: int) -> torch.Tensor:
-    """(..., C, L) zero-padded by m//2 -> windows (..., C, N, m)."""
-    pad = m // 2
+def _im2col(x: torch.Tensor, m: int, stride: int, pad: int | None = None) -> torch.Tensor:
+    """(..., C, L) zero-padded by pad (default m//2) -> windows (..., C, N, m)."""
+    pad = m // 2 if pad is None else pad
     return torch.nn.functional.pad(x, (pad, pad)).unfold(-1, m, stride)
 
 
-def butterfly_apply(w: torch.Tensor, x: torch.Tensor, sps: int) -> torch.Tensor:
-    """Complex 2x2 butterfly FIR. w (..., 2, 4, M), x (..., 2, 2, L) -> (..., 2, 2, N)."""
+def butterfly_apply(w: torch.Tensor, x: torch.Tensor, sps: int,
+                    pad: int | None = None) -> torch.Tensor:
+    """Complex 2x2 butterfly FIR. w (..., 2, 4, M), x (..., 2, 2, L) -> (..., 2, 2, N).
+
+    x is zero-padded by ``pad`` (default M//2, the frame's same padding) each
+    side; a sequence-parallel block that carries its M//2 halo passes 0."""
     m = w.shape[-1]
     x_i, x_q = _arrangements(x)
-    out_i = torch.einsum("...oik,...ink->...on", w, _im2col(x_i, m, sps))
-    out_q = torch.einsum("...oik,...ink->...on", w, _im2col(x_q, m, sps))
+    out_i = torch.einsum("...oik,...ink->...on", w, _im2col(x_i, m, sps, pad))
+    out_q = torch.einsum("...oik,...ink->...on", w, _im2col(x_q, m, sps, pad))
     return torch.stack([out_i, out_q], dim=-2)
 
 

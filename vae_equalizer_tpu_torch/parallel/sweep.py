@@ -41,6 +41,7 @@ from ..train import (
     train_vae_nn_awgn,
 )
 from ..utils import io
+from .seqpar import train_vae_dp_sharded, train_vae_flex_dp_sharded
 
 __all__ = ["RUNNERS", "assemble_mat", "expand_grid", "point_seed", "run_sweep"]
 
@@ -49,15 +50,12 @@ RUNNERS = {
     "VAE-NN-AWGN": train_vae_nn_awgn,
     "CMA-AWGN": run_cma_awgn,
     "VAE": train_vae_dp,
+    "VAE-SP": train_vae_dp_sharded,  # dp x sp sequence-parallel VAE
+    "VAEflex-SP": train_vae_flex_dp_sharded,  # dp x sp VAEflex windows
     "VAEflex": train_vae_flex_dp,
     "CMA": run_cma_dp,
     "CMAbatch": run_cma_dp,
     "CMAflex": run_cma_dp,
-}
-# the JAX package's other runners, not ported yet
-_UNPORTED = {
-    "VAE-SP": "sequence parallelism (ROADMAP.md, queue 1: 'Sequence parallelism')",
-    "VAEflex-SP": "sequence parallelism (ROADMAP.md, queue 1: 'Sequence parallelism')",
 }
 
 
@@ -93,7 +91,9 @@ def run_sweep(runner_name: str, base_cfg, axes: dict, iters: int, seed: int, mes
     Each record: {"coords", "config", "runner_kwargs", "wall_s", "ser", ...}
     with ``ser`` of shape (iters, ...), the runner's history with a leading
     repeat axis. Runners are called as ``runner(cfg, seed, device=device,
-    runs=iters, mesh=mesh, progress=progress, **runner_kwargs)``.
+    runs=iters, mesh=mesh, progress=progress, **runner_kwargs)``: ``mesh``
+    (``parallel/mesh.py: make_mesh_2d``) is the dp x sp mesh of the
+    ``VAE-SP`` / ``VAEflex-SP`` runners (``parallel/seqpar.py``).
 
     Resume: with ``skip_done`` the newest existing ``sweep_{tag}_*.jsonl`` is
     reused and its finished grid points are skipped. A record only counts as
@@ -120,8 +120,6 @@ def run_sweep(runner_name: str, base_cfg, axes: dict, iters: int, seed: int, mes
     those of the unbatched sweep. Groups with partly finished resume records
     run point by point; incompatible with ``checkpoint_every``.
     """
-    if runner_name in _UNPORTED:
-        raise NotImplementedError(f"runner {runner_name!r}: not ported yet, {_UNPORTED[runner_name]}")
     runner = RUNNERS[runner_name]
     runner_params = inspect.signature(runner).parameters
     has_kw = lambda kw: kw in runner_params or any(  # noqa: E731
