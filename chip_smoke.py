@@ -153,6 +153,18 @@ sharing the card. One line per phase:
                the wall per frame of both and the sharded training's share in
                collectives; (c) dryrun_multichip(2); the path launches none of
                the kernels A-J (the sharded step is autograd, as in JAX)
+ 33. seqpar    the sharded runners' options, the VAE at 32b's shapes (R = 2,
+     options   6 frames, dp 1 x sp 2): (a) compiled and chunk_frames = 2,
+               each bit for bit (max abs diff 0.0) with 32b's loop result;
+               (b) checkpoint_every = 2, SIGKILLed in a child process (its
+               process group: both ranks) after frame 3, resumed here, bit
+               for bit with 32b's result; ms per save, split into the gather
+               and the write, and the file's bytes; none of A-J launched in
+               (a) or (b); (c) utils.profiling on kernel B (phase 4b's frame,
+               R = 8): timed's median within 2x of 4b's time, and trace's
+               Chrome trace naming vae_dp_frame_kernel; (c) runs before
+               phase 32 (after profiler sessions and then process groups,
+               torch.profiler recorded no CUDA kernel in this process)
 
 then the kernels' JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises (non-zero exit,
@@ -1265,6 +1277,201 @@ def _seqpar_phases(card: str) -> None:
     _line("32c seqpar dryrun", ok=True, mesh=f"dp{res['n_dp']}xsp{res['n_sp']}",
           d_ser=f"{res['d_ser']:.5f}", tol=f"{res['tol']:.5f}", wall_s=f"{wall_c:.2f}",
           max_grad_rel_err=f"{grad_err:.2e}", card=repr(card))
+    return vae
+
+
+SP_EVERY = 2  # phase 33b's checkpoint_every
+SP_KILL_FRAME = 2  # 33b's child is killed in this frame's progress (3 frames done; saved at 2)
+_SP_CHILD = """
+import json, sys, time, torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from vae_equalizer_tpu_torch.parallel.mesh import make_mesh_2d, run_ranks
+from vae_equalizer_tpu_torch.parallel.seqpar import sharded_call
+from vae_equalizer_tpu_torch.utils import DpConfig
+stats = {{}}
+def hold(frame, m):  # report each frame; wait to be killed after frame {kill}
+    print(frame, json.dumps(stats["saves"]), flush=True)
+    if frame == {kill}:
+        time.sleep(600)
+mesh = make_mesh_2d(1, 2, devices=["{device}"] * 2)
+cfg = DpConfig(num_frames={frames}, n_frame_max={n_frame_max})
+run_ranks(mesh, [sharded_call(cfg, 0, device="{device}", runs={runs},
+                              mesh=mesh, checkpoint=sys.argv[1], checkpoint_every={every},
+                              progress=hold, stats=stats)[1]])
+"""
+
+
+def _live_in_group(pgid: int) -> int:
+    """Processes of the process group ``pgid`` that are alive (not zombies)."""
+    import pathlib
+
+    n = 0
+    for stat in pathlib.Path("/proc").glob("[0-9]*/stat"):
+        try:
+            fields = stat.read_text().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        n += int(fields[2]) == pgid and fields[0] != "Z"
+    return n
+
+
+def _sp_kill_child(ckpt, errfile, cfg, runs: int, device: str) -> tuple:
+    """33b: the sharded VAE run with a checkpoint in a child process, SIGKILLed
+    with its whole process group (rank 0 and its spawned rank) in frame
+    SP_KILL_FRAME's progress. Returns (the child's return code, the saves it
+    reported: (frame, gather s, write s), the group's processes alive after
+    the kill)."""
+    import os
+    import pathlib
+    import signal
+    import threading
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__)), os.environ.get("PYTHONPATH", "")]))
+    code = _SP_CHILD.format(frames=cfg.num_frames, n_frame_max=cfg.n_frame_max, runs=runs,
+                            device=device, every=SP_EVERY, kill=SP_KILL_FRAME)
+    with open(errfile, "w") as err:
+        child = subprocess.Popen([sys.executable, "-c", code, str(ckpt)], env=env,
+                                 stdout=subprocess.PIPE, stderr=err, text=True,
+                                 start_new_session=True)
+
+    def kill():
+        try:
+            os.killpg(child.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+
+    deadline = threading.Timer(300, kill)  # a child that never reports is killed too
+    deadline.start()
+    saves, killed = [], False
+    try:
+        for line in child.stdout:
+            frame, reported = line.split(" ", 1)
+            saves = json.loads(reported)
+            if int(frame) == SP_KILL_FRAME:
+                kill()
+                killed = True
+                break
+    finally:
+        deadline.cancel()
+        kill()
+        child.communicate(timeout=60)
+    t0 = time.time()
+    while _live_in_group(child.pid) and time.time() - t0 < 10:
+        time.sleep(0.1)
+    alive = _live_in_group(child.pid)
+    if not killed:
+        raise AssertionError(f"33b: the child ended ({child.returncode}) before frame "
+                             f"{SP_KILL_FRAME}: {pathlib.Path(errfile).read_text()[-2000:]}")
+    return child.returncode, saves, alive
+
+
+def _profiling_phase(card: str, f_args: tuple, ms_b: float) -> None:
+    """Phase 33c: ``utils/profiling.py``'s timed and trace on kernel B (phase
+    4b's arguments ``f_args`` and time ``ms_b``). It runs before phase 32:
+    on the card (torch 2.11), after phase 31's profiler sessions and then
+    phases 32-33b's process groups, two full runs' traces held 0 CUDA
+    kernel events; traced after profiler sessions and CUDA graphs but before
+    any process group, every kernel is named."""
+    import pathlib
+    import shutil
+    import tempfile
+
+    from vae_equalizer_tpu_torch.ops.frame_kernel import vae_dp_frame_train
+    from vae_equalizer_tpu_torch.utils import DpConfig
+    from vae_equalizer_tpu_torch.utils.profiling import timed, trace
+
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_trace_"))
+    try:
+        bl = DpConfig().batch_len
+        run_b = lambda: vae_dp_frame_train(*f_args, bl_sym=bl)  # noqa: E731
+        med_s, out = timed(run_b, warmup=1, reps=5)
+        if not (0.5 * ms_b <= 1e3 * med_s <= 2.0 * ms_b) or out[0].shape != f_args[0].shape:
+            raise AssertionError(f"33c: timed median {1e3 * med_s:.3f} ms, phase 4b {ms_b:.3f} ms")
+        reps = 3
+        with trace(tmp / "trace") as prof:
+            for _ in range(reps):
+                run_b()
+        (path,) = (tmp / "trace").glob("trace_*.json")
+        kernels = [e["name"] for e in json.loads(path.read_text())["traceEvents"]
+                   if e.get("cat") == "kernel"]
+        n_b = sum("vae_dp_frame_kernel" in k for k in kernels)
+        dev_ms = sum(getattr(e, "device_time_total", 0.0) for e in prof.key_averages()
+                     if "vae_dp_frame_kernel" in e.key) / 1e3
+        if not n_b:
+            raise AssertionError(f"33c: the trace {path.name} does not name vae_dp_frame_kernel; "
+                                 f"its {len(kernels)} kernel events: {sorted(set(kernels))[:12]}")
+        _line("33c profiling kernel B", ok=True, runs=f_args[0].shape[0],
+              timed_median_ms=f"{1e3 * med_s:.3f}", phase_4b_ms=f"{ms_b:.3f}",
+              trace_bytes=path.stat().st_size, trace_kernel_events=len(kernels),
+              trace_kernel_b_events=f"{n_b}/{reps}",
+              profiler_device_ms_per_launch=f"{dev_ms / reps:.3f}", card=repr(card))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _seqpar_option_phases(card: str, vae_loop: dict) -> None:
+    """Phase 33a-b: the sharded runners' compiled, chunk_frames and
+    checkpoint (``parallel/seqpar.py``; every rank calls the step eagerly,
+    gloo's collectives pass through the host) at phase 32b's shapes, held to
+    32b's sharded loop result ``vae_loop``."""
+    import pathlib
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vae_equalizer_tpu_torch.ops.elbo_kernel import vae_dp_loss_and_grad
+    from vae_equalizer_tpu_torch.parallel.mesh import make_mesh_2d, run_ranks
+    from vae_equalizer_tpu_torch.parallel.seqpar import sharded_call
+    from vae_equalizer_tpu_torch.utils import DpConfig
+
+    dev = torch.device(f"{DEVICE}:0")
+    mesh = make_mesh_2d(1, 2, devices=[str(dev)] * 2)
+    cfg, R = DpConfig(num_frames=SP_FRAMES), 2
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_sp_"))
+    t_phase = time.perf_counter()
+    try:
+        # (b) the kill first: its file feeds the resume, which rides (a)'s ranks
+        ckpt = tmp / "sp.npz"
+        rc, child_saves, alive = _sp_kill_child(ckpt, tmp / "child.err", cfg, R, str(dev))
+        if rc != -signal.SIGKILL or alive:
+            raise AssertionError(f"33b: the child exited with {rc}, not by SIGKILL, or {alive} "
+                                 "process(es) of its group outlived the kill")
+        with np.load(ckpt) as d:
+            resumed_from, w_shape = int(d["frame"]), d["leaf_0001"].shape
+        size = ckpt.stat().st_size
+        stats = {}
+        calls = [sharded_call(cfg, 0, device=DEVICE, runs=R, mesh=mesh, **kw)[1] for kw in (
+            {"compiled": True}, {"chunk_frames": 2},
+            {"checkpoint": ckpt, "checkpoint_every": SP_EVERY, "stats": stats})]
+        (comp, chunk, resumed), wall = _counted(vae_dp_loss_and_grad, 0,
+                                                lambda: run_ranks(mesh, calls))
+        diffs = {"compiled": _max_diff(comp, vae_loop), "chunk_frames=2": _max_diff(chunk, vae_loop)}
+        if any(diffs.values()):
+            raise AssertionError(f"33a: the sharded graph modes vs the loop: {diffs}")
+        _line("33a seqpar compiled chunked", ok=True, mesh="dp1xsp2", runs=R, frames=SP_FRAMES,
+              max_abs_diff=",".join(f"{k}:{v}" for k, v in diffs.items()), launches=0,
+              card=repr(card))
+        diff = _max_diff(resumed, vae_loop)
+        if diff != 0.0 or resumed_from != SP_EVERY or w_shape[0] != R:
+            raise AssertionError(f"33b: resumed from {resumed_from} (w {w_shape}), "
+                                 f"{diff} from the uninterrupted run")
+        saves = [tuple(s_) for s_ in child_saves] + stats["saves"]
+        _line("33b seqpar resume SIGKILL", ok=True, mesh="dp1xsp2", runs=R, frames=SP_FRAMES,
+              every=SP_EVERY, child_rc=rc, resumed_from=resumed_from, max_abs_diff=diff,
+              saved_at=",".join(str(f) for f, _, _ in saves),
+              save_gather_ms=",".join(f"{1e3 * g:.3f}" for _, g, _ in saves),
+              save_write_ms=",".join(f"{1e3 * w:.3f}" for _, _, w in saves),
+              state_bytes=size, launches=0, ranks_call_wall_s=f"{wall:.2f}", card=repr(card))
+
+        _line("33 seqpar options", ok=True, wall_s=f"{time.perf_counter() - t_phase:.1f}",
+              card=repr(card))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _awgn_phases(card: str) -> list:
@@ -2403,6 +2610,28 @@ def _sweep_phases(card, cfg, const, amps, var, w0, h0, per_run) -> dict:
             **per_run}
 
 
+def _warm_frame_args(cfg, sim, gen, const, amps, var, P, R: int, dev) -> tuple:
+    """Phase 4b's inputs: (the frames' thetas, kernel B's arguments for one
+    full frame of R runs from the state after WARM_FRAMES frames of training
+    from the Dirac start, on ``gen``'s draws)."""
+    from vae_equalizer_tpu_torch.models import butterfly_init, dirac_taps_dp
+    from vae_equalizer_tpu_torch.ops.frame_kernel import frame_opt_init, vae_dp_frame_train
+    from vae_equalizer_tpu_torch.train import dp as train_dp
+
+    warm, M, bl = WARM_FRAMES, cfg.m_est, cfg.batch_len
+    m_max = cfg.n_frame_max // bl
+    thetas = train_dp._frame_inputs(dataclasses.replace(cfg, num_frames=warm + 1), dev)
+    wk = butterfly_init(M, dev).expand(R, 2, 4, M).contiguous()
+    hk = dirac_taps_dp(M, dev).expand(R, 2, 2, 2, M).contiguous()
+    optk, thresh = frame_opt_init({"w": wk, "h": hk}), float(cfg.n_lrhalf * m_max)
+    for f in range(warm):
+        rx_f, _, _ = sim(gen, thetas[f], R)
+        wk, hk, optk = vae_dp_frame_train(wk, hk, optk, rx_f, amps, var, const.nu_sc, P, cfg.lr,
+                                          f * m_max, thresh, bl_sym=bl)[:3]
+    rx_f, _, _ = sim(gen, thetas[warm], R)
+    return thetas, (wk, hk, optk, rx_f, amps, var, const.nu_sc, P, cfg.lr, warm * m_max, thresh)
+
+
 def main() -> int:
     import torch
 
@@ -2500,17 +2729,7 @@ def main() -> int:
     # frames of training (from a cold start, Adam's first steps amplify
     # rounding chaotically: zero moments turn sign flips of ~0 gradients into
     # +-lr updates); times
-    warm = WARM_FRAMES
-    thetas = train_dp._frame_inputs(dataclasses.replace(cfg, num_frames=warm + 1), dev)
-    wk = butterfly_init(M, dev).expand(R, 2, 4, M).contiguous()
-    hk = dirac_taps_dp(M, dev).expand(R, 2, 2, 2, M).contiguous()
-    optk, thresh = frame_opt_init({"w": wk, "h": hk}), float(cfg.n_lrhalf * m_max)
-    for f in range(warm):
-        rx_f, _, _ = sim(gen, thetas[f], R)
-        wk, hk, optk = vae_dp_frame_train(wk, hk, optk, rx_f, amps, var, nu_sc, P, lr, f * m_max,
-                                          thresh, bl_sym=bl)[:3]
-    rx_f, _, _ = sim(gen, thetas[warm], R)
-    f_args = (wk, hk, optk, rx_f, amps, var, nu_sc, P, lr, warm * m_max, thresh)
+    thetas, f_args = _warm_frame_args(cfg, sim, gen, const, amps, var, P, R, dev)
     got = vae_dp_frame_train(*f_args, bl_sym=bl)
     torch.cuda.synchronize()
     want = vae_dp_frame_train_plain(*f_args, bl_sym=bl)
@@ -2688,7 +2907,9 @@ def main() -> int:
     _drivers_phase(card)
     _resume_phases(card)
     _graph_phases(card)
-    _seqpar_phases(card)
+    _profiling_phase(card, f_args, ms_b)  # 33c, before any process group (its docstring)
+    sp_loop = _seqpar_phases(card)
+    _seqpar_option_phases(card, sp_loop)
 
     kernels = {"kernels": [
         {"name": "vae_dp_loss_and_grad", "route": "cuda",

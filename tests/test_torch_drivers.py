@@ -3,7 +3,8 @@ JAX package's: the same .mat keys, shapes and types from a ``--quick`` run
 (the port's ``--pallas-frame`` on the CPU, i.e. kernel B's plain version;
 JAX's default mode), the same ``p.error`` refusals, ``--sp 2`` on two gloo
 ranks of the CPU writing JAX's layout, and ``--compiled`` /
-``--frames-per-call`` giving the loop's SER. Also: no module of the port imports
+``--frames-per-call`` (with and without ``--sp 2``) and ``--sp 2
+--checkpoint-every`` giving the loop's SER. Also: no module of the port imports
 JAX or the JAX package (a grep of its sources).
 """
 
@@ -78,17 +79,31 @@ def test_cli_refusals_equal_jaxs(argv, capsys):
     assert got and got == _error_line(j_eval_run_dp.main, argv, capsys)
 
 
-@pytest.mark.parametrize("argv", [["--sp", "2"], ["--compiled"], ["--frames-per-call", "2"]])
-def test_unported_options_raise(argv, tmp_path):
+SP_QUICK = ["--quick", "--device", "cpu", "--no-mesh", "--sp", "2"]
+
+
+@pytest.fixture(scope="module")
+def sp_alone(tmp_path_factory):
+    """``--sp 2 --quick --device cpu``'s .mat (two gloo ranks on the CPU)."""
+    return _mat(eval_run_dp.main(SP_QUICK + ["--out", str(tmp_path_factory.mktemp("sp"))]))
+
+
+@pytest.mark.parametrize("argv", [["--sp", "2"], ["--compiled"], ["--frames-per-call", "2"],
+                                  ["--sp", "2", "--compiled"], ["--sp", "2", "--frames-per-call", "2"],
+                                  ["--sp", "2", "--checkpoint-every", "1"]])
+def test_unported_options_raise(argv, tmp_path, sp_alone):
     """``--sp 2 --device cpu`` runs the sharded VAE on two gloo ranks and
     writes JAX's .mat layout (keys, shapes, dtypes of JAX's ``--quick``),
     its SER on frames 0-1 that of the unsharded autograd run (the same
     seeds, so the same draws) and the same var_real; ``--compiled`` and
     ``--frames-per-call K`` (CUDA-graph replay) run, every point's SER equal
-    to the run without the flag."""
-    if argv[0] == "--sp":
+    to the run without the flag; with ``--sp 2``, ``--compiled``,
+    ``--frames-per-call 2`` and ``--checkpoint-every 1`` (the point's state
+    file saved every frame, then removed) each give the .mat SER of
+    ``--sp 2`` alone bit for bit."""
+    if argv == ["--sp", "2"]:
         quick = ["--quick", "--device", "cpu", "--no-mesh"]
-        got = _mat(eval_run_dp.main(quick + argv + ["--out", str(tmp_path / "sp")]))
+        got = sp_alone
         want = _mat(eval_run_dp.main(quick + ["--out", str(tmp_path / "plain")]))
         j_eval_run_dp.main(["--quick", "--no-mesh", "--out", str(tmp_path / "jax")])
         j_want = _mat(next((tmp_path / "jax").glob("*.mat")))
@@ -98,6 +113,12 @@ def test_unported_options_raise(argv, tmp_path):
         np.testing.assert_allclose(got["SER"][..., :2], want["SER"][..., :2], atol=1e-6)
         np.testing.assert_array_equal(got["var_real"], want["var_real"])
         assert np.all(np.isfinite(got["SER"]))
+        return
+    if argv[0] == "--sp":
+        got = _mat(eval_run_dp.main(SP_QUICK + argv[2:] + ["--out", str(tmp_path / "sp")]))
+        assert not list((tmp_path / "sp").glob("state_*"))
+        for k in ("SER", "Var_est", "var_real"):
+            np.testing.assert_array_equal(got[k], sp_alone[k], err_msg=k)
         return
     quick = ["--quick", "--pallas-frame", "--device", "cpu", "--no-mesh"]
     got = _mat(eval_run_dp.main(quick + argv + ["--out", str(tmp_path / "graph")]))

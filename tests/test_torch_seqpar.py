@@ -197,11 +197,11 @@ def test_dryrun_multichip_on_cpu_ranks():
     assert res["ser"].shape == (1, 4, 2)
 
 
-def test_refusals_equal_jaxs_and_mesh_rules(tmp_path):
+def test_refusals_equal_jaxs_and_mesh_rules():
     """JAX's ValueErrors, message for message (runs not a multiple of dp, a
     minibatch that does not split over sp in whole symbols, even M_est,
     VAEflex batch_len not a multiple of flex_step), all before a rank
-    starts; the deferred options; the mesh's refusals: nccl for two ranks on
+    starts; the mesh's refusals: nccl for two ranks on
     one card or on the CPU, more ranks than cards, a wrong device count."""
     mesh, j_mesh = make_mesh_2d(2, 2, devices="cpu"), j_make_mesh_2d(2, 2)
     base = dict(mod="4-QAM", num_frames=1, n_frame_max=400)
@@ -218,9 +218,6 @@ def test_refusals_equal_jaxs_and_mesh_rules(tmp_path):
             j_train_vae_dp_sharded(JDpConfig(**kw), jax.random.PRNGKey(0), runs=runs, mesh=j_mesh_k,
                                    flex_windows=flex)
         assert str(e.value) == str(j_e.value)
-    for opt in ({"compiled": True}, {"chunk_frames": 2}, {"checkpoint": tmp_path / "s.npz"}):
-        with pytest.raises(NotImplementedError, match="Deferred sharded-runner options"):
-            train_vae_dp_sharded(DpConfig(**base), 0, runs=2, mesh=mesh, **opt)
     for devices in (["cuda:0"] * 2, "cpu"):
         with pytest.raises(ValueError, match="nccl needs one distinct card per rank"):
             make_mesh_2d(1, 2, devices=devices, backend="nccl")

@@ -164,14 +164,23 @@ def test_io_round_trips_torch_and_numpy(tmp_path):
     assert d["SER"][0, 0].shape == (4, 2) and d["SNR"][0, 0].shape == (1, 1)
 
 
+def _interrupt(frame, m):
+    """A kill in frame 0's progress, after the save at frame 1 (K = 1);
+    not a RuntimeError, so the spawned ranks are stopped at once."""
+    raise KeyboardInterrupt
+
+
 def test_unported_runners_and_checkpoints_raise(monkeypatch, tmp_path):
     """The SP runners run on a mesh of two gloo ranks on the CPU and write
     JAX's records (the fields and shapes of JAX's ``VAE-SP`` sweep on its
     own 1 x 2 mesh), each point's SER that of the unsharded runner on the
-    same seed (the same draws) and their state files refused (deferred);
-    ``checkpoint_every`` gives a point of an unsharded runner its state
-    file, which the runner writes and the sweep removes when the point
-    finishes; batched axes still refuse it (JAX's ValueError)."""
+    same seed (the same draws); a point killed after its first save
+    (``checkpoint_every``) resumes from its state file with ``skip_done``,
+    its record equal to the uninterrupted point's bit for bit, and the file
+    is removed when the point finishes; ``checkpoint_every`` gives a point
+    of an unsharded runner its state file, which the runner writes and the
+    sweep removes when the point finishes; batched axes still refuse it
+    (JAX's ValueError)."""
     mesh = make_mesh_2d(1, 2, devices="cpu")
     kw = dict(iters=2, seed=0, mesh=mesh, device="cpu")
     (j_rec,), _, _ = j_run_sweep("VAE-SP", JDpConfig(**TINY), {"lr": [1e-3]}, 2,
@@ -187,9 +196,16 @@ def test_unported_runners_and_checkpoints_raise(monkeypatch, tmp_path):
                                  out_dir=tmp_path / plain, device="cpu")
         np.testing.assert_allclose(rec["ser"], ref["ser"], atol=1e-6)
         np.testing.assert_array_equal(rec["var"], ref["var"])
-        with pytest.raises(NotImplementedError, match="Deferred sharded-runner options"):
-            run_sweep(name, DpConfig(**TINY), {"lr": [1e-3]}, out_dir=tmp_path / "ck",
-                      checkpoint_every=1, **kw)
+        ck = dict(kw, out_dir=tmp_path / f"ck_{name}", checkpoint_every=1)
+        with pytest.raises(KeyboardInterrupt):
+            run_sweep(name, DpConfig(**TINY), {"lr": [1e-3]}, progress=_interrupt, **ck)
+        (state,) = (tmp_path / f"ck_{name}").glob(f"state_{name}_0_*.npz")
+        with np.load(state) as d:
+            assert int(d["frame"]) == 1 and d["leaf_0001"].shape[0] == 2  # w of both runs
+        (resumed,), _, _ = run_sweep(name, DpConfig(**TINY), {"lr": [1e-3]}, skip_done=True, **ck)
+        assert not state.exists()
+        for k in ("ser", "mi", "var_est", "var"):
+            np.testing.assert_array_equal(resumed[k], rec[k], err_msg=k)
     real, seen = sweep.RUNNERS["VAE"], []
 
     def runner(cfg, seed, **kw):

@@ -1,5 +1,5 @@
-"""L0 primitives: constellations + PCS, pulse-shaping filters and the entry
-points' device."""
+"""L0 primitives: constellations + PCS, pulse-shaping filters, stacked-complex
+ops (``cplx``) and the entry points' device."""
 
 from .constellation import (
     Constellation,
@@ -12,9 +12,11 @@ from .constellation import (
 )
 from .device import resolve_device
 from .filters import rcfir, rrcfir
+from . import cplx
 
 __all__ = [
     "Constellation",
+    "cplx",
     "demapper_noise_var",
     "levels_from_uniform",
     "make_constellation",

@@ -13,6 +13,10 @@ chunk (both give the loop mode's results bit for bit, ``train/harness.py``).
 ``--sp S`` runs the dp x sp sharded runners (``parallel/seqpar.py``): on the
 card S must divide the card count and the runs go over dp = cards / S
 (JAX's rule); with ``--device cpu`` dp is 1 and S gloo ranks run on the CPU.
+With ``--sp``, ``--compiled`` and ``--frames-per-call K`` keep their copies
+and progress without a CUDA graph (the ranks' collectives pass through the
+host), and ``--checkpoint-every K`` saves every run's state to rank 0's
+file; each gives the results of ``--sp`` alone bit for bit.
 
     python -m vae_equalizer_tpu_torch.drivers.eval_run_dp --pallas-frame --batch-snr-axis \\
         --snr 16 17 18 19 20 21 22 23 --lr 2.5e-3
@@ -70,8 +74,9 @@ def main(argv=None):
                    help="store the frame kernel's out / dec / eq streams as bfloat16 (with "
                         "--pallas-frame + runs); mm / s1 stay float32")
     p.add_argument("--frames-per-call", type=int, default=1, metavar="K",
-                   help="K frames per call: a frame's CUDA graph replayed K times, one "
-                        "device-to-host copy and per-frame progress per chunk")
+                   help="K frames per call: a frame's CUDA graph replayed K times (with --sp "
+                        "the step called K times), one device-to-host copy and per-frame "
+                        "progress per chunk")
     p.add_argument("--sp", type=int, default=1, metavar="S",
                    help="sequence-parallel degree: each minibatch's samples split over S ranks "
                         "(VAE/VAEflex, autograd). On the card S must divide the card count, "

@@ -1,7 +1,11 @@
 """Evaluation metrics of the DP and AWGN paths: CPE, sync, SER and MI."""
 
 from .cpe import cpe_dp, cpe_siso
-from .mi import mutual_information_ambiguity, mutual_information_ambiguity_mb_stats
+from .mi import (
+    mutual_information,
+    mutual_information_ambiguity,
+    mutual_information_ambiguity_mb_stats,
+)
 from .ser import (
     ser_const_siso,
     ser_constell_shaping,
@@ -26,6 +30,7 @@ __all__ = [
     "find_shift_siso",
     "find_shift_symb_dp",
     "find_shift_symb_siso",
+    "mutual_information",
     "mutual_information_ambiguity",
     "mutual_information_ambiguity_mb_stats",
     "ser_const_siso",

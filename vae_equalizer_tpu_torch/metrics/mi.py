@@ -1,12 +1,15 @@
-"""Mutual information over the blind ambiguities (DP).
+"""Mutual information from demapper posteriors, plain and over the blind
+ambiguities (DP).
 
-Port of ``vae_equalizer_tpu/metrics/mi.py: mutual_information_ambiguity,
-mutual_information_ambiguity_mb_stats`` with any leading batch dims. The
-mismatched-decoding estimate
+Port of ``vae_equalizer_tpu/metrics/mi.py: mutual_information,
+mutual_information_ambiguity, mutual_information_ambiguity_mb_stats`` with
+any leading batch dims. The mismatched-decoding estimate
 
-    MI = (1/N) sum_k log2(q_k(x_k) / P(x_k)), max over the 8 ambiguities
+    MI = (1/N) sum_k log2(q_k(x_k) / P(x_k))
 
-is taken from the posteriors q (``mutual_information_ambiguity``, the CMA
+at the transmitted symbols, summed over the two ASK dimensions of a square
+QAM, is taken as it stands (``mutual_information``) or maximized over the 8
+ambiguities, from the posteriors q (``mutual_information_ambiguity``, the CMA
 path's soft demapper output) or rebuilt from the demapper's sufficient
 statistics (``..._mb_stats``, the VAE kernel's streams): the PCS softmin
 demapper computes q[l] = exp(mm - met_l) / s1 with met_l = (out - a_l)^2 /
@@ -22,7 +25,8 @@ import torch
 
 from .ser import _decode_levels
 
-__all__ = ["mutual_information_ambiguity", "mutual_information_ambiguity_mb_stats"]
+__all__ = ["mutual_information", "mutual_information_ambiguity",
+           "mutual_information_ambiguity_mb_stats"]
 
 
 def _level_select(lq: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -38,6 +42,27 @@ def _take(vec: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     n = vec.shape[-1]
     off = torch.arange(vec.shape[0], device=idx.device) * n
     return vec.reshape(-1)[idx + off.reshape(off.shape + (1,) * (idx.dim() - 1))]
+
+
+def mutual_information(q, tx, amps, P, weight=None, eps: float = 1e-12):
+    """Per-symbol MI estimate in bits per QAM symbol from posteriors and the
+    PCS prior (the sum of the two ASK dimensions).
+
+    q (..., 2n, N) posteriors (I levels, then Q levels); tx (..., 2, N)
+    transmitted amplitude levels; amps, P (n,); weight an optional (N,) (or
+    broadcastable to it) mask of the symbols to include, normalized by its
+    sum. Returns q's batch dims (per polarization for DP input).
+    """
+    n = amps.shape[0]
+    idx = _decode_levels(tx, n).to(torch.int64)
+    idx_i, idx_q = idx[..., 0, :], idx[..., 1, :]
+    lp = torch.log2(P.to(torch.float32))
+    trace = (_level_select(torch.log2(q[..., :n, :] + eps), idx_i) - lp[idx_i]
+             + _level_select(torch.log2(q[..., n:, :] + eps), idx_q) - lp[idx_q])
+    if weight is None:
+        return torch.sum(trace, dim=-1) / tx.shape[-1]
+    w = weight.to(torch.float32)
+    return torch.sum(trace * w, dim=-1) / torch.sum(torch.broadcast_to(w, (tx.shape[-1],)))
 
 
 def _best_of_ambiguities(a1, a2, a3, a4, b1, b2, b3, b4):

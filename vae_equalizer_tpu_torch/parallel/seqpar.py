@@ -31,6 +31,15 @@ group started by another launcher (``torchrun``), every rank calls
 The sharded step is autograd through the port's model functions plus the
 collectives, as JAX's is ``jax.value_and_grad`` (no fused kernel: JAX's
 ``eval_run_dp --sp`` refuses ``--pallas``).
+
+Every rank drives its frames through ``train/harness.py: run_frame_loop``
+with ``graph=False``, so ``compiled`` (one device-to-host copy of the
+history at the end) and ``chunk_frames`` (one per chunk) keep JAX's
+contract without a CUDA graph, which cannot capture gloo's host-side
+collectives, and ``checkpoint`` follows one rule on every rank
+(``_RankCheckpoint``): the state file holds the whole carry of all runs,
+gathered to rank 0 at each save and scattered back on resume, so a file
+written on one mesh resumes on another.
 """
 
 from __future__ import annotations
@@ -56,7 +65,7 @@ from ..train.dp import (
     _margin_weight_fn,
     _setup,
 )
-from ..train.harness import Progress, _sync, run_frame_loop
+from ..train.harness import Checkpoint, Progress, _new_hist, _sync, run_frame_loop
 from ..utils.config import DpConfig
 from .mesh import Call, Comm, Mesh, halo_exchange, make_mesh_2d, run_ranks, sp_sum
 
@@ -70,8 +79,6 @@ __all__ = [
     "train_vae_dp_sharded_rank",
     "train_vae_flex_dp_sharded",
 ]
-
-_DEFERRED = "not ported yet (ROADMAP.md, queue 1: 'Deferred sharded-runner options')"
 
 
 def _sp_butterfly(w: torch.Tensor, xh: torch.Tensor, sps: int) -> torch.Tensor:
@@ -247,8 +254,93 @@ def _local_runs(tree: dict, runs: int, comm: Comm) -> dict:
     return out
 
 
+def _flat_carry(params: dict, opt: dict) -> torch.Tensor:
+    """params and Adam moments of n runs -> (n, K) float32, one row per run
+    (the leaves in ``_TAIL``'s order)."""
+    both = {**params, **opt}
+    return torch.cat([both[k].flatten(1) for k in _TAIL], dim=1)
+
+
+def _unflat_carry(flat: torch.Tensor, like: dict) -> tuple[dict, dict]:
+    """``_flat_carry``'s rows -> (params, opt) of ``flat``'s runs, each leaf
+    shaped as in ``like`` past its runs axis."""
+    out, i = {}, 0
+    for k in _TAIL:
+        size = like[k][0].numel()
+        out[k] = flat[:, i : i + size].reshape((flat.shape[0],) + like[k].shape[1:]).contiguous()
+        i += size
+    return {k: out[k] for k in ("w", "h")}, {k: out[k] for k in ("mw", "vw", "mh", "vh")}
+
+
+def _carry_template(m_est: int, runs: int, device) -> tuple:
+    """The whole carry of ``runs`` runs, zeros: params, Adam moments and the
+    step count, as the state file holds them."""
+    params = {"w": torch.zeros((runs, 2, 4, m_est), device=device),
+              "h": torch.zeros((runs, 2, 2, 2, m_est), device=device)}
+    return params, frame_opt_init(params), torch.zeros((1,), dtype=torch.int64, device=device)
+
+
+def _ident(flex_windows: bool) -> str:
+    """A sharded run's checkpoint identity: the sweep's runner name."""
+    return "VAEflex-SP" if flex_windows else "VAE-SP"
+
+
+class _RankCheckpoint(Checkpoint):
+    """A sharded run's ``Checkpoint`` on one rank.
+
+    The file is ``Checkpoint``'s, written and read by rank 0 alone. It holds
+    the whole carry of all R runs (w, h and the four Adam moments, each with
+    its leading (R,) axis, and the step count), the histories, the next
+    frame, the identity and rank 0's draw-generator state, so it does not
+    depend on the mesh's split. Every rank finds the due frames by the same
+    rule (``due``), so no collective is added to the other frames: at a
+    save, each rank sends its carry as one flat row per run through
+    ``gather`` and rank 0 writes sp rank 0's rows of every dp row. On
+    resume rank 0 reads the file (``ValueError`` where it does not match),
+    ``scatter``s the next frame and the step count to every rank, then each
+    dp row the rows of its runs. ``saves`` (rank 0): (frame, gather seconds,
+    write seconds) of every save.
+    """
+
+    def __init__(self, comm: Comm, runs: int, m_est: int, path=None, every: int = 0,
+                 rng: torch.Generator | None = None, ident: str = ""):
+        super().__init__(path, every, rng, ident)
+        self.comm, self.runs, self.m_est, self.saves = comm, runs, m_est, []
+
+    def save(self, done: int, carry, hist: dict) -> None:
+        params, opt, count = carry
+        t0 = time.perf_counter()
+        parts = self.comm.gather(_flat_carry(params, opt))
+        if parts is None:
+            return
+        flat = torch.cat([parts[r] for r in self.comm.mesh.dp_ranks(0)])
+        t1 = time.perf_counter()
+        super().save(done, (*_unflat_carry(flat, {**params, **opt}), count), hist)
+        self.saves.append((done, t1 - t0, time.perf_counter() - t1))
+
+    def resume(self, carry, hist: dict):
+        if self.path is None:
+            return 0, carry
+        comm, (params, opt, count) = self.comm, carry
+        mesh, r_loc = comm.mesh, self.runs // comm.mesh.n_dp
+        head = rows = None
+        if comm.rank == 0:
+            start, full = super().resume(_carry_template(self.m_est, self.runs, comm.device), hist)
+            head = [torch.tensor([start, int(full[2])], device=comm.device)] * mesh.size
+            flat = _flat_carry(full[0], full[1])
+            rows = [flat[(r // mesh.n_sp) * r_loc : (r // mesh.n_sp + 1) * r_loc]
+                    for r in range(mesh.size)]
+        start, step = comm.scatter(head, (2,), torch.int64).tolist()
+        if start == 0:
+            return 0, carry
+        like = {**params, **opt}
+        flat = comm.scatter(rows, (r_loc, sum(v[0].numel() for v in like.values())))
+        return start, (*_unflat_carry(flat, like), torch.full_like(count, step))
+
+
 def train_vae_dp_sharded_rank(comm: Comm, cfg: DpConfig, seed: int, runs: int | None = None,
-                              params_init=None, flex_windows: bool = False,
+                              params_init=None, flex_windows: bool = False, compiled: bool = False,
+                              chunk_frames: int = 1, checkpoint=None, checkpoint_every: int = 0,
                               progress: Progress = None, draws=None, stats: dict | None = None):
     """This rank's part of ``train_vae_dp_sharded`` (every rank of ``comm``'s
     mesh calls it; ``progress``, ``draws`` and ``stats`` are rank 0's).
@@ -257,7 +349,8 @@ def train_vae_dp_sharded_rank(comm: Comm, cfg: DpConfig, seed: int, runs: int | 
     ``stats`` (a dict, rank 0): "train_s", the host seconds of the sharded
     training (steps and collectives, each frame's work finished on the
     device), "collective_s", the seconds of it in collectives (each started
-    after the device finished the work before it), and "frames".
+    after the device finished the work before it), "frames", and "saves",
+    (frame, gather seconds, write seconds) of every checkpoint save.
     """
     mesh = comm.mesh
     plan = _plan(cfg, mesh, runs, flex_windows)
@@ -285,19 +378,28 @@ def train_vae_dp_sharded_rank(comm: Comm, cfg: DpConfig, seed: int, runs: int | 
 
     count = torch.zeros((1,), dtype=torch.int64, device=dev)
     carry = (params, frame_opt_init(params), count)
+    rng = _default_draws(seed, dev) if comm.rank == 0 and draws is None else None
+    ckpt = _RankCheckpoint(comm, R, cfg.m_est, checkpoint, checkpoint_every, rng,
+                           _ident(flex_windows))
+    loop = dict(num_frames=cfg.num_frames, ckpt=ckpt, compiled=compiled,
+                chunk_frames=chunk_frames, graph=False)
     if comm.rank != 0:
-        for _ in range(cfg.num_frames):
-            params, opt, rows = train(carry[0], carry[1], carry[2], comm.scatter(None, block_shape))
-            carry = (params, opt, carry[2] + S)
+        nothing = torch.zeros((0,), device=dev)  # the other ranks record no metrics
+
+        def rank_step(carry):
+            params, opt, count = carry
+            params, opt, rows = train(params, opt, count, comm.scatter(None, block_shape))
             comm.gather(rows)
-        comm.gather(torch.cat([carry[0]["w"].flatten(1), carry[0]["h"].flatten(1)], dim=1))
+            return (params, opt, count + S), nothing
+
+        (params, _, _), _ = run_frame_loop(rank_step, carry, (), (), **loop)
+        comm.gather(torch.cat([params["w"].flatten(1), params["h"].flatten(1)], dim=1))
         return None
 
-    rng = _default_draws(seed, dev) if draws is None else None
     weight_fn = (_margin_weight_fn(plan.n_rec) if flex_windows
                  else _batch_cut_weight_fn(S, cfg.batch_len, cfg.n_cut))
     if stats is not None:
-        stats.update(train_s=0.0, collective_s=0.0, frames=0)
+        stats.update(train_s=0.0, collective_s=0.0, frames=0, saves=ckpt.saves)
 
     def frame_step(carry, theta, *drawn):
         params, opt, count = carry
@@ -323,9 +425,8 @@ def train_vae_dp_sharded_rank(comm: Comm, cfg: DpConfig, seed: int, runs: int | 
         return (params, opt, count + S), packed
 
     (params, _, _), hist = run_frame_loop(
-        frame_step, carry, (_frame_inputs(cfg, dev),), _VAE_FIELDS, num_frames=cfg.num_frames,
-        runs=R, progress=progress,
-        host_rows=None if rng is not None else (lambda f: draws(f, R)))
+        frame_step, carry, (_frame_inputs(cfg, dev),), _VAE_FIELDS, runs=R, progress=progress,
+        host_rows=None if rng is not None else (lambda f: draws(f, R)), **loop)
     flat = comm.gather(torch.cat([params["w"].flatten(1), params["h"].flatten(1)], dim=1))
     flat = torch.cat([flat[r] for r in mesh.dp_ranks(0)])  # sp rank 0 of each dp row
     nw = params["w"][0].numel()
@@ -352,18 +453,24 @@ def sharded_call(cfg: DpConfig, seed: int, device="cuda", progress: Progress = N
     """(mesh, the ``Call`` of ``train_vae_dp_sharded_rank``) for
     ``train_vae_dp_sharded``'s arguments, checked before any rank starts;
     ``run_ranks(mesh, [call, ...])`` runs it with other calls on the same
-    ranks."""
-    for name, deferred in (("compiled", compiled), ("chunk_frames", chunk_frames != 1),
-                           ("checkpoint", checkpoint is not None or checkpoint_every)):
-        if deferred:
-            raise NotImplementedError(f"{name} on a sharded runner: {_DEFERRED}")
+    ranks. A ``checkpoint`` file that the run would refuse (another runner,
+    shapes or draws) raises ``ValueError`` here."""
+    if chunk_frames < 1:
+        raise ValueError(f"chunk_frames must be >= 1, got {chunk_frames}")
     mesh = _default_mesh(device) if mesh is None else mesh
-    _plan(cfg, mesh, runs, flex_windows)
+    plan = _plan(cfg, mesh, runs, flex_windows)
+    if checkpoint is not None and not compiled:  # compiled mode ignores it, as in JAX
+        rng = _default_draws(seed, mesh.devices[0]) if draws is None else None
+        Checkpoint(checkpoint, checkpoint_every, rng, _ident(flex_windows)).check(
+            _carry_template(cfg.m_est, plan.runs, "cpu"),
+            _new_hist(_VAE_FIELDS, cfg.num_frames, plan.runs))
     if params_init is not None:  # to the host: the spawned ranks unpickle it
         params_init = {k: torch.as_tensor(np.asarray(v.cpu() if torch.is_tensor(v) else v))
                        for k, v in params_init.items()}
     return mesh, Call(train_vae_dp_sharded_rank, (cfg, seed),
-                      dict(runs=runs, params_init=params_init, flex_windows=flex_windows),
+                      dict(runs=runs, params_init=params_init, flex_windows=flex_windows,
+                           compiled=compiled, chunk_frames=chunk_frames, checkpoint=checkpoint,
+                           checkpoint_every=checkpoint_every),
                       dict(progress=progress, draws=draws, stats=stats))
 
 
@@ -385,8 +492,17 @@ def train_vae_dp_sharded(cfg: DpConfig, seed: int, device="cuda", progress: Prog
     The ranks run on the mesh's devices; this process is rank 0.
     ``flex_windows=True`` runs VAEflex (``train_vae_flex_dp_sharded``).
     ``draws(frame, R)`` as in ``train_vae_dp``; ``runs`` defaults to n_dp.
-    ``compiled``, ``chunk_frames`` and ``checkpoint`` raise
-    NotImplementedError (ROADMAP.md: 'Deferred sharded-runner options').
+
+    ``compiled`` (one device-to-host copy of the history at the end; no
+    ``progress``; ``checkpoint`` ignored) and ``chunk_frames=k`` (one copy
+    per k frames; ``progress`` per frame, k at a time) are JAX's modes
+    without a CUDA graph (gloo's collectives pass through the host): every
+    rank calls the step eagerly, and the results equal the loop mode's bit
+    for bit. ``checkpoint`` / ``checkpoint_every`` = K: JAX's rule (the loop
+    mode saves after every K-th frame, a chunked run at a chunk's end once
+    K frames have run since the last save) and state file; the file holds
+    every run's carry, gathered to rank 0 (``_RankCheckpoint``), so a run
+    killed on one mesh resumes on any mesh of the same runs.
 
     Refuses (JAX's ValueErrors): runs not a multiple of n_dp, a minibatch of
     2 batch_len samples not split by n_sp * sps, an even M_est, and for

@@ -1,10 +1,9 @@
 """Eval masks and alignment for the DP frame and the AWGN evaluations.
 
 Port of ``vae_equalizer_tpu/train/eval_utils.py: align_idx_dp, align_tx_dp,
-batch_cut_weight, margin_weight, margin_weight_maxshift, roll_time`` with
-any leading batch dims. The
-reference's data-dependent slices become a roll + boolean weight over the
-full array; the masks are evaluated at the shifted positions t directly
+batch_cut_weight, margin_weight, margin_weight_maxshift, roll_dp,
+roll_time`` with any leading batch dims. The reference's data-dependent
+slices become a roll + boolean weight over the full array; the masks are evaluated at the shifted positions t directly
 (not rolled), exactly as in the JAX package. The JAX package's gather-free
 ``roll_bits`` was a TPU workaround; here the per-run roll is one
 ``torch.gather`` on ``(arange - s) % n``, so every run may have its own shift.
@@ -15,7 +14,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["MARGIN", "align_idx_dp", "align_tx_dp", "batch_cut_weight", "margin_weight",
-           "margin_weight_maxshift", "roll_time"]
+           "margin_weight_maxshift", "roll_dp", "roll_time"]
 
 MARGIN = 11  # the reference's fixed edge trim (func_VAELE_MQAM_shaping.py:318)
 
@@ -58,6 +57,15 @@ def roll_time(x: torch.Tensor, shift) -> torch.Tensor:
     s = torch.as_tensor(shift, device=x.device).to(torch.int64)
     t = torch.remainder(torch.arange(n, device=x.device) + s[..., None, None], n)
     return torch.gather(x, -1, t.expand(x.shape))
+
+
+def roll_dp(x: torch.Tensor, shift, r) -> torch.Tensor:
+    """Compensate the DP pol assignment r and the per-pol time shift (2,):
+    x (2, ...) rolled by r along the pol axis, then pol p rolled by
+    -shift[p] along time. The form the aligned eval (``align_tx_dp``) is
+    held against."""
+    x = torch.roll(x, int(r), dims=0)
+    return torch.stack([torch.roll(x[p], -int(shift[p]), dims=-1) for p in range(2)])
 
 
 def margin_weight(n: int, shift, margin: int = MARGIN) -> torch.Tensor:

@@ -15,6 +15,12 @@ three ways, on the same code path:
 * ``chunk_frames=k`` replays it k frames per chunk and copies k rows per
   chunk (``progress`` per frame, k at a time; checkpoints at chunk ends).
 
+With ``graph=False`` the two graph modes keep that bookkeeping (the history
+on the device, one copy at the end or per chunk, the same ``progress`` and
+checkpoint rules) but call the step eagerly, with no warm-up and no
+capture: the sharded runners' step posts collectives that every rank must
+meet once per frame, and under gloo a graph cannot capture them.
+
 The same kernels run in the same order on the same inputs in all three, and
 the default draws' ``torch.Generator`` is registered with each graph, so
 its offset advances per replay exactly as per eager call: the modes agree
@@ -143,11 +149,11 @@ class Checkpoint:
             np.savez(f, **flat)
         os.replace(tmp, self.path)
 
-    def resume(self, carry, hist: dict):
-        """(next frame, carry): (0, ``carry``) without a file, else the
-        saved state, with ``hist`` filled in place and the generator set."""
+    def _load(self, carry, hist: dict) -> dict | None:
+        """The file's entries, held to ``carry``, ``hist`` and ``rng``
+        (``ValueError`` where they do not match); None without a file."""
         if self.path is None or not self.path.exists():
-            return 0, carry
+            return None
         with np.load(self.path) as d:
             saved = {k: d[k] for k in d.files}
         leaves = _leaves(carry)
@@ -162,16 +168,29 @@ class Checkpoint:
                 f"not match this runner's carry ({self.ident}, {len(leaves)} leaves) — it was "
                 "written by a different runner mode (e.g. use_pallas toggled) or configuration; "
                 "delete it or rerun with the original settings")
+        if self.rng is not None and (
+                "rng_state" not in saved or str(saved["rng_device"]) != self.rng.device.type):
+            raise ValueError(
+                f"checkpoint {self.path} holds no draw-generator state for a "
+                f"{self.rng.device.type} generator — it was written with other draws or on "
+                "another device; delete it or rerun with the original settings")
+        return saved
+
+    def check(self, carry, hist: dict) -> None:
+        """Raise ``ValueError`` where the file exists and ``resume`` would refuse it."""
+        self._load(carry, hist)
+
+    def resume(self, carry, hist: dict):
+        """(next frame, carry): (0, ``carry``) without a file, else the
+        saved state, with ``hist`` filled in place and the generator set."""
+        saved = self._load(carry, hist)
+        if saved is None:
+            return 0, carry
         if self.rng is not None:
-            if "rng_state" not in saved or str(saved["rng_device"]) != self.rng.device.type:
-                raise ValueError(
-                    f"checkpoint {self.path} holds no draw-generator state for a "
-                    f"{self.rng.device.type} generator — it was written with other draws or on "
-                    "another device; delete it or rerun with the original settings")
             self.rng.set_state(torch.from_numpy(saved["rng_state"]))
         for k, v in hist.items():
             v[...] = saved[f"hist_{k}"]
-        it = iter(_like(saved[f"leaf_{i:04d}"], leaf) for i, leaf in enumerate(leaves))
+        it = iter(_like(saved[f"leaf_{i:04d}"], leaf) for i, leaf in enumerate(_leaves(carry)))
         return int(saved["frame"]), _rebuild(carry, it)
 
 
@@ -300,10 +319,18 @@ class StepGraphs:
         return out
 
 
+def _new_hist(fields: Fields, num_frames: int, runs: int | None = None) -> dict:
+    """Zero host histories: hist[name] (*runs_prefix, [n,] num_frames) float32."""
+    prefix = () if runs is None else (runs,)
+    return {k: np.zeros(prefix + ((n,) if n > 1 else ()) + (num_frames,), np.float32)
+            for k, n in fields}
+
+
 def run_frame_loop(frame_step: Callable, carry, tables: tuple, fields: Fields, *,
                    num_frames: int, runs: int | None = None, progress: Progress = None,
                    ckpt: Checkpoint | None = None, host_rows: Callable | None = None,
-                   compiled: bool = False, chunk_frames: int = 1, timings: dict | None = None):
+                   compiled: bool = False, chunk_frames: int = 1, timings: dict | None = None,
+                   graph: bool = True):
     """Drive ``frame_step(carry, *rows) -> (carry, packed)`` over the frames.
 
     ``carry`` a nested tuple / dict of tensors on the device; ``rows`` the
@@ -315,7 +342,8 @@ def run_frame_loop(frame_step: Callable, carry, tables: tuple, fields: Fields, *
     (``progress`` unavailable, ``ckpt`` ignored, as in JAX); ``chunk_frames``
     = k > 1. ``timings`` (compiled mode): "compile_s", the warm-up and
     capture, and "run_s", the best of 3 replays of every frame, each from
-    the initial carry and draws.
+    the initial carry and draws. ``graph=False``: the graph modes call the
+    step eagerly, once per frame, with no warm-up or capture.
 
     With ``ckpt`` the loop resumes from its file and saves after every K-th
     frame before ``progress`` (JAX's order); chunked, at the end of a chunk
@@ -325,11 +353,7 @@ def run_frame_loop(frame_step: Callable, carry, tables: tuple, fields: Fields, *
     """
     if chunk_frames < 1:
         raise ValueError(f"chunk_frames must be >= 1, got {chunk_frames}")
-    prefix = () if runs is None else (runs,)
-    hist = {
-        k: np.zeros(prefix + ((n,) if n > 1 else ()) + (num_frames,), np.float32)
-        for k, n in fields
-    }
+    hist = _new_hist(fields, num_frames, runs)
     ckpt = ckpt or Checkpoint()
     start, carry = (0, carry) if compiled else ckpt.resume(carry, hist)
     leaves = [leaf.clone() for leaf in _leaves(carry)]
@@ -374,8 +398,9 @@ def run_frame_loop(frame_step: Callable, carry, tables: tuple, fields: Fields, *
         return static, hist
 
     rng = ckpt.rng
-    graphs = StepGraphs({"frame": step}, leaves + [t], rng, dev, graph=True)
-    graphs.build(timings if compiled else None)
+    graphs = StepGraphs({"frame": step}, leaves + [t], rng, dev, graph=graph)
+    if graph:
+        graphs.build(timings if compiled else None)
     if compiled:
         def run_all():
             for _ in range(num_frames):
