@@ -19,7 +19,8 @@ of one kernel B launch per frame), the AWGN CMA experiment
 (``run_cma_awgn``, 8 runs, kernel I), the LMMSE / DFE sweep
 (``train.dfe.run_lmmse_dfe``, kernel J), the four AWGN drivers, and the dp x
 sp sharded VAE and VAEflex runners (``parallel/seqpar.py``) on gloo ranks
-sharing the card. One line per phase:
+sharing the card, and every runner's runs split over two such ranks (run
+sharding, ``train/batching.py``). One line per phase:
 
   1. device    card name and power limit (nvidia-smi)
   2. build     nvcc build of kernels A-J (one nvcc per source, in parallel),
@@ -165,6 +166,20 @@ sharing the card. One line per phase:
                Chrome trace naming vae_dp_frame_kernel; (c) runs before
                phase 32 (after profiler sessions and then process groups,
                torch.profiler recorded no CUDA kernel in this process)
+ 34. run       run sharding (``train/batching.py``): each runner's runs split
+     sharding  over two gloo ranks sharing the card, every rank launching its
+               kernels on its share, held to the unsharded run bit for bit
+               (max abs diff 0.0) with each rank's launches counted: (a) the
+               flagship at full width and depth (170 frames, R = 8: B 170
+               times per rank at R = 4) against phase 5, its soft SER band
+               and MI, both ranks' walls against phase 5's and the spawn's
+               seconds; (b) its compiled mode (each rank replays its graph);
+               (c) A (VAE True), C, D (CMA, CMAbatch, CMAflex, R = 6), G and F
+               (VAE-LE, R = 20), H (VAE-NN Net, R = 8), I (AWGN CMA, R = 8) at
+               12 frames or 12-40 epochs against their unsharded runs; the
+               ranks load this process's kernel build; (d) the sharded
+               flagship killed after 2 frames, resumed with no mesh: 168 B
+               launches, bit for bit with phase 5
 
 then the kernels' JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises (non-zero exit,
@@ -1474,6 +1489,159 @@ def _seqpar_option_phases(card: str, vae_loop: dict) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+RS_DEPTH = 12  # phase 34c's frames of the DP runners and epochs of the VAE-LE's True mode
+RS_EPOCHS = 40  # phase 34c's epochs of the one-program AWGN experiments (20 evals)
+RS_EVERY = 2  # phase 34d's checkpoint_every: killed in frame 1's progress, after the save at 2
+
+
+class _RankKill(Exception):
+    """Raised from rank 0's ``progress`` to kill a sharded run after a save
+    (not a RuntimeError: ``run_ranks`` then stops the other rank at once)."""
+
+
+def _run_sharding_phases(card: str, flagship: dict, flagship_wall: float) -> None:
+    """Phase 34: run sharding (``train/batching.py``). Every runner's runs
+    split over a mesh of two gloo ranks sharing the card
+    (``make_mesh_2d(2, 1, devices="cuda:0")``), each rank drawing every run
+    from the seed, keeping its share, launching its kernels on it and rank 0
+    gathering the result, held to the unsharded run bit for bit (max abs
+    diff 0.0). Two processes time-slice one card: correctness, not speed.
+    (a)-(c) run on one spawn (launches counted per rank, each rank's wall,
+    the spawn's seconds); (d) a second. The ranks load the kernels this
+    process built: no library under ``build/kernels`` is written again."""
+    import dataclasses as dc
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from vae_equalizer_tpu_torch.ops import _build
+    from vae_equalizer_tpu_torch.ops.cma_frame_kernel import cma_chunked_frame
+    from vae_equalizer_tpu_torch.ops.cma_kernel import cma_dp_kernel
+    from vae_equalizer_tpu_torch.ops.cma_siso_kernel import cma_siso_experiment
+    from vae_equalizer_tpu_torch.ops.elbo_kernel import vae_dp_loss_and_grad
+    from vae_equalizer_tpu_torch.ops.elbo_siso_kernel import vae_siso_loss_and_grad
+    from vae_equalizer_tpu_torch.ops.frame_kernel import vae_dp_frame_train
+    from vae_equalizer_tpu_torch.ops.nn_frame_kernel import vae_nn_experiment_train
+    from vae_equalizer_tpu_torch.ops.siso_frame_kernel import vae_siso_experiment_train
+    from vae_equalizer_tpu_torch.parallel.mesh import make_mesh_2d, run_ranks
+    from vae_equalizer_tpu_torch.train import awgn as train_awgn
+    from vae_equalizer_tpu_torch.train import dp as train_dp
+    from vae_equalizer_tpu_torch.train.batching import runs_call
+    from vae_equalizer_tpu_torch.utils import (
+        AwgnCmaConfig,
+        AwgnVaeLeConfig,
+        AwgnVaeNnConfig,
+        DpConfig,
+    )
+
+    mesh = make_mesh_2d(2, 1, devices=f"{DEVICE}:0")
+    where = f"{mesh.n_dp}x{mesh.n_sp} {mesh.backend} on {mesh.devices[0]}"
+    libs = {p.name: p.stat().st_mtime_ns for p in _build.BUILD_DIR.glob("*.so")}
+    cfg, le = DpConfig(), AwgnVaeLeConfig()
+    cut = dc.replace
+    cma = lambda v: cut(cfg, loss_type=v, lr=CMA_VARIANTS[v][1], num_frames=RS_DEPTH)  # noqa: E731
+    # label: (runner, config, arguments, kernel, launches per rank (and unsharded))
+    cases = {
+        "a flagship": (train_dp.train_vae_dp, cfg, dict(runs=8, use_pallas="frame"),
+                       vae_dp_frame_train, cfg.num_frames),
+        "b flagship compiled": (train_dp.train_vae_dp, cfg,
+                                dict(runs=8, use_pallas="frame", compiled=True),
+                                vae_dp_frame_train, cfg.num_frames),
+        "c VAE True": (train_dp.train_vae_dp, cut(cfg, num_frames=RS_DEPTH),
+                       dict(runs=8, use_pallas=True), vae_dp_loss_and_grad,
+                       RS_DEPTH * (cfg.n_frame_max // cfg.batch_len)),
+        **{f"c {v}": (train_dp.run_cma_dp, cma(v), dict(runs=6, use_pallas=CMA_VARIANTS[v][0]),
+                      cma_dp_kernel if v == "CMA" else cma_chunked_frame, RS_DEPTH)
+           for v in CMA_VARIANTS},
+        "c VAE-LE frame": (train_awgn.train_vae_le_awgn, cut(le, num_epochs=RS_EPOCHS),
+                           dict(runs=AWGN_RUNS, use_pallas="frame"), vae_siso_experiment_train, 1),
+        "c VAE-LE True": (train_awgn.train_vae_le_awgn, cut(le, num_epochs=RS_DEPTH),
+                          dict(runs=AWGN_RUNS, use_pallas=True), vae_siso_loss_and_grad,
+                          RS_DEPTH * (le.n_train // le.batch_len)),
+        "c VAE-NN Net": (train_awgn.train_vae_nn_awgn, cut(AwgnVaeNnConfig(), num_epochs=RS_EPOCHS),
+                         dict(runs=NN_RUNS, use_pallas="frame"), vae_nn_experiment_train, 1),
+        "c AWGN CMA": (train_awgn.run_cma_awgn, cut(AwgnCmaConfig(), num_epochs=RS_EPOCHS),
+                       dict(runs=CMA_AWGN_RUNS), cma_siso_experiment, 1),
+    }
+    # (a) and (b) against phase 5's run; phase 5's wall is (a)'s unsharded wall
+    refs = {"a flagship": flagship, "b flagship compiled": flagship}
+    walls = {"a flagship": flagship_wall}
+    for label, (fn, c, kw, kernel, n) in cases.items():
+        if label not in refs:
+            refs[label], walls[label] = _counted(kernel, n, lambda fn=fn, c=c, kw=kw: fn(
+                c, 0, device=DEVICE, **kw))
+
+    stats = {label: {} for label in cases}
+    calls = [runs_call(fn, c, 0, device=DEVICE, mesh=mesh, stats=stats[label], **kw)
+             for label, (fn, c, kw, _, _) in cases.items()]
+    if any(ranks != mesh for ranks, _ in calls):
+        raise AssertionError(f"34: a call not split over both ranks: {[r for r, _ in calls]}")
+    t0 = time.time()
+    outs = dict(zip(cases, run_ranks(mesh, [call for _, call in calls])))
+    wall_call = time.time() - t0
+    spawn_s = max(r["start"] for r in stats["a flagship"]["ranks"]) - t0
+    for label, (fn, c, kw, kernel, n) in cases.items():
+        got, ranks = outs[label], stats[label]["ranks"]
+        launches = [r["launches"] for r in ranks]
+        if any(ln != {kernel.__name__: n} for ln in launches):
+            raise AssertionError(f"34 {label}: launches per rank {launches}, expected "
+                                 f"{kernel.__name__} {n} on each")
+        diffs = {k: _max_diff(got[k], v) for k, v in refs[label].items()}
+        if any(d != 0.0 for d in diffs.values()):
+            raise AssertionError(f"34 {label}: sharded vs unsharded max abs diff {diffs}")
+        kv = dict(runs=kw["runs"], runs_per_rank=kw["runs"] // 2, launches_per_rank=launches,
+                  max_abs_diff=diffs, rank_wall_s=[f"{r['wall_s']:.3f}" for r in ranks])
+        if label in walls:
+            kv["unsharded_wall_s"] = f"{walls[label]:.3f}"
+        if label.startswith("a"):
+            soft = float(got["ser"][:, 2:, -20:].mean())
+            mi_min = float(got["mi"][:, :, -1].min())
+            if not (SER_BAND[0] <= soft <= SER_BAND[1] and mi_min > MI_MIN):
+                raise AssertionError(f"34a: soft SER {soft:.5f} (band {SER_BAND}), final MI "
+                                     f"{mi_min:.4f} (> {MI_MIN})")
+            kv.update(soft_ser_last20=f"{soft:.5f}", mi_final_min=f"{mi_min:.4f}",
+                      spawn_s=f"{spawn_s:.2f}")
+        _line(f"34{label[0]} run sharding {label[2:]}", ok=True, mesh=where, **kv, card=repr(card))
+    rebuilt = {p.name: p.stat().st_mtime_ns for p in _build.BUILD_DIR.glob("*.so")} != libs
+    if rebuilt:
+        raise AssertionError("34: a rank built the kernels again instead of loading this build")
+    _line("34 run sharding call", ok=True, ranks=2, calls=len(cases), wall_s=f"{wall_call:.2f}",
+          spawn_s=f"{spawn_s:.2f}", ranks_loaded_the_build=True, card=repr(card))
+
+    # (d) the sharded flagship killed after RS_EVERY frames, resumed without the mesh
+    tmp = tempfile.mkdtemp(prefix="phase34_")
+    path = os.path.join(tmp, "sharded.npz")
+
+    def killer(frame, m):
+        if frame == RS_EVERY - 1:
+            raise _RankKill()
+
+    t0 = time.time()
+    try:
+        train_dp.train_vae_dp(cfg, 0, device=DEVICE, runs=8, use_pallas="frame", mesh=mesh,
+                              checkpoint=path, checkpoint_every=RS_EVERY, progress=killer)
+    except _RankKill:
+        pass
+    else:
+        raise AssertionError("34d: the sharded run was not killed")
+    wall_kill = time.time() - t0
+    with np.load(path) as d:
+        saved = int(d["frame"])
+    resumed, wall_r = _counted(vae_dp_frame_train, cfg.num_frames - saved,
+                               lambda: train_dp.train_vae_dp(cfg, 0, device=DEVICE, runs=8,
+                                                             use_pallas="frame", checkpoint=path,
+                                                             checkpoint_every=RS_EVERY))
+    d = _max_diff(resumed, flagship)
+    if saved != RS_EVERY or d != 0.0:
+        raise AssertionError(f"34d: saved at frame {saved} (expected {RS_EVERY}), resumed without "
+                             f"the mesh vs uninterrupted max abs diff {d}")
+    _line("34d run sharding resume", ok=True, killed_in_frame=RS_EVERY - 1, saved_at=saved,
+          file_bytes=os.path.getsize(path), resumed_launches=cfg.num_frames - saved,
+          max_abs_diff=d, killed_call_s=f"{wall_kill:.2f}", resumed_wall_s=f"{wall_r:.3f}",
+          card=repr(card))
+
+
 def _awgn_phases(card: str) -> list:
     """Phases 10-12: kernels F and G against their plain versions, then the
     AWGN VAE-LE path in both kernel modes, counted. Returns the kernels' JSON
@@ -2751,6 +2919,7 @@ def main() -> int:
     # ---- 5. the main path, counted
     res, wall = _counted(vae_dp_frame_train, cfg.num_frames, lambda: train_dp.train_vae_dp(
         cfg, seed=0, device=DEVICE, use_pallas="frame", runs=R))
+    flagship, flagship_wall = res, wall  # phase 34's unsharded reference
     launches_b = cfg.num_frames
     for k in ("ser", "mi", "var_est"):
         if not np.all(np.isfinite(res[k])):
@@ -2910,6 +3079,7 @@ def main() -> int:
     _profiling_phase(card, f_args, ms_b)  # 33c, before any process group (its docstring)
     sp_loop = _seqpar_phases(card)
     _seqpar_option_phases(card, sp_loop)
+    _run_sharding_phases(card, flagship, flagship_wall)
 
     kernels = {"kernels": [
         {"name": "vae_dp_loss_and_grad", "route": "cuda",

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_run_sharding import check_mesh_argument
 from vae_equalizer_tpu.core.constellation import sample_levels as j_sample_levels
 from vae_equalizer_tpu.metrics import cpe_siso as j_cpe_siso
 from vae_equalizer_tpu.metrics import find_shift_symb_siso as j_find_shift_symb_siso
@@ -215,8 +216,7 @@ def test_run_cma_awgn_single_run_and_options():
     res = run_cma_awgn(cfg, 4, device="cpu")
     assert res["ser"].shape == res["mi"].shape == (2,) and tuple(res["taps"].shape) == (2, 25)
     assert np.all(np.isfinite(res["ser"])) and np.all(np.isfinite(res["mi"]))
-    with pytest.raises(NotImplementedError, match="Deferred `?run_cma_awgn`? options"):
-        run_cma_awgn(cfg, 0, device="cpu", mesh=object())
+    check_mesh_argument(lambda mesh: run_cma_awgn(cfg, 0, device="cpu", runs=2, mesh=mesh))
     timings = {}  # compiled / timings: the one-launch experiment, bit for bit
     got = run_cma_awgn(cfg, 4, device="cpu", compiled=True, timings=timings)
     np.testing.assert_array_equal(got["ser"], res["ser"])

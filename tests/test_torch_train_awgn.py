@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_run_sharding import check_mesh_argument
 from vae_equalizer_tpu.core.constellation import sample_levels as j_sample_levels
 from vae_equalizer_tpu.train.awgn import train_vae_le_awgn as j_train_vae_le_awgn
 from vae_equalizer_tpu.utils.config import AwgnVaeLeConfig as JAwgnVaeLeConfig
@@ -121,11 +122,13 @@ def test_frame_mode_statistically_matches_loop():
 
 
 def test_options_and_modes_raise():
-    """``mesh`` raises (deferred); ``compiled`` and ``timings`` run, the
-    loop mode's results bit for bit; bad modes and shapes raise."""
+    """``mesh``: a non-Mesh object and an sp mesh raise ValueError, the
+    one-rank CPU run mesh gives the call without one bit for bit;
+    ``compiled`` and ``timings`` run, the loop mode's results bit for bit;
+    bad modes and shapes raise."""
     cfg = AwgnVaeLeConfig(**SMALL)
-    with pytest.raises(NotImplementedError, match="Deferred `?train_vae_le_awgn`? options"):
-        train_vae_le_awgn(cfg, 0, device="cpu", mesh=object())
+    check_mesh_argument(lambda mesh: train_vae_le_awgn(cfg, 0, device="cpu", runs=2,
+                                                       use_pallas=True, mesh=mesh))
     ref = train_vae_le_awgn(cfg, 0, device="cpu", use_pallas=True)
     timings = {}
     for kw in ({"compiled": True}, {"compiled": True, "timings": timings}):

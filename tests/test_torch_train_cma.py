@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_run_sharding import check_mesh_argument
 from vae_equalizer_tpu.core.constellation import sample_levels as j_sample_levels
 from vae_equalizer_tpu.train.dp import run_cma_dp as j_run_cma_dp
 from vae_equalizer_tpu.train.modes import PALLAS_MODES as J_PALLAS_MODES
@@ -142,12 +143,13 @@ def test_vae_modes_follow_the_table():
 
 
 def test_deferred_options_and_bad_arguments_raise():
-    """``mesh`` raises (deferred, ROADMAP.md); ``compiled``, ``chunk_frames``
-    and ``timings`` run and give the loop mode's results bit for bit; bad
-    arguments raise."""
+    """``mesh``: a non-Mesh object and an sp mesh raise ValueError, the
+    one-rank CPU run mesh gives the call without one bit for bit;
+    ``compiled``, ``chunk_frames`` and ``timings`` run and give the loop
+    mode's results bit for bit; bad arguments raise."""
     cfg = _tiny("CMAbatch")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_cma_dp(cfg, 0, device="cpu", mesh=object())
+    check_mesh_argument(lambda mesh: run_cma_dp(cfg, 0, device="cpu", runs=2, use_pallas="frame",
+                                                mesh=mesh))
     ref = run_cma_dp(cfg, 0, device="cpu", use_pallas="frame")
     timings = {}
     for kw in ({"compiled": True}, {"chunk_frames": 2}, {"compiled": True, "timings": timings}):

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_run_sharding import check_mesh_argument
 from vae_equalizer_tpu.core.constellation import sample_levels as j_sample_levels
 from vae_equalizer_tpu.train.dp import train_vae_dp as j_train_vae_dp
 from vae_equalizer_tpu.utils.config import DpConfig as JDpConfig
@@ -106,13 +107,13 @@ def test_weight_conversion_checks_shapes():
 
 
 def test_deferred_options_raise():
-    """``mesh``, still deferred, raises NotImplementedError naming ROADMAP.md;
+    """``mesh``: a non-Mesh object and an sp mesh raise ValueError, the
+    one-rank CPU run mesh gives the call without one bit for bit;
     ``compiled``, ``chunk_frames`` and ``timings`` run and give the loop
     mode's results bit for bit; the runs-batched kernel's options without
     runs raise JAX's ValueErrors."""
     cfg = DpConfig(mod="4-QAM", **SMALL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_vae_dp(cfg, 0, device="cpu", mesh=object())
+    check_mesh_argument(lambda mesh: train_vae_dp(cfg, 0, device="cpu", runs=RUNS, mesh=mesh))
     ref = train_vae_dp(cfg, 0, device="cpu")
     timings = {}
     for kw in ({"compiled": True}, {"chunk_frames": 2}, {"compiled": True, "timings": timings}):

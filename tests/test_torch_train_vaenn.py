@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_run_sharding import check_mesh_argument
 from vae_equalizer_tpu.core.constellation import sample_levels as j_sample_levels
 from vae_equalizer_tpu.models import dirac_taps_siso as j_dirac_taps_siso
 from vae_equalizer_tpu.models import vae_nn_init as j_vae_nn_init
@@ -106,8 +107,8 @@ def test_default_init_and_raises():
     for bad in (AwgnVaeNnConfig(**{**TINY, "kernel_2": 5}), AwgnVaeNnConfig(**{**TINY, "m_est": 8})):
         with pytest.raises(ValueError, match="kernel_2=3"):
             train_vae_nn_awgn(bad, 0, device="cpu", use_pallas="frame")
-    with pytest.raises(NotImplementedError, match="Deferred train_vae_nn_awgn options"):
-        train_vae_nn_awgn(cfg, 0, device="cpu", mesh=object())
+    check_mesh_argument(lambda mesh: train_vae_nn_awgn(cfg, 0, device="cpu", runs=2,
+                                                       use_pallas="frame", mesh=mesh))
     for mode in (False, "frame"):  # compiled / timings: the same results bit for bit
         timings = {}
         ref = train_vae_nn_awgn(cfg, 3, device="cpu", use_pallas=mode)

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_run_sharding import check_mesh_argument
 from test_torch_train_dp import RUNS, _jax_draws
 from vae_equalizer_tpu.ops.frame_kernel import frame_opt_init as j_frame_opt_init
 from vae_equalizer_tpu.ops.frame_kernel import vae_dp_frame_train_pallas_rb
@@ -157,8 +158,9 @@ def test_train_vae_flex_dp_modes_match_jax_on_jax_draws():
                                 {"nu_vec": [0.0]}, {"mesh": object()}, {"compiled": True},
                                 {"chunk_frames": 2}, {"runs_batch": 2}, {"timings": {}}])
 def test_flex_deferred_options_raise(kw, tmp_path):
-    """``mesh``, still deferred, raises NotImplementedError naming ROADMAP's
-    list; the runs-batched kernel's options, misused, raise JAX's
+    """``mesh``: a non-Mesh object and an sp mesh raise ValueError, the
+    one-rank CPU run mesh gives the call without one bit for bit; the
+    runs-batched kernel's options, misused, raise JAX's
     ValueErrors (JAX train/dp.py:323-337, 676-677); ``checkpoint`` writes its
     state file, and ``checkpoint_every`` without a file runs; ``compiled``,
     ``chunk_frames`` and ``timings`` (with ``compiled``) run and give the
@@ -192,8 +194,7 @@ def test_flex_deferred_options_raise(kw, tmp_path):
         if name == "timings":
             assert set(kw["timings"]) == {"compile_s", "run_s"}
     else:
-        with pytest.raises(NotImplementedError, match="Deferred train_vae_dp / train_vae_flex_dp"):
-            train_vae_flex_dp(cfg, 0, device="cpu", **kw)
+        check_mesh_argument(lambda mesh: train_vae_flex_dp(cfg, 0, device="cpu", runs=2, mesh=mesh))
 
 
 def test_flex_modes_and_device():

@@ -28,6 +28,7 @@ import torch
 
 from ..core.constellation import Constellation, sample_levels
 from ..core.filters import rcfir, rrcfir
+from ..core.reduce import run_mean
 from .optical_dp import PULSE_BETA, PULSE_T, _fast_fft_len
 
 __all__ = ["AwgnSimulator", "make_awgn_simulator"]
@@ -81,7 +82,7 @@ class AwgnSimulator:
         if self.fixed_noise:
             sigma = torch.full(batch, self.sigma_fixed, dtype=torch.float32, device=rx.device)
         else:
-            power = torch.mean(rx[..., 0, :] ** 2 + rx[..., 1, :] ** 2, dim=-1)
+            power = run_mean(rx[..., 0, :] ** 2 + rx[..., 1, :] ** 2, -1)
             sigma = torch.sqrt(sps * power / 2 / self.snr_lin)
         rx = rx + sigma[..., None, None] * noise
         tx = levels[..., self.offset : self.offset + self.N]

@@ -27,6 +27,7 @@ import torch
 
 from ..core.constellation import Constellation, sample_levels
 from ..core.filters import rrcfir
+from ..core.reduce import run_mean
 
 __all__ = ["PULSE_T", "PULSE_BETA", "DpSimulator", "make_dp_simulator"]
 
@@ -136,7 +137,7 @@ class DpSimulator:
         sig = torch.stack([z.real, z.imag], dim=2).to(torch.float32)  # (R, 2, 2, sig_len)
 
         snr = self.snr_lin if snr_lin is None else snr_lin
-        sigma = torch.sqrt(torch.mean(sig**2, dim=(1, 2, 3)) * 2 * sps / 2 / snr)
+        sigma = torch.sqrt(run_mean(sig**2, (1, 2, 3)) * 2 * sps / 2 / snr)
         sig = sig + sigma[:, None, None, None] * noise
         rx = sig[..., : sps * self.N].contiguous()  # kernel B reads rows of 2N samples
         tx = levels[:, :, self.offset : self.offset + self.N].reshape(R, 2, 2, self.N)

@@ -9,6 +9,7 @@ import time
 import numpy as np
 
 from ..core import resolve_device
+from ..parallel.mesh import run_mesh
 from ..utils import io
 
 
@@ -21,7 +22,9 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (the hand-written kernels) or cpu (their plain PyTorch versions)")
     p.add_argument("--no-mesh", action="store_true",
-                   help="accepted for the JAX CLI's sake; one card has no mesh to shard over")
+                   help="don't shard runs over the cards (by default each card is a rank that "
+                        "runs its share of every grid point's runs; one card or --device cpu is "
+                        "one rank)")
     p.add_argument("--verbose", action="store_true", help="print per-frame progress")
     p.add_argument("--compiled", action="store_true",
                    help="whole-experiment run: a loop's steps captured as CUDA graphs and "
@@ -55,8 +58,11 @@ def make_progress(verbose: bool):
 
 
 def setup(args):
-    """(device, seed) of a driver run; the card unless ``--device cpu``."""
-    return resolve_device(args.device), args.seed
+    """(device, seed, mesh) of a driver run: the card unless ``--device cpu``;
+    the runs mesh over every card (one CPU rank for ``--device cpu``) unless
+    ``--no-mesh``, as JAX's drivers shard over every device."""
+    device = resolve_device(args.device)
+    return device, args.seed, None if args.no_mesh else run_mesh(device=device)
 
 
 def save_results(out_dir, tag, save_dict):

@@ -32,7 +32,7 @@ def main(argv=None):
 
     cfg = LmmseDfeConfig(mod=args.mod, channel=args.channel, nu=args.nu, n_valid=args.n_valid,
                          num_epochs=args.num_epochs)
-    device, seed = setup(args)
+    device, seed, _ = setup(args)  # the LMMSE / DFE sweep has no runs mesh, as in JAX
     res = run_lmmse_dfe(
         cfg, seed, device=device, snrs=tuple(args.snr),
         progress=(lambda e, m: print(" ", m, flush=True)) if args.verbose else None,

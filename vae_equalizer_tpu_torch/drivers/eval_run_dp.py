@@ -125,8 +125,8 @@ def main(argv=None):
                     n_frame_max=args.n_frame_max, n_lrhalf=170)
     axes = dict(snr_db=args.snr, symb_rate=args.symb_rate, nu=args.nu, theta_diff=args.theta_diff,
                 m_est=args.M, lr=args.lr, batch_len=args.batch_len, flex_step=args.flex_step)
-    device, seed = setup(args)
-    runner_name, mesh = args.loss_type, None
+    device, seed, mesh = setup(args)
+    runner_name = args.loss_type
     if args.sp > 1:
         if device.type == "cuda":
             n_dev = torch.cuda.device_count()

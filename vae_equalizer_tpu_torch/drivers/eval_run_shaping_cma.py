@@ -37,9 +37,10 @@ def main(argv=None):
     base = AwgnCmaConfig(mod=args.mod, channel=args.channel, num_epochs=args.num_epochs,
                          n_train=args.n_train, n_valid=args.n_valid)
     axes = dict(snr_db=args.snr, nu=args.nu, m_est=args.M, lr=args.lr)
-    device, seed = setup(args)
+    device, seed, mesh = setup(args)
     results, axes_values, jsonl = run_sweep(
-        "CMA-AWGN", base, axes, iters, seed, out_dir=args.out, tag=f"CMA_shaping_{args.mod}",
+        "CMA-AWGN", base, axes, iters, seed, mesh=mesh, out_dir=args.out,
+        tag=f"CMA_shaping_{args.mod}",
         progress=make_progress(args.verbose), compiled=args.compiled, device=device,
         **sweep_resume_kwargs(args))
     ser = assemble_mat(results, axes_values, iters, ())

@@ -48,9 +48,10 @@ def main(argv=None):
                            batchnorm=args.net_type == "Net_BN")
     axes = dict(snr_db=args.snr, kernel_1=args.k1, kernel_2=args.k2, m_est=args.M, lr=args.lr,
                 batch_len=args.batch_len)
-    device, seed = setup(args)
+    device, seed, mesh = setup(args)
     results, axes_values, jsonl = run_sweep(
-        "VAE-NN-AWGN", base, axes, iters, seed, out_dir=args.out, tag=f"{args.net_type}_{args.mod}",
+        "VAE-NN-AWGN", base, axes, iters, seed, mesh=mesh, out_dir=args.out,
+        tag=f"{args.net_type}_{args.mod}",
         progress=make_progress(args.verbose), compiled=args.compiled, device=device,
         **sweep_resume_kwargs(args),
         runner_kwargs={"use_pallas": "frame"} if args.pallas_frame else None,

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.reduce import run_sum
 from .ser import _decode_levels
 
 __all__ = ["mutual_information", "mutual_information_ambiguity",
@@ -60,9 +61,9 @@ def mutual_information(q, tx, amps, P, weight=None, eps: float = 1e-12):
     trace = (_level_select(torch.log2(q[..., :n, :] + eps), idx_i) - lp[idx_i]
              + _level_select(torch.log2(q[..., n:, :] + eps), idx_q) - lp[idx_q])
     if weight is None:
-        return torch.sum(trace, dim=-1) / tx.shape[-1]
+        return run_sum(trace, -1) / tx.shape[-1]
     w = weight.to(torch.float32)
-    return torch.sum(trace * w, dim=-1) / torch.sum(torch.broadcast_to(w, (tx.shape[-1],)))
+    return run_sum(trace * w, -1) / run_sum(torch.broadcast_to(w, (tx.shape[-1],)), -1)
 
 
 def _best_of_ambiguities(a1, a2, a3, a4, b1, b2, b3, b4):
@@ -89,17 +90,17 @@ def mutual_information_ambiguity(q, tx, amps, P, weight=None, eps: float = 1e-12
     lqq = torch.log2(q[..., n:, :] + eps)
     lp = torch.log2(P.to(torch.float32))
     if weight is None:
-        red = lambda trace: torch.sum(trace, dim=-1)
+        red = lambda trace: run_sum(trace, -1)
     else:
         w = weight.to(torch.float32)
-        red = lambda trace: torch.sum(trace * w, dim=-1)
+        red = lambda trace: run_sum(trace * w, -1)
     sel = lambda lq, i: red(_level_select(lq, i))
     best = _best_of_ambiguities(sel(lqi, idx_i), sel(lqi, idx_ir), sel(lqq, idx_i), sel(lqq, idx_ir),
                                 sel(lqq, idx_q), sel(lqq, idx_qr), sel(lqi, idx_q), sel(lqi, idx_qr))
     prior = red(lp[idx_i] + lp[idx_q])
     if weight is None:
         return (best - prior) / tx.shape[-1]
-    wsum = torch.sum(torch.broadcast_to(weight.to(torch.float32), best.shape + (tx.shape[-1],)), dim=-1)
+    wsum = run_sum(torch.broadcast_to(weight.to(torch.float32), best.shape + (tx.shape[-1],)), -1)
     return (best - prior) / wsum
 
 
@@ -124,10 +125,10 @@ def mutual_information_ambiguity_mb_stats(out_mb, mm_mb, s1_mb, tx, amps, P, nu_
     lp = torch.log2(P.to(torch.float32))
     if weight is None:
         w = None
-        red = lambda t: torch.sum(t, dim=(-3, -1))
+        red = lambda t: run_sum(t, (-3, -1))
     else:
         w = to_mb(torch.broadcast_to(weight.to(torch.float32), idx.shape[:-3] + (2, n_mb * bl)))
-        red = lambda t: torch.sum(t * w, dim=(-3, -1))
+        red = lambda t: run_sum(t * w, (-3, -1))
 
     inv2v = (0.5 / var.to(torch.float32))[..., None, :, None]  # per pol (and run)
     if torch.is_tensor(nu_sc):  # per run (R,)
@@ -151,5 +152,6 @@ def mutual_information_ambiguity_mb_stats(out_mb, mm_mb, s1_mb, tx, amps, P, nu_
     best = _best_of_ambiguities(a1, a2, a3, a4, b1, b2, b3, b4)
     if weight is None:
         return (best - prior) / (n_mb * bl)
-    wsum = torch.sum(torch.broadcast_to(weight.to(torch.float32), idx.shape[:-3] + (2, n_mb * bl)), dim=-1)
+    wsum = run_sum(torch.broadcast_to(weight.to(torch.float32), idx.shape[:-3] + (2, n_mb * bl)),
+                   -1)
     return (best - prior) / wsum

@@ -17,6 +17,8 @@ import math
 
 import torch
 
+from ..core.reduce import run_mean, run_sum
+
 __all__ = ["ser_q_siso", "ser_const_siso", "ser_symb_siso", "ser_iqflip", "ser_iqflip_from_dec",
            "ser_constell_shaping"]
 
@@ -24,9 +26,9 @@ __all__ = ["ser_q_siso", "ser_const_siso", "ser_symb_siso", "ser_iqflip", "ser_i
 def _wmean(err: torch.Tensor, weight: torch.Tensor | None, dim) -> torch.Tensor:
     err = err.to(torch.float32)
     if weight is None:
-        return torch.mean(err, dim=dim)
+        return run_mean(err, dim)
     w = torch.broadcast_to(weight.to(torch.float32), err.shape)
-    return torch.sum(err * w, dim=dim) / torch.sum(w, dim=dim)
+    return run_sum(err * w, dim) / run_sum(w, dim)
 
 
 def _decode_levels(tx: torch.Tensor, num_lev: int) -> torch.Tensor:
@@ -93,7 +95,7 @@ def ser_symb_siso(rx: torch.Tensor, tx: torch.Tensor, amps: torch.Tensor, sps: i
     func_VAELE_MQAM_shaping.py:125-154). Returns (...)."""
     n = tx.shape[-1]
     sig = rx[..., : n * sps : sps]
-    sig = sig / torch.sqrt(2 * torch.mean(sig**2, dim=-1, keepdim=True))
+    sig = sig / torch.sqrt(2 * run_mean(sig**2, -1)[..., None])
     return _ser_nearest(sig, tx, amps, weight)
 
 

@@ -40,6 +40,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..core.reduce import run_mean
+
 __all__ = ["dirac_taps_siso", "dirac_taps_dp", "cma_siso", "cma_dp", "cma_batch_dp", "cma_flex_dp"]
 
 
@@ -102,7 +104,7 @@ def cma_siso(rx, R: float, h, lr, sps: int, update: bool = True):
 def _normalize_dp(rx: torch.Tensor, mh: int) -> torch.Tensor:
     """Zero-pad time by mh on both sides, divide by the padded mean power."""
     y = F.pad(rx, (mh, mh))
-    power = (y[..., 0, :] ** 2 + y[..., 1, :] ** 2).mean(dim=(-2, -1))
+    power = run_mean(y[..., 0, :] ** 2 + y[..., 1, :] ** 2, (-2, -1))
     return y / power[..., None, None, None]
 
 

@@ -14,7 +14,7 @@ functional, its running statistics {"mean", "var", "momentum"} a separate
 state, with torch's conventions (batch statistics in train mode, the biased
 variance normalizes, the unbiased one feeds the running average).
 
-The per-run filters are one grouped ``F.conv1d`` over every leading index.
+The per-run filters are one ``F.conv1d`` per leading index.
 A float32 convolution on the card goes through cuDNN, which runs TF32 by
 default; at the demapper's gain that moves the SER, so ``vae_nn_forward``
 turns TF32 off while it runs, and ``no_tf32`` does the same around a
@@ -71,15 +71,19 @@ def vae_nn_init(gen: torch.Generator, kernel_1: int, kernel_2: int, num_lev: int
 
 def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int, pad: int) -> torch.Tensor:
     """Cross-correlation x (*lead, Cin, L) with w (*lead, Cout, Cin, k) + b (*lead, Cout),
-    leading dims broadcast: one group per leading index."""
+    leading dims broadcast: one convolution per leading index. (One grouped
+    convolution over them all picks its algorithm, and with it each group's
+    rounding, by the group count (oneDNN on the CPU): a run's outputs would
+    then depend on how many runs share the call, which run sharding changes,
+    ``train/batching.py``.)"""
     cin, length = x.shape[-2:]
     cout, k = w.shape[-3], w.shape[-1]
     lead = torch.broadcast_shapes(x.shape[:-2], w.shape[:-3], b.shape[:-1])
     g = math.prod(lead)
-    x = x.expand(lead + x.shape[-2:]).reshape(1, g * cin, length)
-    w = w.expand(lead + w.shape[-3:]).reshape(g * cout, cin, k)
-    out = F.conv1d(x, w, b.expand(lead + b.shape[-1:]).reshape(g * cout), stride=stride,
-                   padding=pad, groups=g)
+    x = x.expand(lead + x.shape[-2:]).reshape(g, 1, cin, length)
+    w = w.expand(lead + w.shape[-3:]).reshape(g, cout, cin, k)
+    b = b.expand(lead + b.shape[-1:]).reshape(g, cout)
+    out = torch.cat([F.conv1d(x[i], w[i], b[i], stride=stride, padding=pad) for i in range(g)])
     return out.reshape(lead + (cout, out.shape[-1]))
 
 

@@ -48,7 +48,8 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-__all__ = ["Call", "Comm", "Mesh", "halo_exchange", "make_mesh_2d", "run_ranks", "sp_sum"]
+__all__ = ["Call", "Comm", "Mesh", "halo_exchange", "make_mesh_2d", "run_mesh", "run_ranks",
+           "sp_sum"]
 
 # seconds a collective may wait for a peer before the run fails
 TIMEOUT_S = 120
@@ -120,6 +121,19 @@ def make_mesh_2d(n_dp: int, n_sp: int, devices=None, backend: str | None = None)
     return Mesh(n_dp, n_sp, tuple(str(d) for d in devs), backend)
 
 
+def run_mesh(n_devices: int | None = None, device="cuda") -> Mesh:
+    """The runs mesh (JAX ``parallel.run_mesh``): ``n_devices`` x 1 ranks, one
+    per card, over every visible card or the first ``n_devices`` (nccl
+    where there are several); one CPU rank for ``device="cpu"``. A
+    one-rank mesh runs the runners in the caller's process with no process
+    group (``train/batching.py``). ``n_devices`` above the card count raises."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return make_mesh_2d(1, 1, devices="cpu")
+    n = torch.cuda.device_count() if n_devices is None else n_devices
+    return make_mesh_2d(n, 1)
+
+
 class Comm:
     """One rank's view of the mesh inside its process group: its coordinates
     (``dp``, ``sp``), its device, its sp group, and the collectives the
@@ -169,6 +183,22 @@ class Comm:
         src = [c.contiguous() for c in chunks] if self.rank == 0 else None
         t0 = self._start()
         dist.scatter(out, src, src=0)
+        self._stop(t0)
+        return out
+
+    def broadcast_object(self, obj):
+        """Rank 0's picklable ``obj`` on every rank (``obj`` unused elsewhere)."""
+        box = [obj]
+        t0 = self._start()
+        dist.broadcast_object_list(box, src=0)
+        self._stop(t0)
+        return box[0]
+
+    def gather_object(self, obj) -> list | None:
+        """Every rank's picklable ``obj`` on rank 0 in rank order; None elsewhere."""
+        out = [None] * self.mesh.size if self.rank == 0 else None
+        t0 = self._start()
+        dist.gather_object(obj, out, dst=0)
         self._stop(t0)
         return out
 

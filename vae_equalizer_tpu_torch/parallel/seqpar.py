@@ -37,9 +37,9 @@ with ``graph=False``, so ``compiled`` (one device-to-host copy of the
 history at the end) and ``chunk_frames`` (one per chunk) keep JAX's
 contract without a CUDA graph, which cannot capture gloo's host-side
 collectives, and ``checkpoint`` follows one rule on every rank
-(``_RankCheckpoint``): the state file holds the whole carry of all runs,
-gathered to rank 0 at each save and scattered back on resume, so a file
-written on one mesh resumes on another.
+(``train/batching.py: RankCheckpoint``): the state file holds the whole
+carry of all runs, gathered to rank 0 at each save and scattered back on
+resume, so a file written on one mesh resumes on another.
 """
 
 from __future__ import annotations
@@ -55,6 +55,7 @@ from ..models import butterfly_init, dirac_taps_dp, soft_demap_dp
 from ..models.losses import conv_bank, posterior_moments
 from ..models.vae_le import butterfly_apply
 from ..ops.frame_kernel import adam_schedule, adam_update, frame_opt_init
+from ..train.batching import RankCheckpoint
 from ..train.dp import (
     _VAE_FIELDS,
     _batch_cut_weight_fn,
@@ -254,24 +255,6 @@ def _local_runs(tree: dict, runs: int, comm: Comm) -> dict:
     return out
 
 
-def _flat_carry(params: dict, opt: dict) -> torch.Tensor:
-    """params and Adam moments of n runs -> (n, K) float32, one row per run
-    (the leaves in ``_TAIL``'s order)."""
-    both = {**params, **opt}
-    return torch.cat([both[k].flatten(1) for k in _TAIL], dim=1)
-
-
-def _unflat_carry(flat: torch.Tensor, like: dict) -> tuple[dict, dict]:
-    """``_flat_carry``'s rows -> (params, opt) of ``flat``'s runs, each leaf
-    shaped as in ``like`` past its runs axis."""
-    out, i = {}, 0
-    for k in _TAIL:
-        size = like[k][0].numel()
-        out[k] = flat[:, i : i + size].reshape((flat.shape[0],) + like[k].shape[1:]).contiguous()
-        i += size
-    return {k: out[k] for k in ("w", "h")}, {k: out[k] for k in ("mw", "vw", "mh", "vh")}
-
-
 def _carry_template(m_est: int, runs: int, device) -> tuple:
     """The whole carry of ``runs`` runs, zeros: params, Adam moments and the
     step count, as the state file holds them."""
@@ -283,59 +266,6 @@ def _carry_template(m_est: int, runs: int, device) -> tuple:
 def _ident(flex_windows: bool) -> str:
     """A sharded run's checkpoint identity: the sweep's runner name."""
     return "VAEflex-SP" if flex_windows else "VAE-SP"
-
-
-class _RankCheckpoint(Checkpoint):
-    """A sharded run's ``Checkpoint`` on one rank.
-
-    The file is ``Checkpoint``'s, written and read by rank 0 alone. It holds
-    the whole carry of all R runs (w, h and the four Adam moments, each with
-    its leading (R,) axis, and the step count), the histories, the next
-    frame, the identity and rank 0's draw-generator state, so it does not
-    depend on the mesh's split. Every rank finds the due frames by the same
-    rule (``due``), so no collective is added to the other frames: at a
-    save, each rank sends its carry as one flat row per run through
-    ``gather`` and rank 0 writes sp rank 0's rows of every dp row. On
-    resume rank 0 reads the file (``ValueError`` where it does not match),
-    ``scatter``s the next frame and the step count to every rank, then each
-    dp row the rows of its runs. ``saves`` (rank 0): (frame, gather seconds,
-    write seconds) of every save.
-    """
-
-    def __init__(self, comm: Comm, runs: int, m_est: int, path=None, every: int = 0,
-                 rng: torch.Generator | None = None, ident: str = ""):
-        super().__init__(path, every, rng, ident)
-        self.comm, self.runs, self.m_est, self.saves = comm, runs, m_est, []
-
-    def save(self, done: int, carry, hist: dict) -> None:
-        params, opt, count = carry
-        t0 = time.perf_counter()
-        parts = self.comm.gather(_flat_carry(params, opt))
-        if parts is None:
-            return
-        flat = torch.cat([parts[r] for r in self.comm.mesh.dp_ranks(0)])
-        t1 = time.perf_counter()
-        super().save(done, (*_unflat_carry(flat, {**params, **opt}), count), hist)
-        self.saves.append((done, t1 - t0, time.perf_counter() - t1))
-
-    def resume(self, carry, hist: dict):
-        if self.path is None:
-            return 0, carry
-        comm, (params, opt, count) = self.comm, carry
-        mesh, r_loc = comm.mesh, self.runs // comm.mesh.n_dp
-        head = rows = None
-        if comm.rank == 0:
-            start, full = super().resume(_carry_template(self.m_est, self.runs, comm.device), hist)
-            head = [torch.tensor([start, int(full[2])], device=comm.device)] * mesh.size
-            flat = _flat_carry(full[0], full[1])
-            rows = [flat[(r // mesh.n_sp) * r_loc : (r // mesh.n_sp + 1) * r_loc]
-                    for r in range(mesh.size)]
-        start, step = comm.scatter(head, (2,), torch.int64).tolist()
-        if start == 0:
-            return 0, carry
-        like = {**params, **opt}
-        flat = comm.scatter(rows, (r_loc, sum(v[0].numel() for v in like.values())))
-        return start, (*_unflat_carry(flat, like), torch.full_like(count, step))
 
 
 def train_vae_dp_sharded_rank(comm: Comm, cfg: DpConfig, seed: int, runs: int | None = None,
@@ -379,8 +309,8 @@ def train_vae_dp_sharded_rank(comm: Comm, cfg: DpConfig, seed: int, runs: int | 
     count = torch.zeros((1,), dtype=torch.int64, device=dev)
     carry = (params, frame_opt_init(params), count)
     rng = _default_draws(seed, dev) if comm.rank == 0 and draws is None else None
-    ckpt = _RankCheckpoint(comm, R, cfg.m_est, checkpoint, checkpoint_every, rng,
-                           _ident(flex_windows))
+    ckpt = RankCheckpoint(comm, checkpoint, checkpoint_every, rng, _ident(flex_windows),
+                          hist_axes=None)
     loop = dict(num_frames=cfg.num_frames, ckpt=ckpt, compiled=compiled,
                 chunk_frames=chunk_frames, graph=False)
     if comm.rank != 0:
@@ -501,7 +431,7 @@ def train_vae_dp_sharded(cfg: DpConfig, seed: int, device="cuda", progress: Prog
     for bit. ``checkpoint`` / ``checkpoint_every`` = K: JAX's rule (the loop
     mode saves after every K-th frame, a chunked run at a chunk's end once
     K frames have run since the last save) and state file; the file holds
-    every run's carry, gathered to rank 0 (``_RankCheckpoint``), so a run
+    every run's carry, gathered to rank 0 (``RankCheckpoint``), so a run
     killed on one mesh resumes on any mesh of the same runs.
 
     Refuses (JAX's ValueErrors): runs not a multiple of n_dp, a minibatch of

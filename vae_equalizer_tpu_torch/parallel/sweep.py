@@ -92,8 +92,10 @@ def run_sweep(runner_name: str, base_cfg, axes: dict, iters: int, seed: int, mes
     with ``ser`` of shape (iters, ...), the runner's history with a leading
     repeat axis. Runners are called as ``runner(cfg, seed, device=device,
     runs=iters, mesh=mesh, progress=progress, **runner_kwargs)``: ``mesh``
-    (``parallel/mesh.py: make_mesh_2d``) is the dp x sp mesh of the
-    ``VAE-SP`` / ``VAEflex-SP`` runners (``parallel/seqpar.py``).
+    (``parallel/mesh.py``) is the runs mesh (``run_mesh``) over whose ranks
+    the unsharded runners split each point's runs (``train/batching.py``),
+    as JAX's sweep shards them, or the dp x sp mesh (``make_mesh_2d``) of
+    the ``VAE-SP`` / ``VAEflex-SP`` runners (``parallel/seqpar.py``).
 
     Resume: with ``skip_done`` the newest existing ``sweep_{tag}_*.jsonl`` is
     reused and its finished grid points are skipped. A record only counts as

@@ -90,6 +90,7 @@ from ..ops.siso_frame_kernel import (
     vae_siso_experiment_train,
 )
 from ..utils.config import AwgnCmaConfig, AwgnVaeLeConfig, AwgnVaeNnConfig
+from .batching import RunShard, run_sharding
 from .eval_utils import margin_weight, roll_time
 from .harness import Checkpoint, Progress, StepGraphs, _leaves, _rebuild, table_rows
 
@@ -99,14 +100,6 @@ _EVAL_NAMES = ("ser", "mi", "shift")
 # frame mode: validation frames (runs x evals) per batched evaluation; at
 # n_valid = 15,000 a batch of 100 holds ~0.1 GB of posteriors
 _EVAL_BATCH = 100
-_DEFERRED = "not ported yet (ROADMAP.md, queue 1: 'Deferred train_vae_le_awgn options')"
-_DEFERRED_NN = "not ported yet (ROADMAP.md, queue 1: 'Deferred train_vae_nn_awgn options')"
-_DEFERRED_CMA = "not ported yet (ROADMAP.md, queue 1: 'Deferred run_cma_awgn options')"
-
-
-def _refuse_mesh(mesh, where: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(f"mesh: {where}")
 
 
 def _setup(cfg, device, fixed_noise: bool = False):
@@ -123,12 +116,19 @@ def _setup(cfg, device, fixed_noise: bool = False):
     return const, sims, amps, P, 10 ** (-cfg.snr_db / 10)
 
 
-def _per_run(v, R: int, tail: int, device) -> torch.Tensor:
+def _per_run(v, shard: RunShard, tail: int, device) -> torch.Tensor:
     """A parameter (numpy or torch, with or without a runs axis) as a
-    contiguous float32 (R, *last ``tail`` dims) tensor on ``device``."""
+    contiguous float32 (R, *last ``tail`` dims) tensor on ``device`` of
+    ``shard``'s R runs."""
     v = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v, np.float32))
     v = v.to(device, torch.float32)
-    return v.expand((R,) + v.shape[-tail:]).contiguous()
+    return shard.take(v.expand((shard.runs,) + v.shape[-tail:]).contiguous())
+
+
+def _drawn(sim, rng: torch.Generator, shard: RunShard) -> tuple:
+    """A frame's default draws: drawn from ``rng`` for every run, as the
+    call without a mesh draws them, and cut to ``shard``'s runs."""
+    return tuple(map(shard.take, sim.draws(rng, shard.runs)))
 
 
 def _siso_eval_pack(q, tx, n_valid: int, const, amps, P) -> torch.Tensor:
@@ -224,12 +224,13 @@ def _run_epochs(cfg, epoch_step, eval_step, carry, R: int, progress: Progress,
     return static, buf["hist"].movedim(0, 1).cpu().numpy()  # one device-to-host copy
 
 
-def _vae_le_epoch(cfg, step_fn, sim, rng, R: int):
+def _vae_le_epoch(cfg, step_fn, sim, rng, shard: RunShard):
     """One VAE-LE epoch of the loop modes: a training frame (the caller's
-    draws, or drawn from ``rng``) and its minibatch steps (``step_fn(w, h,
-    x) -> (loss, gw, gh)`` + AMSGrad at the global step in the carry, its
-    bias corrections read from ``amsgrad_schedule``'s table by that count on
-    the device) over the carry ({"w", "h"}, AMSGrad moments, step)."""
+    draws, or drawn from ``rng`` for ``shard``'s runs) and its minibatch
+    steps (``step_fn(w, h, x) -> (loss, gw, gh)`` + AMSGrad at the global
+    step in the carry, its bias corrections read from ``amsgrad_schedule``'s
+    table by that count on the device) over the carry ({"w", "h"}, AMSGrad
+    moments, step)."""
     n_batches = cfg.n_train // cfg.batch_len
     mb_len = cfg.batch_len * cfg.sps
     dev = sim.device
@@ -240,7 +241,7 @@ def _vae_le_epoch(cfg, step_fn, sim, rng, R: int):
         params, opt, step = carry
         w, h = params["w"], params["h"]
         mw, vw, xw, mh, vh, xh = (opt[k] for k in ("mw", "vw", "xw", "mh", "vh", "xh"))
-        rx, _, _ = sim.physics(*(drawn or sim.draws(rng, R)))
+        rx, _, _ = sim.physics(*(drawn or _drawn(sim, rng, shard)))
         scalars = sched.index_select(0, step + offsets)  # (n_batches, 2): this epoch's steps
         for b in range(n_batches):
             loss, gw, gh = step_fn(w, h, rx[..., b * mb_len : (b + 1) * mb_len].contiguous())
@@ -301,13 +302,13 @@ def _frame_evals(cfg, w_ev, draws, sim, const, amps, P, var) -> np.ndarray:
                           lambda sl, vd: _evaluate(cfg, w_ev[sl], vd, sim, const, amps, P, var))
 
 
-def _default_draws(sims, seed: int, device):
+def _default_draws(sims, seed: int, device, shard: RunShard):
     """(draws, rng): the train and valid draws in sequence from one
     ``torch.Generator`` seeded with ``seed`` (its state is part of a
-    checkpoint, and a CUDA graph registers it)."""
+    checkpoint, and a CUDA graph registers it), for ``shard``'s runs."""
     rng = torch.Generator(device=device)
     rng.manual_seed(seed)
-    return (lambda kind, index, R: sims[kind].draws(rng, R)), rng
+    return (lambda kind, index, R: _drawn(sims[kind], rng, shard)), rng
 
 
 def _frame_refuses_checkpoint(use_pallas, checkpoint) -> None:
@@ -316,6 +317,7 @@ def _frame_refuses_checkpoint(use_pallas, checkpoint) -> None:
                          "checkpointing is unavailable")
 
 
+@run_sharding
 def train_vae_le_awgn(cfg: AwgnVaeLeConfig, seed: int, device="cuda", progress: Progress = None,
                       runs: int | None = None, mesh=None, params_init=None, compiled: bool = False,
                       use_pallas=False, checkpoint=None, checkpoint_every: int = 0,
@@ -341,12 +343,12 @@ def train_vae_le_awgn(cfg: AwgnVaeLeConfig, seed: int, device="cuda", progress: 
     resumes from it, bit for bit as the uninterrupted run; frame mode
     refuses a checkpoint with JAX's ``ValueError``. ``compiled`` /
     ``timings``: the module docstring (the loop modes replay CUDA graphs, the
-    frame mode is one program).
+    frame mode is one program). ``mesh``: the runs split over its ranks
+    (``train/batching.py``), as ``train/dp.py: train_vae_dp`` describes.
 
     Returns {"ser" (..., n_evals), "mi" (..., n_evals), "params" {"w"
     (..., 1, 2, M), "h" (..., 2, M)}} with a leading runs axis iff ``runs``.
     """
-    _refuse_mesh(mesh, _DEFERRED)
     if use_pallas not in (False, True, "frame"):
         raise ValueError(f"use_pallas={use_pallas!r}: expected False, True or 'frame'")
     if use_pallas and (cfg.sps != 2 or cfg.m_est % 2 == 0):
@@ -354,13 +356,15 @@ def train_vae_le_awgn(cfg: AwgnVaeLeConfig, seed: int, device="cuda", progress: 
     _frame_refuses_checkpoint(use_pallas, checkpoint)
 
     device = resolve_device(device)
-    R = 1 if runs is None else runs
+    shard = RunShard.of(mesh, runs)
+    R = shard.count
     const, sims, amps, P, var = _setup(cfg, device)
     caller_draws, rng = draws, None
     if draws is None:
-        draws, rng = _default_draws(sims, seed, device)
+        draws, rng = _default_draws(sims, seed, device, shard)
     params = params_init or {"w": siso_fir_init(cfg.m_est), "h": dirac_taps_siso(cfg.m_est)}
-    params = {"w": _per_run(params["w"], R, 3, device), "h": _per_run(params["h"], R, 2, device)}
+    params = {"w": _per_run(params["w"], shard, 3, device),
+              "h": _per_run(params["h"], shard, 2, device)}
 
     if use_pallas == "frame":
         rb = runs_batch or R
@@ -384,11 +388,12 @@ def train_vae_le_awgn(cfg: AwgnVaeLeConfig, seed: int, device="cuda", progress: 
                 loss = elbo_siso(q, x, h_, amps, P)  # (R,): runs are independent
                 gw, gh = torch.autograd.grad(loss.sum(), (w_, h_))
                 return loss.detach(), gw, gh
-        ckpt = Checkpoint(checkpoint, checkpoint_every, rng, f"VAE-LE use_pallas={use_pallas!r}")
+        ckpt = shard.checkpoint(checkpoint, checkpoint_every, rng,
+                                f"VAE-LE use_pallas={use_pallas!r}")
         step0 = torch.zeros((1,), dtype=torch.int64, device=device)
         (params, _, _), packed = _run_epochs(
-            cfg, _vae_le_epoch(cfg, step_fn, sims["train"], rng, R),
-            lambda c, *drawn: _evaluate(cfg, c[0]["w"], drawn or sims["valid"].draws(rng, R),
+            cfg, _vae_le_epoch(cfg, step_fn, sims["train"], rng, shard),
+            lambda c, *drawn: _evaluate(cfg, c[0]["w"], drawn or _drawn(sims["valid"], rng, shard),
                                         sims["valid"], const, amps, P, var),
             (params, siso_frame_opt_init(params), step0), R, progress, ckpt, caller_draws, compiled,
             timings)
@@ -412,6 +417,7 @@ def _nn_evaluate(cfg, net, rs, valid_draws, sim, const, amps, P) -> torch.Tensor
         return _siso_eval_pack(q, tx, cfg.n_valid, const, amps, P)
 
 
+@run_sharding
 def train_vae_nn_awgn(cfg: AwgnVaeNnConfig, seed: int, device="cuda", progress: Progress = None,
                       runs: int | None = None, mesh=None, compiled: bool = False, use_pallas=False,
                       checkpoint=None, checkpoint_every: int = 0, timings: dict | None = None,
@@ -431,12 +437,11 @@ def train_vae_nn_awgn(cfg: AwgnVaeNnConfig, seed: int, device="cuda", progress: 
     loop-mode eval. ``checkpoint`` / ``checkpoint_every`` as in
     ``train_vae_le_awgn`` (the loop mode's carry: W1', W2', h, the BN
     parameters and running statistics, the AMSGrad moments; the step
-    follows from the epoch); ``compiled`` / ``timings`` as there.
+    follows from the epoch); ``compiled`` / ``timings`` / ``mesh`` as there.
 
     Returns {"ser" (..., n_evals), "mi" (..., n_evals), "params" {"net",
     "h"[, "bn"]}} with a leading runs axis iff ``runs``.
     """
-    _refuse_mesh(mesh, _DEFERRED_NN)
     if use_pallas is True:
         raise ValueError("VAE-NN has no per-step kernel mode; use use_pallas='frame'")
     if use_pallas not in (False, "frame"):
@@ -446,11 +451,12 @@ def train_vae_nn_awgn(cfg: AwgnVaeNnConfig, seed: int, device="cuda", progress: 
     _frame_refuses_checkpoint(use_pallas, checkpoint)
 
     device = resolve_device(device)
-    R = 1 if runs is None else runs
+    shard = RunShard.of(mesh, runs)
+    R = shard.count
     const, sims, amps, P, _ = _setup(cfg, device, fixed_noise=True)
     caller_draws, rng = draws, None
     if draws is None:
-        draws, rng = _default_draws(sims, seed, device)
+        draws, rng = _default_draws(sims, seed, device, shard)
     if params_init is None:
         gen = torch.Generator()
         gen.manual_seed(seed ^ 0x5EED)
@@ -459,17 +465,18 @@ def train_vae_nn_awgn(cfg: AwgnVaeNnConfig, seed: int, device="cuda", progress: 
         if cfg.batchnorm:
             params_init["bn"] = bn_state
 
-    net0 = {k: _per_run(v, R, 3 if k[0] == "w" else 1, device) for k, v in params_init["net"].items()}
+    net0 = {k: _per_run(v, shard, 3 if k[0] == "w" else 1, device)
+            for k, v in params_init["net"].items()}
     w1f, w2f = (t.contiguous() for t in flatten_nn_params(net0))
-    h = _per_run(params_init["h"], R, 2, device)
+    h = _per_run(params_init["h"], shard, 2, device)
     ch, k1 = w1f.shape[-2], cfg.kernel_1
     bn = None
     if cfg.batchnorm:
         st = params_init["bn"]
         momentum = float(st["momentum"])
         bn = (torch.stack([net0["bn_scale"], net0["bn_bias"]], dim=-1),
-              torch.stack([_per_run(st["mean"], R, 1, device), _per_run(st["var"], R, 1, device)],
-                          dim=-1))
+              torch.stack([_per_run(st["mean"], shard, 1, device),
+                           _per_run(st["var"], shard, 1, device)], dim=-1))
     else:
         momentum = 0.1
     opt = nn_frame_opt_init(w1f, w2f, h, None if bn is None else bn[0])
@@ -494,7 +501,7 @@ def train_vae_nn_awgn(cfg: AwgnVaeNnConfig, seed: int, device="cuda", progress: 
 
         def epoch_step(carry, epoch, *drawn):
             w1f, w2f, h, bnp, rs, opt = carry
-            rx, _, _ = sims["train"].physics(*(drawn or sims["train"].draws(rng, R)))
+            rx, _, _ = sims["train"].physics(*(drawn or _drawn(sims["train"], rng, shard)))
             w1f, w2f, h, bnp, rs, opt, losses, *_ = vae_nn_experiment_train_plain(
                 w1f, w2f, h, opt, rx[:, None], amps, cfg.lr, (bnp, rs) if bn is not None else None,
                 momentum, epe=1, bias=sched.index_select(0, epoch * n_batches + offsets), **kw)
@@ -503,10 +510,11 @@ def train_vae_nn_awgn(cfg: AwgnVaeNnConfig, seed: int, device="cuda", progress: 
         def eval_step(carry, *drawn):
             w1f, w2f, _, bnp, rs, _ = carry
             return _nn_evaluate(cfg, nn_net(w1f, w2f, bnp, k1, cfg.batchnorm), rs,
-                                drawn or sims["valid"].draws(rng, R), sims["valid"], const, amps, P)
+                                drawn or _drawn(sims["valid"], rng, shard), sims["valid"], const,
+                                amps, P)
 
-        ckpt = Checkpoint(checkpoint, checkpoint_every, rng,
-                          f"VAE-NN batchnorm={cfg.batchnorm} use_pallas={use_pallas!r}")
+        ckpt = shard.checkpoint(checkpoint, checkpoint_every, rng,
+                                f"VAE-NN batchnorm={cfg.batchnorm} use_pallas={use_pallas!r}")
         (w1f, w2f, h, bnp, rs, _), packed = _run_epochs(
             cfg, epoch_step, eval_step, (w1f, w2f, h, bnp, rs, opt), R, progress, ckpt,
             caller_draws, compiled, timings)
@@ -569,6 +577,7 @@ def _cma_train(cfg, rx_epochs, h0, ckpt: Checkpoint):
     return taps, torch.cat(h_ev), torch.cat(loss, dim=1)
 
 
+@run_sharding
 def run_cma_awgn(cfg: AwgnCmaConfig, seed: int, device="cuda", progress: Progress = None,
                  runs: int | None = None, mesh=None, compiled: bool = False, checkpoint=None,
                  checkpoint_every: int = 0, timings: dict | None = None, draws=None) -> dict:
@@ -591,22 +600,24 @@ def run_cma_awgn(cfg: AwgnCmaConfig, seed: int, device="cuda", progress: Progres
     the same one-launch experiment (bit for bit; ``progress`` unavailable
     and ``checkpoint`` ignored, as in JAX); ``timings`` (a dict, where the
     experiment is one program: compiled, or without a checkpoint) as in
-    ``train_vae_le_awgn``'s frame mode.
+    ``train_vae_le_awgn``'s frame mode; ``mesh`` as there (each rank runs
+    kernel I on its runs; the file holds every run's).
 
     Returns {"ser" (..., n_evals), "mi" (..., n_evals), "taps" (..., 2, M)}
     with a leading runs axis iff ``runs``.
     """
-    _refuse_mesh(mesh, _DEFERRED_CMA)
     device = resolve_device(device)
-    R = 1 if runs is None else runs
+    shard = RunShard.of(mesh, runs)
+    R = shard.count
     const, sims, amps, P, var = _setup(cfg, device)
     rng = None
     if draws is None:
-        draws, rng = _default_draws(sims, seed, device)
+        draws, rng = _default_draws(sims, seed, device, shard)
     var_q = torch.full((1,), var, dtype=torch.float32, device=device)
     n_evals = cfg.num_epochs // cfg.epe
-    ckpt = Checkpoint() if compiled else Checkpoint(checkpoint, checkpoint_every, ident="CMA-AWGN")
-    h0 = _per_run(dirac_taps_siso(cfg.m_est), R, 2, device)
+    ckpt = Checkpoint() if compiled else shard.checkpoint(checkpoint, checkpoint_every,
+                                                          ident="CMA-AWGN", hist_axes={"h_ev": 1})
+    h0 = _per_run(dirac_taps_siso(cfg.m_est), shard, 2, device)
 
     def experiment():
         rx_epochs = _frame_train_data(sims["train"], draws, R, cfg.num_epochs)

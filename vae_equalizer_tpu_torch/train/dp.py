@@ -51,8 +51,9 @@ from ..ops.cma_kernel import cma_dp_kernel
 from ..ops.elbo_kernel import vae_dp_loss_and_grad
 from ..ops.frame_kernel import adam_schedule, adam_update, frame_opt_init, vae_dp_frame_train
 from ..utils.config import DpConfig
+from .batching import RunShard, run_sharding
 from .eval_utils import align_idx_dp, align_tx_dp, batch_cut_weight, margin_weight_maxshift
-from .harness import Checkpoint, Progress, pack_metrics, run_frame_loop
+from .harness import Progress, pack_metrics, run_frame_loop
 from .modes import check_pallas_mode
 
 __all__ = ["run_cma_dp", "train_vae_dp", "train_vae_flex_dp"]
@@ -127,14 +128,19 @@ def _dp_frame_eval_mb(out_const, tx, amps, P, nu_sc, var, weight_fn, dec, eq, ou
 def _vae_metrics(losses, ser_const, ser_soft, mi, var_est, shift, r, sigma, pow_mean):
     """A VAE frame's metrics packed (R, n_tot): losses (steps, R), var_est
     (R, steps, 2), the eval's per-run results, the channel's sigma (R,) and
-    the source power (a float, or (R,) per run)."""
-    snr_est = pow_mean / var_est.mean(dim=(-2, -1))
+    the source power (a float, or (R,) per run). The mean of var_est over the
+    steps is a sequential sum (a cumulative sum's last row): a reduction
+    would order that sum by how many runs share the tensor (its split of the
+    steps over threads follows the number of outputs), and a run's metrics
+    must not depend on that (run sharding, ``train/batching.py``)."""
+    var_mean = var_est.cumsum(dim=-2)[..., -1, :] / var_est.shape[-2]
+    snr_est = pow_mean / var_mean.mean(dim=-1)
     metrics = {
         "loss": losses[-1],
         "ser_const": ser_const,
         "ser_soft": ser_soft,
         "mi": mi,
-        "var_est": var_est.mean(dim=-2),
+        "var_est": var_mean,
         "snr_est_db": 10 * torch.log10(snr_est),
         "shift": shift.to(torch.float32),
         "r": r,
@@ -244,7 +250,7 @@ def _dp_result(hist: dict, var, **extra) -> dict:
 
 
 # dims of each run constant's shared form; one more is its per-run form
-_CONST_NDIM = {"lr": 0, "nu_sc": 0, "var": 1, "P": 1}
+_CONST_NDIM = {"lr": 0, "nu_sc": 0, "var": 1, "P": 1, "pow_mean": 0, "snr_lin": 0, "var_runs": 1}
 
 
 def _frame_kernel_train(cfg, amps, rc, *, runs, runs_batch, stream_bf16, stride_sym, crop, tx_of,
@@ -334,28 +340,30 @@ def _step_train(cfg, const, amps, P, var, *, use_kernel, n_steps, stride_sym, cr
     return train
 
 
-def _run_vae_experiment(cfg, gen, var, draws, train, *, steps_per_frame, params, runs, progress,
-                        ckpt, graph_opts, P_draw=None, snr_lin=None, var_runs=None):
+def _run_vae_experiment(cfg, gen, var, draws, train, *, steps_per_frame, params, runs, shard,
+                        progress, ckpt, graph_opts, P_draw=None, snr_lin=None, var_runs=None):
     """The VAE / VAEflex frame loop for every mode: the carry is (params, Adam
     moments, global step count on the device), so the lr schedule and bias
     correction continue across frames, and a resume (``ckpt``) restores all
     three; ``train(params, opt, count, rx, tx, sigma) -> (params, opt,
-    packed)`` trains and evaluates one frame of all runs; ``draws`` the
-    caller's ``draws(frame, R)`` or None (the default draws from
-    ``ckpt.rng``); ``graph_opts`` ``run_frame_loop``'s compiled /
-    chunk_frames / timings; ``P_draw`` (R, n) the default draws' per-run
-    pmf, ``snr_lin`` (R,) the channel's per-run SNR, ``var_runs`` the
-    per-run demapper variance the result reports."""
-    R = 1 if runs is None else runs
+    packed)`` trains and evaluates one frame of this process's runs
+    (``shard``'s; the default draws are drawn for every run, from
+    ``ckpt.rng``, and cut to them); ``draws`` the caller's ``draws(frame,
+    R)`` or None; ``graph_opts`` ``run_frame_loop``'s compiled /
+    chunk_frames / timings; ``P_draw`` (R, n) every run's pmf of the default
+    draws, ``snr_lin`` the channel's SNR of each of this process's runs,
+    ``var_runs`` their demapper variance for the result."""
+    R = shard.count
     tail = {"w": 3, "h": 4}  # w (2, 4, M), h (2, 2, 2, M), with or without a runs axis
-    params = {k: v.expand((R,) + v.shape[-tail[k]:]).contiguous() for k, v in params.items()}
+    params = {k: shard.take(v.expand((shard.runs,) + v.shape[-tail[k]:]).contiguous())
+              for k, v in params.items()}
     count = torch.zeros((1,), dtype=torch.int64, device=var.device)
     carry = (params, frame_opt_init(params), count)
     rng = ckpt.rng
 
     def frame_step(carry, theta, *drawn):
         params, opt, count = carry
-        levels, noise = drawn or gen.draws(rng, R, P_draw)
+        levels, noise = drawn or tuple(map(shard.take, gen.draws(rng, shard.runs, P_draw)))
         rx, tx, sigma = gen.physics(theta, levels, noise, snr_lin)
         params, opt, packed = train(params, opt, count, rx, tx, sigma)
         if runs is None:
@@ -364,21 +372,11 @@ def _run_vae_experiment(cfg, gen, var, draws, train, *, steps_per_frame, params,
 
     (params, _, _), hist = run_frame_loop(
         frame_step, carry, (_frame_inputs(cfg, var.device),), _VAE_FIELDS,
-        num_frames=cfg.num_frames, runs=runs, progress=progress, ckpt=ckpt,
+        num_frames=cfg.num_frames, runs=None if runs is None else R, progress=progress, ckpt=ckpt,
         host_rows=None if rng is not None else (lambda f: draws(f, R)), **graph_opts)
     if runs is None:
         params = {k: v[0] for k, v in params.items()}
     return _dp_result(hist, var, params=params, var_runs=var_runs)
-
-
-_DEFERRED = ("not ported yet (ROADMAP.md, queue 1: 'Deferred train_vae_dp / train_vae_flex_dp "
-             "options')")
-_DEFERRED_CMA = "not ported yet (ROADMAP.md, queue 1: 'Deferred run_cma_dp options')"
-
-
-def _raise_deferred(mesh, where: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(f"mesh: {where}")
 
 
 def _default_draws(seed: int, device) -> torch.Generator:
@@ -439,15 +437,23 @@ def _run_consts(cfg: DpConfig, const, var, runs, lr_vec, snr_vec, nu_vec, device
     return rc
 
 
+def _local_consts(rc: dict, shard: RunShard) -> dict:
+    """``_run_consts`` of ``shard``'s runs: the rows of each per-run
+    constant; ``P_draw`` stays whole (the default draws are drawn for every
+    run)."""
+    return {k: shard.take(v) if k in _CONST_NDIM and np.ndim(v) > _CONST_NDIM[k] else v
+            for k, v in rc.items()}
+
+
 def _vae_setup(loss_type, cfg, seed, device, params_init, use_pallas, draws, runs, runs_batch,
-               stream_bf16, vecs, mesh):
+               stream_bf16, vecs, shard):
     """What both VAE runners share: the mode and option checks (JAX's
     refusals, train/dp.py:323-331, 565-566), then (device, n_frame,
-    constellation, demapper var, simulator, amps, run constants, params,
-    the caller's draws or None, the default draws' generator or None) for
-    frames of n_frame = (n_frame_max // batch_len) * batch_len symbols."""
+    constellation, demapper var, simulator, amps, the run constants of
+    ``shard``'s runs, params, the caller's draws or None, the default draws'
+    generator or None) for frames of n_frame = (n_frame_max // batch_len) *
+    batch_len symbols."""
     check_pallas_mode(loss_type, use_pallas)
-    _raise_deferred(mesh, _DEFERRED)
     if use_pallas and (cfg.sps != 2 or cfg.m_est % 2 == 0):
         raise ValueError("use_pallas requires sps=2 and odd M_est")
     has_vec = any(v is not None for v in vecs)
@@ -461,7 +467,7 @@ def _vae_setup(loss_type, cfg, seed, device, params_init, use_pallas, draws, run
     device = resolve_device(device)
     n_frame = cfg.n_frame_max // cfg.batch_len * cfg.batch_len
     const, var, gen, amps, _ = _setup(cfg, n_frame, device)
-    rc = _run_consts(cfg, const, var, runs, *vecs, device)
+    rc = _local_consts(_run_consts(cfg, const, var, runs, *vecs, device), shard)
     params = params_init or {"w": butterfly_init(cfg.m_est, device), "h": dirac_taps_dp(cfg.m_est, device)}
     params = {k: torch.as_tensor(v, dtype=torch.float32).to(device) for k, v in params.items()}
     rng = _default_draws(seed, device) if draws is None else None
@@ -472,9 +478,10 @@ def _vae_runner(loss_type, cfg, seed, device, progress, runs, params_init, use_p
                 runs_batch, stream_bf16, vecs, mesh, checkpoint, checkpoint_every, graph_opts):
     """``train_vae_dp`` (batch_len windows back to back) and
     ``train_vae_flex_dp`` (windows every flex_step, central crop)."""
+    shard = RunShard.of(mesh, runs)
     device, n_frame, const, var, gen, amps, rc, params, draws, rng = _vae_setup(
         loss_type, cfg, seed, device, params_init, use_pallas, draws, runs, runs_batch, stream_bf16,
-        vecs, mesh)
+        vecs, shard)
     bl = cfg.batch_len
     if loss_type == "VAE":
         n_steps = n_frame // bl
@@ -489,16 +496,19 @@ def _vae_runner(loss_type, cfg, seed, device, progress, runs, params_init, use_p
                   tx_of=lambda tx: tx[..., bl // 2 : bl // 2 + m_max], weight_fn=_margin_weight_fn(m_max))
     kw["thresh"] = float(cfg.n_lrhalf) * n_steps
     if use_pallas == "frame":
-        train = _frame_kernel_train(cfg, amps, rc, runs=runs, runs_batch=runs_batch,
-                                    stream_bf16=stream_bf16, **kw)
+        train = _frame_kernel_train(cfg, amps, rc, runs=None if runs is None else shard.count,
+                                    runs_batch=runs_batch, stream_bf16=stream_bf16, **kw)
     else:
         train = _step_train(cfg, const, amps, rc["P"], var, use_kernel=use_pallas, n_steps=n_steps, **kw)
-    ckpt = Checkpoint(checkpoint, checkpoint_every, rng, f"{loss_type} use_pallas={use_pallas!r}")
+    ckpt = shard.checkpoint(checkpoint, checkpoint_every, rng,
+                            f"{loss_type} use_pallas={use_pallas!r}")
     return _run_vae_experiment(cfg, gen, var, draws, train, steps_per_frame=n_steps, params=params,
-                               runs=runs, progress=progress, ckpt=ckpt, graph_opts=graph_opts,
+                               runs=runs, shard=shard, progress=progress, ckpt=ckpt,
+                               graph_opts=graph_opts,
                                P_draw=rc["P_draw"], snr_lin=rc["snr_lin"], var_runs=rc["var_runs"])
 
 
+@run_sharding
 def train_vae_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progress = None,
                  runs: int | None = None, mesh=None, params_init=None, compiled: bool = False,
                  use_pallas=False, checkpoint=None, checkpoint_every: int = 0,
@@ -547,6 +557,16 @@ def train_vae_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progress = N
     and "run_s" (the best of 3 replays of the whole experiment, each from
     the initial state and draws; the result is the last one's).
 
+    ``mesh`` (``parallel.run_mesh``, or ``make_mesh_2d(n, 1)``; JAX's run
+    sharding, ``train/batching.py``): the runs split over its ranks, one
+    unit per run or per group of ``runs_batch``, on gcd(units, ranks) of
+    them; each rank draws every run from ``seed`` and runs its share on its
+    device (its kernels, graphs and checkpoint file in every mode above),
+    and this process, rank 0, returns every run's result: the call without
+    a mesh's. A split that uses one rank runs here, on that rank's device;
+    ``runs=None`` ignores the mesh; a mesh with an sp axis, or anything but
+    a ``Mesh``, raises ``ValueError``.
+
     Returns {"ser" (..., 4, F), "mi" (..., 2, F), "var_est" (..., 2, F),
     "var" (2,), "params" {"w", "h"}} with a leading runs axis iff ``runs``,
     and "var_runs" (runs, 2), the per-run demapper variance, whenever
@@ -557,6 +577,7 @@ def train_vae_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progress = N
                        checkpoint_every, _graph_opts(compiled, chunk_frames, timings))
 
 
+@run_sharding
 def train_vae_flex_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progress = None,
                       runs: int | None = None, mesh=None, params_init=None, compiled: bool = False,
                       use_pallas=False, checkpoint=None, checkpoint_every: int = 0,
@@ -573,7 +594,7 @@ def train_vae_flex_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progres
     ``use_pallas``: ``"frame"`` runs all windows (incl. Adam) as one kernel B
     launch with ``stride_sym = flex_step``; ``True`` runs each window of all
     runs as one kernel A launch; ``False`` takes each window's gradient by
-    autograd. Arguments, draws, the graph modes and returns as
+    autograd. Arguments, draws, the graph modes, ``mesh`` and returns as
     ``train_vae_dp``.
     """
     return _vae_runner("VAEflex", cfg, seed, device, progress, runs, params_init, use_pallas, draws,
@@ -581,6 +602,7 @@ def train_vae_flex_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progres
                        checkpoint_every, _graph_opts(compiled, chunk_frames, timings))
 
 
+@run_sharding
 def run_cma_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progress = None,
                runs: int | None = None, mesh=None, taps_init=None, use_pallas=False,
                compiled: bool = False, checkpoint=None, checkpoint_every: int = 0,
@@ -603,7 +625,7 @@ def run_cma_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progress = Non
     ``checkpoint`` / ``checkpoint_every`` as there (the carry is the taps;
     each frame's lr follows from its index); ``compiled`` / ``chunk_frames``
     / ``timings`` as there (a graph reads each frame's lr from a device
-    table by its frame counter).
+    table by its frame counter); ``mesh`` as there.
     ``taps_init`` (2, 2, 2, M) or (runs, 2, 2, 2, M), numpy or torch.
 
     Returns {"ser" (..., 4, F), "mi" (..., 2, F), "var_est" (zeros,
@@ -611,7 +633,7 @@ def run_cma_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progress = Non
     axis iff ``runs``.
     """
     check_pallas_mode(cfg.loss_type, use_pallas)
-    _raise_deferred(mesh, _DEFERRED_CMA)
+    shard = RunShard.of(mesh, runs)
     step = cfg.batch_len if cfg.loss_type == "CMAbatch" else cfg.flex_step
     if use_pallas == "frame":
         equalize = lambda rx, h, lr: cma_chunked_frame(rx, cfg.R, h, lr, cfg.batch_len, step, cfg.sps)
@@ -626,7 +648,7 @@ def run_cma_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progress = Non
         raise ValueError(f"unknown CMA variant {cfg.loss_type!r}")
 
     device = resolve_device(device)
-    R = 1 if runs is None else runs
+    R = shard.count
     rb = runs_batch or R
     if R % rb != 0:
         raise ValueError(f"runs_batch={rb} must divide runs={R}")
@@ -638,22 +660,23 @@ def run_cma_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progress = Non
     if not isinstance(h, torch.Tensor):
         h = torch.from_numpy(np.array(h, np.float32))  # a copy: JAX arrays are read-only
     h = h.to(device, torch.float32)
-    h = h.expand((R,) + h.shape[-4:]).contiguous()
+    h = shard.take(h.expand((shard.runs,) + h.shape[-4:]).contiguous())
     weight_fn = _margin_weight_fn(n_eval)
     lrs = (np.float32(cfg.lr) * 0.5 ** (np.arange(cfg.num_frames) // cfg.n_lrhalf)).astype(np.float32)
 
     def frame_step(h, theta, lr, *drawn):
-        levels, noise = drawn or gen.draws(rng, R)
+        levels, noise = drawn or tuple(map(shard.take, gen.draws(rng, shard.runs)))
         rx, tx, sigma = gen.physics(theta, levels, noise)
         groups = [equalize(rx[g : g + rb], h[g : g + rb], lr) for g in range(0, R, rb)]
         out, h, e = (torch.cat(parts) for parts in zip(*groups))
         packed = _finish_cma_frame(out, e, tx, sigma, const, amps, P, var, cfg.n_cut, weight_fn)
         return h, packed if runs is not None else packed[0]
 
-    ckpt = Checkpoint(checkpoint, checkpoint_every, rng, f"{cfg.loss_type} use_pallas={use_pallas!r}")
+    ckpt = shard.checkpoint(checkpoint, checkpoint_every, rng,
+                            f"{cfg.loss_type} use_pallas={use_pallas!r}")
     h, hist = run_frame_loop(
         frame_step, h, (_frame_inputs(cfg, device), torch.from_numpy(lrs).to(device)), _CMA_FIELDS,
-        num_frames=cfg.num_frames, runs=runs, progress=progress, ckpt=ckpt,
+        num_frames=cfg.num_frames, runs=None if runs is None else R, progress=progress, ckpt=ckpt,
         host_rows=None if rng is not None else (lambda f: draws(f, R)),
         **_graph_opts(compiled, chunk_frames, timings))
     return _dp_result(hist, var, taps=h if runs is not None else h[0])
