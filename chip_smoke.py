@@ -607,7 +607,7 @@ def _dfe_phases(card: str) -> list:
     import numpy as np
     import torch
 
-    from vae_equalizer_tpu_torch.ops.dfe_kernel import dfe_decide, dfe_decide_plain
+    from vae_equalizer_tpu_torch.ops.dfe_kernel import dfe_clocks, dfe_decide, dfe_decide_plain, dfe_route
     from vae_equalizer_tpu_torch.train import dfe as train_dfe
     from vae_equalizer_tpu_torch.utils import LmmseDfeConfig
 
@@ -616,7 +616,7 @@ def _dfe_phases(card: str) -> list:
     n = cfg.n_valid
 
     # ---- 27. kernel J vs plain: every chain of the sweep (8 SNRs x 5 epochs),
-    # decisions equal bit for bit
+    # decisions equal bit for bit, on the grid route (64-QAM is an 8 x 8 grid)
     c = train_dfe._dfe_chains(cfg, 97, dev)
     k2 = c["fb"].shape[-1]
     n_chains = c["ff_out"].shape[0] * c["ff_out"].shape[1]
@@ -633,12 +633,17 @@ def _dfe_phases(card: str) -> list:
         bad = got != want
         raise AssertionError(f"kernel J: {int(bad.sum())} of {bad.numel()} decisions differ from "
                              f"the plain version's (first in chain {int(bad.any(-1).nonzero()[0])})")
+    route = dfe_route(j_args[2])
+    if route[0] != "grid":
+        raise AssertionError(f"kernel J: the sweep's 64-QAM table took the {route[0]} route")
     ms_j = _time_ms(lambda: dfe_decide(*j_args), reps=3)
+    ms_j_launch = _launch_alone_ms(lambda: dfe_decide(*j_args), "dfe_decide_launch", 3)
     n_points = c["points"].shape[-1]
     bound_j = _bound(n_chains * _dfe_flops(n - k2, k2, n_points), _nbytes(j_args, got))
     _line("27 kernel J", ok=True, chains=n_chains, symbols=n, k2=k2, points=n_points,
-          bit_identical=True, ms=f"{ms_j:.3f}", plain_ms=f"{ms_j_plain:.1f}",
-          bound_ms=f"{bound_j['bound_ms']:.6f}", card=repr(card))
+          route=f"{route[0]}({route[1]}x{route[1]})", bit_identical=True, ms=f"{ms_j:.3f}",
+          launch_ms=f"{ms_j_launch:.3f}", plain_ms=f"{ms_j_plain:.1f}",
+          bound_ms=f"{bound_j['bound_ms']:.6f}", **_clocks_kv(dfe_clocks(*j_args)), card=repr(card))
 
     # ---- 28. the LMMSE / DFE path: 8 SNRs x 5 epochs, one kernel J launch
     res, wall = _counted(dfe_decide, 1, lambda: train_dfe.run_lmmse_dfe(cfg, seed=0, device=DEVICE))

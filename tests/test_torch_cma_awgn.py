@@ -232,17 +232,20 @@ def cuda():
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("m", [25, 41], ids=["m25", "m41"])
-def test_kernel_i_matches_plain_on_card(cuda, m):
+@pytest.mark.parametrize("m,sps,R", [(25, 2, 3), (41, 2, 3), (64, 2, 3), (9, 1, 5), (25, 2, 200)],
+                         ids=["m25", "m41", "m64", "m9_sps1", "m25_R200"])
+def test_kernel_i_matches_plain_on_card(cuda, m, sps, R):
+    """Kernel I's lane groups: 1, 4 and 8 taps a lane, sps 1, and 200 runs
+    (more than the card's SMs: two runs share a warp)."""
     rng = np.random.default_rng(m)
-    rx = T((0.7 * rng.normal(size=(3, 3, 2, 2000))).astype(np.float32)).to(cuda)
-    h0 = (dirac_taps_siso(m) + T((0.01 * rng.normal(size=(3, 2, m))).astype(np.float32))).to(cuda)
+    rx = T((0.7 * rng.normal(size=(R, 3, 2, 2000))).astype(np.float32)).to(cuda)
+    h0 = (dirac_taps_siso(m) + T((0.01 * rng.normal(size=(R, 2, m))).astype(np.float32))).to(cuda)
     n0 = cma_siso_experiment.launches
-    got = cma_siso_experiment(rx, h0, 1.0, 1e-3, 2, 1)
-    again = cma_siso_experiment(rx, h0, 1.0, 1e-3, 2, 1)
+    got = cma_siso_experiment(rx, h0, 1.0, 1e-3, sps, 1)
+    again = cma_siso_experiment(rx, h0, 1.0, 1e-3, sps, 1)
     torch.cuda.synchronize()
     assert cma_siso_experiment.launches == n0 + 2
-    want = cma_siso_experiment_plain(rx, h0, 1.0, 1e-3, 2, 1)
+    want = cma_siso_experiment_plain(rx, h0, 1.0, 1e-3, sps, 1)
     for a, b, c in zip(got, again, want):
         assert torch.equal(a, b)
         np.testing.assert_allclose(a.cpu().numpy(), c.cpu().numpy(), rtol=1e-4,

@@ -199,3 +199,46 @@ def test_kernel_i_runs_are_single_run_calls_and_repeat(emulated):
     again = ik._launch(rx, h0, 1.0, 1e-3, 2, 1, clocks)
     assert all(torch.equal(a, b) for a, b in zip(again, full))
     assert clocks.tolist() == [0] * len(ik.I_CLOCK_PHASES)
+
+
+I_GROUP_CASES = {  # the group's lane partition at M up to 64, sps 1 and 2, R past one warp's runs
+    "m64_sps2": dict(m=64, sps=2, E=3, epe=1, R=2),  # eight taps per lane
+    "m33_sps1": dict(m=33, sps=1, E=3, epe=2, R=3),
+    "m25_sps1_R5": dict(m=25, sps=1, E=4, epe=2, R=5),  # 4 runs a warp on one SM: 4 + 1
+    "m48_sps2_R7": dict(m=48, sps=2, E=2, epe=1, R=7),
+    "m25_long": dict(m=25, sps=2, E=2, epe=1, R=2, n_sym=2600),  # the frame wraps the staging ring twice
+    "m64_sps1_long": dict(m=64, sps=1, E=1, epe=1, R=3, n_sym=2600),
+}
+
+
+@pytest.mark.parametrize("case", list(I_GROUP_CASES), ids=list(I_GROUP_CASES))
+def test_kernel_i_group_partition_matches_plain(emulated, case):
+    """Kernel I's lane groups (the emulation packs runs into warps as a card of
+    one SM would, so R = 5 and 7 leave a warp with groups past the last run)
+    against the per-epoch plain loop at phase 25's tolerances; the long
+    frames wrap the shared-memory staging ring (4 chunks of 512 samples)."""
+    c = I_GROUP_CASES[case]
+    rx, h0 = _epochs(c["R"], c["E"], c.get("n_sym", 500), c["m"], c["sps"], seed=c["m"])
+    args = (rx, h0, 1.0, 1e-3, c["sps"], c["epe"])
+    got, want = ik._launch(*args), ik.cma_siso_experiment_plain(*args)
+    errs: dict = {}
+    for name, g, w in zip(("h", "h_ev", "loss"), got, want):
+        assert g.shape == w.shape, name
+        chip_smoke._check(name, g, w, 1e-4, 1e-6 * float(w.abs().max()), errs)
+
+
+def test_kernel_i_packed_runs_are_single_run_calls(emulated):
+    """R = 5 packed 4 + 1 into warps equals five single-run calls bit for bit,
+    frames shorter than the window included (every symbol bounds-checked)."""
+    for n_sym, m in ((400, 25), (10, 41)):
+        rx, h0 = _epochs(5, 2, n_sym, m)
+        full = ik._launch(rx, h0, 1.0, 1e-3, 2, 1)
+        for r in range(5):
+            h, h_ev, loss = ik._launch(rx[r : r + 1].contiguous(), h0[r : r + 1].contiguous(), 1.0,
+                                       1e-3, 2, 1)
+            assert torch.equal(h[0], full[0][r]) and torch.equal(h_ev[:, 0], full[1][:, r])
+            assert torch.equal(loss[0], full[2][r])
+        want = ik.cma_siso_experiment_plain(rx, h0, 1.0, 1e-3, 2, 1)
+        errs: dict = {}
+        for name, g, w in zip(("h", "h_ev", "loss"), full, want):
+            chip_smoke._check(name, g, w, 1e-4, 1e-6 * float(w.abs().max()), errs)

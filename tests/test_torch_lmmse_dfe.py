@@ -42,7 +42,7 @@ from vae_equalizer_tpu_torch.models import (
     dfe_equalize,
     nearest_neighbor,
 )
-from vae_equalizer_tpu_torch.ops.dfe_kernel import dfe_decide, dfe_decide_plain
+from vae_equalizer_tpu_torch.ops.dfe_kernel import dfe_decide, dfe_decide_plain, dfe_route
 from vae_equalizer_tpu_torch.train.dfe import run_lmmse_dfe
 from vae_equalizer_tpu_torch.utils import LmmseDfeConfig
 
@@ -170,15 +170,43 @@ def cuda():
     return torch.device("cuda")
 
 
+def _midpoints(points: np.ndarray, rng, n: int) -> np.ndarray:
+    """(2, n) values on exact float midpoints between adjacent levels of each
+    axis of a grid table, on its levels and beyond its outer levels."""
+    L = round(points.shape[-1] ** 0.5)
+    out = []
+    for lv in (points[0].reshape(L, L)[:, 0], points[1].reshape(L, L)[0]):
+        pool = np.concatenate([(lv[:-1] + lv[1:]) / np.float32(2), lv, 3 * lv[[0, -1]]])
+        out.append(pool[rng.integers(0, pool.size, n)])
+    return np.stack(out).astype(np.float32)
+
+
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("k2,mod", [(4, "64-QAM"), (3, "16-QAM"), (0, "4-QAM"), (2, "256-QAM")],
-                         ids=["k4_64qam", "k3_16qam", "k0_4qam", "k2_256qam"])
-def test_kernel_j_matches_plain_on_card(cuda, k2, mod):
+@pytest.mark.parametrize("k2,mod,ties", [(4, "64-QAM", False), (3, "16-QAM", False), (0, "4-QAM", False),
+                                         (2, "256-QAM", False), (4, "64-QAM", True), (1, "256-QAM", True),
+                                         (3, "8-PSK", False)],
+                         ids=["k4_64qam", "k3_16qam", "k0_4qam", "k2_256qam", "k4_64qam_ties",
+                              "k1_256qam_ties", "k3_8psk_general"])
+def test_kernel_j_matches_plain_on_card(cuda, k2, mod, ties):
+    """Both routes on the card: the grid route on every QAM (with ``ties``,
+    chains 0-1 sit on exact midpoints between levels, at grid corners and
+    beyond the outer levels with no feedback: the first index must win), the
+    general route on 8-PSK."""
     rng = np.random.default_rng(k2)
-    points = T(_points(mod)).to(cuda)
+    if mod == "8-PSK":
+        ang = np.arange(8) * np.pi / 4
+        pts = np.stack([np.cos(ang), np.sin(ang)]).astype(np.float32)
+    else:
+        pts = _points(mod)
+    points = T(pts).to(cuda)
+    assert dfe_route(points)[0] == ("general" if mod == "8-PSK" else "grid")
     B, n = 5, 3000
-    ff = T((0.8 * rng.normal(size=(B, 2, n))).astype(np.float32)).to(cuda)
-    fb = T((0.3 * rng.normal(size=(B, 2, k2))).astype(np.float32)).to(cuda)
+    ff_np = (0.8 * rng.normal(size=(B, 2, n))).astype(np.float32)
+    fb_np = (0.3 * rng.normal(size=(B, 2, k2))).astype(np.float32)
+    if ties:
+        ff_np[:2] = np.stack([_midpoints(pts, rng, n) for _ in range(2)])
+        fb_np[:2] = 0.0
+    ff, fb = T(ff_np).to(cuda), T(fb_np).to(cuda)
     init = nearest_neighbor(ff, points).contiguous()
     n0 = dfe_decide.launches
     got = dfe_decide(ff, fb, points, init)

@@ -78,16 +78,32 @@ int cma_siso_experiment_launch(int R, int n_epochs, int m, int sps, long long n_
   if (R < 1 || n_epochs < 1 || m < 1 || m > cma::MAX_M || sps < 1 || n_sym < 1 ||
       n_sym > 0x7fffffff || epe < 1 || n_evals < 0 || n_evals > n_epochs / epe)
     return 1;  // cudaErrorInvalidValue
-  for (int r = 0; r < R; ++r) {
-    const cma::IArgs a = {rx + (long long)r * n_epochs * 2 * n_total, n_total, n_epochs,
-                          (int)n_sym, m, sps, m / 2, epe, n_evals, (long long)R * 2 * m,
-                          h_in + r * 2 * m, h_out + r * 2 * m, h_ev + r * 2 * m,
-                          loss + (long long)r * n_epochs, big_r, lr2, r == 0 ? clocks : nullptr};
-    if (m <= 32)
-      cma::cma_siso_run<true, 1>(0, a);
-    else
-      cma::cma_siso_run<true, 2>(0, a);
-  }
+  // the card's packing of runs into warps, as on a card of one SM (so up to
+  // 32 / kIGroup runs share a warp, and groups past the last run repeat it)
+  const int rpw = cma::i_runs_per_warp(R, 1);
+  int lt = 0;
+  while ((cma::kIGroup << lt) < m) ++lt;
+  float* ring = static_cast<float*>(calloc((size_t)cma::i_ring_floats(1 << lt), sizeof(float)));
+  if (ring == nullptr) return 2;  // cudaErrorMemoryAllocation
+  for (int b = 0; b < (R + rpw - 1) / rpw; ++b)
+    for (int q = 0; q < cma::kWarp / cma::kIGroup; ++q) {
+      const int r0 = b * rpw + (q < rpw ? q : rpw - 1);
+      const bool writer = q < rpw && r0 < R;
+      const int r = r0 < R ? r0 : R - 1;
+      const cma::IArgs a = {rx + (long long)r * n_epochs * 2 * n_total, n_total, n_epochs,
+                            (int)n_sym, m, sps, m / 2, epe, n_evals, (long long)R * 2 * m,
+                            h_in + r * 2 * m, h_out + r * 2 * m, h_ev + r * 2 * m,
+                            loss + (long long)r * n_epochs, big_r, lr2,
+                            b == 0 && q == 0 ? clocks : nullptr};
+      switch (lt) {
+        case 0: cma::cma_siso_run<true, 1>(0, writer, ring, a); break;
+        case 1: cma::cma_siso_run<true, 2>(0, writer, ring, a); break;
+        case 2: cma::cma_siso_run<true, 4>(0, writer, ring, a); break;
+        case 3: cma::cma_siso_run<true, 8>(0, writer, ring, a); break;
+        default: cma::cma_siso_run<true, 16>(0, writer, ring, a); break;
+      }
+    }
+  free(ring);
   return 0;
 }
 

@@ -22,10 +22,13 @@
 // I (cma_siso_experiment_kernel) has no TPU kernel to replace: it is the
 //   JAX package's per-epoch lax.scan of models/cma.py: cma_siso, run over
 //   every epoch of the AWGN CMA experiment (train/awgn.py: run_cma_awgn).
-//   One warp per run, for the whole experiment (E x n_sym dependent symbol
-//   steps: 2 M at the defaults), the taps in registers. Bound by that latency
-//   chain (per symbol the lane partials, a butterfly of 2 trees, the error,
-//   the tap updates), not by bytes or FLOPs; R runs fill R SMs.
+//   A group of cma::kIGroup lanes per run, for the whole experiment (E x
+//   n_sym dependent symbol steps: 2 M at the defaults), TPL taps per lane in
+//   registers (the smallest power of two with kIGroup TPL >= M), the frame
+//   staged through a ring in shared memory; one run a warp while the runs fit
+//   on the SMs (cma::i_runs_per_warp). Bound by that latency chain (per
+//   symbol the lane partials, a butterfly of 2 trees over the group, the
+//   error, the tap updates), not by bytes or FLOPs.
 //
 // Layouts (float32, contiguous): y (R, 4, lp) rows nu*2 + c of the
 // normalized, zero-padded signal; taps (R, 8, m) rows chi*4 + nu*2 + c
@@ -56,15 +59,20 @@ __global__ void __launch_bounds__(32) cma_dp_kernel(cma::CArgs a, const float* l
 }
 
 template <bool CLK, int TPL>
-__global__ void __launch_bounds__(32) cma_siso_experiment_kernel(cma::IArgs a) {
-  const long long r = blockIdx.x;
+__global__ void __launch_bounds__(32) cma_siso_experiment_kernel(cma::IArgs a, int R, int rpw) {
+  extern __shared__ float4 smem_i[];
+  const int lane = threadIdx.x, q = lane / cma::kIGroup;
+  const long long r0 = (long long)blockIdx.x * rpw + (q < rpw ? q : rpw - 1);
+  const bool writer = q < rpw && r0 < R;
+  const long long r = r0 < R ? r0 : R - 1;
   a.rx += r * a.n_epochs * 2 * a.n_total;
   a.h_in += r * 2 * a.m;
   a.h_out += r * 2 * a.m;
   a.h_ev += r * 2 * a.m;
   a.loss += r * a.n_epochs;
-  if (r != 0) a.clocks = nullptr;
-  cma::cma_siso_run<CLK, TPL>(threadIdx.x, a);
+  if (blockIdx.x != 0 || q != 0) a.clocks = nullptr;
+  float* ring = reinterpret_cast<float*>(smem_i) + q * cma::i_ring_floats(TPL);
+  cma::cma_siso_run<CLK, TPL>(lane % cma::kIGroup, writer, ring, a);
 }
 
 template <bool CLK, int KA>
@@ -154,11 +162,27 @@ int cma_siso_experiment_launch(int R, int n_epochs, int m, int sps, long long n_
   const cma::IArgs a = {rx,    n_total, n_epochs, (int)n_sym, m,    sps,   m / 2,
                         epe,   n_evals, (long long)R * 2 * m, h_in, h_out, h_ev,
                         loss, big_r, lr2, clocks};
-  // kernels[clocks][taps per lane - 1]
-  static void (*const kernels[2][2])(cma::IArgs) = {
-      {cma_siso_experiment_kernel<false, 1>, cma_siso_experiment_kernel<false, 2>},
-      {cma_siso_experiment_kernel<true, 1>, cma_siso_experiment_kernel<true, 2>}};
-  kernels[clocks != nullptr][m > 32]<<<R, 32, 0, (cudaStream_t)stream>>>(a);
+  int dev = 0, sms = 1;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int rpw = cma::i_runs_per_warp(R, sms);
+  // kernels[clocks][log2(taps per lane)]
+  static void (*const kernels[2][5])(cma::IArgs, int, int) = {
+      {cma_siso_experiment_kernel<false, 1>, cma_siso_experiment_kernel<false, 2>,
+       cma_siso_experiment_kernel<false, 4>, cma_siso_experiment_kernel<false, 8>,
+       cma_siso_experiment_kernel<false, 16>},
+      {cma_siso_experiment_kernel<true, 1>, cma_siso_experiment_kernel<true, 2>,
+       cma_siso_experiment_kernel<true, 4>, cma_siso_experiment_kernel<true, 8>,
+       cma_siso_experiment_kernel<true, 16>}};
+  int lt = 0;
+  while ((cma::kIGroup << lt) < m) ++lt;
+  // a ring for every group of the warp (groups past the last run repeat it)
+  const size_t bytes = sizeof(float) * (size_t)(cma::kWarp / cma::kIGroup) * cma::i_ring_floats(1 << lt);
+  auto kernel = kernels[clocks != nullptr][lt];
+  err = fit_smem(kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(R + rpw - 1) / rpw, 32, bytes, (cudaStream_t)stream>>>(a, R, rpw);
   return (int)cudaGetLastError();
 }
 

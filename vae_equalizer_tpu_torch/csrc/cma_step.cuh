@@ -21,6 +21,8 @@
 #ifndef CMA_STEP_CUH
 #define CMA_STEP_CUH
 
+#include <math.h>
+
 #ifdef CMA_HOST_EMULATION
 #define CMA_DEV inline
 #define CMA_HD inline
@@ -45,16 +47,26 @@ namespace cma {
 constexpr int MAX_M = 64;  // taps per row
 constexpr int kWarp = 32;
 
-// One float from device to shared memory, in flight until copy_async_wait.
+// One float from device to shared memory, in flight until copy_async_wait
+// (or, committed as a group, until copy_async_wait_prior leaves at most the
+// latest group in flight).
 #ifdef CMA_HOST_EMULATION
 inline void copy_async(float* dst, const float* src) { *dst = *src; }
 inline void copy_async_wait() {}
+inline void copy_async_commit() {}
+inline void copy_async_wait_prior() {}
+inline void sync_warp() {}
 #else
 __device__ __forceinline__ void copy_async(float* dst, const float* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
 }
 __device__ __forceinline__ void copy_async_wait() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+__device__ __forceinline__ void copy_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void copy_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void sync_warp() { __syncwarp(); }
 #endif
 
 template <int N>
@@ -634,20 +646,40 @@ CMA_DEV void chunked_block(float* smem, int tid, int nt, const DArgs& a) {
 }
 
 // ---------------------------------------------------------------------------
-// Kernel I: the whole AWGN CMA experiment (SISO), one warp per run — the SISO
-// form of kernel C's body (models/cma.py: cma_siso, once per epoch). Lane l
-// owns the taps k = l + 32 j (j < TPL) of both planes in registers, for the
-// whole experiment. Per epoch the window index restarts on that epoch's frame
-// (the reference's y = pad(rx, M//2) per call: samples outside the frame read
-// as 0). Per symbol, on the dependent chain: each lane's o_re / o_im over its
-// taps (w_I.h_re - w_Q.h_im, w_I.h_im + w_Q.h_re, closed before the
-// butterfly: 2 trees of 5 levels), the error, the tap updates (each lane its
-// own taps, no barrier); the next symbol's window is read from device memory
-// through L1 before the butterfly. Lane 0 sums |e| over the epoch in double
-// (the epoch's mean |e|, the experiment's loss); after epoch i*epe (i <
-// n_evals) every lane writes its taps to eval slot i.
+// Kernel I: the whole AWGN CMA experiment (SISO) — the SISO form of kernel
+// C's body (models/cma.py: cma_siso, once per epoch). A run is a group of
+// kIGroup lanes (aligned in the warp; the warp holds up to 32 / kIGroup
+// runs); lane g of the group owns the taps k = g + kIGroup j (j < TPL) of
+// both planes in registers, for the whole experiment. Per epoch the window
+// index restarts on that epoch's frame (the reference's y = pad(rx, M//2) per
+// call: samples outside the frame read as 0). The group stages its frame,
+// zero-padded, in shared memory: a ring of 4 chunks of kIChunk samples per
+// plane (and a mirror of the ring's first kIGroup TPL samples past its end,
+// so no window wraps), each chunk copied with cp.async two chunks ahead of
+// the windows that read it. Per symbol, on the dependent chain: each lane's
+// o_re / o_im over its taps (pairwise sums over j, closed before the
+// butterfly), a butterfly of log2(kIGroup) levels over the group, the error,
+// the tap updates (each lane its own taps, no barrier); the next symbol's
+// window is read from the ring before the butterfly. Every lane sums |e|
+// over the epoch in double (the epoch's mean |e|, the experiment's loss),
+// branch-free and off the chain; after epoch i*epe (i < n_evals) every lane
+// writes its taps to eval slot i.
 
-enum IPhase { I_DOT, I_REDUCE, I_ERR, I_UPDATE, I_NEXT, I_N_PHASES };
+constexpr int kIGroup = 16;     // lanes per run: 2, 4, 8, 16 or 32
+constexpr int kIChunk = 512;    // samples per plane in a staged chunk
+constexpr int kIRing = 4 * kIChunk;
+
+// Runs per warp: one run a warp while the runs fit on the card's SMs (each
+// chain then has an SM's issue slots to itself), else up to 32 / kIGroup.
+CMA_HD int i_runs_per_warp(int R, int sms) {
+  const int per = (R + sms - 1) / sms;
+  return per < 1 ? 1 : per > kWarp / kIGroup ? kWarp / kIGroup : per;
+}
+
+// Shared-memory floats of one run's ring (two planes, each with its mirror).
+CMA_HD int i_ring_floats(int tpl) { return 2 * (kIRing + kIGroup * tpl); }
+
+enum IPhase { I_DOT, I_BUTTERFLY, I_ERR, I_UPDATE, I_NEXT, I_N_PHASES };
 
 struct IArgs {
   const float* rx;  // (E, 2, n_total): this run's frames
@@ -667,71 +699,124 @@ struct ILane {
   float h[2][TPL];   // taps, rows re / im
   float w[2][TPL];   // this symbol's window, rows I / Q
   float wn[2][TPL];  // the next symbol's
+  bool ok[TPL];      // tap l + kIGroup j < m
 };
 
+// v[0] + ... + v[N - 1] as pairwise sums of adjacent ranges (N a power of two).
+template <int N>
+CMA_DEV float pair_sum(float (&v)[N]) {
+#pragma unroll
+  for (int s = 1; s < N; s *= 2)
+#pragma unroll
+    for (int i = 0; i < N; i += 2 * s) v[i] = v[i] + v[i + s];
+  return v[0];
+}
+
+// One run. g: this lane's place in its group (unused in emulation, where one
+// thread runs the group's lanes in turn); writer: this group writes the
+// run's outputs (a group past the last run repeats it and writes nothing);
+// ring: the group's i_ring_floats(TPL) floats of shared memory.
 template <bool CLK, int TPL>
-CMA_DEV void cma_siso_run(int lane, const IArgs& a) {
-  const int m = a.m, n_sym = a.n_sym;
+CMA_DEV void cma_siso_run(int g, bool writer, float* ring, const IArgs& a) {
+  constexpr int kSpan = kIGroup * TPL, kPlane = kIRing + kSpan;
+  const int n_sym = a.n_sym;
   Clock<CLK, I_N_PHASES> ck;
-  ck.start(a.clocks != nullptr && lane == 0);
+  ck.start(a.clocks != nullptr && g == 0);
 #ifdef CMA_HOST_EMULATION
-  ILane<TPL> st[kWarp];
+  ILane<TPL> st[kIGroup];
   auto each = [&](auto&& f) {
-    for (int l = 0; l < kWarp; ++l) f(l, st[l]);
+    for (int l = 0; l < kIGroup; ++l) f(l, st[l]);
   };
 #else
   ILane<TPL> st[1];
-  auto each = [&](auto&& f) { f(lane, st[0]); };
+  auto each = [&](auto&& f) { f(g, st[0]); };
 #endif
-  // symbol u's window of frame x: samples u sps + k - mh, zero outside the frame
-  auto window = [&](int l, const float* x, int u, float (&win)[2][TPL]) {
-    const long long base = (long long)u * a.sps - a.mh;
-#pragma unroll
-    for (int j = 0; j < TPL; ++j) {
-      const int k = l + kWarp * j;
-      const long long i = base + k;
-      const bool in = k < m && i >= 0 && i < a.n_total;
-      win[0][j] = in ? x[i] : 0.f;
-      win[1][j] = in ? x[a.n_total + i] : 0.f;
-    }
-  };
   each([&](int l, ILane<TPL>& ls) {
 #pragma unroll
     for (int j = 0; j < TPL; ++j) {
-      const int k = l + kWarp * j;
+      const int k = l + kIGroup * j;
+      ls.ok[j] = k < a.m;
 #pragma unroll
-      for (int row = 0; row < 2; ++row) ls.h[row][j] = k < m ? a.h_in[row * m + k] : 0.f;
+      for (int row = 0; row < 2; ++row) ls.h[row][j] = k < a.m ? a.h_in[row * a.m + k] : 0.f;
     }
   });
+  // chunk c of the zero-padded frame y[i] = x[i - mh] into the ring (slot
+  // c % 4; the ring's first kSpan samples also into the mirror)
+  auto stage = [&](const float* x, long long c) {
+    each([&](int l, ILane<TPL>&) {
+      for (int q = l; q < kIChunk; q += kIGroup) {
+        const long long i = c * kIChunk + q, xi = i - a.mh;
+        const int r = (int)(i & (kIRing - 1));
+        const bool in = xi >= 0 && xi < a.n_total;
+#pragma unroll
+        for (int row = 0; row < 2; ++row) {
+          float* d = ring + row * kPlane;
+          if (in) {
+            copy_async(d + r, x + row * a.n_total + xi);
+            if (r < kSpan) copy_async(d + kIRing + r, x + row * a.n_total + xi);
+          } else {
+            d[r] = 0.f;
+            if (r < kSpan) d[kIRing + r] = 0.f;
+          }
+        }
+      }
+    });
+    copy_async_commit();
+  };
+  // lane l's share of symbol u's window, from the ring
+  auto window = [&](int l, ILane<TPL>& ls, long long u, float (&win)[2][TPL]) {
+    const int pos = (int)((u * a.sps) & (kIRing - 1)) + l;
+#pragma unroll
+    for (int j = 0; j < TPL; ++j) {
+      const float vi = ring[pos + kIGroup * j], vq = ring[kPlane + pos + kIGroup * j];
+      win[0][j] = ls.ok[j] ? vi : 0.f;
+      win[1][j] = ls.ok[j] ? vq : 0.f;
+    }
+  };
   for (int ep = 0; ep < a.n_epochs; ++ep) {
     const float* x = a.rx + (long long)ep * 2 * a.n_total;
-    each([&](int l, ILane<TPL>& ls) { window(l, x, 0, ls.w); });
+    stage(x, 0);
+    stage(x, 1);
+    stage(x, 2);
+    copy_async_wait_prior();  // chunks 0 and 1
+    sync_warp();
+    long long next = 1;  // the chunk whose start the windows reach next
+    each([&](int l, ILane<TPL>& ls) { window(l, ls, 0, ls.w); });
     double esum = 0.0;
     ck.mark(I_NEXT);
     for (int s = 0; s < n_sym; ++s) {
       Parts<2> ps;  // o_re, o_im
       each([&](int l, ILane<TPL>& ls) {
-        float p0 = 0.f, p1 = 0.f, p2 = 0.f, p3 = 0.f;  // w_I.h_re, w_Q.h_im, w_I.h_im, w_Q.h_re
+        float p0[TPL], p1[TPL], p2[TPL], p3[TPL];  // w_I.h_re, w_Q.h_im, w_I.h_im, w_Q.h_re
 #pragma unroll
         for (int j = 0; j < TPL; ++j) {
           const float wi = ls.w[0][j], wq = ls.w[1][j], hre = ls.h[0][j], him = ls.h[1][j];
-          p0 += wi * hre;
-          p1 += wq * him;
-          p2 += wi * him;
-          p3 += wq * hre;
+          p0[j] = wi * hre;
+          p1[j] = wq * him;
+          p2[j] = wi * him;
+          p3[j] = wq * hre;
         }
-        ps.of(l).v[0] = p0 - p1;
-        ps.of(l).v[1] = p2 + p3;
+        ps.of(l).v[0] = pair_sum<TPL>(p0) - pair_sum<TPL>(p1);
+        ps.of(l).v[1] = pair_sum<TPL>(p2) + pair_sum<TPL>(p3);
       });
-      if (s + 1 < n_sym) each([&](int l, ILane<TPL>& ls) { window(l, x, s + 1, ls.wn); });
+      // the next window starts in chunk `next`: stage the one after it into
+      // the slot of the chunk the windows have left, and wait for `next`
+      // (staged a chunk earlier)
+      const long long u = s + 1;
+      if (u * a.sps >= next * kIChunk) {
+        stage(x, next + 2);
+        copy_async_wait_prior();
+        sync_warp();
+        ++next;
+      }
+      each([&](int l, ILane<TPL>& ls) { window(l, ls, u, ls.wn); });
       ck.mark(I_DOT);
-      const Vec<2> o = group_tree<2>(ps, kWarp);
-      ck.mark(I_REDUCE);
+      const Vec<2> o = group_tree<2>(ps, kIGroup);
+      ck.mark(I_BUTTERFLY);
       const float o_re = o.v[0], o_im = o.v[1];
       const float err = a.big_r - o_re * o_re - o_im * o_im;
-      if (lane == 0) esum += err < 0.f ? -(double)err : (double)err;
-      ck.mark(I_ERR);
       const float sc = a.lr2 * err;
+      ck.mark(I_ERR);
       each([&](int, ILane<TPL>& ls) {
 #pragma unroll
         for (int j = 0; j < TPL; ++j) {
@@ -740,42 +825,45 @@ CMA_DEV void cma_siso_run(int lane, const IArgs& a) {
           ls.h[1][j] = ls.h[1][j] + sc * (o_im * wi - o_re * wq);
         }
       });
+      esum += fabs((double)err);
       ck.mark(I_UPDATE);
-      if (s + 1 < n_sym)
-        each([&](int, ILane<TPL>& ls) {
+      each([&](int, ILane<TPL>& ls) {
 #pragma unroll
-          for (int j = 0; j < TPL; ++j) {
-            ls.w[0][j] = ls.wn[0][j];
-            ls.w[1][j] = ls.wn[1][j];
-          }
-        });
+        for (int j = 0; j < TPL; ++j) {
+          ls.w[0][j] = ls.wn[0][j];
+          ls.w[1][j] = ls.wn[1][j];
+        }
+      });
       ck.mark(I_NEXT);
     }
-    if (lane == 0) a.loss[ep] = (float)(esum / n_sym);
-    if (ep % a.epe == 0 && ep / a.epe < a.n_evals) {
+    copy_async_wait();  // the copies past the frame's end, before the ring is restaged
+    sync_warp();
+    if (writer && g == 0) a.loss[ep] = (float)(esum / n_sym);
+    if (writer && ep % a.epe == 0 && ep / a.epe < a.n_evals) {
       float* slot = a.h_ev + (long long)(ep / a.epe) * a.ev_stride;
       each([&](int l, ILane<TPL>& ls) {
 #pragma unroll
         for (int j = 0; j < TPL; ++j) {
-          const int k = l + kWarp * j;
-          if (k < m) {
+          const int k = l + kIGroup * j;
+          if (k < a.m) {
             slot[k] = ls.h[0][j];
-            slot[m + k] = ls.h[1][j];
+            slot[a.m + k] = ls.h[1][j];
           }
         }
       });
     }
   }
-  each([&](int l, ILane<TPL>& ls) {
+  if (writer)
+    each([&](int l, ILane<TPL>& ls) {
 #pragma unroll
-    for (int j = 0; j < TPL; ++j) {
-      const int k = l + kWarp * j;
-      if (k < m) {
-        a.h_out[k] = ls.h[0][j];
-        a.h_out[m + k] = ls.h[1][j];
+      for (int j = 0; j < TPL; ++j) {
+        const int k = l + kIGroup * j;
+        if (k < a.m) {
+          a.h_out[k] = ls.h[0][j];
+          a.h_out[a.m + k] = ls.h[1][j];
+        }
       }
-    }
-  });
+    });
   ck.store(a.clocks);
 }
 

@@ -106,8 +106,10 @@ _SIGNATURES = {
         "butterfly_empty_launch": [_I, _I, _P],
     },
     "dfe": {
-        # B, n, k2, n_points, ff, fb, points, init, idx, stream
-        "dfe_decide_launch": [_I] * 4 + [_P] * 6,
+        # B, n, k2, n_points, grid_l (L of an L x L grid table, or 0: the
+        # general route), ff, fb, points, init, idx, clocks (int64 per phase, or
+        # null), stream
+        "dfe_decide_launch": [_I] * 5 + [_P] * 7,
     },
 }
 

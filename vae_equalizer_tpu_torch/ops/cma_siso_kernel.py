@@ -14,15 +14,18 @@ after epoch i*epe (0-based), the reference's eval points, as kernel G's
 slots (``ops/siso_frame_kernel.py``). ``loss`` (R, E) is each epoch's mean
 |e| (the JAX loop's progress "loss").
 
-On the card (``csrc/cma_kernels.cu`` + ``cma_step.cuh``): one warp per run,
-each lane owning one tap (M <= 32; two up to 64) of both planes in
-registers for the whole experiment, its o_re / o_im closed before a 32-lane
-shuffle butterfly in a fixed order (2 trees), the next window read from
-device memory through L1 a symbol ahead; lane 0 sums |e| in double. The
-launch is bound by the latency of the dependent per-symbol chain, not by
-bytes or FLOPs, and R runs fill R of the card's 132 SMs. ``cma_siso_clocks``
-runs the kernel once with lane 0's per-phase clock64() cycles (measurement
-only).
+On the card (``csrc/cma_kernels.cu`` + ``cma_step.cuh``): a group of
+``cma::kIGroup`` (16) lanes per run, each lane owning TPL taps of both planes
+in registers for the whole experiment (2 at M = 25, 4 up to 64), its o_re /
+o_im summed pairwise over its taps and closed by a 4-level shuffle
+butterfly over the group in a fixed order (2 trees). Each frame is staged,
+zero-padded, through a ring of 4 chunks of 512 samples per plane in shared
+memory (cp.async two chunks ahead), so a symbol's window is read from
+shared memory with no bounds check. Every lane sums |e| in double, off the
+chain. One run a warp up to 132 runs, then two a warp. The launch is bound
+by the latency of the dependent per-symbol chain, not by bytes or FLOPs.
+``cma_siso_clocks`` runs the kernel once with run 0's first lane's
+per-phase clock64() cycles (measurement only).
 
 Dispatch: CPU tensors take ``cma_siso_experiment_plain`` (``models.cma.
 cma_siso`` once per epoch over the runs axis); CUDA tensors launch the
@@ -39,7 +42,7 @@ from . import _build
 __all__ = ["I_CLOCK_PHASES", "cma_siso_clocks", "cma_siso_experiment", "cma_siso_experiment_plain"]
 
 # kernel I's per-symbol phases, in the order of csrc/cma_step.cuh: enum IPhase
-I_CLOCK_PHASES = ("dot", "reduction", "error", "update", "next window")
+I_CLOCK_PHASES = ("dot", "butterfly", "error", "update", "next window")
 
 
 def cma_siso_experiment_plain(rx_epochs, h, R: float, lr: float, sps: int, epe: int):

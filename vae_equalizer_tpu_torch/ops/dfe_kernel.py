@@ -8,14 +8,20 @@ is decided to the nearest constellation point (first index on ties, as
 ``jnp.argmin``), and the decided point enters the state; the first K2
 decisions are the initial ones (the LMMSE's).
 
-On the card (``csrc/dfe_kernel.cu`` + ``dfe_step.cuh``): one warp per chain,
-each lane holding two of 64 points (one of up to 32, eight of up to 256), the
-state and the taps in registers; the argmin is a fixed 5-level butterfly of
-(distance, index) pairs keeping the first index. The launch is bound by the
-latency of the dependent per-symbol chain; B chains fill B of the card's 132
-SMs. A rounding that flips one decision propagates through the state, so the
-kernel rounds every product and sum as the plain version does (--fmad=false)
-and its decisions equal the plain version's bit for bit.
+On the card (``csrc/dfe_kernel.cu`` + ``dfe_step.cuh``), two routes, picked
+by ``dfe_route`` from the points table. The grid route, for a table that is
+the Cartesian product of one level set per axis, real-major (an L x L grid,
+L = 2, 4, 8, 16: every QAM of ``core/constellation.py``): one thread per
+chain, a slicer (each axis's L squared distances, the first argmin of
+dx + min dy over the rows, then of dx* + dy over the columns: the first
+index of the smallest distance exactly, ties included), the older feedback
+products summed off the chain. Any other table takes the general route: one
+warp per chain, each lane holding its share of the points, the argmin a
+5-level butterfly of (distance, index) pairs keeping the first index. Both
+are bound by the latency of the dependent per-symbol chain; up to 132 chains
+take an SM each. A rounding that flips one decision propagates through the
+state, so both routes round every product and sum as the plain version does
+(--fmad=false) and their decisions equal the plain version's bit for bit.
 
 Dispatch: CPU tensors take ``dfe_decide_plain``; CUDA tensors launch the
 kernel or raise.
@@ -27,10 +33,13 @@ import torch
 
 from . import _build
 
-__all__ = ["dfe_decide", "dfe_decide_plain"]
+__all__ = ["J_CLOCK_PHASES", "dfe_clocks", "dfe_decide", "dfe_decide_plain", "dfe_route"]
 
 MAX_K2 = 4  # csrc/dfe_step.cuh: dfe::MAX_K2
 MAX_POINTS = 256  # dfe::MAX_POINTS
+GRID_LEVELS = (2, 4, 8, 16)  # L of the grid route's instantiations (csrc/dfe_kernel.cu)
+# kernel J's per-symbol phases, in the order of csrc/dfe_step.cuh: enum JPhase
+J_CLOCK_PHASES = ("correction", "distances", "argmin", "state update", "next ff")
 
 
 def dfe_decide_plain(ff_out, fb, points, init_idx):
@@ -79,7 +88,33 @@ def dfe_decide(ff_out, fb, points, init_idx):
     return _launch(ff_out, fb, points, init_idx)
 
 
-def _launch(ff_out, fb, points, init_idx):
+def dfe_route(points) -> tuple:
+    """Kernel J's route for a (2, n_points) points table: ("grid", L) where
+    the table is an L x L grid of finite levels, real-major (points[0][ix L +
+    iy] = lx[ix] and points[1][ix L + iy] = ly[iy], bit for bit), with L in
+    ``GRID_LEVELS``; else ("general", 0)."""
+    pts = points.detach().cpu()
+    L = round(pts.shape[-1] ** 0.5)
+    if L not in GRID_LEVELS or L * L != pts.shape[-1] or not bool(torch.isfinite(pts).all()):
+        return ("general", 0)
+    bits = pts.contiguous().view(torch.int32).reshape(2, L, L)
+    grid = torch.equal(bits[0], bits[0][:, :1].expand(L, L)) and \
+        torch.equal(bits[1], bits[1][:1, :].expand(L, L))
+    return ("grid", L) if grid else ("general", 0)
+
+
+def dfe_clocks(ff_out, fb, points, init_idx) -> dict:
+    """Kernel J once on CUDA tensors (the arguments of ``dfe_decide``) with its
+    phase clocks: {phase: clock64() cycles per symbol} of chain 0's first
+    lane, on the route ``dfe_route`` picks. For measurement only
+    (chip_smoke.py); the runners never ask for it."""
+    clocks = torch.zeros(len(J_CLOCK_PHASES), dtype=torch.int64, device=ff_out.device)
+    _launch(ff_out, fb, points, init_idx, clocks)
+    n_steps = max(ff_out.shape[-1] - fb.shape[-1], 1)
+    return {k: c / n_steps for k, c in zip(J_CLOCK_PHASES, clocks.tolist())}
+
+
+def _launch(ff_out, fb, points, init_idx, clocks=None):
     """Check the arguments, allocate the output and launch kernel J."""
     dev = ff_out.device
     B, _, n = ff_out.shape
@@ -93,11 +128,12 @@ def _launch(ff_out, fb, points, init_idx):
     if (init_idx.device != dev or init_idx.dtype != torch.int32 or not init_idx.is_contiguous()
             or tuple(init_idx.shape) != (B, n)):
         raise ValueError(f"init_idx: needs a contiguous int32 tensor of shape {(B, n)} on {dev}")
+    grid_l = dfe_route(points)[1]
     lib = _build.load()
     idx = torch.empty((B, n), dtype=torch.int32, device=dev)
-    rc = lib.dfe_decide_launch(B, n, k2, n_points, ff_out.data_ptr(), fb.data_ptr(),
+    rc = lib.dfe_decide_launch(B, n, k2, n_points, grid_l, ff_out.data_ptr(), fb.data_ptr(),
                                points.data_ptr(), init_idx.data_ptr(), idx.data_ptr(),
-                               _build.stream(dev))
+                               None if clocks is None else clocks.data_ptr(), _build.stream(dev))
     _build.check(rc, "dfe_decide_launch")
     dfe_decide.launches += 1
     return idx
