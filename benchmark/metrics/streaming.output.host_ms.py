@@ -1,0 +1,8 @@
+"""Mean host length a block of the program's ``streaming.output`` span: the streaming
+receiver's output pass (``models/streaming.py``; ``spans.mean_host_ms``)."""
+
+from benchmark.harness import spans
+
+
+def read(t, cell):
+    return spans.mean_host_ms(t, "streaming.output")

@@ -39,6 +39,7 @@ import torch
 from ..core.device import resolve_device
 from ..ops.butterfly_kernel import vae_le_dp_forward_fused
 from ..ops.frame_kernel import adam_update, frame_opt_init, vae_dp_frame_train
+from ..utils.profiling import span
 from .cma import dirac_taps_dp
 from .losses import elbo_dp
 from .vae_le import butterfly_init, vae_le_dp_forward
@@ -119,27 +120,30 @@ class StreamingReceiver:
 
     def adapt_block(self, state: dict, block: torch.Tensor) -> dict:
         """The adaptation part of ``step``: the state after the block's Adam steps."""
-        params, opt = self._adapt(state["params"], state["opt"], block)
+        with span("streaming.adapt"):
+            params, opt = self._adapt(state["params"], state["opt"], block)
         return {**state, "params": params, "opt": opt}
 
     def output_block(self, state: dict, block: torch.Tensor):
         """The output part of ``step``: the overlap-save pass with the state's
         taps -> (state with the new tail, q (2, 2n, block_len), out (2, 2, block_len))."""
-        x = torch.cat([state["tail"], block], dim=-1)
-        w = state["params"]["w"]
-        if self.use_pallas:
-            q, out = vae_le_dp_forward_fused(w, x, self.amps, self.var, self.nu_sc, self.sps)
-        else:
-            q, out = vae_le_dp_forward(w, x, self.amps, self.var, self.nu_sc, self.sps)
-        warm = (self.m_est - 1) // self.sps
-        q = q[:, :, warm : warm + self.block_len]
-        out = out[:, :, warm : warm + self.block_len]
-        return {**state, "tail": block[:, :, -(self.m_est - 1) :]}, q, out
+        with span("streaming.output"):
+            x = torch.cat([state["tail"], block], dim=-1)
+            w = state["params"]["w"]
+            if self.use_pallas:
+                q, out = vae_le_dp_forward_fused(w, x, self.amps, self.var, self.nu_sc, self.sps)
+            else:
+                q, out = vae_le_dp_forward(w, x, self.amps, self.var, self.nu_sc, self.sps)
+            warm = (self.m_est - 1) // self.sps
+            q = q[:, :, warm : warm + self.block_len]
+            out = out[:, :, warm : warm + self.block_len]
+            return {**state, "tail": block[:, :, -(self.m_est - 1) :]}, q, out
 
     def step(self, state: dict, block: torch.Tensor):
         """Process one (2, 2, block_len * sps) sample block -> (state, q, out)."""
-        block = block.to(self.device, torch.float32).contiguous()
-        if self.adapt:
-            state = self.adapt_block(state, block)
-        with torch.no_grad():
-            return self.output_block(state, block)
+        with span("streaming.step"):
+            block = block.to(self.device, torch.float32).contiguous()
+            if self.adapt:
+                state = self.adapt_block(state, block)
+            with torch.no_grad():
+                return self.output_block(state, block)

@@ -51,6 +51,7 @@ from ..ops.cma_kernel import cma_dp_kernel
 from ..ops.elbo_kernel import vae_dp_loss_and_grad
 from ..ops.frame_kernel import adam_schedule, adam_update, frame_opt_init, vae_dp_frame_train
 from ..utils.config import DpConfig
+from ..utils.profiling import span
 from .batching import RunShard, run_sharding
 from .eval_utils import align_idx_dp, align_tx_dp, batch_cut_weight, margin_weight_maxshift
 from .harness import Progress, pack_metrics, run_frame_loop
@@ -270,25 +271,28 @@ def _frame_kernel_train(cfg, amps, rc, *, runs, runs_batch, stream_bf16, stride_
         return v[sl] if torch.is_tensor(v) and v.dim() > _CONST_NDIM[name] else v
 
     def train(params, opt, count, rx, tx, sigma):
-        parts = []
-        for g in range(0, R, rb):
-            sl = slice(g, g + rb)
-            parts.append(vae_dp_frame_train(
-                params["w"][sl], params["h"][sl], {k: v[sl] for k, v in opt.items()}, rx[sl], amps,
-                rows("var", sl), rows("nu_sc", sl), rows("P", sl), rows("lr", sl), count, thresh,
-                bl_sym=cfg.batch_len, stride_sym=stride_sym, stream_bf16=stream_bf16))
-        if len(parts) == 1:
-            w, h, opt, losses, var_est, out_mb, dec_mb, eq_mb, mm_mb, s1_mb = parts[0]
-        else:  # params and moments are runs-first, the streams (steps, runs, ...)
-            cat = lambda i, dim: torch.cat([p[i] for p in parts], dim=dim)
-            w, h = cat(0, 0), cat(1, 0)
-            opt = {k: torch.cat([p[2][k] for p in parts]) for k in parts[0][2]}
-            losses, var_est, out_mb, dec_mb, eq_mb, mm_mb, s1_mb = (cat(i, 1) for i in range(3, 10))
-        streams = (a[..., crop] for a in (out_mb, dec_mb, eq_mb, mm_mb, s1_mb))
-        out_mb, dec_mb, eq_mb, mm_mb, s1_mb = streams
-        packed = _finish_vae_frame(losses, out_mb, var_est, tx_of(tx), amps, rc["P"], rc["var"],
-                                   rc["nu_sc"], rc["pow_mean"], weight_fn, sigma, dec_mb, eq_mb,
-                                   mm_mb, s1_mb)
+        with span("dp.train"):
+            parts = []
+            for g in range(0, R, rb):
+                sl = slice(g, g + rb)
+                parts.append(vae_dp_frame_train(
+                    params["w"][sl], params["h"][sl], {k: v[sl] for k, v in opt.items()}, rx[sl],
+                    amps, rows("var", sl), rows("nu_sc", sl), rows("P", sl), rows("lr", sl), count,
+                    thresh, bl_sym=cfg.batch_len, stride_sym=stride_sym, stream_bf16=stream_bf16))
+            if len(parts) == 1:
+                w, h, opt, losses, var_est, out_mb, dec_mb, eq_mb, mm_mb, s1_mb = parts[0]
+            else:  # params and moments are runs-first, the streams (steps, runs, ...)
+                cat = lambda i, dim: torch.cat([p[i] for p in parts], dim=dim)
+                w, h = cat(0, 0), cat(1, 0)
+                opt = {k: torch.cat([p[2][k] for p in parts]) for k in parts[0][2]}
+                losses, var_est, out_mb, dec_mb, eq_mb, mm_mb, s1_mb = (
+                    cat(i, 1) for i in range(3, 10))
+        with span("dp.eval"):
+            streams = (a[..., crop] for a in (out_mb, dec_mb, eq_mb, mm_mb, s1_mb))
+            out_mb, dec_mb, eq_mb, mm_mb, s1_mb = streams
+            packed = _finish_vae_frame(losses, out_mb, var_est, tx_of(tx), amps, rc["P"], rc["var"],
+                                       rc["nu_sc"], rc["pow_mean"], weight_fn, sigma, dec_mb, eq_mb,
+                                       mm_mb, s1_mb)
         return {"w": w, "h": h}, opt, packed
     return train
 
@@ -324,54 +328,63 @@ def _step_train(cfg, const, amps, P, var, *, use_kernel, n_steps, stride_sym, cr
     step = kernel_step if use_kernel else autograd_step
 
     def train(params, opt, count, rx, tx, sigma):
-        losses, var_est, q, out = [], [], [], []
-        scalars = sched.index_select(0, count + offsets)  # (n_steps, 3): this frame's steps
-        for m in range(n_steps):
-            loss_m, var_m, grads, q_m, out_m = step(params, rx[..., m * hop : m * hop + mb_len])
-            params, opt = adam_update(params, opt, grads, cfg.lr, scalars[m])
-            losses.append(loss_m)
-            var_est.append(var_m)
-            q.append(q_m[..., crop])
-            out.append(out_m[..., crop])
-        packed = _finish_step_frame(torch.stack(losses), torch.cat(q, -1), torch.cat(out, -1),
-                                    torch.stack(var_est, -2), tx_of(tx), const, amps, P, var,
-                                    weight_fn, sigma)
+        with span("dp.train"):
+            losses, var_est, q, out = [], [], [], []
+            scalars = sched.index_select(0, count + offsets)  # (n_steps, 3): this frame's steps
+            for m in range(n_steps):
+                loss_m, var_m, grads, q_m, out_m = step(params, rx[..., m * hop : m * hop + mb_len])
+                params, opt = adam_update(params, opt, grads, cfg.lr, scalars[m])
+                losses.append(loss_m)
+                var_est.append(var_m)
+                q.append(q_m[..., crop])
+                out.append(out_m[..., crop])
+            losses, q, out = torch.stack(losses), torch.cat(q, -1), torch.cat(out, -1)
+            var_est = torch.stack(var_est, -2)
+        with span("dp.eval"):
+            packed = _finish_step_frame(losses, q, out, var_est, tx_of(tx), const, amps, P, var,
+                                        weight_fn, sigma)
         return params, opt, packed
     return train
 
 
-def _run_vae_experiment(cfg, gen, var, draws, train, *, steps_per_frame, params, runs, shard,
-                        progress, ckpt, graph_opts, P_draw=None, snr_lin=None, var_runs=None):
-    """The VAE / VAEflex frame loop for every mode: the carry is (params, Adam
-    moments, global step count on the device), so the lr schedule and bias
-    correction continue across frames, and a resume (``ckpt``) restores all
-    three; ``train(params, opt, count, rx, tx, sigma) -> (params, opt,
-    packed)`` trains and evaluates one frame of this process's runs
-    (``shard``'s; the default draws are drawn for every run, from
-    ``ckpt.rng``, and cut to them); ``draws`` the caller's ``draws(frame,
-    R)`` or None; ``graph_opts`` ``run_frame_loop``'s compiled /
-    chunk_frames / timings; ``P_draw`` (R, n) every run's pmf of the default
-    draws, ``snr_lin`` the channel's SNR of each of this process's runs,
-    ``var_runs`` their demapper variance for the result."""
-    R = shard.count
+def _vae_carry(params: dict, shard: RunShard, device) -> tuple:
+    """The VAE / VAEflex frame loop's carry: (params of ``shard``'s runs,
+    Adam moments, global step count on the device), so the lr schedule and
+    bias correction continue across frames, and a resume restores all three."""
     tail = {"w": 3, "h": 4}  # w (2, 4, M), h (2, 2, 2, M), with or without a runs axis
     params = {k: shard.take(v.expand((shard.runs,) + v.shape[-tail[k]:]).contiguous())
               for k, v in params.items()}
-    count = torch.zeros((1,), dtype=torch.int64, device=var.device)
-    carry = (params, frame_opt_init(params), count)
+    return params, frame_opt_init(params), torch.zeros((1,), dtype=torch.int64, device=device)
+
+
+def _run_vae_experiment(cfg, gen, var, draws, train, *, steps_per_frame, carry, thetas, runs,
+                        shard, progress, ckpt, graph_opts, P_draw=None, snr_lin=None,
+                        var_runs=None):
+    """The VAE / VAEflex frame loop for every mode from ``carry``
+    (``_vae_carry``) over the frames' angles ``thetas``;
+    ``train(params, opt, count, rx, tx, sigma) -> (params, opt, packed)``
+    trains and evaluates one frame of this process's runs (``shard``'s; the
+    default draws are drawn for every run, from ``ckpt.rng``, and cut to
+    them); ``draws`` the caller's ``draws(frame, R)`` or None;
+    ``graph_opts`` ``run_frame_loop``'s compiled / chunk_frames / timings;
+    ``P_draw`` (R, n) every run's pmf of the default draws, ``snr_lin`` the
+    channel's SNR of each of this process's runs, ``var_runs`` their
+    demapper variance for the result."""
+    R = shard.count
     rng = ckpt.rng
 
     def frame_step(carry, theta, *drawn):
         params, opt, count = carry
-        levels, noise = drawn or tuple(map(shard.take, gen.draws(rng, shard.runs, P_draw)))
-        rx, tx, sigma = gen.physics(theta, levels, noise, snr_lin)
+        with span("dp.channel"):
+            levels, noise = drawn or tuple(map(shard.take, gen.draws(rng, shard.runs, P_draw)))
+            rx, tx, sigma = gen.physics(theta, levels, noise, snr_lin)
         params, opt, packed = train(params, opt, count, rx, tx, sigma)
         if runs is None:
             packed = packed[0]
         return (params, opt, count + steps_per_frame), packed
 
     (params, _, _), hist = run_frame_loop(
-        frame_step, carry, (_frame_inputs(cfg, var.device),), _VAE_FIELDS,
+        frame_step, carry, (thetas,), _VAE_FIELDS,
         num_frames=cfg.num_frames, runs=None if runs is None else R, progress=progress, ckpt=ckpt,
         host_rows=None if rng is not None else (lambda f: draws(f, R)), **graph_opts)
     if runs is None:
@@ -478,32 +491,37 @@ def _vae_runner(loss_type, cfg, seed, device, progress, runs, params_init, use_p
                 runs_batch, stream_bf16, vecs, mesh, checkpoint, checkpoint_every, graph_opts):
     """``train_vae_dp`` (batch_len windows back to back) and
     ``train_vae_flex_dp`` (windows every flex_step, central crop)."""
-    shard = RunShard.of(mesh, runs)
-    device, n_frame, const, var, gen, amps, rc, params, draws, rng = _vae_setup(
-        loss_type, cfg, seed, device, params_init, use_pallas, draws, runs, runs_batch, stream_bf16,
-        vecs, shard)
-    bl = cfg.batch_len
-    if loss_type == "VAE":
-        n_steps = n_frame // bl
-        kw = dict(stride_sym=bl, crop=slice(None), tx_of=lambda tx: tx,
-                  weight_fn=_batch_cut_weight_fn(n_steps, bl, cfg.n_cut))
-    else:
-        fs = cfg.flex_step
-        n_steps = (n_frame - bl) // fs
-        m_max = n_steps * fs  # symbols of the recorded stream
-        crop0 = (bl - fs) // 2
-        kw = dict(stride_sym=fs, crop=slice(crop0, crop0 + fs),
-                  tx_of=lambda tx: tx[..., bl // 2 : bl // 2 + m_max], weight_fn=_margin_weight_fn(m_max))
-    kw["thresh"] = float(cfg.n_lrhalf) * n_steps
-    if use_pallas == "frame":
-        train = _frame_kernel_train(cfg, amps, rc, runs=None if runs is None else shard.count,
-                                    runs_batch=runs_batch, stream_bf16=stream_bf16, **kw)
-    else:
-        train = _step_train(cfg, const, amps, rc["P"], var, use_kernel=use_pallas, n_steps=n_steps, **kw)
-    ckpt = shard.checkpoint(checkpoint, checkpoint_every, rng,
-                            f"{loss_type} use_pallas={use_pallas!r}")
-    return _run_vae_experiment(cfg, gen, var, draws, train, steps_per_frame=n_steps, params=params,
-                               runs=runs, shard=shard, progress=progress, ckpt=ckpt,
+    with span("dp.setup"):
+        shard = RunShard.of(mesh, runs)
+        device, n_frame, const, var, gen, amps, rc, params, draws, rng = _vae_setup(
+            loss_type, cfg, seed, device, params_init, use_pallas, draws, runs, runs_batch,
+            stream_bf16, vecs, shard)
+        bl = cfg.batch_len
+        if loss_type == "VAE":
+            n_steps = n_frame // bl
+            kw = dict(stride_sym=bl, crop=slice(None), tx_of=lambda tx: tx,
+                      weight_fn=_batch_cut_weight_fn(n_steps, bl, cfg.n_cut))
+        else:
+            fs = cfg.flex_step
+            n_steps = (n_frame - bl) // fs
+            m_max = n_steps * fs  # symbols of the recorded stream
+            crop0 = (bl - fs) // 2
+            kw = dict(stride_sym=fs, crop=slice(crop0, crop0 + fs),
+                      tx_of=lambda tx: tx[..., bl // 2 : bl // 2 + m_max],
+                      weight_fn=_margin_weight_fn(m_max))
+        kw["thresh"] = float(cfg.n_lrhalf) * n_steps
+        if use_pallas == "frame":
+            train = _frame_kernel_train(cfg, amps, rc, runs=None if runs is None else shard.count,
+                                        runs_batch=runs_batch, stream_bf16=stream_bf16, **kw)
+        else:
+            train = _step_train(cfg, const, amps, rc["P"], var, use_kernel=use_pallas,
+                                n_steps=n_steps, **kw)
+        ckpt = shard.checkpoint(checkpoint, checkpoint_every, rng,
+                                f"{loss_type} use_pallas={use_pallas!r}")
+        carry = _vae_carry(params, shard, device)
+        thetas = _frame_inputs(cfg, device)
+    return _run_vae_experiment(cfg, gen, var, draws, train, steps_per_frame=n_steps, carry=carry,
+                               thetas=thetas, runs=runs, shard=shard, progress=progress, ckpt=ckpt,
                                graph_opts=graph_opts,
                                P_draw=rc["P_draw"], snr_lin=rc["snr_lin"], var_runs=rc["var_runs"])
 

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..ops import _build
+from ..utils.profiling import span
 
 __all__ = ["Checkpoint", "Progress", "StepGraphs", "pack_metrics", "unpack_metrics",
            "run_frame_loop", "table_rows"]
@@ -270,23 +271,26 @@ class StepGraphs:
         """Capture every step as a CUDA graph (on the card; a no-op off it)."""
         if not self.graph:
             return
-        for name, fn in self.steps.items():
-            g = torch.cuda.CUDAGraph()
-            if self.rng is not None:
-                g.register_generator_state(self.rng)
-            before = _counts()
-            with torch.cuda.graph(g):
-                fn()
-            self.graphs[name] = (g, {c: c.launches - n for c, n in before.items() if c.launches != n})
-            for c, n in before.items():
-                c.launches = n
+        with span("harness.capture"):
+            for name, fn in self.steps.items():
+                g = torch.cuda.CUDAGraph()
+                if self.rng is not None:
+                    g.register_generator_state(self.rng)
+                before = _counts()
+                with torch.cuda.graph(g):
+                    fn()
+                self.graphs[name] = (g, {c: c.launches - n for c, n in before.items()
+                                         if c.launches != n})
+                for c, n in before.items():
+                    c.launches = n
 
     def build(self, timings: dict | None = None) -> None:
         """Warm up and capture; ``timings["compile_s"]``: the seconds both took."""
         t0 = time.perf_counter()
-        self.warm_up()
-        self.capture()
-        _sync(self.device)
+        with span("harness.build"):
+            self.warm_up()
+            self.capture()
+            _sync(self.device)
         if timings is not None:
             timings["compile_s"] = time.perf_counter() - t0
 
@@ -389,8 +393,10 @@ def run_frame_loop(frame_step: Callable, carry, tables: tuple, fields: Fields, *
 
     if not graphed:
         for frame in range(start, num_frames):
-            step(frame)
-            (m,) = record(frame, buf["hist"][frame : frame + 1].cpu().numpy())
+            with span("harness.frame"):
+                step(frame)
+            with span("harness.fetch"):
+                (m,) = record(frame, buf["hist"][frame : frame + 1].cpu().numpy())
             if ckpt.due(frame + 1, num_frames):
                 ckpt.save(frame + 1, static, hist)
             if progress:
@@ -404,18 +410,22 @@ def run_frame_loop(frame_step: Callable, carry, tables: tuple, fields: Fields, *
     if compiled:
         def run_all():
             for _ in range(num_frames):
-                graphs.run("frame")
+                with span("harness.frame"):
+                    graphs.run("frame")
 
         graphs.timed(run_all, timings)
-        record(0, buf["hist"].cpu().numpy())  # one device-to-host copy
+        with span("harness.fetch"):
+            record(0, buf["hist"].cpu().numpy())  # one device-to-host copy
         return static, hist
 
     frame, since = start, 0
     while frame < num_frames:
         c = min(chunk_frames, num_frames - frame)
         for _ in range(c):
-            graphs.run("frame")
-        ms = record(frame, buf["hist"][frame : frame + c].cpu().numpy())  # one copy per chunk
+            with span("harness.frame"):
+                graphs.run("frame")
+        with span("harness.fetch"):
+            ms = record(frame, buf["hist"][frame : frame + c].cpu().numpy())  # one copy per chunk
         if progress:
             for i, m in enumerate(ms):
                 progress(frame + i, m)

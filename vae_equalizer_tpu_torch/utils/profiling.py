@@ -1,5 +1,5 @@
 """Timing and tracing hooks (port of ``vae_equalizer_tpu/utils/profiling.py:
-timed, trace``).
+timed, trace``), and the program's spans.
 
 ``timed`` measures the wall time of a call with the device synchronized
 (``torch.cuda.synchronize`` for the card its result lives on; nothing on
@@ -7,6 +7,33 @@ the CPU); ``trace(dir)`` wraps a block in ``torch.profiler`` and writes a
 Chrome trace (chrome://tracing, Perfetto) into ``dir``. The JAX module's
 ``enable_compilation_cache`` and ``backend_preflight`` worked around a TPU
 transport and have no counterpart here.
+
+``span(name)`` marks a layer of the program on the profiler's clock: a host
+range, nested by the ranges open around it, beside the card's kernels in
+the same trace. ``with trace("prof"): train_vae_dp(...)`` shows them in
+Perfetto; any ``torch.profiler`` session sees them. With no profiler active
+a span costs one flag test and records nothing; the spans keep nothing of
+their own (the profiler holds them and writes them out when its session
+ends). They are host-only ranges (no device mirror, unlike
+``torch.profiler.record_function``), so device time in a trace stays device
+work. Under a CUDA graph a span inside the captured step runs once, at the
+capture, and not at each replay. The spans:
+
+* ``dp.setup`` (``train/dp.py``): a VAE / VAEflex call's set-up before its
+  frame loop: options, constellation, simulator, run constants, the carry;
+* ``dp.channel``: a frame's draws and channel physics;
+* ``dp.train``: a frame's training: kernel B's launches and their joins,
+  or the per-step modes' steps with Adam;
+* ``dp.eval``: a frame's eval (sync, SER, MI, packed metrics);
+* ``harness.build`` (``train/harness.py: StepGraphs.build``): warm-up and
+  capture, with ``harness.capture``, the capture itself, inside it;
+* ``harness.frame``: one frame of a frame loop: the eager step, or one
+  graph replay;
+* ``harness.fetch``: a loop's device-to-host copy of its history rows and
+  their unpacking;
+* ``streaming.step`` (``models/streaming.py``): one block, with
+  ``streaming.adapt`` (the adaptation) and ``streaming.output`` (the output
+  pass) inside it.
 """
 
 from __future__ import annotations
@@ -17,7 +44,18 @@ import time
 
 import torch
 
-__all__ = ["timed", "trace"]
+__all__ = ["span", "timed", "trace"]
+
+_OFF = contextlib.nullcontext()  # every span while no profiler is active
+_profiler = torch.autograd.profiler  # its flag is read anew at each span
+
+
+def span(name: str):
+    """A context manager marking ``name`` on the profiler's clock while a
+    ``torch.profiler`` session is active, else a shared no-op."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast(name)
 
 
 def _tensors(result) -> list:
