@@ -30,8 +30,17 @@ sharding, ``train/batching.py``). One line per phase:
   4. kernel B  vs plain: (a) a 3-minibatch frame, R = 8, across the lr
                halving; (b) a full 100-step frame; times; the block's
                clock64() cycles per step and phase
-  5. main path the full VAE experiment; launch count, soft SER band, MI, speed
+  5. main path the full VAE experiment; launch counts (kernels B and K, one
+               each a frame), soft SER band, MI, speed
   6. breakdown per-frame channel / kernel B / eval times
+ 6b. kernel K  vs the plain eval on kernel B's streams of a flagship frame
+               (R = 8, from the state after 20 trained frames): SERs, shift
+               and r equal, MI within 1e-6 bits; two launches bit for bit;
+               the whole call's and the launch's times beside the bound; the
+               plain version's time and kernel count (torch.profiler); one K
+               launch a frame on a 12-frame run, looped and replayed, counted;
+               the block's clock64() cycles per phase (eval_clocks). Every
+               counted DP frame-mode path below counts K's launches too
   7. kernel C  vs plain: a whole 10,000-symbol CMA frame, R = 5; two launches
                bit for bit; the whole call's and the launch's times; the
                block's clock64() cycles per symbol and phase
@@ -82,14 +91,18 @@ sharding, ``train/batching.py``). One line per phase:
  18. kernel B  stride_sym = 10 vs plain: (a) 3 windows; (b) a full
      stride    990-window frame from a warm state; times; cycles per phase
  19. VAEflex   train_vae_flex_dp(use_pallas="frame"), 170 frames, R = 8: one
-     path      kernel B launch per frame, soft SER and MI in the JAX band;
-               channel / kernel B / eval split
+     path      kernel B and one kernel K launch per frame, soft SER and MI in
+               the JAX band; channel / kernel B / eval split; kernel K vs the
+               plain eval on a frame through the trained taps (crop, margin
+               mask): SERs, shift and r equal, MI within 1e-6 bits
  20. VAEflex   use_pallas=True (kernel A per window) against "frame" on shared
      per-step  draws, 5 frames from phase 19's taps; frame times
  21. kernel B  per-run lr / var / nu_sc / P, R = 8 (8 lr, SNR 16-23 dB, nu 0 and
      per run   0.0270955): (a) a 3-minibatch frame across the lr halving vs
                plain; (b) constant vectors vs the shared form and rows vs
-               single-run calls, bit for bit; (c) stream_bf16 vs float32; times
+               single-run calls, bit for bit; (c) stream_bf16 vs float32; times;
+               (d) kernel K vs the plain eval on per-run float32 and bfloat16
+               streams: SERs, shift and r equal, MI within 1e-6 bits
  22. lr sweep  the Eval_run_DP driver (``drivers/eval_run_dp.py``) at its
                defaults with --pallas-frame --batch-lr-axis: 3 lr x 5 iters =
                15 runs, one kernel B launch per frame; per-point soft SER in
@@ -439,6 +452,18 @@ def _cma_chunked_flops(n_sym: int, m: int, batch_len: int, symb_step: int, n_ful
         (n_full + 1) * 8 * m * (n_slots + 1)
 
 
+def _eval_flops(n_sym: int, n_lev: int, corr_len: int) -> float:
+    """Kernel K, one run over a frame of n_sym symbols: the two sync searches
+    (2 searches x 8 (comp, b, i) x 21 shifts x corr_len multiply-adds), then
+    per symbol and pol the soft SER (8 variants x 3 ops), the MI (8 traces x
+    12 ops: the metric's 6, exp, the division, the guard, log2 and the
+    weighted sum; the prior 3), the rescale (2), the constellation SER's 4
+    (n_lev - 1) level comparisons and 8 variants x 4 ops, and the magnitudes
+    (8)."""
+    per_symbol = 8 * 3 + 8 * 12 + 3 + 2 + 4 * (n_lev - 1) + 8 * 4 + 8
+    return 2 * 8 * 21 * corr_len * 2 + 2 * n_sym * per_symbol
+
+
 def _launch_alone_ms(fn, launcher: str, reps: int = 5, build_mod=None) -> float:
     """Median CUDA-event time of the kernel launch alone inside fn(): events
     recorded on the stream right around the call of the library's entry point
@@ -768,11 +793,12 @@ class _SaveTimer:
 
 
 def _resume_case(label: str, card: str, call, full, rerun_diff: float, ckpt, every: int,
-                 kill: dict, path_kernel, launches_left, **kv) -> None:
+                 kill: dict, path_kernel, launches_left, also_left=lambda f: (), **kv) -> None:
     """One sub-phase of phase 30: ``call(checkpoint=, checkpoint_every=,
     **kill)`` dies with ``_Kill`` after a save; the resumed call, counted,
-    launches ``path_kernel`` ``launches_left(resumed_from)`` times and
-    nothing else, and its result must be within ``rerun_diff`` of ``full``
+    launches ``path_kernel`` ``launches_left(resumed_from)`` times, each
+    (kernel, count) of ``also_left(resumed_from)`` count times, and nothing
+    else, and its result must be within ``rerun_diff`` of ``full``
     (the distance between two uninterrupted runs: 0.0 where they are bit for
     bit). Prints the phase line."""
     import numpy as np
@@ -788,7 +814,9 @@ def _resume_case(label: str, card: str, call, full, rerun_diff: float, ckpt, eve
         resumed_from = int(d["frame"])
     size = ckpt.stat().st_size
     n_left = launches_left(resumed_from)
-    res, wall = _counted(path_kernel, n_left, lambda: call(checkpoint=ckpt, checkpoint_every=every))
+    also = also_left(resumed_from)
+    res, wall = _counted(path_kernel, n_left, lambda: call(checkpoint=ckpt, checkpoint_every=every),
+                         also=also)
     diff = _max_diff(res, full)
     if diff > rerun_diff:
         raise AssertionError(f"30{label}: the resumed run is {diff} from the uninterrupted one "
@@ -796,8 +824,8 @@ def _resume_case(label: str, card: str, call, full, rerun_diff: float, ckpt, eve
     save_ms = statistics.mean(ms for _, ms in t.saves)
     _line(f"30{label} resume", ok=True, **kv, every=every,
           saved_at=",".join(str(d) for d, _ in t.saves), resumed_from=resumed_from,
-          launches=f"{path_kernel.__name__}:{n_left}", max_abs_diff=diff,
-          rerun_max_abs_diff=rerun_diff, state_bytes=size, save_ms=f"{save_ms:.3f}",
+          launches=",".join(f"{k.__name__}:{n}" for k, n in ((path_kernel, n_left),) + also),
+          max_abs_diff=diff, rerun_max_abs_diff=rerun_diff, state_bytes=size, save_ms=f"{save_ms:.3f}",
           resumed_wall_s=f"{wall:.3f}", card=repr(card))
 
 
@@ -851,11 +879,11 @@ def _resume_phases(card: str) -> None:
             return train_dp.train_vae_dp(cfg, seed=0, device=DEVICE, use_pallas="frame", runs=runs,
                                          **kw)
 
-        full, _ = _counted(vae_dp_frame_train, frames, flagship)
+        full, _ = _counted(vae_dp_frame_train, frames, flagship, also=_with_eval(frames))
         rerun = _max_diff(flagship(), full)
         _resume_case("a", card, flagship, full, rerun, tmp / "a.npz", every,
                      {"progress": _killer(8)}, vae_dp_frame_train, lambda f: frames - f,
-                     frames=frames, runs=runs)
+                     lambda f: _with_eval(frames - f), frames=frames, runs=runs)
 
         # ---- 30b. the same call, SIGKILLed in a child process after its first save
         ckpt = tmp / "b.npz"
@@ -885,13 +913,15 @@ def _resume_phases(card: str) -> None:
         with np.load(ckpt) as d:
             resumed_from = int(d["frame"])
         res, wall = _counted(vae_dp_frame_train, frames - resumed_from,
-                             lambda: flagship(checkpoint=ckpt, checkpoint_every=every))
+                             lambda: flagship(checkpoint=ckpt, checkpoint_every=every),
+                             also=_with_eval(frames - resumed_from))
         diff = _max_diff(res, full)
         if diff > rerun:
             raise AssertionError(f"30b: the resumed run is {diff} from the uninterrupted one")
         _line("30b resume SIGKILL", ok=True, frames=frames, runs=runs, every=every,
               child_rc=rc, resumed_from=resumed_from, tmp_left=tmp_left,
-              launches=f"vae_dp_frame_train:{frames - resumed_from}", max_abs_diff=diff,
+              launches=f"vae_dp_frame_train:{frames - resumed_from},"
+              f"vae_dp_frame_eval:{frames - resumed_from}", max_abs_diff=diff,
               state_bytes=ckpt.stat().st_size, resumed_wall_s=f"{wall:.3f}", card=repr(card))
 
         # ---- 30c. CMA through kernel C, R = 5, 12 frames, K = 5
@@ -1028,12 +1058,14 @@ def _graph_phases(card: str) -> None:
     res = {}
     for mode in ("loop", "compiled", "loop", "compiled"):
         res[mode], wall = _counted(vae_dp_frame_train, F, lambda mode=mode: flag(
-            compiled=mode == "compiled"))
+            compiled=mode == "compiled"), also=_with_eval(F))
         walls[mode].append(wall)
     ref = res["loop"]
     timings = {}
-    timed, wall_t = _counted(vae_dp_frame_train, 3 * F, lambda: flag(compiled=True, timings=timings))
-    chunked, wall_k = _counted(vae_dp_frame_train, F, lambda: flag(chunk_frames=GRAPH_CHUNK))
+    timed, wall_t = _counted(vae_dp_frame_train, 3 * F, lambda: flag(compiled=True, timings=timings),
+                             also=_with_eval(3 * F))
+    chunked, wall_k = _counted(vae_dp_frame_train, F, lambda: flag(chunk_frames=GRAPH_CHUNK),
+                               also=_with_eval(F))
     diffs = {}
     for label, got in (("compiled", res["compiled"]), ("timed", timed), ("chunked", chunked)):
         d = same("a", got, ref)
@@ -1110,8 +1142,10 @@ def _graph_phases(card: str) -> None:
             loop, wall_l = _counted(vae_dp_frame_train, 0, lambda fn=fn: fn({}))
             graph, wall_g = _counted(vae_dp_frame_train, 0, graph_fn)
         else:
-            loop, wall_l = _counted(kern, n, lambda fn=fn: fn({}))
-            graph, wall_g = _counted(kern, 3 * n, graph_fn)
+            # kernel B's frame path evaluates each frame with kernel K
+            k = n if kern is vae_dp_frame_train else 0
+            loop, wall_l = _counted(kern, n, lambda fn=fn: fn({}), also=_with_eval(k))
+            graph, wall_g = _counted(kern, 3 * n, graph_fn, also=_with_eval(3 * k))
         diff = same("b", graph, loop)
         for k in ("ser", "mi"):
             if not np.all(np.isfinite(np.asarray(loop[k]))):
@@ -1589,9 +1623,12 @@ def _run_sharding_phases(card: str, flagship: dict, flagship_wall: float) -> Non
     for label, (fn, c, kw, kernel, n) in cases.items():
         got, ranks = outs[label], stats[label]["ranks"]
         launches = [r["launches"] for r in ranks]
-        if any(ln != {kernel.__name__: n} for ln in launches):
-            raise AssertionError(f"34 {label}: launches per rank {launches}, expected "
-                                 f"{kernel.__name__} {n} on each")
+        # kernel B's frame path evaluates each frame with kernel K
+        want = {kernel.__name__: n, **({"vae_dp_frame_eval": n} if kernel is vae_dp_frame_train
+                                       else {})}
+        if any(ln != want for ln in launches):
+            raise AssertionError(f"34 {label}: launches per rank {launches}, expected {want} on "
+                                 "each")
         diffs = {k: _max_diff(got[k], v) for k, v in refs[label].items()}
         if any(d != 0.0 for d in diffs.values()):
             raise AssertionError(f"34 {label}: sharded vs unsharded max abs diff {diffs}")
@@ -1636,7 +1673,8 @@ def _run_sharding_phases(card: str, flagship: dict, flagship_wall: float) -> Non
     resumed, wall_r = _counted(vae_dp_frame_train, cfg.num_frames - saved,
                                lambda: train_dp.train_vae_dp(cfg, 0, device=DEVICE, runs=8,
                                                              use_pallas="frame", checkpoint=path,
-                                                             checkpoint_every=RS_EVERY))
+                                                             checkpoint_every=RS_EVERY),
+                               also=_with_eval(cfg.num_frames - saved))
     d = _max_diff(resumed, flagship)
     if saved != RS_EVERY or d != 0.0:
         raise AssertionError(f"34d: saved at frame {saved} (expected {RS_EVERY}), resumed without "
@@ -1809,7 +1847,7 @@ def _awgn_phases(card: str) -> list:
 
 
 def _all_counters() -> tuple:
-    """Every kernel wrapper's launch counter holder, A-J."""
+    """Every kernel wrapper's launch counter holder, A-K."""
     from vae_equalizer_tpu_torch.ops.butterfly_kernel import vae_le_dp_forward_fused
     from vae_equalizer_tpu_torch.ops.cma_frame_kernel import cma_chunked_frame
     from vae_equalizer_tpu_torch.ops.cma_kernel import cma_dp_kernel
@@ -1817,13 +1855,26 @@ def _all_counters() -> tuple:
     from vae_equalizer_tpu_torch.ops.dfe_kernel import dfe_decide
     from vae_equalizer_tpu_torch.ops.elbo_kernel import vae_dp_loss_and_grad
     from vae_equalizer_tpu_torch.ops.elbo_siso_kernel import vae_siso_loss_and_grad
+    from vae_equalizer_tpu_torch.ops.eval_kernel import vae_dp_frame_eval
     from vae_equalizer_tpu_torch.ops.frame_kernel import vae_dp_frame_train
     from vae_equalizer_tpu_torch.ops.nn_frame_kernel import vae_nn_experiment_train
     from vae_equalizer_tpu_torch.ops.siso_frame_kernel import vae_siso_experiment_train
 
     return (vae_dp_loss_and_grad, vae_dp_frame_train, cma_dp_kernel, cma_chunked_frame,
             vae_le_dp_forward_fused, vae_siso_loss_and_grad, vae_siso_experiment_train,
-            vae_nn_experiment_train, cma_siso_experiment, dfe_decide)
+            vae_nn_experiment_train, cma_siso_experiment, dfe_decide, vae_dp_frame_eval)
+
+
+def _with_eval(frames: int) -> tuple:
+    """``_counted``'s ``also`` for a DP VAE / VAEflex frame-mode path of
+    ``frames`` frames: kernel K evaluates each frame once, all runs in one
+    launch (``train/dp.py: _finish_vae_frame``)."""
+    from vae_equalizer_tpu_torch.ops.eval_kernel import vae_dp_frame_eval
+
+    return ((vae_dp_frame_eval, frames),)
+
+
+_LAST_COUNTS: dict = {}  # the launches the last ``_counted`` call read, by wrapper name
 
 
 def _counted(path_kernel, n_expect: int, fn, also: tuple = ()):
@@ -1844,6 +1895,8 @@ def _counted(path_kernel, n_expect: int, fn, also: tuple = ()):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {c.__name__: c.launches for c in counters}
+    _LAST_COUNTS.clear()
+    _LAST_COUNTS.update(counts)
     for c in counters:
         c.launches = 0
     expect = {path_kernel.__name__: n_expect, **{k.__name__: n for k, n in also}}
@@ -2325,6 +2378,7 @@ def _step_path_phase(card, cfg, sim, gen, thetas, w0, h0, const, amps, var, P) -
     from vae_equalizer_tpu_torch.ops.elbo_kernel import vae_dp_loss_and_grad
     from vae_equalizer_tpu_torch.ops.frame_kernel import adam_update, frame_opt_init
     from vae_equalizer_tpu_torch.train import dp as train_dp
+    from vae_equalizer_tpu_torch.train.eval_utils import BatchCutWeight
 
     R, bl = w0.shape[0], cfg.batch_len
     m_max = cfg.n_frame_max // bl
@@ -2346,7 +2400,7 @@ def _step_path_phase(card, cfg, sim, gen, thetas, w0, h0, const, amps, var, P) -
     # frame's 100 kernel A launches, its 100 Adam updates, the q-stream eval
     st = {}
     params = {"w": w0, "h": h0}
-    wfn = train_dp._batch_cut_weight_fn(m_max, bl, cfg.n_cut)
+    wfn = BatchCutWeight(m_max, bl, cfg.n_cut)
 
     def channel():
         st["ch"] = sim(gen, thetas[0], R)
@@ -2398,6 +2452,7 @@ def _vaeflex_phases(card, cfg, sim, gen, w0, h0, const, amps, var, P) -> list:
         vae_dp_frame_train_plain,
     )
     from vae_equalizer_tpu_torch.train import dp as train_dp
+    from vae_equalizer_tpu_torch.train.eval_utils import MarginWeight
 
     dev = torch.device(DEVICE)
     R, M, bl, fs = w0.shape[0], cfg.m_est, cfg.batch_len, cfg.flex_step
@@ -2474,7 +2529,7 @@ def _vaeflex_phases(card, cfg, sim, gen, w0, h0, const, amps, var, P) -> list:
 
     # ---- 19. the VAEflex frame path, counted, gated by the JAX band
     res, wall = _counted(vae_dp_frame_train, cfg.num_frames, lambda: train_dp.train_vae_flex_dp(
-        cfg, seed=0, device=DEVICE, use_pallas="frame", runs=R))
+        cfg, seed=0, device=DEVICE, use_pallas="frame", runs=R), also=_with_eval(cfg.num_frames))
     for k in ("ser", "mi", "var_est"):
         if not np.all(np.isfinite(res[k])):
             raise AssertionError(f"VAEflex: non-finite {k}")
@@ -2488,8 +2543,17 @@ def _vaeflex_phases(card, cfg, sim, gen, w0, h0, const, amps, var, P) -> list:
                              f"final MI mean {mi_run.mean():.4f} (band {VAEFLEX_MI_BAND}), min "
                              f"{mi_run.min():.4f} (floor {mi_floor})")
     st = {}
-    wfn = train_dp._margin_weight_fn(n_win * fs)
+    wfn = MarginWeight(n_win * fs)
     crop = slice((bl - fs) // 2, (bl - fs) // 2 + fs)
+    # kernel K against the plain eval on this path's streams: a fresh frame
+    # through the taps the path trained, cropped, its tx cut and masked as
+    # the runner does
+    wt, ht = (res["params"][k].to(dev).contiguous() for k in ("w", "h"))
+    rx_t, tx_t, _ = sim(gen, thetas[WARM_FRAMES], R)
+    kt = vae_dp_frame_train(wt, ht, frame_opt_init({"w": wt, "h": ht}), rx_t, amps, var, nu_sc, P,
+                            lr, 0, 1e9, bl_sym=bl, stride_sym=fs)
+    k_mi_err = _eval_vs_plain("19 VAEflex", tuple(a[..., crop] for a in kt[5:10]) + (
+        tx_t[..., bl // 2 : bl // 2 + n_win * fs], amps, P, nu_sc, var, wfn))[1]
 
     def channel():
         st["ch"] = sim(gen, thetas[0], R)
@@ -2511,7 +2575,8 @@ def _vaeflex_phases(card, cfg, sim, gen, w0, h0, const, amps, var, P) -> list:
           mi_final_mean=f"{mi_run.mean():.4f}", mi_final_min=f"{mi_run.min():.4f}",
           wall_s=f"{wall:.3f}", sym_per_s=f"{R * cfg.num_frames * n_frame / wall:.0f}",
           frame_wall_ms=f"{1e3 * wall / cfg.num_frames:.3f}", channel_ms=f"{ms[0]:.3f}",
-          kernel_b_ms=f"{ms[1]:.3f}", eval_ms=f"{ms[2]:.3f}", card=repr(card))
+          kernel_b_ms=f"{ms[1]:.3f}", eval_ms=f"{ms[2]:.3f}", kernel_k_launches=cfg.num_frames,
+          kernel_k_vs_plain=f"equal,mi_abs_err:{k_mi_err:.3g}", card=repr(card))
 
     # ---- 20. VAEflex use_pallas=True (kernel A per window) against "frame" on
     # shared draws, FLEX_CHECK_FRAMES frames from the taps phase 19 trained:
@@ -2528,7 +2593,8 @@ def _vaeflex_phases(card, cfg, sim, gen, w0, h0, const, amps, var, P) -> list:
                                                   params_init=res["params"],
                                                   draws=lambda frame, r: draws[frame])
     res_k, wall_k = _counted(vae_dp_loss_and_grad, FLEX_CHECK_FRAMES * n_win, lambda: run(True))
-    res_b, wall_b = _counted(vae_dp_frame_train, FLEX_CHECK_FRAMES, lambda: run("frame"))
+    res_b, wall_b = _counted(vae_dp_frame_train, FLEX_CHECK_FRAMES, lambda: run("frame"),
+                             also=_with_eval(FLEX_CHECK_FRAMES))
     d_ser = np.abs(res_k["ser"] - res_b["ser"])
     d_ser_first = float(np.abs(res_k["ser"][..., 0].mean(0) - res_b["ser"][..., 0].mean(0)).max())
     d_w = float((res_k["params"]["w"] - res_b["params"]["w"]).abs().max())
@@ -2562,6 +2628,7 @@ def _per_run_phase(card, cfg, sim, gen, w0, h0, const, amps, P, f_args) -> dict:
         vae_dp_frame_train,
         vae_dp_frame_train_plain,
     )
+    from vae_equalizer_tpu_torch.train.eval_utils import BatchCutWeight
 
     dev = torch.device(DEVICE)
     R, bl, n_lev = w0.shape[0], cfg.batch_len, amps.shape[0]
@@ -2637,6 +2704,20 @@ def _per_run_phase(card, cfg, sim, gen, w0, h0, const, amps, P, f_args) -> dict:
           bf16_out_eq_max_rel=f"{rel:.3e}", ms_shared=f"{ms_shared:.3f}", ms_per_run=f"{ms_vec:.3f}",
           ms_bf16=f"{ms_bf:.3f}", plain_ms=f"{ms_plain:.3f}", bound_ms=f"{bound['bound_ms']:.6f}",
           card=repr(card))
+
+    # ---- 21d. kernel K against the plain eval on kernel B's streams of a
+    # fresh frame from phase 4b's warm state, every run with its own P / var /
+    # nu_sc, float32 and stream_bf16 streams
+    rx_d, tx_d, _ = sim(gen, 0.3, R)
+    wfn = BatchCutWeight(m_max, bl, cfg.n_cut)
+    d_args = (wk, hk, optk, rx_d, amps, rc["var"], rc["nu_sc"], rc["P"], rc["lr"], step0, thresh)
+    k_mi = {}
+    for name, bf16 in (("float32", False), ("bf16", True)):
+        kd = vae_dp_frame_train(*d_args, bl_sym=bl, stream_bf16=bf16)
+        k_mi[name] = _eval_vs_plain(f"21d per-run {name}", (*kd[5:10], tx_d, amps, rc["P"],
+                                                            rc["nu_sc"], rc["var"], wfn))[1]
+    _line("21d kernel K per-run, stream_bf16", ok=True, R=R, ser_shift_r="equal",
+          mi_abs_err=",".join(f"{k}:{v:.3g}" for k, v in k_mi.items()), card=repr(card))
     return {"max_abs_err": max(errs["w"][0], errs["h"][0]), "ms": ms_vec, "plain_ms": ms_plain, **bound}
 
 
@@ -2664,6 +2745,7 @@ def _sweep_phases(card, cfg, const, amps, var, w0, h0, per_run) -> dict:
     from vae_equalizer_tpu_torch.drivers import eval_run_dp
     from vae_equalizer_tpu_torch.ops.frame_kernel import frame_opt_init, vae_dp_frame_train
     from vae_equalizer_tpu_torch.train import dp as train_dp
+    from vae_equalizer_tpu_torch.train.eval_utils import BatchCutWeight
     from vae_equalizer_tpu_torch.utils import io
 
     dev = torch.device(DEVICE)
@@ -2675,7 +2757,7 @@ def _sweep_phases(card, cfg, const, amps, var, w0, h0, per_run) -> dict:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_sweep_")
     gen = torch.Generator(device=dev)
     gen.manual_seed(4242)
-    wfn = train_dp._batch_cut_weight_fn(m_max, bl, cfg.n_cut)
+    wfn = BatchCutWeight(m_max, bl, cfg.n_cut)
     theta = float(np.float32(cfg.theta))
 
     def sweep(name, argv, n_launch):
@@ -2683,7 +2765,8 @@ def _sweep_phases(card, cfg, const, amps, var, w0, h0, per_run) -> dict:
         records, wall seconds)."""
         out = os.path.join(tmp, name)
         mat, wall = _counted(vae_dp_frame_train, n_launch, lambda: eval_run_dp.main(
-            ["--loss-type", "VAE", "--pallas-frame", "--out", out] + argv))
+            ["--loss-type", "VAE", "--pallas-frame", "--out", out] + argv),
+            also=_with_eval(n_launch))
         d = sio.loadmat(mat)["dict"]
         if list(d.dtype.names) != keys:
             raise AssertionError(f"{name}: .mat keys {d.dtype.names}")
@@ -2783,6 +2866,94 @@ def _sweep_phases(card, cfg, const, amps, var, w0, h0, per_run) -> dict:
             **per_run}
 
 
+def _eval_vs_plain(label: str, args) -> tuple:
+    """Kernel K against the plain eval (``train/dp.py: _dp_frame_eval_mb``) on
+    the same inputs (``vae_dp_frame_eval``'s arguments): SERs, shift and r
+    equal, MI within 1e-6 bits. Returns (K's results, the MI's largest
+    distance)."""
+    import torch
+
+    from vae_equalizer_tpu_torch.ops.eval_kernel import vae_dp_frame_eval
+    from vae_equalizer_tpu_torch.train import dp as train_dp
+
+    got = vae_dp_frame_eval(*args)
+    want = train_dp._dp_frame_eval_mb(*args)
+    for name, g, w in zip(("ser_const", "ser_soft", "shift", "r"), got[:2] + got[3:],
+                          want[:2] + want[3:]):
+        if not torch.equal(g, w.to(g.dtype)):
+            raise AssertionError(f"{label}: kernel K's {name} {g.tolist()} vs plain {w.tolist()}")
+    mi_err = float((got[2] - want[2]).abs().max())
+    if mi_err > 1e-6:
+        raise AssertionError(f"{label}: kernel K's MI {mi_err:.3g} bits from the plain version's")
+    return got, mi_err
+
+
+def _eval_kernel_phase(card: str, launches: int) -> dict:
+    """Phase 6b: kernel K (``ops/eval_kernel.py``) against the plain eval
+    (``train/dp.py: _dp_frame_eval_mb``) on kernel B's streams of one
+    flagship frame of 8 runs, from the state after WARM_FRAMES trained
+    frames: SERs, shift and r equal, MI within 1e-6 bits; two launches bit
+    for bit; the whole call's and the launch's times beside the bound, the
+    plain version's time and its kernel count (torch.profiler); K's launches
+    on a 12-frame run of the frame path, looped and replayed, counted (one a
+    frame); block 0's clock64() cycles per phase (eval_clocks). Returns K's
+    JSON entry, with ``launches`` (phase 5's counted K launches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vae_equalizer_tpu_torch.ops.eval_kernel import SYNC_CORR_LEN, eval_clocks, vae_dp_frame_eval
+    from vae_equalizer_tpu_torch.ops.frame_kernel import vae_dp_frame_train
+    from vae_equalizer_tpu_torch.train import dp as train_dp
+    from vae_equalizer_tpu_torch.train.eval_utils import BatchCutWeight
+    from vae_equalizer_tpu_torch.utils import DpConfig
+
+    dev = torch.device(DEVICE)
+    cfg, R = DpConfig(), 8
+    bl = cfg.batch_len
+    m_max = cfg.n_frame_max // bl
+    const, var, sim, amps, P = train_dp._setup(cfg, m_max * bl, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+    thetas, f_args = _warm_frame_args(cfg, sim, gen, const, amps, var, P, R, dev)
+    rx, tx, _ = sim(gen, thetas[WARM_FRAMES], R)  # a fresh frame, with its tx
+    k = vae_dp_frame_train(*f_args[:3], rx, *f_args[4:], bl_sym=bl)
+    args = (k[5], k[6], k[7], k[8], k[9], tx, amps, P, const.nu_sc, var,
+            BatchCutWeight(m_max, bl, cfg.n_cut))
+    got, mi_err = _eval_vs_plain("6b kernel K", args)
+    again = vae_dp_frame_eval(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("kernel K: two launches on the same inputs differ")
+    ms = _time_ms(lambda: vae_dp_frame_eval(*args), reps=20)
+    ms_launch = _launch_alone_ms(lambda: vae_dp_frame_eval(*args), "vae_dp_eval_launch", reps=20)
+    ms_plain = _time_ms(lambda: train_dp._dp_frame_eval_mb(*args), reps=5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        train_dp._dp_frame_eval_mb(*args)
+        torch.cuda.synchronize()
+    plain_kernels = sum(e.count for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA)
+    bound = _bound(R * _eval_flops(m_max * bl, amps.shape[0], SYNC_CORR_LEN),
+                   _nbytes(args[:6], got))
+    frames = {}
+    for compiled in (False, True):  # _counted: kernels B and K 12 times each, nothing else
+        _counted(vae_dp_frame_train, 12, lambda compiled=compiled: train_dp.train_vae_dp(
+            dataclasses.replace(cfg, num_frames=12), seed=0, device=DEVICE, runs=R,
+            use_pallas="frame", compiled=compiled), also=_with_eval(12))
+        frames[compiled] = _LAST_COUNTS["vae_dp_frame_eval"]
+    _line("6b kernel K", ok=True, R=R, mi_abs_err=f"{mi_err:.3g}", bit_identical=True,
+          ser_soft=",".join(f"{v:.5f}" for v in got[1].flatten().tolist()),
+          shift=got[3].tolist(), r=got[4].tolist(), ms=f"{ms:.4f}", launch_ms=f"{ms_launch:.4f}",
+          plain_ms=f"{ms_plain:.3f}", plain_kernels=plain_kernels,
+          bound_ms=f"{bound['bound_ms']:.6f}", bound_by=bound["bound_by"],
+          launches_12_frames=frames, card=repr(card), **_clocks_kv(eval_clocks(*args)))
+    return {"name": "vae_dp_frame_eval", "route": "cuda",
+            "source": "vae_equalizer_tpu_torch/csrc/dp_eval_kernel.cu",
+            "replaces": "none (vae_equalizer_tpu/train/dp.py:187-214, plain jnp)",
+            "launches": launches, "max_abs_err": mi_err, "ms": ms, "plain_ms": ms_plain,
+            **bound}
+
+
 def _warm_frame_args(cfg, sim, gen, const, amps, var, P, R: int, dev) -> tuple:
     """Phase 4b's inputs: (the frames' thetas, kernel B's arguments for one
     full frame of R runs from the state after WARM_FRAMES frames of training
@@ -2830,6 +3001,7 @@ def main() -> int:
         vae_dp_frame_train_plain,
     )
     from vae_equalizer_tpu_torch.train import dp as train_dp
+    from vae_equalizer_tpu_torch.train.eval_utils import BatchCutWeight, MarginWeight
     from vae_equalizer_tpu_torch.utils import DpConfig
 
     # the plain versions are the reference: full float32 everywhere
@@ -2923,9 +3095,9 @@ def main() -> int:
 
     # ---- 5. the main path, counted
     res, wall = _counted(vae_dp_frame_train, cfg.num_frames, lambda: train_dp.train_vae_dp(
-        cfg, seed=0, device=DEVICE, use_pallas="frame", runs=R))
+        cfg, seed=0, device=DEVICE, use_pallas="frame", runs=R), also=_with_eval(cfg.num_frames))
     flagship, flagship_wall = res, wall  # phase 34's unsharded reference
-    launches_b = cfg.num_frames
+    launches_b, launches_k = (_LAST_COUNTS[k] for k in ("vae_dp_frame_train", "vae_dp_frame_eval"))
     for k in ("ser", "mi", "var_est"):
         if not np.all(np.isfinite(res[k])):
             raise AssertionError(f"non-finite {k}")
@@ -2939,13 +3111,14 @@ def main() -> int:
         raise AssertionError(f"final MI {mi_last.min():.3f} <= {MI_MIN} bits")
     sym_s = R * cfg.num_frames * n_sym_frame / wall
     _line("5 main path", ok=True, runs=R, frames=cfg.num_frames, kernel_b_launches=launches_b,
+          kernel_k_launches=launches_k,
           soft_ser_last20=f"{soft:.5f}", const_ser_last20=f"{float(res['ser'][:, :2, -20:].mean()):.5f}",
           mi_final_min=f"{mi_last.min():.4f}", wall_s=f"{wall:.3f}", sym_per_s=f"{sym_s:.0f}",
           card=repr(card))
 
     # ---- 6. per-frame breakdown at the main path's shapes (CUDA events)
     opt = frame_opt_init({"w": w0, "h": h0})
-    wfn = train_dp._batch_cut_weight_fn(m_max, bl, cfg.n_cut)
+    wfn = BatchCutWeight(m_max, bl, cfg.n_cut)
     state = {}
 
     def channel():
@@ -2963,6 +3136,7 @@ def main() -> int:
     ms_ch, ms_k, ms_ev = _time_ms(channel), _time_ms(kernel), _time_ms(evaluate)
     _line("6 breakdown", runs=R, channel_ms=f"{ms_ch:.3f}", kernel_b_ms=f"{ms_k:.3f}",
           eval_ms=f"{ms_ev:.3f}", frame_wall_ms=f"{1e3 * wall / cfg.num_frames:.3f}")
+    eval_kernel = _eval_kernel_phase(card, launches_k)
 
     # ---- 7. kernel C vs plain: one whole CMA frame (10,000 symbols), R = 5
     # (rtol 1e-4 with an absolute floor of 1e-6 of each tensor's scale:
@@ -3043,7 +3217,7 @@ def main() -> int:
         # per-frame breakdown at this path's shapes (CUDA events)
         st = {}
         step_v = cfg.batch_len if v == "CMAbatch" else cfg.flex_step
-        wfn_v = train_dp._margin_weight_fn(n_eval)
+        wfn_v = MarginWeight(n_eval)
 
         def channel_v():
             st["ch"] = sim(gen, thetas[0], Rc)  # the flagship's 10,000-symbol channel
@@ -3107,7 +3281,7 @@ def main() -> int:
          "replaces": "vae_equalizer_tpu/ops/cma_frame_kernel.py:404", "launches": cma_launches[v],
          "max_abs_err": d_res[v][0], "ms": d_res[v][1], "plain_ms": d_res[v][2], **d_res[v][3]}
         for v in ("CMAbatch", "CMAflex")
-    ] + flex_kernels + [sweep_kernel] + awgn_kernels + nn_kernels + stream_kernels
+    ] + [eval_kernel] + flex_kernels + [sweep_kernel] + awgn_kernels + nn_kernels + stream_kernels
         + cma_awgn_kernels + dfe_kernels}
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

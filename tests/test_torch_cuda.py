@@ -18,12 +18,15 @@ from vae_equalizer_tpu_torch.ops.elbo_kernel import (
     vae_dp_loss_and_grad,
     vae_dp_loss_and_grad_plain,
 )
+from vae_equalizer_tpu_torch.ops.eval_kernel import vae_dp_frame_eval
 from vae_equalizer_tpu_torch.ops.frame_kernel import (
     frame_opt_init,
     vae_dp_frame_train,
     vae_dp_frame_train_plain,
 )
+from vae_equalizer_tpu_torch.train import dp as train_dp
 from vae_equalizer_tpu_torch.train import train_vae_dp, train_vae_flex_dp
+from vae_equalizer_tpu_torch.train.eval_utils import BatchCutWeight, MarginWeight
 from vae_equalizer_tpu_torch.utils import DpConfig
 
 torch.set_num_threads(1)
@@ -207,3 +210,93 @@ def test_train_vae_dp_on_cuda_counts_one_launch_per_frame(cuda):
     assert vae_dp_frame_train.launches == before + cfg.num_frames
     assert res["ser"].shape == (2, 4, 3) and np.all(np.isfinite(res["ser"]))
     assert res["params"]["w"].is_cuda
+
+
+def _b_frame(cuda, *, flex=False, bf16=False, R=8):
+    """Kernel B's streams of one flagship frame (DpConfig(), R runs from the
+    Dirac start; VAEflex's 990 windows with ``flex``), cropped as the runner
+    crops them, and the eval's other inputs."""
+    cfg = DpConfig()
+    n_frame = cfg.n_frame_max // cfg.batch_len * cfg.batch_len
+    const, var, sim, amps, P = train_dp._setup(cfg, n_frame, cuda)
+    rx, tx, _ = sim(torch.Generator(device=cuda).manual_seed(21), float(np.float32(cfg.theta)), R)
+    w = butterfly_init(M, cuda).expand(R, -1, -1, -1).contiguous()
+    h = dirac_taps_dp(M, cuda).expand(R, -1, -1, -1, -1).contiguous()
+    bl, fs = cfg.batch_len, cfg.flex_step
+    stride = fs if flex else None
+    k = vae_dp_frame_train(w, h, frame_opt_init({"w": w, "h": h}), rx, amps, var, const.nu_sc, P,
+                           cfg.lr, 0, 1e9, bl_sym=bl, stride_sym=stride, stream_bf16=bf16)
+    m_max = k[3].shape[0]
+    if flex:
+        crop0 = (bl - fs) // 2
+        streams = tuple(a[..., crop0 : crop0 + fs] for a in (k[5], k[6], k[7], k[8], k[9]))
+        tx, wfn = tx[..., bl // 2 : bl // 2 + m_max * fs], MarginWeight(m_max * fs)
+    else:
+        streams, wfn = (k[5], k[6], k[7], k[8], k[9]), BatchCutWeight(m_max, bl, cfg.n_cut)
+    return (*streams, tx, amps, P, const.nu_sc, var, wfn)
+
+
+def _same_eval(got, want, ctx):
+    """K against the plain eval: SERs, shift and r equal, MI within 1e-6 bits."""
+    for name, g, w in zip(("ser_const", "ser_soft", "mi", "shift", "r"), got, want):
+        if name == "mi":
+            _close(g, w, 0.0, 1e-6, f"{ctx} mi")
+        else:
+            assert torch.equal(g, w.to(g.dtype)), (ctx, name, g, w)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("variant", ["vae", "vae_bf16", "flex"])
+def test_kernel_k_matches_plain_on_b_streams(cuda, variant):
+    """Kernel K on kernel B's own streams of a flagship frame of 8 runs (the
+    VAE's batch cut; bfloat16 streams; VAEflex's crop and margin mask)
+    against ``_dp_frame_eval_mb`` on the same tensors, one launch."""
+    args = _b_frame(cuda, flex=variant == "flex", bf16=variant == "vae_bf16")
+    before = vae_dp_frame_eval.launches
+    got = vae_dp_frame_eval(*args)
+    torch.cuda.synchronize()
+    assert vae_dp_frame_eval.launches == before + 1
+    _same_eval(got, train_dp._dp_frame_eval_mb(*args), variant)
+    halves = [vae_dp_frame_eval(*(a[:, sl] for a in args[:5]), args[5][sl], *args[6:])
+              for sl in (slice(0, 4), slice(4, 8))]
+    for i, g in enumerate(got):  # a run's results do not depend on the runs beside it
+        assert torch.equal(g, torch.cat([h[i] for h in halves])), i
+
+
+@pytest.mark.requires_cuda
+def test_train_vae_dp_kernel_k_history(cuda, monkeypatch):
+    """The flagship experiment (170 frames, 8 runs) with kernel K against the
+    same call with the plain eval patched in: compiled (K captured in the
+    frame's CUDA graph) SER equal, MI within 1e-6, final butterflies bit for
+    bit, K launched once a frame; in the loop mode every frame's shift and r
+    equal."""
+    cfg = DpConfig()
+    run = lambda compiled: train_vae_dp(cfg, 5, device="cuda", runs=8, use_pallas="frame",
+                                        compiled=compiled)
+    before = vae_dp_frame_eval.launches
+    res_k = run(True)
+    assert vae_dp_frame_eval.launches == before + cfg.num_frames
+    recorded = {"K": [], "plain": []}
+    metrics = train_dp._vae_metrics
+
+    def record(into):
+        def rec(losses, ser_const, ser_soft, mi, var_est, shift, r, *rest):
+            into.append((shift.clone(), r.clone()))
+            return metrics(losses, ser_const, ser_soft, mi, var_est, shift, r, *rest)
+        return rec
+
+    with monkeypatch.context() as mp:
+        mp.setattr(train_dp, "_vae_metrics", record(recorded["K"]))
+        run(False)
+    with monkeypatch.context() as mp:
+        mp.setattr(train_dp, "vae_dp_frame_eval", train_dp._dp_frame_eval_mb)
+        res_p = run(True)
+        mp.setattr(train_dp, "_vae_metrics", record(recorded["plain"]))
+        run(False)
+    assert np.array_equal(res_k["ser"], res_p["ser"])
+    np.testing.assert_allclose(res_k["mi"], res_p["mi"], rtol=0, atol=1e-6)
+    for key in ("w", "h"):
+        assert torch.equal(res_k["params"][key], res_p["params"][key])
+    assert len(recorded["K"]) == len(recorded["plain"]) == cfg.num_frames
+    for f, ((sk, rk), (sp, rp)) in enumerate(zip(recorded["K"], recorded["plain"])):
+        assert torch.equal(sk, sp.to(sk.dtype)) and torch.equal(rk, rp.to(rk.dtype)), f

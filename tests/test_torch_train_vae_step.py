@@ -36,7 +36,8 @@ from vae_equalizer_tpu_torch.ops.elbo_kernel import (
     vae_dp_loss_and_grad_plain,
 )
 from vae_equalizer_tpu_torch.ops.frame_kernel import adam_update
-from vae_equalizer_tpu_torch.train.dp import _batch_cut_weight_fn, _dp_frame_eval, _setup, train_vae_dp
+from vae_equalizer_tpu_torch.train.dp import _dp_frame_eval, _setup, train_vae_dp
+from vae_equalizer_tpu_torch.train.eval_utils import BatchCutWeight
 from vae_equalizer_tpu_torch.utils import DpConfig
 from vae_equalizer_tpu_torch.utils.convert import opt_from_jax
 
@@ -225,7 +226,7 @@ def test_q_stream_eval_matches_jax_mb_branch():
     amps, P, var = T(c.amps), T(np.asarray(c.P, np.float32)), T(f["var"])
     n_cut = 3
     got = _dp_frame_eval(T(f["q"]), T(f["out"]), T(f["tx"]), amps, P, c.nu_sc, var,
-                         _batch_cut_weight_fn(N_MB, EVAL_BL, n_cut))
+                         BatchCutWeight(N_MB, EVAL_BL, n_cut))
     (ser_const, ser_soft, mi, (shift, r), _) = got
     ja = lambda a: jnp.asarray(np.asarray(a))
     for run in range(EVAL_R):

@@ -55,6 +55,7 @@ def main() -> int:
     from vae_equalizer_tpu_torch.ops.frame_kernel import frame_opt_init, vae_dp_frame_train
     from vae_equalizer_tpu_torch.train import awgn as train_awgn
     from vae_equalizer_tpu_torch.train import dp as train_dp
+    from vae_equalizer_tpu_torch.train.eval_utils import BatchCutWeight
     from vae_equalizer_tpu_torch.utils import AwgnVaeLeConfig, DpConfig
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -95,7 +96,7 @@ def main() -> int:
     k = vae_dp_frame_train(w0, h0, frame_opt_init({"w": w0, "h": h0}), rx, amps, var, const.nu_sc,
                            P, cfg.lr, 0, 1e9, bl_sym=cfg.batch_len)
     m_max = n_sym // cfg.batch_len
-    wfn = train_dp._batch_cut_weight_fn(m_max, cfg.batch_len, cfg.n_cut)
+    wfn = BatchCutWeight(m_max, cfg.batch_len, cfg.n_cut)
 
     def evaluate(sl):
         losses, var_est, out, dec, eq, mm, s1 = (a[:, sl] for a in k[3:10])
@@ -120,7 +121,8 @@ def main() -> int:
     # ---- phase 5's flagship (the unsharded reference), then phase 34
     res, wall = chip_smoke._counted(vae_dp_frame_train, cfg.num_frames,
                                     lambda: train_dp.train_vae_dp(cfg, seed=0, device="cuda",
-                                                                  use_pallas="frame", runs=R))
+                                                                  use_pallas="frame", runs=R),
+                                    also=chip_smoke._with_eval(cfg.num_frames))
     chip_smoke._line("5 main path", wall_s=f"{wall:.3f}",
                      soft_ser_last20=f"{float(res['ser'][:, 2:, -20:].mean()):.5f}")
     chip_smoke._run_sharding_phases(card, res, wall)

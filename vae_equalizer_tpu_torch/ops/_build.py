@@ -10,7 +10,8 @@ rebuilds:
   * ``siso`` — ``csrc/siso_kernels.cu`` (+ ``siso_step.cuh``): kernels F and G;
   * ``nn``  — ``csrc/nn_kernels.cu`` (+ ``nn_step.cuh``, ``siso_step.cuh``): kernel H;
   * ``butterfly`` — ``csrc/butterfly_kernel.cu``: kernel E;
-  * ``dfe`` — ``csrc/dfe_kernel.cu`` (+ ``dfe_step.cuh``): kernel J.
+  * ``dfe`` — ``csrc/dfe_kernel.cu`` (+ ``dfe_step.cuh``): kernel J;
+  * ``eval`` — ``csrc/dp_eval_kernel.cu`` (+ ``dp_eval_step.cuh``): kernel K.
 
 The compiles of all libraries that need one start together and run in
 parallel. The libraries are loaded with ``ctypes`` with typed entry points
@@ -48,6 +49,7 @@ LIBRARIES = {
     "nn": ("nn_kernels.cu", ("nn_step.cuh", "siso_step.cuh")),
     "butterfly": ("butterfly_kernel.cu", ()),
     "dfe": ("dfe_kernel.cu", ("dfe_step.cuh",)),
+    "eval": ("dp_eval_kernel.cu", ("dp_eval_step.cuh",)),
 }
 # --fmad=false: no multiply-add contraction, so the kernels' elementwise math
 # (demapper metric, Adam / AMSGrad, CMA updates) rounds op for op like the plain
@@ -110,6 +112,15 @@ _SIGNATURES = {
         # general route), ff, fb, points, init, idx, clocks (int64 per phase, or
         # null), stream
         "dfe_decide_launch": [_I] * 5 + [_P] * 7,
+    },
+    "eval": {
+        # R, m_max, L, n_lev, corr_len, stream_bf16, out, dec, eq, mm, s1, their
+        # strides (mb, run, pol, comp), eq's (mb, run, pol), tx, its strides (run,
+        # pol, comp), amps, P, P's run stride, var, var's run stride, nu_sc, nu_sc
+        # per run (or null), inv_step, half, mask (kind, a, b, c, margin), res_f,
+        # res_i, clocks (int64 per phase, or null), stream
+        "vae_dp_eval_launch": [_I] * 6 + [_P] * 5 + [_LL] * 7 + [_P] + [_LL] * 3
+        + [_P, _P, _LL, _P, _LL, _F, _P, _F, _F] + [_I] * 5 + [_P] * 4,
     },
 }
 

@@ -58,14 +58,13 @@ from ..ops.frame_kernel import adam_schedule, adam_update, frame_opt_init
 from ..train.batching import RankCheckpoint
 from ..train.dp import (
     _VAE_FIELDS,
-    _batch_cut_weight_fn,
     _default_draws,
     _dp_result,
     _finish_step_frame,
     _frame_inputs,
-    _margin_weight_fn,
     _setup,
 )
+from ..train.eval_utils import BatchCutWeight, MarginWeight
 from ..train.harness import Checkpoint, Progress, _new_hist, _sync, run_frame_loop
 from ..utils.config import DpConfig
 from .mesh import Call, Comm, Mesh, halo_exchange, make_mesh_2d, run_ranks, sp_sum
@@ -326,8 +325,8 @@ def train_vae_dp_sharded_rank(comm: Comm, cfg: DpConfig, seed: int, runs: int | 
         comm.gather(torch.cat([params["w"].flatten(1), params["h"].flatten(1)], dim=1))
         return None
 
-    weight_fn = (_margin_weight_fn(plan.n_rec) if flex_windows
-                 else _batch_cut_weight_fn(S, cfg.batch_len, cfg.n_cut))
+    weight_fn = (MarginWeight(plan.n_rec) if flex_windows
+                 else BatchCutWeight(S, cfg.batch_len, cfg.n_cut))
     if stats is not None:
         stats.update(train_s=0.0, collective_s=0.0, frames=0, saves=ckpt.saves)
 

@@ -4,7 +4,8 @@ flagship ``Eval_run_DP`` path) and the CMA / CMAbatch / CMAflex baselines.
 Port of ``vae_equalizer_tpu/train/dp.py``: ``train_vae_dp`` and
 ``train_vae_flex_dp`` in their three modes (``_setup``, ``_frame_inputs``,
 ``_vae_optimizer`` as ``ops/frame_kernel.py: adam_update``, both branches of
-``_dp_frame_eval_mb``, ``_finish_vae_frame``, ``_run_frame_kernel_experiment``
+``_dp_frame_eval_mb`` (the stats branch also as kernel K, ``ops/eval_kernel.py``),
+``_finish_vae_frame``, ``_run_frame_kernel_experiment``
 and the per-step ``lax.scan`` loops) and ``run_cma_dp`` (``_dp_frame_eval``).
 Frame semantics follow the reference (func_VAELE_DP_MQAM_shaping.py:17-95,
 func_VAEflex_DP_MQAM_shaping.py:16-90, func_CMA*_DP_MQAM_shaping.py): every
@@ -49,20 +50,16 @@ from ..models import (
 from ..ops.cma_frame_kernel import cma_chunked_frame
 from ..ops.cma_kernel import cma_dp_kernel
 from ..ops.elbo_kernel import vae_dp_loss_and_grad
+from ..ops.eval_kernel import SYNC_CORR_LEN, vae_dp_frame_eval
 from ..ops.frame_kernel import adam_schedule, adam_update, frame_opt_init, vae_dp_frame_train
 from ..utils.config import DpConfig
 from ..utils.profiling import span
 from .batching import RunShard, run_sharding
-from .eval_utils import align_idx_dp, align_tx_dp, batch_cut_weight, margin_weight_maxshift
+from .eval_utils import BatchCutWeight, MarginWeight, align_idx_dp, align_tx_dp
 from .harness import Progress, pack_metrics, run_frame_loop
 from .modes import check_pallas_mode
 
 __all__ = ["run_cma_dp", "train_vae_dp", "train_vae_flex_dp"]
-
-# Correlation window of the per-frame sync searches (train/dp.py:76 of the
-# JAX package): a contiguous 2000-symbol prefix finds the global delay with
-# a ~45:1 peak margin.
-_SYNC_CORR_LEN = 2000
 
 _VAE_FIELDS = (("loss", 1), ("ser_const", 2), ("ser_soft", 2), ("mi", 2),
                ("var_est", 2), ("snr_est_db", 1), ("shift", 2), ("r", 1), ("sigma_n", 1))
@@ -96,19 +93,26 @@ def _roll_pol(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     return torch.where(r[..., None] != 0, x.flip(-1), x)
 
 
-def _dp_frame_eval_mb(out_const, tx, amps, P, nu_sc, var, weight_fn, dec, eq, out_mb, mm_mb,
-                      s1_mb):
-    """Sync -> align tx level indices -> masked SER (+ MI) from the kernel's
-    eval streams (the JAX stats branch, train/dp.py:187-214).
+def _dp_frame_eval_mb(out_mb, dec_mb, eq_mb, mm_mb, s1_mb, tx, amps, P, nu_sc, var, weight_fn):
+    """Sync -> align tx level indices -> masked SER (+ MI) from kernel B's
+    eval streams (the JAX stats branch, train/dp.py:187-214): the plain
+    version of kernel K (``ops/eval_kernel.py``), with its arguments.
 
-    out_const/dec (R, 2, 2, N); eq (R, 2, N); out_mb/mm_mb/s1_mb
-    (R, n_mb, 2, 2, bl); tx (R, 2, 2, N); P (n,) or (R, n), nu_sc a float or
+    out_mb/dec_mb/mm_mb/s1_mb (m_max, R, 2, 2, L) and eq_mb (m_max, R, 2, L)
+    as kernel B writes them (bfloat16 out / eq streams are evaluated in
+    float32); tx (R, 2, 2, N = m_max L); P (n,) or (R, n), nu_sc a float or
     (R,), var (2,) or (R, 2); weight_fn as in ``_dp_frame_eval``.
     Returns per-run (ser_const, ser_soft, mi) (R, 2) and (shift (R, 2), r (R,)).
     """
+    runs_first = lambda a: a.movedim(0, 1)  # (m_max, R, ...) -> (R, m_max, ...)
+    out_mb, dec_mb, eq_mb, mm_mb, s1_mb = map(
+        runs_first, (out_mb.float(), dec_mb, eq_mb.float(), mm_mb, s1_mb))
+    time_major = lambda a: a.movedim(-4, -2).flatten(-2)  # (R, m, 2, 2, bl) -> (R, 2, 2, N)
+    out_const, dec = time_major(out_mb), time_major(dec_mb)
+    eq = eq_mb.movedim(-3, -2).flatten(-2)  # (R, m, 2, bl) -> (R, 2, N)
     num_lev = amps.shape[0]
-    shift, r = _dp_shift_core(eq, tx, 21, corr_len=_SYNC_CORR_LEN)
-    shift_c, r_c = find_shift_symb_dp(out_const, tx, 21, corr_len=_SYNC_CORR_LEN)
+    shift, r = _dp_shift_core(eq, tx, 21, corr_len=SYNC_CORR_LEN)
+    shift_c, r_c = find_shift_symb_dp(out_const, tx, 21, corr_len=SYNC_CORR_LEN)
     idx = _decode_levels(tx, num_lev).to(torch.int8)
 
     def aligned(sh, rr):
@@ -153,18 +157,18 @@ def _vae_metrics(losses, ser_const, ser_soft, mi, var_est, shift, r, sigma, pow_
 def _finish_vae_frame(losses, out_mb, var_est, tx, amps, P, var, nu_sc, pow_mean, weight_fn, sigma,
                       dec_mb, eq_mb, mm_mb, s1_mb):
     """Kernel B's streams (m_max, R, ...) -> evaluate -> packed metrics (R,
-    n_tot). The eval constants P, var, nu_sc and pow_mean are shared, or per
-    run (JAX ``_finish_vae_frame``'s overrides, train/dp.py:240-261);
-    bfloat16 out / eq streams (``stream_bf16``) are evaluated in float32."""
-    runs_first = lambda a: a.movedim(0, 1)  # (m_max, R, ...) -> (R, m_max, ...)
-    out_mb, dec_mb, eq_mb, mm_mb, s1_mb, var_est = map(
-        runs_first, (out_mb.float(), dec_mb, eq_mb.float(), mm_mb, s1_mb, var_est))
-    time_major = lambda a: a.movedim(-4, -2).flatten(-2)  # (R, m, 2, 2, bl) -> (R, 2, 2, N)
-    out_const, dec = time_major(out_mb), time_major(dec_mb)
-    eq = eq_mb.movedim(-3, -2).flatten(-2)  # (R, m, 2, bl) -> (R, 2, N)
-    ser_const, ser_soft, mi, shift, r = _dp_frame_eval_mb(
-        out_const, tx, amps, P, nu_sc, var, weight_fn, dec, eq, out_mb, mm_mb, s1_mb)
-    return _vae_metrics(losses, ser_const, ser_soft, mi, var_est, shift, r, sigma, pow_mean)
+    n_tot). The eval is kernel K (``ops/eval_kernel.py``, one launch for all
+    runs) on CUDA tensors and its plain version ``_dp_frame_eval_mb`` on the
+    CPU. The eval constants P, var, nu_sc and pow_mean are shared, or per run
+    (JAX ``_finish_vae_frame``'s overrides, train/dp.py:240-261)."""
+    streams = (out_mb, dec_mb, eq_mb, mm_mb, s1_mb)
+    if out_mb.is_cuda:
+        res = vae_dp_frame_eval(*streams, tx, amps, P, nu_sc, var, weight_fn)
+    else:
+        res = _dp_frame_eval_mb(*streams, tx, amps, P, nu_sc, var, weight_fn)
+    ser_const, ser_soft, mi, shift, r = res
+    return _vae_metrics(losses, ser_const, ser_soft, mi, var_est.movedim(0, 1), shift, r, sigma,
+                        pow_mean)
 
 
 def _finish_step_frame(losses, q, out_const, var_est, tx, const, amps, P, var, weight_fn, sigma):
@@ -194,27 +198,16 @@ def _dp_frame_eval(q, out_const, tx, amps, P, nu_sc, var, weight_fn):
         w = weight_fn(sh[..., 0, None], sh.abs().max(dim=-1).values[..., None], t)
         return align_tx_dp(tx, sh, rr, w)
 
-    shift, r = find_shift_dp(q, tx, 21, amps, corr_len=_SYNC_CORR_LEN)
+    shift, r = find_shift_dp(q, tx, 21, amps, corr_len=SYNC_CORR_LEN)
     tx_al, w_al = aligned(shift, r)
     # aligned metrics are per EQUALIZER pol j; report per tx pol i = (j + r) % 2
     ser_soft = _roll_pol(ser_iqflip(q, tx_al, weight=w_al), r)
     mi = _roll_pol(mutual_information_ambiguity(q, tx_al, amps, P, weight=w_al), r)
-    shift_c, r_c = find_shift_symb_dp(out_const, tx, 21, corr_len=_SYNC_CORR_LEN)
+    shift_c, r_c = find_shift_symb_dp(out_const, tx, 21, corr_len=SYNC_CORR_LEN)
     tx_al_c, w_al_c = aligned(shift_c, r_c)
     ser_const = _roll_pol(ser_constell_shaping(out_const, tx_al_c, amps, nu_sc, var, weight=w_al_c),
                           r_c)
     return ser_const, ser_soft, mi, (shift, r), (shift_c, r_c)
-
-
-def _margin_weight_fn(n_eval: int):
-    """weight_fn(shift0, max_shift, t) of the plain margin trim
-    [11 : n - 11 - max|shift|] per run (the CMA and VAEflex evals)."""
-    return lambda s0, ms, t: margin_weight_maxshift(n_eval, ms, t=t)
-
-
-def _batch_cut_weight_fn(m_max: int, batch_len: int, n_cut: int):
-    """weight_fn(shift0, max_shift, t) of the VAE's per-batch edge cut."""
-    return lambda s0, ms, t: batch_cut_weight(m_max, batch_len, s0, ms, n_cut, t=t)
 
 
 def _finish_cma_frame(out, e, tx, sigma, const, amps, P, var, n_cut: int, weight_fn):
@@ -500,7 +493,7 @@ def _vae_runner(loss_type, cfg, seed, device, progress, runs, params_init, use_p
         if loss_type == "VAE":
             n_steps = n_frame // bl
             kw = dict(stride_sym=bl, crop=slice(None), tx_of=lambda tx: tx,
-                      weight_fn=_batch_cut_weight_fn(n_steps, bl, cfg.n_cut))
+                      weight_fn=BatchCutWeight(n_steps, bl, cfg.n_cut))
         else:
             fs = cfg.flex_step
             n_steps = (n_frame - bl) // fs
@@ -508,7 +501,7 @@ def _vae_runner(loss_type, cfg, seed, device, progress, runs, params_init, use_p
             crop0 = (bl - fs) // 2
             kw = dict(stride_sym=fs, crop=slice(crop0, crop0 + fs),
                       tx_of=lambda tx: tx[..., bl // 2 : bl // 2 + m_max],
-                      weight_fn=_margin_weight_fn(m_max))
+                      weight_fn=MarginWeight(m_max))
         kw["thresh"] = float(cfg.n_lrhalf) * n_steps
         if use_pallas == "frame":
             train = _frame_kernel_train(cfg, amps, rc, runs=None if runs is None else shard.count,
@@ -679,7 +672,7 @@ def run_cma_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progress = Non
         h = torch.from_numpy(np.array(h, np.float32))  # a copy: JAX arrays are read-only
     h = h.to(device, torch.float32)
     h = shard.take(h.expand((shard.runs,) + h.shape[-4:]).contiguous())
-    weight_fn = _margin_weight_fn(n_eval)
+    weight_fn = MarginWeight(n_eval)
     lrs = (np.float32(cfg.lr) * 0.5 ** (np.arange(cfg.num_frames) // cfg.n_lrhalf)).astype(np.float32)
 
     def frame_step(h, theta, lr, *drawn):

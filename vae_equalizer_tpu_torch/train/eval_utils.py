@@ -7,14 +7,19 @@ slices become a roll + boolean weight over the full array; the masks are evaluat
 (not rolled), exactly as in the JAX package. The JAX package's gather-free
 ``roll_bits`` was a TPU workaround; here the per-run roll is one
 ``torch.gather`` on ``(arange - s) % n``, so every run may have its own shift.
+``BatchCutWeight`` and ``MarginWeight`` are the DP frame evals' weight
+functions ``weight_fn(shift0, max_shift, t)``, carrying their integers for
+kernel K (``ops/eval_kernel.py``), which computes the same mask itself.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-__all__ = ["MARGIN", "align_idx_dp", "align_tx_dp", "batch_cut_weight", "margin_weight",
-           "margin_weight_maxshift", "roll_dp", "roll_time"]
+__all__ = ["MARGIN", "BatchCutWeight", "MarginWeight", "align_idx_dp", "align_tx_dp",
+           "batch_cut_weight", "margin_weight", "margin_weight_maxshift", "roll_dp", "roll_time"]
 
 MARGIN = 11  # the reference's fixed edge trim (func_VAELE_MQAM_shaping.py:318)
 
@@ -102,3 +107,35 @@ def batch_cut_weight(m_max: int, batch_len: int, shift0, max_shift, n_cut: int,
     pos = mb * keep_len + j
     w = (j < keep_len) & (pos >= margin) & (pos < m_max * keep_len - margin - max_shift)
     return w.to(torch.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class MarginWeight:
+    """weight_fn(shift0, max_shift, t) of the plain margin trim [MARGIN :
+    n_eval - MARGIN - max|shift|] per run (the CMA and VAEflex evals)."""
+
+    n_eval: int
+
+    def __call__(self, shift0, max_shift, t):
+        return margin_weight_maxshift(self.n_eval, max_shift, t=t)
+
+    def kernel_mask(self) -> tuple:
+        """(kind, its integers, margin) as kernel K takes them (ops/eval_kernel.py: MASK_KINDS)."""
+        return "margin", self.n_eval, 0, 0, MARGIN
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchCutWeight:
+    """weight_fn(shift0, max_shift, t) of the DP VAE's per-batch edge cut
+    (``batch_cut_weight``)."""
+
+    m_max: int
+    batch_len: int
+    n_cut: int
+
+    def __call__(self, shift0, max_shift, t):
+        return batch_cut_weight(self.m_max, self.batch_len, shift0, max_shift, self.n_cut, t=t)
+
+    def kernel_mask(self) -> tuple:
+        """(kind, its integers, margin) as kernel K takes them (ops/eval_kernel.py: MASK_KINDS)."""
+        return "batch_cut", self.m_max, self.batch_len, self.n_cut, MARGIN
