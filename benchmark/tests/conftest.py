@@ -1,6 +1,8 @@
 """The benchmark's own tests (``python -m pytest benchmark/tests -q`` from the
 checkout's root): the repository's root on the import path, the cells shrunk
-to sizes a CPU holds, and the card looked for inside the tests that need it."""
+to the sizes a CPU holds that their kinds' support files give
+(``benchmark/tests/kinds/<kind>.py``), and the card looked for inside the
+tests that need it."""
 
 import pathlib
 import sys
@@ -11,18 +13,6 @@ ROOT = pathlib.Path(__file__).resolve().parents[2]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
-# a cell at a size the CPU runs in seconds: 2 frames of 2,000 symbols (20
-# minibatch steps a frame), a stream of 24 blocks
-SMALL_CONFIG = {"num_frames": 2, "n_frame_max": 2000}
-SMALL_MIX = {"stream_blocks": 24, "segment_blocks": 8, "check_span": 16, "check_blocks": 3,
-             "trace_blocks": 8}
-
-
-def shrink(spec: dict) -> dict:
-    spec["config"].update(SMALL_CONFIG)
-    spec["mix"].update(SMALL_MIX)
-    return spec
-
 
 @pytest.fixture
 def small_cells(monkeypatch):
@@ -30,10 +20,10 @@ def small_cells(monkeypatch):
     import torch
 
     from benchmark.harness import core
+    from benchmark.tests import cells
 
     torch.set_num_threads(min(4, torch.get_num_threads()))
-    resolve = core.cell_spec
-    monkeypatch.setattr(core, "cell_spec", lambda man, w: shrink(resolve(man, w)))
+    monkeypatch.setattr(core, "cell_spec", cells.shrunk(core, core.cell_spec))
     return core
 
 

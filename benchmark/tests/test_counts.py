@@ -1,37 +1,17 @@
-"""The frozen counts against ``chip_smoke.py``'s originals at every cell's
-kernel B launch."""
+"""The frozen counts against their originals (``chip_smoke.py``'s for the
+DP kinds' kernel B) at every hand kernel each cell times, as its kind's
+support file lists them."""
 
 import pytest
 import torch
 
 from benchmark.harness import core, counts
+from benchmark.tests import cells
 
 
-def _launches():
-    """(cell, kernel B's launch shapes) of every cell in the manifest."""
-    out = []
-    for w in core.manifest()["workloads"]:
-        spec = core.cell_spec(core.manifest(), w["name"])
-        shape = {"experiment": counts.b_experiment, "stream": counts.b_stream}[spec["mix"]["kind"]]
-        out.append((w["name"], shape(spec["config"], spec["mix"])))
-    return out
-
-
-@pytest.mark.parametrize("workload,shape", _launches(), ids=[c for c, _ in _launches()])
-def test_counts_equal_chip_smoke(workload, shape):
-    import chip_smoke
-
-    assert counts.F32_FLOPS == chip_smoke.F32_FLOPS and counts.HBM_BYTES == chip_smoke.HBM_BYTES
-    s = shape
-    want = s["runs"] * s["steps"] * (chip_smoke._dp_step_flops(s["bl"], s["m"], s["n_lev"])
-                                     + 12 * 16 * s["m"])
-    flops = counts.b_launch_flops(s["runs"], s["steps"], s["bl"], s["m"], s["n_lev"])
-    assert flops == want
-    nbytes = counts.b_launch_bytes(**s)
-    assert counts.b_launch(s) == (flops, nbytes)
-    b = chip_smoke._bound(flops, nbytes)
-    assert counts.bound(flops, nbytes) == {k: b[k] for k in ("bound_ms", "bound_by")}
-    assert b["bound_by"] == "operations"
+@pytest.mark.parametrize("workload", cells.names(core))
+def test_counts_equal_chip_smoke(workload):
+    cells.check_counts(core, workload)
 
 
 @pytest.mark.parametrize("runs,steps", [(1, 20), (8, 100)])

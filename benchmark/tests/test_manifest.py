@@ -9,6 +9,7 @@ import types
 import pytest
 
 from benchmark.harness import core, trace
+from benchmark.tests import cells
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -40,35 +41,23 @@ def test_manifest_keeps_the_contract():
     e2e = {m["name"]: m for m in man["end_to_end"]}
     assert "setup_s" in e2e and all(0.01 <= m["bound"] <= 0.25 for m in e2e.values())
     assert all(m["source"] in ("host_clock", "device_trace") for m in e2e.values())
-    cells = {w["name"] for w in man["workloads"]}
-    assert all(w["chips"] == 1 for w in man["workloads"])
-    assert len({(w["config"], w["traffic"]) for w in man["workloads"]}) == len(cells)
+    names = {w["name"] for w in man["workloads"]}
+    # one or four cards; four-card cells at most a quarter of the cells, rounded down, or one
+    four = sum(w["chips"] == 4 for w in man["workloads"])
+    assert all(w["chips"] in (1, 4) for w in man["workloads"])
+    assert four <= max(1, len(names) // 4)
+    assert len({(w["config"], w["traffic"]) for w in man["workloads"]}) == len(names)
     for m in man["per_layer"]:
         assert m["moves"] in e2e
-        assert set(m["workloads"]) <= cells
+        assert set(m["workloads"]) <= names
         if m["name"].endswith("_roofline") or "_roofline." in m["name"] or "mfu" in m["name"]:
             assert m["unit"] == "%"
     assert len(json.dumps(man)) < 64 * 1024
 
 
-@pytest.mark.parametrize("workload", [w["name"] for w in core.manifest()["workloads"]])
+@pytest.mark.parametrize("workload", cells.names(core))
 def test_every_cell_resolves(workload):
-    """Each cell's files are found by name; it reports setup_s, another
-    end-to-end metric and a per-layer metric, each with a reader."""
-    man = core.manifest()
-    spec = core.cell_spec(man, workload)
-    assert hasattr(spec["kind"], "Cell")
-    assert set(spec["limits"]["limits"]), "the check compares at least one number"
-    e2e = {m["name"] for m in core.metrics_of(man, workload, trace=False)}
-    assert "setup_s" in e2e and len(e2e) >= 2
-    layer = core.metrics_of(man, workload, trace=True)
-    assert layer
-    for m in layer:
-        path = core.BENCH / "metrics" / f"{m['name']}.py"
-        assert callable(core.load_module(path, "m_" + m["name"].replace(".", "_")).read)
-    for c in man["configs"]:
-        cfg = json.loads((core.ROOT / c["file"]).read_text())
-        assert cfg["reduced"] == c["reduced"] and cfg["source"] == c["source"]
+    cells.check_resolves(core, workload)
 
 
 def test_added_files_are_found(tmp_path, monkeypatch):

@@ -11,7 +11,8 @@ import torch
 
 from benchmark.reference import dp_vae as ref
 
-from .conftest import ROOT, SMALL_CONFIG
+from .conftest import ROOT
+from .kinds.experiment import SMALL_CONFIG
 
 
 def _cfg(loss_type: str, **kw):
