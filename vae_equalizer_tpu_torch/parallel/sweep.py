@@ -14,6 +14,12 @@ package:
   * the final .mat reproduces the reference's tensor layout (axes x iter x
     frames) for its analysis scripts.
 
+Spans (``utils/profiling.py: span``): ``sweep.group`` around each runner
+call (a batched group's, or a single point's), with the runner's ``dp.*``
+and ``harness.*`` spans inside it; ``sweep.record`` around each point's
+record: its share of the call's result, the JSONL append and, with
+``save_params``, its parameter file.
+
 Seeds: grid point i runs from ``point_seed(seed, i)``, a function of the
 sweep's seed and the point's index alone, so a resumed sweep gives its
 remaining points the seeds an uninterrupted sweep gives them (JAX folds the
@@ -41,6 +47,7 @@ from ..train import (
     train_vae_nn_awgn,
 )
 from ..utils import io
+from ..utils.profiling import span
 from .seqpar import train_vae_dp_sharded, train_vae_flex_dp_sharded
 
 __all__ = ["RUNNERS", "assemble_mat", "expand_grid", "point_seed", "run_sweep"]
@@ -177,7 +184,9 @@ def run_sweep(runner_name: str, base_cfg, axes: dict, iters: int, seed: int, mes
             kwargs["compiled"] = True
             kwargs.pop("progress")
         t0 = time.time()
-        return runner(cfg, point_seed(seed, i), **kwargs), time.time() - t0
+        with span("sweep.group"):
+            res = runner(cfg, point_seed(seed, i), **kwargs)
+        return res, time.time() - t0
 
     batch_fields = []  # (axis index in coords, cfg field, runner kwarg)
     point_groups: dict = {}
@@ -212,17 +221,9 @@ def run_sweep(runner_name: str, base_cfg, axes: dict, iters: int, seed: int, mes
                           for _, field, kw in batch_fields}
                 res, wall = call(cfg, i, runs=iters * n_pt, **vec_kw)
                 for bj, j in enumerate(idxs):
-                    blk = slice(bj * iters, (bj + 1) * iters)
-                    res_j = {m: np.asarray(res[m])[blk] for m in ("ser", "mi", "var_est") if m in res}
-                    if "var_runs" in res:  # per-run var (snr- / nu-axis batching)
-                        res_j["var"] = np.asarray(res["var_runs"])[bj * iters]
-                    elif "var" in res:  # per-point constant
-                        res_j["var"] = res["var"]
-                    state = res.get("params", res.get("taps"))
-                    if state is not None:
-                        res_j["params"] = ({k: v[blk] for k, v in state.items()}
-                                           if isinstance(state, dict) else state[blk])
-                    write_record(configs[j], coords[j], res_j, wall / n_pt)
+                    with span("sweep.record"):
+                        write_record(configs[j], coords[j], _point_result(res, bj, iters),
+                                     wall / n_pt)
                     handled.add(tuple(coords[j]))
                 continue
         kwargs, state_file = {}, None
@@ -238,10 +239,29 @@ def run_sweep(runner_name: str, base_cfg, axes: dict, iters: int, seed: int, mes
                 state_file.unlink()  # a fresh sweep never resumes stale state
             kwargs = dict(checkpoint=state_file, checkpoint_every=checkpoint_every)
         res, wall = call(cfg, i, runs=iters, **kwargs)
-        write_record(cfg, coord, res, wall)
+        with span("sweep.record"):
+            write_record(cfg, coord, res, wall)
         if state_file is not None and state_file.exists():
             state_file.unlink()  # the point finished: drop its resume state
     return results, axes_values, jsonl
+
+
+def _point_result(res: dict, bj: int, iters: int) -> dict:
+    """Point ``bj``'s share of a batched group's result: the runs
+    [bj iters, (bj + 1) iters) of its histories and parameters, and its
+    demapper variance (per run where the SNR or nu axis is batched, else
+    the call's)."""
+    blk = slice(bj * iters, (bj + 1) * iters)
+    out = {m: np.asarray(res[m])[blk] for m in ("ser", "mi", "var_est") if m in res}
+    if "var_runs" in res:  # per-run var (snr- / nu-axis batching)
+        out["var"] = np.asarray(res["var_runs"])[bj * iters]
+    elif "var" in res:  # per-point constant
+        out["var"] = res["var"]
+    state = res.get("params", res.get("taps"))
+    if state is not None:
+        out["params"] = ({k: v[blk] for k, v in state.items()} if isinstance(state, dict)
+                         else state[blk])
+    return out
 
 
 def assemble_mat(results, axes_values, iters: int, lead_shape: tuple[int, ...], key: str = "ser"):

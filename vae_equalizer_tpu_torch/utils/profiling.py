@@ -34,6 +34,11 @@ capture, and not at each replay. The spans:
 * ``streaming.step`` (``models/streaming.py``): one block, with
   ``streaming.adapt`` (the adaptation) and ``streaming.output`` (the output
   pass) inside it.
+* ``sweep.group`` (``parallel/sweep.py: run_sweep``): one runner call of a
+  sweep (a group of grid points batched into the runs, or one point), with
+  the runner's spans inside it;
+* ``sweep.record``: one grid point's record: its share of the call's
+  result, the JSONL append and its parameter file.
 """
 
 from __future__ import annotations
