@@ -11,8 +11,10 @@ at the tolerances of chip_smoke.py's phases 4a (kernel B, a few minibatches
 across the lr halving) and 3 (kernel A); the plain versions run in float64
 at 64-QAM (``_ref``). It is the CPU's only check of the
 body's index arithmetic; the card runs the same source (``tests/
-test_torch_cuda.py``, ``chip_smoke.py``). It skips where no C++ compiler is
-found.
+test_torch_cuda.py``, ``chip_smoke.py``). The body's two instances (8
+levels, generic) are held to each other bit for bit, its branch-free
+divisions to IEEE division, and the wrappers' launch counts by instance
+checked. It skips where no C++ compiler is found.
 """
 
 import ctypes
@@ -49,9 +51,10 @@ def host_lib(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     fns = {}
     for name, argtypes in _build._SIGNATURES["dp"].items():
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        fns[name] = fn
+        for entry, suffix in ((name, ""), (name + "_generic", "_generic")):
+            fn = getattr(lib, entry)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            fns[name + suffix] = fn
     return types.SimpleNamespace(lib=lib, **fns)
 
 
@@ -116,7 +119,9 @@ def _frame_case(mod, bl, m, R, n_mb, stride_sym=None, per_run=False, seed=3):
     dict(mod="64-QAM", bl=100, m=25, R=2, n_mb=3, stride_sym=10),
     dict(mod="64-QAM", bl=100, m=25, R=3, n_mb=3, per_run=True),
     dict(mod="4-QAM", bl=16, m=9, R=2, n_mb=3),
-], ids=["flagship", "stride10", "per_run", "4qam_bl16"])
+    dict(mod="16-QAM", bl=100, m=25, R=2, n_mb=3),
+    dict(mod="256-QAM", bl=100, m=25, R=2, n_mb=3),
+], ids=["flagship", "stride10", "per_run", "4qam_bl16", "16qam", "256qam"])
 def test_frame_block_matches_plain(emulated, case):
     """Kernel B's block (3 minibatches across the w lr halving) against
     ``vae_dp_frame_train_plain`` at phase 4a's tolerances."""
@@ -151,3 +156,86 @@ def test_frame_block_repeats_and_clocks(emulated):
         for u, v in (zip(x.values(), y.values()) if isinstance(x, dict) else ((x, y),)):
             assert torch.equal(u, v)
     assert clocks.tolist() == [0] * len(frame_kernel.CLOCK_PHASES)
+
+
+@pytest.fixture
+def generic(host_lib, monkeypatch):
+    """The emulated dp library with every launch in the generic instance."""
+    lib = types.SimpleNamespace(vae_dp_step_launch=host_lib.vae_dp_step_launch_generic,
+                                vae_dp_frame_launch=host_lib.vae_dp_frame_launch_generic)
+    monkeypatch.setattr(_build, "load", lambda: lib)
+    monkeypatch.setattr(_build, "stream", lambda dev: None)
+    return lib
+
+
+def _flat(res) -> list:
+    return [t for x in res for t in (x.values() if isinstance(x, dict) else (x,))]
+
+
+@pytest.mark.parametrize("case", [dict(stride_sym=None, bf16=False), dict(stride_sym=10, bf16=True)],
+                         ids=["frame", "stride10_bf16"])
+def test_nlev8_instance_is_generic_instance(host_lib, monkeypatch, case):
+    """On the same 64-QAM inputs the 8-level instance of kernels A and B and
+    the generic one give the same bits (every output, across the lr halving)."""
+    amps, w, h, rx, c = _inputs("64-QAM", 100, 25, 2, 2 * 100 * 4, seed=13)
+    args = (w, h, frame_kernel.frame_opt_init({"w": w, "h": h}), rx, amps, c["var"], c["nu_sc"],
+            c["P"], c["lr"], STEP0, LR_HALF)
+    x = rx[..., 200:400]
+    a_args = (w, h, x, amps, c["var"], c["nu_sc"], c["P"])
+    got = {}
+    monkeypatch.setattr(_build, "stream", lambda dev: None)
+    for name, lib in (("nlev8", host_lib), ("generic", types.SimpleNamespace(
+            vae_dp_step_launch=host_lib.vae_dp_step_launch_generic,
+            vae_dp_frame_launch=host_lib.vae_dp_frame_launch_generic))):
+        monkeypatch.setattr(_build, "load", lambda lib=lib: lib)
+        got[name] = (_flat(frame_kernel._launch(*args, 100, case["stride_sym"], case["bf16"]))
+                     + list(elbo_kernel._launch(*a_args)))
+    assert len(got["nlev8"]) == 19
+    for a, b in zip(got["nlev8"], got["generic"]):
+        assert torch.equal(a, b)
+
+
+def test_launches_counted_by_instance(emulated, monkeypatch):
+    """Kernels A and B count each launch under its instance: 8 at 64-QAM (the
+    flagship), "generic" at 4-QAM; ``launches`` counts both."""
+    for wrapper in (frame_kernel.vae_dp_frame_train, elbo_kernel.vae_dp_loss_and_grad):
+        monkeypatch.setattr(wrapper, "launches", 0)
+        monkeypatch.setattr(wrapper, "launches_by_nlev", {})
+    for mod, bl, m in (("64-QAM", 100, 25), ("4-QAM", 16, 9), ("64-QAM", 100, 25)):
+        amps, w, h, rx, c = _inputs(mod, bl, m, 1, 2 * bl * 2, seed=1)
+        frame_kernel._launch(w, h, frame_kernel.frame_opt_init({"w": w, "h": h}), rx, amps, c["var"],
+                             c["nu_sc"], c["P"], c["lr"], 0, 1e9, bl, None, False)
+        elbo_kernel._launch(w, h, rx[..., : 2 * bl], amps, c["var"], c["nu_sc"], c["P"])
+    for wrapper in (frame_kernel.vae_dp_frame_train, elbo_kernel.vae_dp_loss_and_grad):
+        assert wrapper.launches == 3
+        assert wrapper.launches_by_nlev == {8: 2, "generic": 1}
+
+
+def test_launch_counts_replayed_by_instance(monkeypatch):
+    """A graph's captured launches (``_build.launches_since``) add to both
+    counts at each replay (``add_launches``), and ``set_launch_state`` puts
+    both back, dropping an instance counted since."""
+    wrapper = frame_kernel.vae_dp_frame_train
+    monkeypatch.setattr(wrapper, "launches", 5)
+    monkeypatch.setattr(wrapper, "launches_by_nlev", {8: 5})
+    before = _build.launch_state()
+    _build.count_launch(wrapper, 8)
+    _build.count_launch(wrapper, 2)
+    added = _build.launches_since(before)
+    assert added == {(wrapper, None): 2, (wrapper, 8): 1, (wrapper, "generic"): 1}
+    _build.set_launch_state(before)
+    assert (wrapper.launches, wrapper.launches_by_nlev) == (5, {8: 5})
+    _build.add_launches(added)
+    _build.add_launches(added)
+    assert (wrapper.launches, wrapper.launches_by_nlev) == (9, {8: 7, "generic": 2})
+
+
+def test_division_forms_are_ieee_division(host_lib):
+    """The step's branch-free divisions give the IEEE float quotient on 10^7
+    draws of each of the demapper's and dL/dout's divisions over their
+    operand ranges, zero and denormal dividends included: Markstein's metric
+    (mdiv), and fdiv with recip's reciprocal moved by up to 4 double ulps
+    either way (``csrc/dp_host_emulation.cpp: vae_dp_division_check``)."""
+    check = host_lib.lib.vae_dp_division_check
+    check.argtypes, check.restype = [ctypes.c_longlong, ctypes.c_ulonglong], ctypes.c_longlong
+    assert check(10_000_000, 20261018) == 0

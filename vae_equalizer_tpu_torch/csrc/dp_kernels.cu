@@ -22,7 +22,9 @@
 //   replay's frame at the step that the replayed graph has advanced it to.
 //
 // Both run the shared step body of dp_step.cuh (its notes say what bounds a
-// step and how the design answers it), 512 threads per block. B also takes
+// step and how the design answers it), 512 threads per block, in one of two
+// instances picked by n_lev: 8 levels (64-QAM), or any n_lev up to MAX_LEV
+// (the same arithmetic, so the same bits). B also takes
 // `clocks` (N_PHASES int64, or null): block 0's clock64() cycles per phase,
 // summed over the frame, for measurement. Each launcher returns
 // cudaGetLastError() so the wrapper can raise on a refused launch.
@@ -38,6 +40,7 @@ namespace {
 // fits in one pass.
 constexpr int kThreads = 512;
 
+template <int NL>
 __global__ void __launch_bounds__(kThreads)
 vae_dp_step_kernel(const float* x, long long x_run, long long x_row, const float* w,
                    const float* h, const float* amps, const float* P, const float* var,
@@ -45,13 +48,13 @@ vae_dp_step_kernel(const float* x, long long x_run, long long x_row, const float
                    float* q, float* out) {
   extern __shared__ __align__(16) float smem[];
   const long long r = blockIdx.x, np = 8 * m;
-  dp::step_block(smem, threadIdx.x, blockDim.x, x + r * x_run, x_row, w + r * np, h + r * np,
+  dp::step_block<NL>(smem, threadIdx.x, blockDim.x, x + r * x_run, x_row, w + r * np, h + r * np,
                  amps, P, var, nu_sc, n_sym, m, n_lev, stats + r * 3, gw + r * np, gh + r * np,
                  q + r * 4 * n_lev * n_sym, out + r * 4 * n_sym);
 }
 
 // out / dec / eq as float / int32, or all three as bfloat16 (stream_bf16).
-template <bool BF16>
+template <bool BF16, int NL>
 __global__ void __launch_bounds__(kThreads)
 vae_dp_frame_kernel(int R, int m_max, int n_sym, int stride_sym, int m, int n_lev,
                     long long n_total, const float* rx, const float* w_in, const float* h_in,
@@ -64,11 +67,11 @@ vae_dp_frame_kernel(int R, int m_max, int n_sym, int stride_sym, int m, int n_le
   using SF = typename std::conditional<BF16, dp::bf16, float>::type;
   using SD = typename std::conditional<BF16, dp::bf16, int>::type;
   extern __shared__ __align__(16) float smem[];
-  dp::frame_block<SF, SD>(smem, threadIdx.x, blockDim.x, blockIdx.x, R, m_max, n_sym, stride_sym,
-                          m, n_lev, n_total, rx, w_in, h_in, mw_in, vw_in, mh_in, vh_in, w_out,
-                          h_out, mw_out, vw_out, mh_out, vh_out, losses, var_est,
-                          static_cast<SF*>(out), static_cast<SD*>(dec), static_cast<SF*>(eq), mm,
-                          s1, amps, P, var, nu_sc, lr, *step0, lr_half_step, clocks);
+  dp::frame_block<NL, SF, SD>(smem, threadIdx.x, blockDim.x, blockIdx.x, R, m_max, n_sym, stride_sym,
+                              m, n_lev, n_total, rx, w_in, h_in, mw_in, vw_in, mh_in, vh_in,
+                              w_out, h_out, mw_out, vw_out, mh_out, vh_out, losses, var_est,
+                              static_cast<SF*>(out), static_cast<SD*>(dec), static_cast<SF*>(eq),
+                              mm, s1, amps, P, var, nu_sc, lr, *step0, lr_half_step, clocks);
 }
 
 // Dynamic shared memory for one block, with the opt-in above 48 KB.
@@ -92,10 +95,11 @@ int vae_dp_step_launch(int R, const float* x, long long x_run, long long x_row, 
                        float nu_sc, int n_sym, int m, int n_lev, float* stats, float* gw,
                        float* gh, float* q, float* out, void* stream) {
   if (R < 1 || x_run < 0 || x_row < 2 * n_sym) return (int)cudaErrorInvalidValue;
+  auto kernel = n_lev == 8 ? vae_dp_step_kernel<8> : vae_dp_step_kernel<0>;
   size_t bytes = 0;
-  cudaError_t err = prepare(vae_dp_step_kernel, n_sym, m, n_lev, &bytes);
+  cudaError_t err = prepare(kernel, n_sym, m, n_lev, &bytes);
   if (err != cudaSuccess) return (int)err;
-  vae_dp_step_kernel<<<R, kThreads, bytes, (cudaStream_t)stream>>>(
+  kernel<<<R, kThreads, bytes, (cudaStream_t)stream>>>(
       x, x_run, x_row, w, h, amps, P, var, nu_sc, n_sym, m, n_lev, stats, gw, gh, q, out);
   return (int)cudaGetLastError();
 }
@@ -113,7 +117,8 @@ int vae_dp_frame_launch(int R, int m_max, int n_sym, int stride_sym, int m, int 
   if (R < 1 || m_max < 1 || stride_sym < 1 ||
       n_total < 2 * ((long long)stride_sym * (m_max - 1) + n_sym))
     return (int)cudaErrorInvalidValue;
-  auto kernel = stream_bf16 ? vae_dp_frame_kernel<true> : vae_dp_frame_kernel<false>;
+  auto kernel = stream_bf16 ? (n_lev == 8 ? vae_dp_frame_kernel<true, 8> : vae_dp_frame_kernel<true, 0>)
+                            : (n_lev == 8 ? vae_dp_frame_kernel<false, 8> : vae_dp_frame_kernel<false, 0>);
   size_t bytes = 0;
   cudaError_t err = prepare(kernel, n_sym, m, n_lev, &bytes);
   if (err != cudaSuccess) return (int)err;

@@ -14,7 +14,9 @@
 // (frame_block's `clocks`, PERF.md), the first design (256 threads, a
 // serial sum per thread, branchy input reads, an 8-barrier tree, the level
 // arrays in local memory) spent its time in the demapper and dL/dout level
-// loops. This design, one block of 512 threads (dp_kernels.cu) per run:
+// loops, and so, later, did the second (level loops through shared memory,
+// a double-precision correction per division). This design, one block of
+// 512 threads (dp_kernels.cu) per run:
 //   * Every intermediate lives in shared memory. The input window is held
 //     zero-padded (mh zeros each side of each of the 4 rows), so the
 //     butterfly's inner loops read x at 2t + k with no bounds test; the sign
@@ -30,9 +32,21 @@
 //     t), gw both outputs and components per (i, k) on one 16-byte load of
 //     dL/dout per t, gh re and im per (chi, nu, j) on 8-byte loads of dL/dD
 //     and E_q[x] (whence the (.., 2) layouts of u, eq and gout).
-//   * Divisions by a per-block, per-step or per-item constant take its
-//     reciprocal in double and one exact correction (div_exact: the same
-//     float as the IEEE division, with no branch), not a division each.
+//   * The level count is a template parameter: in the instance for 8 levels
+//     (64-QAM) an item's per-level values stay in registers and its level
+//     loops unroll into straight-line code; the demapper writes each q row
+//     to shared memory once, for dL/dout (and kernel A's output). The
+//     generic instance (any n_lev up to MAX_LEV) loops over n_lev through
+//     the item's q and kq rows (LevRow), with the same arithmetic.
+//   * No division in the level loops: each is a multiply by the divisor's
+//     reciprocal in double (fdiv: the same float as the IEEE division, with
+//     no branch), the reciprocal taken once per block, item or level, and
+//     the metric's division by 2 var is Markstein's float correction (the
+//     same float too). Adam divides by its per-step bias corrections with
+//     div_exact (a reciprocal and one exact correction in double).
+//   * dL/dout takes one (pol, t) per thread, both components: each load of
+//     dL/dD and of h feeds four fused chains and the gVar window is summed
+//     once.
 //   * Phases that do not depend on each other share a barrier: D, the
 //     E-term window totals S and the C partials; gw and gh. dL/dD is kept
 //     unscaled (u = 2 D - 2 rx) and its per-chi scale n_eff / C multiplies
@@ -189,15 +203,15 @@ DP_HD Dims make_dims(int n_sym, int m, int n_lev) {
 //   eq   (2, n_sym, 2)      E_q[x] (pol, t, I/Q)
 //   gout (n_sym, 2, 2)      dL/dout (t, pol, I/Q)
 //   q kq (2, 2, n_lev, n_sym)  posteriors; at inner t the KL's gradient term
-//                           log(r + eps) + r / (r + eps), r = q / P (for gout),
-//                           then gout's dL/dq
+//                           log(r + eps) + r / (r + eps), r = q / P (for gout;
+//                           the generic instance's dL/dq, then)
 //   u    (2, n_eff, 2)      2 D - 2 rx_w (chi, n, re/im); dL/dD = (n_eff / C_chi) u
 //   S gvt (2, m)            E-term window totals S[nu, j]; sum_chi gC_chi |h[chi, nu, j]|^2
-//   rd   (MAX_LEV + 8 doubles)  reciprocals for div_exact: 1 / P per level,
-//                           then 1 / (2 var_x), 1 / (2 var_y), 1 / var_x,
+//   rd   (MAX_LEV + 8 doubles)  reciprocals: 1 / P per level, then
+//                           1 / (2 var_x), 1 / (2 var_y), 1 / var_x,
 //                           1 / var_y, 1 / bc1, 1 / bc2 (Adam, per step)
 //   amps a2 nua2 P (n_lev)  level constants
-//   vc (2)                  2 var_x, 2 var_y
+//   vc (4)                  2 var_x, 2 var_y and their float reciprocals
 //   red  (nwarps, 3)        per-warp C_x, C_y, KL partials
 //   sc (8)                  step scalars: loss, C_x, C_y, n_eff / C_x, n_eff / C_y,
 //                           Adam's bias corrections bc1, bc2 and w's lr
@@ -236,7 +250,7 @@ DP_HD Layout make_layout(const Dims& D, int nt) {
   L.a2 = o; o += D.n_lev;
   L.nua2 = o; o += D.n_lev;
   L.P = o; o += D.n_lev;
-  L.vc = o; o += 2;
+  L.vc = o; o += 4;
   L.red = o; o += 3 * ((nt + kWarp - 1) / kWarp);
   L.sc = o; o += 8;
   L.total = o;
@@ -285,7 +299,7 @@ DP_DEV Smem carve(float* base, const Layout& L) {
 }
 
 // Level constants: amps, a^2, nu_sc a^2, the prior P and 1 / P; 2 var and
-// 1 / (2 var) per pol; computed once.
+// 1 / (2 var) per pol, in double and rounded to float; computed once.
 DP_DEV void load_consts(const Dims& D, const Smem& s, const float* amps, const float* P,
                         float nu_sc, float var0, float var1, int tid, int nt) {
   for (int l = tid; l < D.n_lev; l += nt) {
@@ -299,6 +313,8 @@ DP_DEV void load_consts(const Dims& D, const Smem& s, const float* amps, const f
   if (tid == 0) {
     s.vc[0] = 2.f * var0;
     s.vc[1] = 2.f * var1;
+    s.vc[2] = 1.f / s.vc[0];
+    s.vc[3] = 1.f / s.vc[1];
     s.rd[MAX_LEV + 0] = 1.0 / (double)s.vc[0];
     s.rd[MAX_LEV + 1] = 1.0 / (double)s.vc[1];
     s.rd[MAX_LEV + 2] = 1.0 / (double)var0;
@@ -328,28 +344,79 @@ DP_HD int xrow(int comp, int i) { return (i & 1) * 2 + ((i >> 1) ^ comp); }
 DP_HD float xsign(int comp, int i) { return (comp == 0 && i >= 2) ? -1.f : 1.f; }
 
 // a / b for any float a and a float b > 0, to the same float as the IEEE
-// division, from y = 1 / b taken in double once per block, step or item:
-// the residual correction in double gives the double quotient exactly
+// division, from y = 1 / b taken in double once per block or step: the
+// residual correction in double gives the double quotient exactly
 // (Markstein; no double underflows for float operands), and rounding it to
 // float gives the float quotient (53 >= 2 * 24 + 2); held against division
 // on 1e9 pairs, denormal dividends included, none differing. Why: on the
 // card a float division is a guarded fast path plus a software path for
-// tiny or zero dividends, and the demapper's far-level posteriors are tiny
-// or zero in every warp; this has no branch.
-// b is passed in double (a float's exact value) so callers convert a
-// divisor shared by many divisions once.
+// tiny or zero dividends; this has no branch. b is passed in double (a
+// float's exact value) so callers convert a divisor shared by many
+// divisions once. Adam's divisions by its bias corrections.
 DP_DEV float div_exact(float a, double b, double y) {
   const double ad = a, q = ad * y;
   return (float)DP_DFMA(DP_DFMA(-q, b, ad), y, q);
 }
 
-// The step. Reads s.x, s.w, s.h and the level constants; leaves out, q, eq,
-// v, mm, s1, dec, u, S, gout, gw, gh in shared memory and the scalars
-// sc = [loss, C_x, C_y, gC_x, gC_y] (C is var_est * n_eff). Ends with a
-// barrier.
-DP_DEV void dp_step(const Dims& D, const Smem& s, float var0, float var1, int tid, int nt,
-                    Clock& ck) {
-  const int n_sym = D.n_sym, m = D.m, n_lev = D.n_lev, n_samp = D.n_samp;
+// a / b for float a and float b > 0, to the same float as the IEEE division,
+// as (float)(a * y) in double with y within a few double ulps of 1 / b: a
+// float quotient lies at least 2^-49 (relative) from every midpoint of the
+// float grid, and a * y is within 2^-50 of it, so rounding to float gives
+// the correctly rounded quotient (held against division on 10^7 pairs, zero
+// and denormal dividends included, with y off by up to 4 ulps, and on 10^7
+// pairs of the demapper's operands: tests/test_torch_dp_step_emulation.py).
+// One multiply and two conversions, where div_exact adds two dependent
+// double fused multiply-adds: the level loops' divisions.
+DP_DEV float fdiv(float a, double y) { return (float)((double)a * y); }
+
+// 1 / b in double to within ~2 ulps, without a branch: the approximate
+// reciprocal and two Newton steps on the card; the division on the host
+// (fdiv gives the same float from either).
+DP_DEV double recip(double b) {
+#ifdef DP_HOST_EMULATION
+  return 1.0 / b;
+#else
+  double y;
+  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(y) : "d"(b));
+  y = DP_DFMA(y, DP_DFMA(-b, y, 1.0), y);
+  return DP_DFMA(y, DP_DFMA(-b, y, 1.0), y);
+#endif
+}
+
+// x / v for x = 0 or x >= 2^-100 and a normal v, to the same float as the
+// IEEE division: Markstein's float correction of x * yv, yv = RN(1 / v)
+// (held on 10^7 pairs in tests/test_torch_dp_step_emulation.py; the
+// metric's nonzero (out - a)^2 is far above 2^-100). Three float operations.
+DP_DEV float mdiv(float x, float v, float yv) {
+  const float q0 = x * yv;
+  return DP_FMA(DP_FMA(-q0, v, x), yv, q0);
+}
+
+// An item's per-level values between its level loops: registers in the
+// NL-level instance, whose loops (bound NL) unroll, and the item's own row in
+// shared memory (level l at row[l * stride]) in the generic one (NL 0),
+// whose loops (bound n_lev) do not.
+template <int NL>
+struct LevRow {
+  float v[NL];
+  DP_DEV LevRow(float*, int) {}
+  DP_DEV float& operator[](int l) { return v[l]; }
+};
+template <>
+struct LevRow<0> {
+  float* row;
+  int stride;
+  DP_DEV LevRow(float* r, int st) : row(r), stride(st) {}
+  DP_DEV float& operator[](int l) { return row[l * stride]; }
+};
+
+// The step, for NL levels (8), or any n_lev up to MAX_LEV (NL 0). Reads s.x,
+// s.w, s.h and the level constants; leaves out, q, eq, v, mm, s1, dec, u, S,
+// gout, gw, gh in shared memory and the scalars sc = [loss, C_x, C_y, gC_x,
+// gC_y] (C is var_est * n_eff). Ends with a barrier.
+template <int NL>
+DP_DEV void dp_step(const Dims& D, const Smem& s, int tid, int nt, Clock& ck) {
+  const int n_sym = D.n_sym, m = D.m, n_lev = NL ? NL : D.n_lev, n_samp = D.n_samp;
   const int mh = D.mh, mh2 = D.mh2, n_eff = D.n_eff, xs = D.xs;
 
   // ---- forward butterfly: out[o, comp, t] = sum_{i,k} w[o,i,k] xarr(comp, i, 2t + k - mh),
@@ -376,38 +443,36 @@ DP_DEV void dp_step(const Dims& D, const Smem& s, float var0, float var1, int ti
   clk_mark(ck, PH_FORWARD);
 
   // ---- demapper per (pol, comp, t): met -> mm, s1, q, argmax, moments, KL.
-  // The level loops run over n_lev (one instance for every constellation)
-  // and pass their per-level values through the item's own q row (met, then
-  // e, then q) and kq row, not through per-level register arrays.
+  // The per-level values pass from loop to loop in e (met, then exp), the
+  // q row is written once, and at inner t the KL's gradient term.
   float kl_part = 0.f;
   for (int it = tid; it < 4 * n_sym; it += nt) {
     const int t = it % n_sym, p = (it / n_sym) >> 1;
     const float o = s.out[it];
-    const double two_var = s.vc[p], r_two_var = s.rd[MAX_LEV + p];
+    const float two_var = s.vc[p], y_two_var = s.vc[2 + p];
     float* qrow = s.q + (it / n_sym) * n_lev * n_sym + t;
     float* kqrow = s.kq + (it / n_sym) * n_lev * n_sym + t;
+    LevRow<NL> e(qrow, n_sym);
     float mmv = 0.f;
-#pragma unroll 1
+#pragma unroll(NL ? NL : 1)
     for (int l = 0; l < n_lev; ++l) {
       const float dd = o - s.amps[l];
-      const float met = div_exact(dd * dd, two_var, r_two_var) + s.nua2[l];
-      qrow[l * n_sym] = met;
-      mmv = l == 0 ? met : fminf(mmv, met);
+      e[l] = mdiv(dd * dd, two_var, y_two_var) + s.nua2[l];
+      mmv = l == 0 ? e[l] : fminf(mmv, e[l]);
     }
     float s1v = 0.f;
-#pragma unroll 1
+#pragma unroll(NL ? NL : 1)
     for (int l = 0; l < n_lev; ++l) {
-      const float e = expf(mmv - qrow[l * n_sym]);
-      qrow[l * n_sym] = e;
-      s1v += e;
+      e[l] = expf(mmv - e[l]);
+      s1v += e[l];
     }
     const bool inner = t >= mh && t < n_sym - mh;
-    const double s1d = s1v, r_s1 = 1.0 / s1d;
+    const double r_s1 = recip((double)s1v);
     float eqv = 0.f, eq2v = 0.f, qbest = -1.f;
     int best = 0;
-#pragma unroll 1
+#pragma unroll(NL ? NL : 1)
     for (int l = 0; l < n_lev; ++l) {
-      const float ql = div_exact(qrow[l * n_sym], s1d, r_s1);
+      const float ql = fdiv(e[l], r_s1);
       qrow[l * n_sym] = ql;
       if (ql > qbest) {  // first maximum, as torch.argmax / jnp.argmax
         qbest = ql;
@@ -416,15 +481,9 @@ DP_DEV void dp_step(const Dims& D, const Smem& s, float var0, float var1, int ti
       eqv += ql * s.amps[l];
       eq2v += ql * s.a2[l];
       if (inner) {
-        const float r = div_exact(ql, s.P[l], s.rd[l]), rpe = r + EPS_KL, lg = logf(rpe);
+        const float r = fdiv(ql, s.rd[l]), rpe = r + EPS_KL, lg = logf(rpe);
         kl_part += -ql * lg;
-        // r / (r + eps): where r is below half an ulp of eps, r + eps is eps,
-        // a constant divisor; elsewhere r is normal and the division fast
-        // (both sides branch-free, the division never on a tiny dividend)
-        const bool at_eps = rpe == EPS_KL;
-        const float rq_e = div_exact(r, (double)EPS_KL, 1.0 / (double)EPS_KL);
-        const float rq_f = (at_eps ? 1.f : r) / rpe;
-        kqrow[l * n_sym] = lg + (at_eps ? rq_e : rq_f);
+        kqrow[l * n_sym] = lg + fdiv(r, recip((double)rpe));
       }
     }
     s.mm[it] = mmv;
@@ -550,15 +609,16 @@ DP_DEV void dp_step(const Dims& D, const Smem& s, float var0, float var1, int ti
   clk_mark(ck, PH_SCALARS);
 
   // ================= backward (dL/dloss = 1; dL/dD = sc[3 + chi] u) =================
-  // ---- dL/dout per (pol, comp, t): gEqUp and gVar at sample 2t -> gq -> softmin VJP
-  for (int it = tid; it < 4 * n_sym; it += nt) {
-    const int t = it % n_sym, pc = it / n_sym, nu = pc >> 1, c = pc & 1, ps = 2 * t;
+  // ---- dL/dout per (pol, t), both components: gEqUp and gVar at sample 2t
+  // -> gq -> softmin VJP
+  for (int it = tid; it < 2 * n_sym; it += nt) {
+    const int t = it % n_sym, nu = it / n_sym, ps = 2 * t;
     // taps j with D's sample n = ps + j - mh2 in [0, n_eff)
     const int jlo = ps < mh2 ? mh2 - ps : 0, jhi = n_samp - ps < m ? n_samp - ps : m;
     // gEqUp: the plain version's contraction over (chi, j) of dL/dD's tap
-    // windows with hr and with hi, two fused chains; c = 0: u_re hr + u_im hi,
-    // c = 1: u_im hr - u_re hi
-    float ch1 = 0.f, ch2 = 0.f;
+    // windows with hr and with hi, two fused chains per component, four on
+    // each load; c = 0: u_re hr + u_im hi, c = 1: u_im hr - u_re hi
+    float ch1[2] = {0.f, 0.f}, ch2[2] = {0.f, 0.f};
     for (int chi = 0; chi < 2; ++chi) {
       const float gc = s.sc[3 + chi];
       const float* uc = s.u + chi * n_eff * 2;
@@ -566,35 +626,49 @@ DP_DEV void dp_step(const Dims& D, const Smem& s, float var0, float var1, int ti
       const float* hi = hr + m;
       for (int j = jlo; j < jhi; ++j) {
         const float2 uv = ld2(uc + 2 * (ps + j - mh2));
-        ch1 = DP_FMA(gc * (c == 0 ? uv.x : uv.y), hr[j], ch1);
-        ch2 = DP_FMA(gc * (c == 0 ? uv.y : uv.x), hi[j], ch2);
+        const float g_re = gc * uv.x, g_im = gc * uv.y, hrj = hr[j], hij = hi[j];
+        ch1[0] = DP_FMA(g_re, hrj, ch1[0]);
+        ch2[0] = DP_FMA(g_im, hij, ch2[0]);
+        ch1[1] = DP_FMA(g_im, hrj, ch1[1]);
+        ch2[1] = DP_FMA(g_re, hij, ch2[1]);
       }
     }
-    const float ge = ch1 + (c == 0 ? ch2 : -ch2);
     // gVar: sum over the tap window of sum_chi gC_chi |h[chi, nu, j]|^2
     float gv = 0.f;
     for (int j = jlo; j < jhi; ++j) gv += s.gvt[nu * m + j];
-    const float geq = ge - 2.f * s.eq[(nu * n_sym + t) * 2 + c] * gv;
+    const float2 eqt = ld2(s.eq + (nu * n_sym + t) * 2);
     const bool inner = t >= mh && t < n_sym - mh;
-    const float* qrow = s.q + pc * n_lev * n_sym + t;
-    float* kqrow = s.kq + pc * n_lev * n_sym + t;  // the KL term, then dL/dq
-    float inner_sum = 0.f;
-#pragma unroll 1
+    const double r_var = s.rd[MAX_LEV + 2 + nu];
+    // per component c (pc = 2 nu + c), both in each level's step: q and
+    // dL/dq in registers, or (generic) the q row and the kq row, where dL/dq
+    // overwrites the KL term that it adds at inner t
+    float* qrow[2] = {s.q + 2 * nu * n_lev * n_sym + t, s.q + (2 * nu + 1) * n_lev * n_sym + t};
+    float* kqrow[2] = {s.kq + 2 * nu * n_lev * n_sym + t, s.kq + (2 * nu + 1) * n_lev * n_sym + t};
+    LevRow<NL> ql[2] = {LevRow<NL>(qrow[0], n_sym), LevRow<NL>(qrow[1], n_sym)};
+    LevRow<NL> g[2] = {LevRow<NL>(kqrow[0], n_sym), LevRow<NL>(kqrow[1], n_sym)};
+    const float geq[2] = {(ch1[0] + ch2[0]) - 2.f * eqt.x * gv, (ch1[1] + -ch2[1]) - 2.f * eqt.y * gv};
+    float inner_sum[2] = {0.f, 0.f};
+#pragma unroll(NL ? NL : 1)
     for (int l = 0; l < n_lev; ++l) {
-      const float ql = qrow[l * n_sym];
-      float g = s.amps[l] * geq + s.a2[l] * gv;
-      if (inner) g += kqrow[l * n_sym];
-      kqrow[l * n_sym] = g;
-      inner_sum += ql * g;
+      const float al = s.amps[l], a2l = s.a2[l];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        if constexpr (NL > 0) ql[c][l] = qrow[c][l * n_sym];
+        const float gl = al * geq[c] + a2l * gv;
+        g[c][l] = inner ? gl + kqrow[c][l * n_sym] : gl;
+        inner_sum[c] += ql[c][l] * g[c][l];
+      }
     }
-    const float o = s.out[it];
-    float acc = 0.f;
-#pragma unroll 1
+    const float o[2] = {s.out[2 * nu * n_sym + t], s.out[(2 * nu + 1) * n_sym + t]};
+    float acc[2] = {0.f, 0.f};
+#pragma unroll(NL ? NL : 1)
     for (int l = 0; l < n_lev; ++l) {
-      const float ql = qrow[l * n_sym];
-      acc += (-ql * (kqrow[l * n_sym] - inner_sum)) * (o - s.amps[l]);
+      const float al = s.amps[l];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) acc[c] += (-ql[c][l] * (g[c][l] - inner_sum[c])) * (o[c] - al);
     }
-    s.gout[t * 4 + pc] = div_exact(acc, nu ? var1 : var0, s.rd[MAX_LEV + 2 + nu]);
+    const float go[2] = {fdiv(acc[0], r_var), fdiv(acc[1], r_var)};
+    *reinterpret_cast<float2*>(s.gout + t * 4 + 2 * nu) = float2{go[0], go[1]};
   }
   DP_SYNC();
   clk_mark(ck, PH_BACK);
@@ -670,7 +744,8 @@ DP_DEV void adam(const Smem& s, int np, float lr_w, float lr_h, float bc1, float
 
 // ---- kernel A's block: one run's minibatch, outputs in the JAX contract
 // layout. x's 4 rows (pol*2 + I/Q) lie x_row floats apart, so the block reads
-// a window of a longer frame row in place.
+// a window of a longer frame row in place. NL: dp_step's.
+template <int NL>
 DP_DEV void step_block(float* smem, int tid, int nt, const float* x, long long x_row,
                        const float* w, const float* h, const float* amps, const float* P,
                        const float* var, float nu_sc, int n_sym, int m, int n_lev, float* stats,
@@ -690,7 +765,7 @@ DP_DEV void step_block(float* smem, int tid, int nt, const float* x, long long x
   DP_SYNC();
   Clock ck;
   ck.on = false;
-  dp_step(D, s, var0, var1, tid, nt, ck);
+  dp_step<NL>(D, s, tid, nt, ck);
   if (tid == 0) {
     stats[0] = s.sc[0];
     stats[1] = s.sc[1] / (float)D.n_eff;
@@ -712,12 +787,12 @@ DP_DEV void step_block(float* smem, int tid, int nt, const float* x, long long x
 // reads its own row (the wrapper broadcasts scalar inputs into these);
 // streams per (mb, r): losses (m_max, R), var_est (m_max, R, 2),
 // out/dec/mm/s1 (m_max, R, 2, 2, n_sym), eq (m_max, R, 2, n_sym) = E_q[x^I],
-// out/dec/eq stored as SF/SD (float/int, or bf16 for all three).
+// out/dec/eq stored as SF/SD (float/int, or bf16 for all three). NL: dp_step's.
 // Window mb + 1 is loaded into registers (N_PREFETCH per thread, the rest
 // after gw) while step mb runs and stored into s.x after gw.
 constexpr int N_PREFETCH = 4;
 
-template <typename SF, typename SD>
+template <int NL, typename SF, typename SD>
 DP_DEV void frame_block(float* smem, int tid, int nt, int r, int R, int m_max, int n_sym,
                         int stride_sym, int m, int n_lev, long long n_total, const float* rx,
                         const float* w_in,
@@ -779,7 +854,7 @@ DP_DEV void frame_block(float* smem, int tid, int nt, int r, int R, int m_max, i
       }
     }
 
-    dp_step(D, s, var0, var1, tid, nt, ck);
+    dp_step<NL>(D, s, tid, nt, ck);
 
     const long long row = (long long)mb * R + r;
     if (tid == 0) {

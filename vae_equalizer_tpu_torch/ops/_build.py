@@ -36,8 +36,9 @@ import types
 
 import torch
 
-__all__ = ["CSRC", "BUILD_DIR", "COUNTED", "build", "load", "check", "check_tensor", "counted",
-           "device_scalar", "stream"]
+__all__ = ["CSRC", "BUILD_DIR", "COUNTED", "add_launches", "build", "load", "check", "check_tensor",
+           "count_launch", "counted", "device_scalar", "launch_state", "launches_since",
+           "set_launch_state", "stream"]
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
@@ -126,16 +127,64 @@ _SIGNATURES = {
 
 
 # every kernel wrapper with a launch count (``counted``): the wrapper adds one to
-# its ``launches`` where it launches its kernel; a CUDA graph that captured the
-# launch adds its captured count at each replay (``train/harness.py: StepGraphs``)
+# its ``launches`` where it launches its kernel (``count_launch``); a CUDA graph
+# that captured the launch adds its captured counts at each replay
+# (``train/harness.py: StepGraphs``)
 COUNTED: list = []
 
 
-def counted(wrapper):
-    """Give a kernel wrapper its ``launches`` count (0) and list it in ``COUNTED``."""
+def counted(wrapper, by_nlev: bool = False):
+    """Give a kernel wrapper its ``launches`` count (0) and list it in
+    ``COUNTED``; with ``by_nlev`` (kernels A and B, templated on the level
+    count) also ``launches_by_nlev``, its launches by instance (``count_launch``)."""
     wrapper.launches = 0
+    if by_nlev:
+        wrapper.launches_by_nlev = {}
     COUNTED.append(wrapper)
     return wrapper
+
+
+def count_launch(wrapper, n_lev: int | None = None) -> None:
+    """One launch of ``wrapper``'s kernel; with ``n_lev``, of its instance for
+    ``n_lev`` levels, as ``csrc/dp_kernels.cu`` picks it: 8, or "generic"."""
+    wrapper.launches += 1
+    if n_lev is not None:
+        key = 8 if n_lev == 8 else "generic"
+        wrapper.launches_by_nlev[key] = wrapper.launches_by_nlev.get(key, 0) + 1
+
+
+def launch_state() -> dict:
+    """Every launch count: {(wrapper, None): launches, (wrapper, instance):
+    launches_by_nlev[instance]}."""
+    state = {}
+    for c in COUNTED:
+        state[(c, None)] = c.launches
+        for k, n in getattr(c, "launches_by_nlev", {}).items():
+            state[(c, k)] = n
+    return state
+
+
+def set_launch_state(state: dict) -> None:
+    """Put back the counts of ``launch_state`` (instances counted since, dropped)."""
+    for c in COUNTED:
+        c.launches = state[(c, None)]
+        if hasattr(c, "launches_by_nlev"):
+            c.launches_by_nlev = {k: n for (w, k), n in state.items() if w is c and k is not None}
+
+
+def launches_since(state: dict) -> dict:
+    """The counts added since ``launch_state`` gave ``state``: {key: n}, nonzero only."""
+    now = launch_state()
+    return {k: n - state.get(k, 0) for k, n in now.items() if n != state.get(k, 0)}
+
+
+def add_launches(added: dict) -> None:
+    """Add counts of ``launches_since``'s form (a graph replay's captured launches)."""
+    for (c, k), n in added.items():
+        if k is None:
+            c.launches += n
+        else:
+            c.launches_by_nlev[k] = c.launches_by_nlev.get(k, 0) + n
 
 
 def _nvcc() -> str:

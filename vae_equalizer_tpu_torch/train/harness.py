@@ -202,10 +202,6 @@ def table_rows(tables, index: torch.Tensor) -> list:
     return [t.index_select(0, index)[0] for t in tables]
 
 
-def _counts() -> dict:
-    return {c: c.launches for c in _build.COUNTED}
-
-
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -227,8 +223,8 @@ class StepGraphs:
 
     Launch counts (``ops/_build.py: counted``): a capture adds nothing; each
     replay adds, per kernel wrapper, the launches that its capture recorded,
-    so a wrapper's ``launches`` counts the kernel's executions on the path
-    (captured launches x replays). The warm-up's launches are not counted.
+    so a wrapper's ``launches`` (and ``launches_by_nlev``) counts the
+    kernel's executions on the path (captured launches x replays). The warm-up's launches are not counted.
     """
 
     def __init__(self, steps: dict, state: list, rng, device, graph: bool):
@@ -251,7 +247,7 @@ class StepGraphs:
 
     def warm_up(self) -> None:
         """Run every step once and put back the state, the draws and the counts."""
-        snap, counts = self.snapshot(), _counts()
+        snap, counts = self.snapshot(), _build.launch_state()
         if self.device.type == "cuda":
             cur = torch.cuda.current_stream(self.device)
             side = torch.cuda.Stream(self.device)
@@ -264,8 +260,7 @@ class StepGraphs:
             for fn in self.steps.values():
                 fn()
         self.restore(snap)
-        for c, n in counts.items():
-            c.launches = n
+        _build.set_launch_state(counts)
 
     def capture(self) -> None:
         """Capture every step as a CUDA graph (on the card; a no-op off it)."""
@@ -276,13 +271,11 @@ class StepGraphs:
                 g = torch.cuda.CUDAGraph()
                 if self.rng is not None:
                     g.register_generator_state(self.rng)
-                before = _counts()
+                before = _build.launch_state()
                 with torch.cuda.graph(g):
                     fn()
-                self.graphs[name] = (g, {c: c.launches - n for c, n in before.items()
-                                         if c.launches != n})
-                for c, n in before.items():
-                    c.launches = n
+                self.graphs[name] = (g, _build.launches_since(before))
+                _build.set_launch_state(before)
 
     def build(self, timings: dict | None = None) -> None:
         """Warm up and capture; ``timings["compile_s"]``: the seconds both took."""
@@ -300,8 +293,7 @@ class StepGraphs:
             return
         g, counts = self.graphs[name]
         g.replay()
-        for c, n in counts.items():
-            c.launches += n
+        _build.add_launches(counts)
 
     def timed(self, run_all: Callable, timings: dict | None):
         """``run_all()`` once, or with ``timings`` three times, each from the
