@@ -1,37 +1,33 @@
 """Kernels C, D and I's CUDA blocks, compiled for the host.
 
-``csrc/cma_step.cuh`` compiles as plain C++ under ``CMA_HOST_EMULATION``, in
-which one thread runs every item of every phase and computes each item's
-lane partials one after another, closing them with the card's xor
-butterfly, so the card's lane partition and summation order are reproduced
-(barriers are no-ops, cp.async a copy). ``csrc/cma_host_emulation.cpp``
-wraps it in the cma library's C launchers; the test builds it with the
-host's C++ compiler, patches ``ops/_build.py``'s ``load`` / ``stream`` to
-return it, and runs the wrappers' own launch code (``ops/cma_kernel.py:
-_launch``, ``ops/cma_frame_kernel.py: _launch``, ``ops/cma_siso_kernel.py:
-_launch``) on CPU tensors against ``cma_dp_plain`` /
-``cma_chunked_frame_plain`` / ``cma_siso_experiment_plain`` at chip_smoke.py's
-phase 7 / 8 / 25 tolerances (rtol 1e-4 over 1e-6 of each tensor's scale). It
-is the CPU's only check of the blocks' index arithmetic (tiles, the o / e
-ring, the rolled storage, the prefix and the tail; I's per-epoch window
-restart, its frame edges and eval slots); the card runs the same source
-(``tests/test_torch_cma_kernels.py``, ``tests/test_torch_cma_awgn.py``,
-``chip_smoke.py``). It skips where no C++ compiler is found.
+``csrc/cma_step.cuh`` compiles as plain C++ under ``VAE_HOST_EMULATION``
+(``csrc/portable.cuh``), in which one thread runs every item of every phase
+and computes each item's lane partials one after another, closing them with
+the card's xor butterfly, so the card's lane partition and summation order
+are reproduced (barriers are no-ops, cp.async a copy).
+``csrc/cma_host_emulation.cpp`` wraps it in the cma library's C launchers;
+``ops/_build.py: host_library`` builds it with the host's C++ compiler; the
+test patches ``ops/_build.py``'s ``load`` / ``stream`` to return it, and
+runs the wrappers' own launch code (``ops/cma_kernel.py: _launch``,
+``ops/cma_frame_kernel.py: _launch``, ``ops/cma_siso_kernel.py: _launch``)
+on CPU tensors against ``cma_dp_plain`` / ``cma_chunked_frame_plain`` /
+``cma_siso_experiment_plain`` at chip_smoke.py's phase 7 / 8 / 25 tolerances
+(rtol 1e-4 over 1e-6 of each tensor's scale). It is the CPU's only check of
+the blocks' index arithmetic (tiles, the o / e ring, the rolled storage, the
+prefix and the tail; I's per-epoch window restart, its frame edges and eval
+slots); the card runs the same source (``tests/test_torch_cma_kernels.py``,
+``tests/test_torch_cma_awgn.py``, ``chip_smoke.py``). It skips where no C++
+compiler is found.
 """
-
-import ctypes
-import shutil
-import subprocess
-import types
 
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
+import kernel_emulation
 from vae_equalizer_tpu_torch.models import dirac_taps_dp, dirac_taps_siso
 from vae_equalizer_tpu_torch.models.cma import chunk_schedule
-from vae_equalizer_tpu_torch.ops import _build
 from vae_equalizer_tpu_torch.ops import cma_frame_kernel as cfk
 from vae_equalizer_tpu_torch.ops import cma_kernel as ck
 from vae_equalizer_tpu_torch.ops import cma_siso_kernel as ik
@@ -40,33 +36,13 @@ torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
-    """The emulated cma library's typed entry points, built once."""
-    cxx = shutil.which("g++") or shutil.which("c++") or shutil.which("clang++")
-    if cxx is None:
-        pytest.skip("no C++ compiler found to build csrc/cma_host_emulation.cpp")
-    so = tmp_path_factory.mktemp("cma_host") / "libcma_host.so"
-    subprocess.run([cxx, "-O2", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
-                    "-DCMA_HOST_EMULATION", "-o", str(so), str(_build.CSRC / "cma_host_emulation.cpp")],
-                   check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(str(so))
-    fns = {}
-    for name, argtypes in _build._SIGNATURES["cma"].items():
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        fns[name] = fn
-    return types.SimpleNamespace(lib=lib, **fns)
+def host_lib():
+    return kernel_emulation.host_lib("cma")
 
 
 @pytest.fixture
 def emulated(host_lib, monkeypatch):
-    """The emulated library in place of the card's; the wrappers' launch counts
-    are restored afterwards (other tests of the process read them)."""
-    monkeypatch.setattr(_build, "load", lambda: host_lib)
-    monkeypatch.setattr(_build, "stream", lambda dev: None)
-    for wrapper in (ck.cma_dp_kernel, cfk.cma_chunked_frame, ik.cma_siso_experiment):
-        monkeypatch.setattr(wrapper, "launches", wrapper.launches)
-    return host_lib
+    return kernel_emulation.emulate(monkeypatch, host_lib)
 
 
 def _frame(R, n_sym, m=25, sps=2, seed=11):

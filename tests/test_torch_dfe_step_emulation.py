@@ -1,62 +1,38 @@
 """Kernel J's CUDA block, compiled for the host.
 
-``csrc/dfe_step.cuh`` compiles as plain C++ under ``DFE_HOST_EMULATION``, in
-which one thread runs every lane of the warp in turn (each lane's points
-p = lane + 32 i and its first minimum) and closes the lanes' minima with the
-card's xor butterfly of (distance, index) pairs. ``csrc/dfe_host_emulation.cpp``
-wraps it in the dfe library's C launcher; the test builds it with the host's
-C++ compiler (``-ffp-contract=off``, as ``--fmad=false`` on the card),
-patches ``ops/_build.py``'s ``load`` / ``stream`` to return it, and runs the
-wrapper's own launch code (``ops/dfe_kernel.py: _launch``) on CPU tensors
-against ``dfe_decide_plain``: the decisions must be equal bit for bit, as
-chip_smoke.py's phase 27 holds them on the card. It skips where no C++
-compiler is found.
+``csrc/dfe_step.cuh`` compiles as plain C++ under ``VAE_HOST_EMULATION``
+(``csrc/portable.cuh``), in which one thread runs every lane of the warp in
+turn (each lane's points p = lane + 32 i and its first minimum) and closes
+the lanes' minima with the card's xor butterfly of (distance, index) pairs.
+``csrc/dfe_host_emulation.cpp`` wraps it in the dfe library's C launcher;
+``ops/_build.py: host_library`` builds it with the host's C++ compiler; the
+test patches ``ops/_build.py``'s ``load`` / ``stream`` to return it, and
+runs the wrapper's own launch code (``ops/dfe_kernel.py: _launch``) on CPU
+tensors against ``dfe_decide_plain``: the decisions must be equal bit for
+bit, as chip_smoke.py's phase 27 holds them on the card. It skips where no
+C++ compiler is found.
 """
-
-import ctypes
-import shutil
-import subprocess
-import types
 
 import numpy as np
 import pytest
 import torch
 
+import kernel_emulation
 from vae_equalizer_tpu_torch.core import make_constellation
 from vae_equalizer_tpu_torch.models import nearest_neighbor
-from vae_equalizer_tpu_torch.ops import _build
 from vae_equalizer_tpu_torch.ops import dfe_kernel as jk
 
 torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
-    """The emulated dfe library's typed entry point, built once."""
-    cxx = shutil.which("g++") or shutil.which("c++") or shutil.which("clang++")
-    if cxx is None:
-        pytest.skip("no C++ compiler found to build csrc/dfe_host_emulation.cpp")
-    so = tmp_path_factory.mktemp("dfe_host") / "libdfe_host.so"
-    subprocess.run([cxx, "-O2", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
-                    "-DDFE_HOST_EMULATION", "-o", str(so), str(_build.CSRC / "dfe_host_emulation.cpp")],
-                   check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(str(so))
-    fns = {}
-    for name, argtypes in _build._SIGNATURES["dfe"].items():
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        fns[name] = fn
-    return types.SimpleNamespace(lib=lib, **fns)
+def host_lib():
+    return kernel_emulation.host_lib("dfe")
 
 
 @pytest.fixture
 def emulated(host_lib, monkeypatch):
-    """The emulated library in place of the card's; the wrapper's launch count
-    is restored afterwards."""
-    monkeypatch.setattr(_build, "load", lambda: host_lib)
-    monkeypatch.setattr(_build, "stream", lambda dev: None)
-    monkeypatch.setattr(jk.dfe_decide, "launches", jk.dfe_decide.launches)
-    return host_lib
+    return kernel_emulation.emulate(monkeypatch, host_lib)
 
 
 def _points(mod):

@@ -1,25 +1,24 @@
 """Kernels A and B's CUDA step body, compiled for the host.
 
-``csrc/dp_step.cuh`` compiles as plain C++ under ``DP_HOST_EMULATION``, in
-which one "thread" runs every item of every phase (a warp of one lane;
-barriers are no-ops). ``csrc/dp_host_emulation.cpp`` wraps it in the dp
-library's C launchers; the test builds it with the host's C++ compiler,
-patches ``ops/_build.py``'s ``load`` / ``stream`` to return it, and runs the
-wrappers' own launch code (``ops/frame_kernel.py: _launch``,
+``csrc/dp_step.cuh`` compiles as plain C++ under ``VAE_HOST_EMULATION``
+(``csrc/portable.cuh``), in which one "thread" runs every item of every
+phase (a warp of one lane; barriers are no-ops).
+``csrc/dp_host_emulation.cpp`` wraps it in the dp library's C launchers;
+``ops/_build.py: host_library`` builds it with the host's C++ compiler; the
+test patches ``ops/_build.py``'s ``load`` / ``stream`` to return it, and
+runs the wrappers' own launch code (``ops/frame_kernel.py: _launch``,
 ``ops/elbo_kernel.py: _launch``) on CPU tensors against the plain versions,
 at the tolerances of chip_smoke.py's phases 4a (kernel B, a few minibatches
 across the lr halving) and 3 (kernel A); the plain versions run in float64
-at 64-QAM (``_ref``). It is the CPU's only check of the
-body's index arithmetic; the card runs the same source (``tests/
-test_torch_cuda.py``, ``chip_smoke.py``). The body's two instances (8
-levels, generic) are held to each other bit for bit, its branch-free
-divisions to IEEE division, and the wrappers' launch counts by instance
-checked. It skips where no C++ compiler is found.
+at 64-QAM (``_ref``). It is the CPU's only check of the body's index
+arithmetic; the card runs the same source (``tests/ test_torch_cuda.py``,
+``chip_smoke.py``). The body's two instances (8 levels, generic) are held to
+each other bit for bit, its branch-free divisions to IEEE division, and the
+wrappers' launch counts by instance checked. It skips where no C++ compiler
+is found.
 """
 
 import ctypes
-import shutil
-import subprocess
 import types
 
 import numpy as np
@@ -27,6 +26,7 @@ import pytest
 import torch
 
 import chip_smoke
+import kernel_emulation
 from vae_equalizer_tpu_torch.core import demapper_noise_var, make_constellation
 from vae_equalizer_tpu_torch.models import butterfly_init, dirac_taps_dp
 from vae_equalizer_tpu_torch.ops import _build, elbo_kernel, frame_kernel
@@ -39,30 +39,18 @@ STEP0, LR_HALF = 40, 41.0  # the w lr halves at the second minibatch
 
 
 @pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
-    """The emulated dp library's typed entry points, built once."""
-    cxx = shutil.which("g++") or shutil.which("c++") or shutil.which("clang++")
-    if cxx is None:
-        pytest.skip("no C++ compiler found to build csrc/dp_host_emulation.cpp")
-    so = tmp_path_factory.mktemp("dp_host") / "libdp_host.so"
-    subprocess.run([cxx, "-O2", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
-                    "-DDP_HOST_EMULATION", "-o", str(so), str(_build.CSRC / "dp_host_emulation.cpp")],
-                   check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(str(so))
-    fns = {}
-    for name, argtypes in _build._SIGNATURES["dp"].items():
-        for entry, suffix in ((name, ""), (name + "_generic", "_generic")):
-            fn = getattr(lib, entry)
-            fn.argtypes, fn.restype = argtypes, ctypes.c_int
-            fns[name + suffix] = fn
-    return types.SimpleNamespace(lib=lib, **fns)
+def host_lib():
+    """The emulated dp library, with its generic instances' entry points typed."""
+    lib = kernel_emulation.host_lib("dp")
+    for fn_name, argtypes in _build._SIGNATURES["dp"].items():
+        fn = getattr(lib, fn_name + "_generic")
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return lib
 
 
 @pytest.fixture
 def emulated(host_lib, monkeypatch):
-    monkeypatch.setattr(_build, "load", lambda: host_lib)
-    monkeypatch.setattr(_build, "stream", lambda dev: None)
-    return host_lib
+    return kernel_emulation.emulate(monkeypatch, host_lib)
 
 
 def _inputs(mod, bl, m, R, n_samp, seed, per_run=False):
@@ -196,11 +184,10 @@ def test_nlev8_instance_is_generic_instance(host_lib, monkeypatch, case):
 
 
 def test_launches_counted_by_instance(emulated, monkeypatch):
-    """Kernels A and B count each launch under its instance: 8 at 64-QAM (the
-    flagship), "generic" at 4-QAM; ``launches`` counts both."""
+    """Kernels A and B count every launch in ``launches``, whichever instance
+    runs it: 8 levels at 64-QAM (the flagship), the generic one at 4-QAM."""
     for wrapper in (frame_kernel.vae_dp_frame_train, elbo_kernel.vae_dp_loss_and_grad):
         monkeypatch.setattr(wrapper, "launches", 0)
-        monkeypatch.setattr(wrapper, "launches_by_nlev", {})
     for mod, bl, m in (("64-QAM", 100, 25), ("4-QAM", 16, 9), ("64-QAM", 100, 25)):
         amps, w, h, rx, c = _inputs(mod, bl, m, 1, 2 * bl * 2, seed=1)
         frame_kernel._launch(w, h, frame_kernel.frame_opt_init({"w": w, "h": h}), rx, amps, c["var"],
@@ -208,26 +195,24 @@ def test_launches_counted_by_instance(emulated, monkeypatch):
         elbo_kernel._launch(w, h, rx[..., : 2 * bl], amps, c["var"], c["nu_sc"], c["P"])
     for wrapper in (frame_kernel.vae_dp_frame_train, elbo_kernel.vae_dp_loss_and_grad):
         assert wrapper.launches == 3
-        assert wrapper.launches_by_nlev == {8: 2, "generic": 1}
 
 
 def test_launch_counts_replayed_by_instance(monkeypatch):
-    """A graph's captured launches (``_build.launches_since``) add to both
-    counts at each replay (``add_launches``), and ``set_launch_state`` puts
-    both back, dropping an instance counted since."""
+    """A graph's captured launches (``_build.launches_since``) add to
+    ``launches`` at each replay (``add_launches``), and ``set_launch_state``
+    puts the counts back."""
     wrapper = frame_kernel.vae_dp_frame_train
     monkeypatch.setattr(wrapper, "launches", 5)
-    monkeypatch.setattr(wrapper, "launches_by_nlev", {8: 5})
     before = _build.launch_state()
-    _build.count_launch(wrapper, 8)
-    _build.count_launch(wrapper, 2)
+    _build.count_launch(wrapper)
+    _build.count_launch(wrapper)
     added = _build.launches_since(before)
-    assert added == {(wrapper, None): 2, (wrapper, 8): 1, (wrapper, "generic"): 1}
+    assert added == {wrapper: 2}
     _build.set_launch_state(before)
-    assert (wrapper.launches, wrapper.launches_by_nlev) == (5, {8: 5})
+    assert wrapper.launches == 5
     _build.add_launches(added)
     _build.add_launches(added)
-    assert (wrapper.launches, wrapper.launches_by_nlev) == (9, {8: 7, "generic": 2})
+    assert wrapper.launches == 9
 
 
 def test_division_forms_are_ieee_division(host_lib):
@@ -236,6 +221,6 @@ def test_division_forms_are_ieee_division(host_lib):
     operand ranges, zero and denormal dividends included: Markstein's metric
     (mdiv), and fdiv with recip's reciprocal moved by up to 4 double ulps
     either way (``csrc/dp_host_emulation.cpp: vae_dp_division_check``)."""
-    check = host_lib.lib.vae_dp_division_check
+    check = host_lib.vae_dp_division_check
     check.argtypes, check.restype = [ctypes.c_longlong, ctypes.c_ulonglong], ctypes.c_longlong
     assert check(10_000_000, 20261018) == 0

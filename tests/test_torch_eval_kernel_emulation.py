@@ -1,35 +1,31 @@
 """Kernel K's CUDA body, compiled for the host.
 
-``csrc/dp_eval_step.cuh`` compiles as plain C++ under
-``DP_EVAL_HOST_EMULATION``, in which one "thread" runs every item (a warp of
+``csrc/dp_eval_step.cuh`` compiles as plain C++ under ``VAE_HOST_EMULATION``
+(``csrc/portable.cuh``), in which one "thread" runs every item (a warp of
 one lane; barriers are no-ops) and a run's cluster of blocks runs phase by
 phase, as its cluster barriers order it on the card.
 ``csrc/dp_eval_host_emulation.cpp`` wraps it in the eval library's C
-launcher; the test builds it with the host's C++ compiler (no contraction
-into fused multiply-adds, as the card's build), patches ``ops/_build.py``'s
-``load`` / ``stream`` to return it, and runs the wrapper's own launch code
-(``ops/eval_kernel.py: _launch``) on CPU tensors against the plain version,
-``train/dp.py: _dp_frame_eval_mb``: SERs, shift and r exact, MI within
-1e-6 bits (each per-symbol term is an expf and a log2f, and the host's
-libm and PyTorch's round them apart by an ulp now and then). The streams
-are made as kernel B lays them out, from tx rolled by a known shift per pol
-(and the pols swapped) plus noise, so each sync finds a clear peak. It is
-the CPU's only check of K's index arithmetic; the card runs the same source
+launcher; ``ops/_build.py: host_library`` builds it with the host's C++
+compiler; the test patches ``ops/_build.py``'s ``load`` / ``stream`` to
+return it, and runs the wrapper's own launch code (``ops/eval_kernel.py:
+_launch``) on CPU tensors against the plain version, ``train/dp.py:
+_dp_frame_eval_mb``: SERs, shift and r exact, MI within 1e-6 bits (each per-
+symbol term is an expf and a log2f, and the host's libm and PyTorch's round
+them apart by an ulp now and then). The streams are made as kernel B lays
+them out, from tx rolled by a known shift per pol (and the pols swapped)
+plus noise, so each sync finds a clear peak. It is the CPU's only check of
+K's index arithmetic; the card runs the same source
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``). It skips where no C++
 compiler is found.
 """
-
-import ctypes
-import shutil
-import subprocess
-import types
 
 import numpy as np
 import pytest
 import torch
 
+import kernel_emulation
 from vae_equalizer_tpu_torch.core import demapper_noise_var, make_constellation
-from vae_equalizer_tpu_torch.ops import _build, eval_kernel
+from vae_equalizer_tpu_torch.ops import eval_kernel
 from vae_equalizer_tpu_torch.train import dp as train_dp
 from vae_equalizer_tpu_torch.train.eval_utils import BatchCutWeight, MarginWeight
 
@@ -41,34 +37,13 @@ SHIFTS = ((3, 3, 0), (-10, -10, 1), (10, 7, 0), (0, 0, 1), (-4, 2, 0), (6, 6, 1)
 
 
 @pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
-    """The emulated eval library's typed entry point, built once."""
-    cxx = shutil.which("g++") or shutil.which("c++") or shutil.which("clang++")
-    if cxx is None:
-        pytest.skip("no C++ compiler found to build csrc/dp_eval_host_emulation.cpp")
-    so = tmp_path_factory.mktemp("eval_host") / "libdp_eval_host.so"
-    subprocess.run([cxx, "-O2", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
-                    "-DDP_EVAL_HOST_EMULATION", "-o", str(so),
-                    str(_build.CSRC / "dp_eval_host_emulation.cpp")],
-                   check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(str(so))
-    fns = {}
-    for name, argtypes in _build._SIGNATURES["eval"].items():
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        fns[name] = fn
-    return types.SimpleNamespace(lib=lib, **fns)
+def host_lib():
+    return kernel_emulation.host_lib("eval")
 
 
 @pytest.fixture
 def emulated(host_lib, monkeypatch):
-    """The emulated library in place of the card's; the wrapper's launch count
-    is restored afterwards (other tests of the process read it)."""
-    monkeypatch.setattr(_build, "load", lambda: host_lib)
-    monkeypatch.setattr(_build, "stream", lambda dev: None)
-    monkeypatch.setattr(eval_kernel.vae_dp_frame_eval, "launches",
-                        eval_kernel.vae_dp_frame_eval.launches)
-    return host_lib
+    return kernel_emulation.emulate(monkeypatch, host_lib)
 
 
 def _frame(R, m_max, L, *, seed, mod="64-QAM", per_run=False, crop=None, noise=0.08, bf16=False):

@@ -1,33 +1,29 @@
 """Kernel H's CUDA block, compiled for the host.
 
-``csrc/nn_step.cuh`` compiles as plain C++ under ``NN_HOST_EMULATION``, in
-which one "thread" runs every item of every phase (a warp of one lane;
-barriers are no-ops). ``csrc/nn_host_emulation.cpp`` wraps it in the nn
-library's C launcher; the test builds it with the host's C++ compiler,
-patches ``ops/_build.py``'s ``load`` / ``stream`` to return it, and runs the
-wrapper's own launch code (``ops/nn_frame_kernel.py: _launch``) on CPU
-tensors against ``vae_nn_experiment_train_plain``, for Net and Net_BN, at
-chip_smoke.py's phase 13a tolerances (losses rtol 1e-4; parameters, running
-statistics and eval slots rtol 1e-3 over a 1e-5 floor). It is the CPU's
-only check of the block's index arithmetic (tiles, sample planes, split
-sums); the card runs the same source (``tests/test_torch_nn_kernel.py``,
-``chip_smoke.py``). The split sums' chunks are those of the card's 512
-threads, so the emulation runs the same chunking. It skips where no C++
-compiler is found.
+``csrc/nn_step.cuh`` compiles as plain C++ under ``VAE_HOST_EMULATION``
+(``csrc/portable.cuh``), in which one "thread" runs every item of every
+phase (a warp of one lane; barriers are no-ops).
+``csrc/nn_host_emulation.cpp`` wraps it in the nn library's C launcher;
+``ops/_build.py: host_library`` builds it with the host's C++ compiler; the
+test patches ``ops/_build.py``'s ``load`` / ``stream`` to return it, and
+runs the wrapper's own launch code (``ops/nn_frame_kernel.py: _launch``) on
+CPU tensors against ``vae_nn_experiment_train_plain``, for Net and Net_BN,
+at chip_smoke.py's phase 13a tolerances (losses rtol 1e-4; parameters,
+running statistics and eval slots rtol 1e-3 over a 1e-5 floor). It is the
+CPU's only check of the block's index arithmetic (tiles, sample planes,
+split sums); the card runs the same source
+(``tests/test_torch_nn_kernel.py``, ``chip_smoke.py``). The split sums'
+chunks are those of the card's 512 threads, so the emulation runs the same
+chunking. It skips where no C++ compiler is found.
 """
-
-import ctypes
-import shutil
-import subprocess
-import types
 
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
+import kernel_emulation
 from vae_equalizer_tpu_torch.core import make_constellation
-from vae_equalizer_tpu_torch.ops import _build
 from vae_equalizer_tpu_torch.ops import nn_frame_kernel as nfk
 
 torch.set_num_threads(1)
@@ -37,29 +33,13 @@ SLOTS = ((7, "w1_ev"), (8, "w2_ev"), (9, "h_ev"), (10, "bnp_ev"), (11, "rs_ev"))
 
 
 @pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
-    """The emulated nn library's typed entry point, built once."""
-    cxx = shutil.which("g++") or shutil.which("c++") or shutil.which("clang++")
-    if cxx is None:
-        pytest.skip("no C++ compiler found to build csrc/nn_host_emulation.cpp")
-    so = tmp_path_factory.mktemp("nn_host") / "libnn_host.so"
-    subprocess.run([cxx, "-O2", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
-                    "-DNN_HOST_EMULATION", "-o", str(so), str(_build.CSRC / "nn_host_emulation.cpp")],
-                   check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(str(so))
-    fns = {}
-    for name, argtypes in _build._SIGNATURES["nn"].items():
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        fns[name] = fn
-    return types.SimpleNamespace(lib=lib, **fns)
+def host_lib():
+    return kernel_emulation.host_lib("nn")
 
 
 @pytest.fixture
 def emulated(host_lib, monkeypatch):
-    monkeypatch.setattr(_build, "load", lambda: host_lib)
-    monkeypatch.setattr(_build, "stream", lambda dev: None)
-    return host_lib
+    return kernel_emulation.emulate(monkeypatch, host_lib)
 
 
 def _inputs(mod, m, k1, bl, nb, epochs, R, batchnorm, seed=23):

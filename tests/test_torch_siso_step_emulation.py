@@ -1,36 +1,34 @@
 """Kernels F and G's CUDA blocks, compiled for the host.
 
-``csrc/siso_step.cuh`` compiles as plain C++ under ``SISO_HOST_EMULATION``,
-in which one thread runs every item of every phase and computes each
-item's lane partials, and each thread's share of a block total, one after
-another, closing them with the card's xor butterfly and cross-warp order,
-so the card's partition and summation order are reproduced (barriers are
-no-ops, cp.async a copy). ``csrc/siso_host_emulation.cpp`` wraps it in the
-siso library's C launchers; the test builds it with the host's C++
-compiler, patches ``ops/_build.py``'s ``load`` / ``stream`` to return it,
-and runs the wrappers' own launch code (``ops/elbo_siso_kernel.py:
-_launch``, ``ops/siso_frame_kernel.py: _launch``) on CPU tensors against
-``vae_siso_loss_and_grad_plain`` / ``vae_siso_experiment_train_plain`` at
-chip_smoke.py's phase 10 / 11a tolerances, on the AWGN channel's samples
-(h1, 24 dB). It is the CPU's only check of the blocks' index arithmetic
-(padded planes, lane splits, the level loops, the eval slots); the card
-runs the same source (``tests/test_torch_siso_kernels.py``,
-``chip_smoke.py``). It skips where no C++ compiler is found.
+``csrc/siso_step.cuh`` compiles as plain C++ under ``VAE_HOST_EMULATION``
+(``csrc/portable.cuh``), in which one thread runs every item of every phase
+and computes each item's lane partials, and each thread's share of a block
+total, one after another, closing them with the card's xor butterfly and
+cross-warp order, so the card's partition and summation order are reproduced
+(barriers are no-ops, cp.async a copy). ``csrc/siso_host_emulation.cpp``
+wraps it in the siso library's C launchers; ``ops/_build.py: host_library``
+builds it with the host's C++ compiler; the test patches ``ops/_build.py``'s
+``load`` / ``stream`` to return it, and runs the wrappers' own launch code
+(``ops/elbo_siso_kernel.py: _launch``, ``ops/siso_frame_kernel.py:
+_launch``) on CPU tensors against ``vae_siso_loss_and_grad_plain`` /
+``vae_siso_experiment_train_plain`` at chip_smoke.py's phase 10 / 11a
+tolerances, on the AWGN channel's samples (h1, 24 dB). It is the CPU's only
+check of the blocks' index arithmetic (padded planes, lane splits, the level
+loops, the eval slots); the card runs the same source
+(``tests/test_torch_siso_kernels.py``, ``chip_smoke.py``). It skips where no
+C++ compiler is found.
 """
 
 import ctypes
 import dataclasses
-import shutil
-import subprocess
-import types
 
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
+import kernel_emulation
 from vae_equalizer_tpu_torch.models import dirac_taps_siso, siso_fir_init
-from vae_equalizer_tpu_torch.ops import _build
 from vae_equalizer_tpu_torch.ops import elbo_siso_kernel as esk
 from vae_equalizer_tpu_torch.ops import siso_frame_kernel as sfk
 from vae_equalizer_tpu_torch.train import awgn as train_awgn
@@ -40,33 +38,13 @@ torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
-    """The emulated siso library's typed entry points, built once."""
-    cxx = shutil.which("g++") or shutil.which("c++") or shutil.which("clang++")
-    if cxx is None:
-        pytest.skip("no C++ compiler found to build csrc/siso_host_emulation.cpp")
-    so = tmp_path_factory.mktemp("siso_host") / "libsiso_host.so"
-    subprocess.run([cxx, "-O2", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
-                    "-DSISO_HOST_EMULATION", "-o", str(so), str(_build.CSRC / "siso_host_emulation.cpp")],
-                   check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(str(so))
-    fns = {}
-    for name, argtypes in _build._SIGNATURES["siso"].items():
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        fns[name] = fn
-    return types.SimpleNamespace(lib=lib, **fns)
+def host_lib():
+    return kernel_emulation.host_lib("siso")
 
 
 @pytest.fixture
 def emulated(host_lib, monkeypatch):
-    """The emulated library in place of the card's; the wrappers' launch counts
-    are restored afterwards (other tests of the process read them)."""
-    monkeypatch.setattr(_build, "load", lambda: host_lib)
-    monkeypatch.setattr(_build, "stream", lambda dev: None)
-    for wrapper in (esk.vae_siso_loss_and_grad, sfk.vae_siso_experiment_train):
-        monkeypatch.setattr(wrapper, "launches", wrapper.launches)
-    return host_lib
+    return kernel_emulation.emulate(monkeypatch, host_lib)
 
 
 def _setup(mod, m, bl, nb, epochs, R, seed):
@@ -182,59 +160,15 @@ def test_runs_are_single_run_calls_and_repeat(emulated, kernel):
     assert clocks.tolist() == [0] * len(esk.SISO_CLOCK_PHASES)
 
 
-_DIVISION_CHECK = r"""
-// The body's two division forms against IEEE float division (round to nearest).
-#include <cmath>
-#include <cstdint>
-#include <cstdio>
-#include <cstdlib>
-#include <cstring>
-#include <random>
-static float f_of(uint32_t u) { float f; std::memcpy(&f, &u, 4); return f; }
-int main(int argc, char** argv) {
-  const long long n = std::atoll(argv[1]);
-  std::mt19937_64 g(12345);
-  long long bad_fdiv = 0, bad_mark = 0;
-  for (long long i = 0; i < n; ++i) {
-    const uint64_t r = g();
-    // fdiv: a any finite float (zero and denormals included), b > 0 normal in
-    // [2^-106, 2^94); y = RN(1 / b) moved by -4..4 double ulps
-    uint32_t ua = (uint32_t)r & 0x7fffffffu;
-    if ((ua >> 23) == 0xff) ua = 0;
-    const uint32_t ub = ((uint32_t)(r >> 32) & 0x7fffffu) | ((uint32_t)(21 + (r >> 55) % 200) << 23);
-    const float a = (i & 1) ? -f_of(ua) : f_of(ua), b = f_of(ub), want = a / b;
-    if (std::isfinite(want))
-      for (int k = -4; k <= 4; ++k) {
-        double y = 1.0 / (double)b;
-        for (int s = 0; s < (k < 0 ? -k : k); ++s) y = std::nextafter(y, k < 0 ? 0.0 : 1e300);
-        const float got = (float)((double)a * y);
-        bad_fdiv += std::memcmp(&got, &want, 4) != 0;
-      }
-    // Markstein: a = 0 or in [2^-100, 2^60), b in [2^-40, 2^40), y = RN(1 / b)
-    const uint32_t ma = (i % 97 == 0) ? 0u : (((uint32_t)r & 0x7fffffu) | ((uint32_t)(27 + (r >> 23) % 160) << 23));
-    const uint32_t mb = ((uint32_t)(r >> 32) & 0x7fffffu) | ((uint32_t)(87 + (r >> 56) % 80) << 23);
-    const float x = f_of(ma), v = f_of(mb), yv = 1.f / v, q0 = x * yv;
-    const float q1 = std::fmaf(std::fmaf(-q0, v, x), yv, q0), wq = x / v;
-    bad_mark += std::memcmp(&q1, &wq, 4) != 0;
-  }
-  std::printf("%lld %lld\n", bad_fdiv, bad_mark);
-  return 0;
-}
-"""
-
-
-def test_division_forms_are_ieee_division(tmp_path):
+def test_division_forms_are_ieee_division(host_lib):
     """The two branch-free divisions of csrc/siso_step.cuh give the IEEE float
     quotient: (float)(a * y) in double with y within 4 double ulps of 1 / b
     (fdiv; 10^7 pairs, each with 9 values of y, zero and denormal dividends
     included) and Markstein's x * RN(1 / v) with one fused correction for
-    x = 0 or x >= 2^-100 (the metric's division by var; 10^7 pairs)."""
-    cxx = shutil.which("g++") or shutil.which("c++") or shutil.which("clang++")
-    if cxx is None:
-        pytest.skip("no C++ compiler found")
-    src, exe = tmp_path / "div.cpp", tmp_path / "div"
-    src.write_text(_DIVISION_CHECK)
-    subprocess.run([cxx, "-O2", "-std=c++17", "-ffp-contract=off", "-o", str(exe), str(src)], check=True,
-                   capture_output=True, text=True)
-    out = subprocess.run([str(exe), "10000000"], check=True, capture_output=True, text=True).stdout
-    assert out.split() == ["0", "0"], out
+    x = 0 or x >= 2^-100 (the metric's division by var; 10^7 pairs;
+    ``csrc/siso_host_emulation.cpp: vae_siso_division_check``)."""
+    check = host_lib.vae_siso_division_check
+    check.argtypes, check.restype = [ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong)], None
+    bad = (ctypes.c_longlong * 2)()
+    check(10_000_000, bad)
+    assert list(bad) == [0, 0]

@@ -10,7 +10,7 @@ of the main path: the flagship's 100-step frame and VAEflex's 990-window
 frame (stride_sym 10) at R = 8, from a state warmed by 20 frames; R = 40
 with per-run var / lr (the SNR sweep's runs); the streaming receiver's
 R = 1 20-step frame. Then a 3-frame flagship experiment (CUDA-graph replay):
-B's launches by instance (``launches_by_nlev``). With ``--parent DIR``, a
+B's launches. With ``--parent DIR``, a
 checkout of the previous commit (e.g. ``git archive`` unpacked under
 ``build/``), it imports that checkout's port under another name, so its
 kernels run through its own wrappers and signatures, and holds this tree's
@@ -246,11 +246,11 @@ def main() -> None:
     clocks = {k: frame_kernel.frame_clocks(*a, **kw) for k, (a, kw, _) in shapes.items()}
     for label, c in clocks.items():
         chip_smoke._line(f"clocks {label}", **chip_smoke._clocks_kv(c))
-    frame_kernel.vae_dp_frame_train.launches, frame_kernel.vae_dp_frame_train.launches_by_nlev = 0, {}
+    frame_kernel.vae_dp_frame_train.launches = 0
     train_dp.train_vae_dp(dataclasses.replace(cfg, num_frames=3), seed=0, device=dev, use_pallas="frame",
                           runs=R, compiled=True)
-    launches = (frame_kernel.vae_dp_frame_train.launches, frame_kernel.vae_dp_frame_train.launches_by_nlev)
-    print(f"flagship 3-frame replay: B launches {launches[0]}, by instance {launches[1]}", flush=True)
+    launches = frame_kernel.vae_dp_frame_train.launches
+    print(f"flagship 3-frame replay: B launches {launches}", flush=True)
     times, parent_clocks, missed = None, None, None
     if args.parent is not None:
         b3_args = (w0, h0, frame_kernel.frame_opt_init({"w": w0, "h": h0}),
@@ -263,8 +263,7 @@ def main() -> None:
                 + f"; total {sum(parent_clocks[k].values()):.0f} -> {sum(clocks[k].values()):.0f}",
                 flush=True)
     print(json.dumps({"card": card, "clocks_per_step": clocks, "parent_clocks_per_step": parent_clocks,
-                      "turns_ms": times, "flagship_launches": [launches[0], {str(k): n for k, n in
-                                                                             launches[1].items()}]}),
+                      "turns_ms": times, "flagship_launches": launches}),
           flush=True)
     t0 = time.perf_counter()
     res = chip_smoke._per_run_phase(card, cfg, sim, gen, w0, h0, const, amps, P, f_args)

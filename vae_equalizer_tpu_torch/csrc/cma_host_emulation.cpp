@@ -6,15 +6,10 @@
 // with the card's butterfly (the card's lane partition and summation order),
 // barriers are no-ops and the blocks of the runs run one after another.
 //
-//   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC -DCMA_HOST_EMULATION
-//       -o libcma_host.so cma_host_emulation.cpp
-//
-// tests/test_torch_cma_step_emulation.py builds it, patches ops/_build.py's
-// load / stream to return it, and calls the wrappers' own launch code on CPU
-// tensors against the plain versions.
-#ifndef CMA_HOST_EMULATION
-#define CMA_HOST_EMULATION
-#endif
+// ops/_build.py: host_library builds it under VAE_HOST_EMULATION;
+// tests/test_torch_cma_step_emulation.py patches ops/_build.py's load / stream
+// to return it, and calls the wrappers' own launch code on CPU tensors against
+// the plain versions.
 #include <stdlib.h>
 
 #include "cma_step.cuh"

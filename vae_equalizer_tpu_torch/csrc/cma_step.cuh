@@ -12,7 +12,7 @@
 // lane ends with the same bits). Sums run in this fixed order without
 // atomics, so a launch repeats bit for bit.
 //
-// Under CMA_HOST_EMULATION this is plain C++ for checking the arithmetic
+// Under VAE_HOST_EMULATION this is plain C++ for checking the arithmetic
 // without a GPU: one thread runs every item of every phase, computes each
 // of an item's G lane partials in turn and closes them with the same
 // butterfly (group_sum), so it reproduces the card's lane partition and
@@ -21,62 +21,25 @@
 #ifndef CMA_STEP_CUH
 #define CMA_STEP_CUH
 
-#include <math.h>
-
-#ifdef CMA_HOST_EMULATION
-#define CMA_DEV inline
-#define CMA_HD inline
-#define CMA_SYNC() ((void)0)
-#define CMA_CLOCK() 0LL
-struct float2 {
-  float x, y;
-};
-struct float4 {
-  float x, y, z, w;
-};
-#else
-#include <cuda_runtime.h>
-#define CMA_DEV __device__ __forceinline__
-#define CMA_HD __host__ __device__ __forceinline__
-#define CMA_SYNC() __syncthreads()
-#define CMA_CLOCK() clock64()
-#endif
+#include "portable.cuh"
 
 namespace cma {
 
 constexpr int MAX_M = 64;  // taps per row
+// The card's warp in emulation too (kept here, not in portable.cuh: dp,
+// dp_eval and nn emulate a one-lane warp instead).
 constexpr int kWarp = 32;
 
-// One float from device to shared memory, in flight until copy_async_wait
-// (or, committed as a group, until copy_async_wait_prior leaves at most the
-// latest group in flight).
-#ifdef CMA_HOST_EMULATION
-inline void copy_async(float* dst, const float* src) { *dst = *src; }
-inline void copy_async_wait() {}
-inline void copy_async_commit() {}
-inline void copy_async_wait_prior() {}
-inline void sync_warp() {}
-#else
-__device__ __forceinline__ void copy_async(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void copy_async_wait() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
-__device__ __forceinline__ void copy_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-__device__ __forceinline__ void copy_async_wait_prior() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-__device__ __forceinline__ void sync_warp() { __syncwarp(); }
-#endif
+using namespace vae;  // the cp.async family
 
 template <int N>
 struct Vec {
   float v[N];
-  CMA_DEV void add(const Vec& o) {
+  VAE_DEV void add(const Vec& o) {
 #pragma unroll
     for (int i = 0; i < N; ++i) v[i] = v[i] + o.v[i];
   }
-#ifndef CMA_HOST_EMULATION
+#ifndef VAE_HOST_EMULATION
   __device__ __forceinline__ void add_lane(int off) {
 #pragma unroll
     for (int i = 0; i < N; ++i) v[i] = v[i] + __shfl_xor_sync(0xffffffffu, v[i], off);
@@ -89,7 +52,7 @@ struct Vec {
 // thread holds all of them.
 template <int N>
 struct Parts {
-#ifdef CMA_HOST_EMULATION
+#ifdef VAE_HOST_EMULATION
   Vec<N> p[kWarp];
   Vec<N>& of(int l) { return p[l]; }
 #else
@@ -101,8 +64,8 @@ struct Parts {
 // The butterfly over the g lanes of a group: level `off` adds lane l ^ off's
 // value to lane l's (on the card the whole warp takes part).
 template <int N>
-CMA_DEV Vec<N> group_tree(Parts<N>& ps, int g) {
-#ifdef CMA_HOST_EMULATION
+VAE_DEV Vec<N> group_tree(Parts<N>& ps, int g) {
+#ifdef VAE_HOST_EMULATION
   for (int off = g / 2; off > 0; off >>= 1)
     for (int i = 0; i < off; ++i) ps.p[i].add(ps.p[i + off]);
 #else
@@ -114,9 +77,9 @@ CMA_DEV Vec<N> group_tree(Parts<N>& ps, int g) {
 
 // part(l): lane l's partial sums; the group's total (every lane the same bits).
 template <int N, typename F>
-CMA_DEV Vec<N> group_sum(int g, int lane, F&& part) {
+VAE_DEV Vec<N> group_sum(int g, int lane, F&& part) {
   Parts<N> ps;
-#ifdef CMA_HOST_EMULATION
+#ifdef VAE_HOST_EMULATION
   (void)lane;
   for (int i = 0; i < g; ++i) ps.p[i] = part(i);
 #else
@@ -129,24 +92,25 @@ CMA_DEV Vec<N> group_sum(int g, int lane, F&& part) {
 // each phase into c[phase]; the launcher's `clocks` receives them summed over
 // the frame (ops/cma_kernel.py: C_CLOCK_PHASES, ops/cma_frame_kernel.py:
 // D_CLOCK_PHASES name them). Compiled in only for CLK = true, so a launch
-// without clocks runs the body without them.
+// without clocks runs the body without them (kept per kernel: dp and nn
+// switch theirs at run time instead).
 template <bool CLK, int N>
 struct Clock {
   bool on;
   long long t, c[N];
-  CMA_DEV void start(bool enable) {
+  VAE_DEV void start(bool enable) {
     on = CLK && enable;
     for (int p = 0; p < N; ++p) c[p] = 0;
-    if (CLK && on) t = CMA_CLOCK();
+    if (CLK && on) t = VAE_CLOCK();
   }
-  CMA_DEV void mark(int ph) {
+  VAE_DEV void mark(int ph) {
     if (CLK && on) {
-      const long long now = CMA_CLOCK();
+      const long long now = VAE_CLOCK();
       c[ph] += now - t;
       t = now;
     }
   }
-  CMA_DEV void store(long long* out) const {
+  VAE_DEV void store(long long* out) const {
     if (CLK && on)
       for (int p = 0; p < N; ++p) out[p] = c[p];
   }
@@ -188,11 +152,11 @@ struct CLane {
 };
 
 template <bool CLK, int TPL, bool UPD>
-CMA_DEV void cma_symbols_run(int lane, const CArgs& a) {
+VAE_DEV void cma_symbols_run(int lane, const CArgs& a) {
   const int m = a.m, sps = a.sps, n_sym = a.n_sym;
   Clock<CLK, C_N_PHASES> ck;
   ck.start(a.clocks != nullptr && lane == 0);
-#ifdef CMA_HOST_EMULATION
+#ifdef VAE_HOST_EMULATION
   CLane<TPL> st[kWarp];
   auto each = [&](auto&& f) {
     for (int l = 0; l < kWarp; ++l) f(l, st[l]);
@@ -357,7 +321,7 @@ enum DPhase {
 constexpr int kChunkThreads = 512;  // D's block on the card
 constexpr int GA = 8;               // lanes per output item
 // Taps per lane in A, a template argument of the block: 1, 2, 4 or 8.
-CMA_HD int d_taps_per_lane(int m) {
+VAE_HD int d_taps_per_lane(int m) {
   int ka = 1;
   while (ka * GA < m) ka *= 2;
   return ka;
@@ -376,26 +340,26 @@ struct DArgs {
 };
 
 // Warps that hold the 2m tap-entry groups of B, one lane each.
-CMA_HD int d_group_warps(int m) { return (2 * m + kWarp - 1) / kWarp; }
+VAE_HD int d_group_warps(int m) { return (2 * m + kWarp - 1) / kWarp; }
 // B's splits of a chunk's symbols: a power of two, as many as the block's
 // warps hold, with at least 4 symbols each.
-CMA_HD int d_split(int m, int S) {
+VAE_HD int d_split(int m, int S) {
   int g = 1;
   while (2 * g * d_group_warps(m) * kWarp <= kChunkThreads && 4 * (2 * g) <= S) g *= 2;
   return g;
 }
 // Samples per row of a stage's tile (the windows of S + 1 symbols), padded.
-CMA_HD int d_tile_cols(int m, int sps, int S) { return (S * sps + m + 3) / 4 * 4; }
+VAE_HD int d_tile_cols(int m, int sps, int S) { return (S * sps + m + 3) / 4 * 4; }
 // Shared memory of D's block (floats): the o / e ring (S + 1, 8), two tiles
 // (4, cols), B's split sums (gb, 2m, 4), the taps (8m) and the partial-sum
 // ring (n_slots, 8m).
-CMA_HD long long d_smem_floats(int m, int sps, int S, int n_slots) {
+VAE_HD long long d_smem_floats(int m, int sps, int S, int n_slots) {
   return 8LL * (S + 1) + 8LL * d_tile_cols(m, sps, S) + 8LL * m * d_split(m, S) +
          8LL * m * (1 + n_slots);
 }
 
 template <bool CLK, int KA>
-CMA_DEV void chunked_block(float* smem, int tid, int nt, const DArgs& a) {
+VAE_DEV void chunked_block(float* smem, int tid, int nt, const DArgs& a) {
   const int m = a.m, sps = a.sps, S = a.S, n_slots = a.n_slots, n_sym = a.n_sym, j0 = a.j0;
   const int hm = 8 * m, lb = S + 1, cols = d_tile_cols(m, sps, S), gb = a.gb;
   // stages g: the prefix's first p0 hold its first `offset` symbols (S a
@@ -482,7 +446,7 @@ CMA_DEV void chunked_block(float* smem, int tid, int nt, const DArgs& a) {
       oe[ix * 8 + 4 + chi] = err;
     };
 
-#ifdef CMA_HOST_EMULATION
+#ifdef VAE_HOST_EMULATION
     for (int t = 0; t < count; ++t)
       for (int chi = 0; chi < 2; ++chi) {
         const Vec<2> p = group_sum<2>(GA, 0, [&](int l) {
@@ -543,7 +507,7 @@ CMA_DEV void chunked_block(float* smem, int tid, int nt, const DArgs& a) {
     *reinterpret_cast<float4*>(psum + (sp * 2 * m + item) * 4) = v;
   };
   auto split_sums = [&](const float* tile, int t_off, int i0, int count) {
-#ifdef CMA_HOST_EMULATION
+#ifdef VAE_HOST_EMULATION
     for (int sp = 0; sp < gb; ++sp)
       for (int item = 0; item < 2 * m; ++item) partials(tile, t_off, i0, count, item, sp);
 #else
@@ -569,32 +533,32 @@ CMA_DEV void chunked_block(float* smem, int tid, int nt, const DArgs& a) {
   for (int i = tid; i < hm; i += nt) h[i] = a.h_in[i];
   load_tile(0);
   copy_async_wait();
-  CMA_SYNC();
+  VAE_SYNC();
   int g = 0;
   for (; g < p0; ++g) {  // symbols g S .. of the first `offset`
     load_tile(g + 1);
     const int s0 = g * S;
     outputs(g, s0, offset - s0 < S ? offset - s0 : S, 0, s0 % lb);
     copy_async_wait();
-    CMA_SYNC();
+    VAE_SYNC();
   }
   for (int j = 0; j < n_slots; ++j, ++g) {  // slot j: symbols offset + j S .. + S - 1
     load_tile(g + 1);
     const int s0 = offset + j * S, i0 = s0 % lb;
     outputs(g, s0, j + 1 < n_slots ? S : S + 1, 0, i0);
-    CMA_SYNC();
+    VAE_SYNC();
     split_sums(tile_of(g), 0, i0, S);
-    CMA_SYNC();
+    VAE_SYNC();
     for (int i = tid; i < hm; i += nt) ring[j * hm + i] = combined(psum_at(i));
     copy_async_wait();
-    CMA_SYNC();
+    VAE_SYNC();
   }
   for (int i = tid; i < hm; i += nt) {
     float up = ring[i];
     for (int j = 1; j < n_slots; ++j) up += ring[j * hm + i];
     h[i] = h[i] + a.lr2 * up;
   }
-  CMA_SYNC();
+  VAE_SYNC();
   ck.mark(D_PREFIX);
 
   // ---- full chunks
@@ -608,11 +572,11 @@ CMA_DEV void chunked_block(float* smem, int tid, int nt, const DArgs& a) {
     ck.mark(D_COPY);
     outputs(g, kc + 1, S, 1, ib + 1 == lb ? 0 : ib + 1);
     ck.mark(D_OUTPUTS);
-    CMA_SYNC();
+    VAE_SYNC();
     ck.mark(D_OUTPUTS_SYNC);
     split_sums(tile_of(g), 0, ib, S);
     ck.mark(D_PARTIALS);
-    CMA_SYNC();
+    VAE_SYNC();
     ck.mark(D_PARTIALS_SYNC);
     #pragma unroll 1
     for (int i = tid; i < hm; i += nt) {
@@ -631,7 +595,7 @@ CMA_DEV void chunked_block(float* smem, int tid, int nt, const DArgs& a) {
     ck.mark(D_UPDATE);
     copy_async_wait();
     ck.mark(D_TILE_WAIT);
-    CMA_SYNC();
+    VAE_SYNC();
     ck.mark(D_UPDATE_SYNC);
     head = head + 1 == n_slots ? 0 : head + 1;
     ib += S;
@@ -671,13 +635,13 @@ constexpr int kIRing = 4 * kIChunk;
 
 // Runs per warp: one run a warp while the runs fit on the card's SMs (each
 // chain then has an SM's issue slots to itself), else up to 32 / kIGroup.
-CMA_HD int i_runs_per_warp(int R, int sms) {
+VAE_HD int i_runs_per_warp(int R, int sms) {
   const int per = (R + sms - 1) / sms;
   return per < 1 ? 1 : per > kWarp / kIGroup ? kWarp / kIGroup : per;
 }
 
 // Shared-memory floats of one run's ring (two planes, each with its mirror).
-CMA_HD int i_ring_floats(int tpl) { return 2 * (kIRing + kIGroup * tpl); }
+VAE_HD int i_ring_floats(int tpl) { return 2 * (kIRing + kIGroup * tpl); }
 
 enum IPhase { I_DOT, I_BUTTERFLY, I_ERR, I_UPDATE, I_NEXT, I_N_PHASES };
 
@@ -704,7 +668,7 @@ struct ILane {
 
 // v[0] + ... + v[N - 1] as pairwise sums of adjacent ranges (N a power of two).
 template <int N>
-CMA_DEV float pair_sum(float (&v)[N]) {
+VAE_DEV float pair_sum(float (&v)[N]) {
 #pragma unroll
   for (int s = 1; s < N; s *= 2)
 #pragma unroll
@@ -717,12 +681,12 @@ CMA_DEV float pair_sum(float (&v)[N]) {
 // run's outputs (a group past the last run repeats it and writes nothing);
 // ring: the group's i_ring_floats(TPL) floats of shared memory.
 template <bool CLK, int TPL>
-CMA_DEV void cma_siso_run(int g, bool writer, float* ring, const IArgs& a) {
+VAE_DEV void cma_siso_run(int g, bool writer, float* ring, const IArgs& a) {
   constexpr int kSpan = kIGroup * TPL, kPlane = kIRing + kSpan;
   const int n_sym = a.n_sym;
   Clock<CLK, I_N_PHASES> ck;
   ck.start(a.clocks != nullptr && g == 0);
-#ifdef CMA_HOST_EMULATION
+#ifdef VAE_HOST_EMULATION
   ILane<TPL> st[kIGroup];
   auto each = [&](auto&& f) {
     for (int l = 0; l < kIGroup; ++l) f(l, st[l]);

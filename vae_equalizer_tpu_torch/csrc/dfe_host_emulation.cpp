@@ -5,15 +5,10 @@
 // chain, no lane exchanges); on the general route one thread runs every lane
 // of the warp in turn and closes the lanes' minima with the card's butterfly.
 //
-//   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC -DDFE_HOST_EMULATION
-//       -o libdfe_host.so dfe_host_emulation.cpp
-//
-// tests/test_torch_dfe.py builds it, patches ops/_build.py's load / stream
-// to return it, and calls the wrapper's own launch code on CPU tensors
-// against the plain version.
-#ifndef DFE_HOST_EMULATION
-#define DFE_HOST_EMULATION
-#endif
+// ops/_build.py: host_library builds it under VAE_HOST_EMULATION;
+// tests/test_torch_dfe_step_emulation.py patches ops/_build.py's load / stream
+// to return it, and calls the wrapper's own launch code on CPU tensors against
+// the plain version.
 
 #include "dfe_step.cuh"
 

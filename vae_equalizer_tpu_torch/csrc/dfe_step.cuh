@@ -32,7 +32,7 @@
 // --fmad=false every product and sum rounds as the plain version's, so the
 // decisions equal its bit for bit.
 //
-// Under DFE_HOST_EMULATION this is plain C++ for checking the arithmetic
+// Under VAE_HOST_EMULATION this is plain C++ for checking the arithmetic
 // without a GPU: one thread runs every lane of the warp in turn and closes
 // the lanes' minima with the same butterfly; the points are read from the
 // argument instead of shared memory.
@@ -40,19 +40,12 @@
 #ifndef DFE_STEP_CUH
 #define DFE_STEP_CUH
 
-#include <math.h>
-
-#ifdef DFE_HOST_EMULATION
-#define DFE_DEV inline
-#define DFE_CLOCK() 0LL
-#else
-#include <cuda_runtime.h>
-#define DFE_DEV __device__ __forceinline__
-#define DFE_CLOCK() clock64()
-#endif
+#include "portable.cuh"
 
 namespace dfe {
 
+// The card's warp in emulation too (kept here, not in portable.cuh: dp,
+// dp_eval and nn emulate a one-lane warp instead).
 constexpr int kWarp = 32;
 constexpr int MAX_K2 = 4;        // feedback taps: h1, the longest channel preset, has 5 taps
 constexpr int MAX_POINTS = 256;  // constellation points (8 per lane)
@@ -71,24 +64,25 @@ enum JPhase { J_CORRECTION, J_DISTANCES, J_ARGMIN, J_STATE, J_NEXT_FF, J_N_PHASE
 
 // Phase clocks (measurement only): one thread adds the clock64() cycles of
 // each phase into c[phase], summed over the symbols. Compiled in only for
-// CLK = true, so a launch without clocks runs the body without them.
+// CLK = true, so a launch without clocks runs the body without them (kept
+// per kernel: dp and nn switch theirs at run time instead).
 template <bool CLK>
 struct Clock {
   bool on;
   long long t, c[J_N_PHASES];
-  DFE_DEV void start(bool enable) {
+  VAE_DEV void start(bool enable) {
     on = CLK && enable;
     for (int p = 0; p < J_N_PHASES; ++p) c[p] = 0;
-    if (CLK && on) t = DFE_CLOCK();
+    if (CLK && on) t = VAE_CLOCK();
   }
-  DFE_DEV void mark(int ph) {
+  VAE_DEV void mark(int ph) {
     if (CLK && on) {
-      const long long now = DFE_CLOCK();
+      const long long now = VAE_CLOCK();
       c[ph] += now - t;
       t = now;
     }
   }
-  DFE_DEV void store(long long* out) const {
+  VAE_DEV void store(long long* out) const {
     if (CLK && on)
       for (int p = 0; p < J_N_PHASES; ++p) out[p] = c[p];
   }
@@ -99,13 +93,13 @@ struct Best {
   int i;
 };
 
-DFE_DEV Best first_min(Best a, Best b) {
+VAE_DEV Best first_min(Best a, Best b) {
   return (b.d < a.d || (b.d == a.d && b.i < a.i)) ? b : a;
 }
 
 // One chain. pre / pim: the points' planes (shared memory on the card).
 template <bool CLK, int K2, int PPL>
-DFE_DEV void dfe_chain(int lane, const float* pre, const float* pim, const JArgs& a) {
+VAE_DEV void dfe_chain(int lane, const float* pre, const float* pim, const JArgs& a) {
   const int n = a.n;
   Clock<CLK> ck;
   ck.start(a.clocks != nullptr && lane == 0);
@@ -120,7 +114,7 @@ DFE_DEV void dfe_chain(int lane, const float* pre, const float* pim, const JArgs
     si[j] = pim[i0];
     if (lane == 0) a.idx[j] = i0;
   }
-#ifdef DFE_HOST_EMULATION
+#ifdef VAE_HOST_EMULATION
   constexpr int kLanes = kWarp;
 #else
   constexpr int kLanes = 1;
@@ -168,7 +162,7 @@ DFE_DEV void dfe_chain(int lane, const float* pre, const float* pim, const JArgs
       lb[l] = b;
     }
     ck.mark(J_DISTANCES);
-#ifdef DFE_HOST_EMULATION
+#ifdef VAE_HOST_EMULATION
     for (int off = kWarp / 2; off > 0; off >>= 1)
       for (int l = 0; l < off; ++l) lb[l] = first_min(lb[l], lb[l + off]);
 #else
@@ -204,7 +198,7 @@ DFE_DEV void dfe_chain(int lane, const float* pre, const float* pim, const JArgs
 // wins only with a strictly smaller value); v[i] and w[i] ride along with
 // the winner. Returns the index; e[0], v[0] and w[0] end as the winner's.
 template <int N>
-DFE_DEV int first_argmin(float (&e)[N], float (&v)[N], float (&w)[N]) {
+VAE_DEV int first_argmin(float (&e)[N], float (&v)[N], float (&w)[N]) {
   int ix[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) ix[i] = i;
@@ -228,7 +222,7 @@ DFE_DEV int first_argmin(float (&e)[N], float (&v)[N], float (&w)[N]) {
 // run a copy of a chain in lockstep and write nothing). The feedforward
 // output is loaded D symbols ahead in registers.
 template <bool CLK, int K2, int L>
-DFE_DEV void dfe_grid_chain(bool store, const float* pts, const JArgs& a) {
+VAE_DEV void dfe_grid_chain(bool store, const float* pts, const JArgs& a) {
   constexpr int D = K2 == 3 ? 3 : 4;  // symbols a block: a multiple of K2, so the state's ring turns whole
   constexpr int NS = K2 > 0 ? K2 : 1;
   const int n = a.n;

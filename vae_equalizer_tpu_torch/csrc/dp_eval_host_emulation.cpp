@@ -7,15 +7,10 @@
 // the next, as the cluster barriers order them on the card), and the runs
 // run one after another.
 //
-//   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC -DDP_EVAL_HOST_EMULATION \
-//       -o libdp_eval_host.so dp_eval_host_emulation.cpp
-//
-// tests/test_torch_eval_kernel_emulation.py builds it, patches ops/_build.py's
-// load / stream to return it, and calls the wrapper's own launch code on CPU
-// tensors against the plain version.
-#ifndef DP_EVAL_HOST_EMULATION
-#define DP_EVAL_HOST_EMULATION
-#endif
+// ops/_build.py: host_library builds it under VAE_HOST_EMULATION;
+// tests/test_torch_eval_kernel_emulation.py patches ops/_build.py's load /
+// stream to return it, and calls the wrapper's own launch code on CPU tensors
+// against the plain version.
 #include <stdlib.h>
 
 #include "dp_eval_step.cuh"

@@ -53,24 +53,16 @@
 // such a tie; the tests and chip_smoke.py hold shift and r equal on the
 // flagship's and VAEflex's frames, not on crafted ties.
 //
-// The body also compiles as plain C++ (DP_EVAL_HOST_EMULATION): one "thread"
+// The body also compiles as plain C++ (VAE_HOST_EMULATION): one "thread"
 // (tid 0, nt 1) runs every item, a barrier is a no-op, and the cluster's
 // blocks run phase by phase, one after another (csrc/dp_eval_host_emulation.cpp).
 #pragma once
 
-#ifdef DP_EVAL_HOST_EMULATION
-#include <math.h>
-#include <stdlib.h>
-#include <string.h>
-#define EV_DEV inline
-#define EV_SYNC() ((void)0)
-#else
-#include <cuda_bf16.h>
-#define EV_DEV __device__ __forceinline__
-#define EV_SYNC() __syncthreads()
-#endif
+#include "portable.cuh"
 
 namespace ev {
+
+using namespace vae;  // bf16 and ld(): kernel B's streams, read in place
 
 constexpr int kShifts = 21;  // the sync search's cyclic shifts, -10 .. 10
 constexpr int kHalf = kShifts / 2;
@@ -85,17 +77,10 @@ constexpr int kCorr = 2 * 2 * 2 * 2 * kShifts;  // (search, comp, b, i, shift)
 constexpr float kEps = 1e-12f;   // the MI's log guard
 enum MaskKind { kBatchCut = 0, kMargin = 1 };
 
-#ifdef DP_EVAL_HOST_EMULATION
+// The warp's sums: a one-lane warp in emulation. Kept here, not in
+// portable.cuh: cma, dfe and siso emulate the card's lanes instead.
+#ifdef VAE_HOST_EMULATION
 constexpr int kWarp = 1;
-struct bf16 {
-  unsigned short bits;
-};
-inline float ld(const bf16* p) {
-  const unsigned int u = (unsigned int)p->bits << 16;
-  float f;
-  memcpy(&f, &u, 4);
-  return f;
-}
 template <typename T>
 inline T warp_sum(T v) {
   return v;
@@ -106,8 +91,6 @@ inline T group_sum(T v) {
 }
 #else
 constexpr int kWarp = 32;
-typedef __nv_bfloat16 bf16;
-EV_DEV float ld(const bf16* p) { return __bfloat162float(*p); }
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
@@ -122,9 +105,8 @@ __device__ __forceinline__ T group_sum(T v) {
   return v;
 }
 #endif
-EV_DEV float ld(const float* p) { return *p; }
-EV_DEV int ld_idx(const int* p) { return *p; }
-EV_DEV int ld_idx(const bf16* p) { return (int)ld(p); }
+VAE_DEV int ld_idx(const int* p) { return *p; }
+VAE_DEV int ld_idx(const bf16* p) { return (int)ld(p); }
 constexpr int kMaxWarps = (kThreads + kWarp - 1) / kWarp;
 // lanes that share a correlation item, every 16th symbol of the chunk each
 // (one in emulation); kItems x kLanes threads, whole warps
@@ -176,25 +158,25 @@ struct Shared {
 };
 
 // (search, comp, b, i, shift) -> the correlation's slot
-EV_DEV int slot(int g, int c, int b, int i, int s) { return (((g * 2 + c) * 2 + b) * 2 + i) * kShifts + s; }
+VAE_DEV int slot(int g, int c, int b, int i, int s) { return (((g * 2 + c) * 2 + b) * 2 + i) * kShifts + s; }
 
-EV_DEV int mod(int x, int n) {
+VAE_DEV int mod(int x, int n) {
   const int m = x % n;
   return m < 0 ? m + n : m;
 }
 
 // n - s wrapped into [0, N) for |s| <= N (the launcher refuses N < kShifts)
-EV_DEV int wrap(int x, int n) { return x < 0 ? x + n : (x >= n ? x - n : x); }
+VAE_DEV int wrap(int x, int n) { return x < 0 ? x + n : (x >= n ? x - n : x); }
 
 // "v is above best" as torch.argmax / max see it: NaN above everything
-EV_DEV bool above(double v, double best) { return v > best || (v != v && best == best); }
-EV_DEV float max_nan(float a, float b) { return (b != b || b > a) ? b : a; }
-EV_DEV float min_nan(float a, float b) { return (b != b || b < a) ? b : a; }
+VAE_DEV bool above(double v, double best) { return v > best || (v != v && best == best); }
+VAE_DEV float max_nan(float a, float b) { return (b != b || b > a) ? b : a; }
+VAE_DEV float min_nan(float a, float b) { return (b != b || b < a) ? b : a; }
 
 // The eval mask at aligned position t (s0: the search's shift of pol 0, ms:
 // its largest |shift|): batch_cut_weight / margin_weight_maxshift
 // (train/eval_utils.py) in integers.
-EV_DEV int mask(const Args& a, int t, int s0, int ms) {
+VAE_DEV int mask(const Args& a, int t, int s0, int ms) {
   if (a.mask_kind == kMargin) return t >= a.margin && t < a.mask_a - a.margin - ms;
   const int j = t % a.mask_b, mb = t / a.mask_b, keep = a.mask_b - s0 - a.mask_c;
   const int pos = mb * keep + j;
@@ -202,21 +184,21 @@ EV_DEV int mask(const Args& a, int t, int s0, int ms) {
 }
 
 // Level index of a tx level (metrics/ser.py: _decode_levels)
-EV_DEV int decode(const Args& a, float x) { return (int)rintf(a.inv_step * x + a.half); }
+VAE_DEV int decode(const Args& a, float x) { return (int)rintf(a.inv_step * x + a.half); }
 
 // Symbol n's offset in the (mb, run, pol, comp, t) streams and in eq
-EV_DEV long long at_s(const Args& a, int run, int n) {
+VAE_DEV long long at_s(const Args& a, int run, int n) {
   return (n / a.L) * a.s_mb + run * a.s_run + n % a.L;
 }
-EV_DEV long long at_e(const Args& a, int run, int n) {
+VAE_DEV long long at_e(const Args& a, int run, int n) {
   return (n / a.L) * a.e_mb + run * a.e_run + n % a.L;
 }
 
 // Sum the threads' partials: a fixed shuffle tree in each warp, then the
 // warps in order; threads q < NI + ND write the block's totals.
 template <int NI, int ND>
-EV_DEV void block_sum(Shared& sh, const int (&ci)[NI], const double (&cd)[ND], int* out_i,
-                      double* out_d, int tid, int nt) {
+VAE_DEV void block_sum(Shared& sh, const int (&ci)[NI], const double (&cd)[ND], int* out_i,
+                       double* out_d, int tid, int nt) {
   const int lane = tid % kWarp, warp = tid / kWarp, nw = (nt + kWarp - 1) / kWarp;
 #pragma unroll
   for (int k = 0; k < NI; ++k) {
@@ -228,7 +210,7 @@ EV_DEV void block_sum(Shared& sh, const int (&ci)[NI], const double (&cd)[ND], i
     const double v = warp_sum(cd[k]);
     if (lane == 0) sh.wd[warp][k] = v;
   }
-  EV_SYNC();
+  VAE_SYNC();
   for (int q = tid; q < NI + ND; q += nt) {
     if (q < NI) {
       int s = 0;
@@ -240,13 +222,13 @@ EV_DEV void block_sum(Shared& sh, const int (&ci)[NI], const double (&cd)[ND], i
       out_d[q - NI] = s;
     }
   }
-  EV_SYNC();
+  VAE_SYNC();
 }
 
 // Phase 1: the run constants, then this block's chunk of both correlation
 // windows staged, and its partial correlations (corr).
 template <typename SF>
-EV_DEV void sync_partial(const Args& a, int run, int rank, Shared& sh, int tid, int nt) {
+VAE_DEV void sync_partial(const Args& a, int run, int rank, Shared& sh, int tid, int nt) {
   const int N = a.m_max * a.L, lc = a.corr_len < N ? a.corr_len : N;
   const int chunk = (lc + kCluster - 1) / kCluster, l0 = rank * chunk;
   const int len = lc - l0 < 0 ? 0 : (lc - l0 < chunk ? lc - l0 : chunk);
@@ -272,7 +254,7 @@ EV_DEV void sync_partial(const Args& a, int run, int rank, Shared& sh, int tid, 
     sh.e_w[gb / 2][b][k] = gb / 2 == 0 ? ld(eq + at_e(a, run, n) + b * a.e_pol)
                                        : ld(out + at_s(a, run, n) + b * a.s_pol);
   }
-  EV_SYNC();
+  VAE_SYNC();
   // log2(eps) at run time, as the plain version's log2 computes it (not folded)
   if (tid == 0) sh.log_eps = log2f(sh.eps);
   // item (g, b, tile): the 4 (comp, tx pol) sums of kTile shifts s over every
@@ -314,13 +296,13 @@ EV_DEV void sync_partial(const Args& a, int run, int rank, Shared& sh, int tid, 
 // cluster's blocks in rank order, then each search's decision
 // (metrics/sync.py: _dp_shift_core), the same in every block.
 template <typename Peer>
-EV_DEV void sync_decide(const Peer& peer, Shared& sh, int tid, int nt) {
+VAE_DEV void sync_decide(const Peer& peer, Shared& sh, int tid, int nt) {
   for (int q = tid; q < kCorr; q += nt) {
     double v = 0.0;
     for (int k = 0; k < kCluster; ++k) v += peer(k)->corr[q];
     sh.total[q] = v;
   }
-  EV_SYNC();
+  VAE_SYNC();
   for (int q = tid; q < 16; q += nt) {  // (g, c, b, i): the first largest |corr| over the shifts
     const int base = q * kShifts;  // = slot(g, c, b, i, 0)
     double best = fabs(sh.total[base]);
@@ -332,7 +314,7 @@ EV_DEV void sync_decide(const Peer& peer, Shared& sh, int tid, int nt) {
     sh.peak[q] = best;
     sh.at[q] = ind;
   }
-  EV_SYNC();
+  VAE_SYNC();
   for (int g = tid; g < 2; g += nt) {
     double cmax[2][2];  // [b][i]: the best component's peak
     int pick[2][2];
@@ -348,7 +330,7 @@ EV_DEV void sync_decide(const Peer& peer, Shared& sh, int tid, int nt) {
     sh.shift[g][1] = kHalf - (xy ? pick[1][1] : pick[1][0]);
     sh.r[g] = xy ? 0 : 1;
   }
-  EV_SYNC();
+  VAE_SYNC();
 }
 
 // One MI trace: log2(q + eps) of the posterior at level a, rebuilt from the
@@ -356,7 +338,7 @@ EV_DEV void sync_decide(const Peer& peer, Shared& sh, int tid, int nt) {
 // Where mm - met < -46, exp is below 2^-65 and so is q (s1 >= 1: its largest
 // term is exp(0)), so q + eps rounds to eps and the trace is log2(eps), with
 // no exp or division (whose slow path a zero or subnormal quotient takes).
-EV_DEV float trace(float o, float mm, float s1, float a, float inv2v, float nu, float log_eps) {
+VAE_DEV float trace(float o, float mm, float s1, float a, float inv2v, float nu, float log_eps) {
   const float d = o - a;
   const float met = d * d * inv2v + nu * a * a;
   const float z = mm - met;
@@ -368,7 +350,7 @@ EV_DEV float trace(float o, float mm, float s1, float a, float inv2v, float nu, 
 // errors and the MI traces at the E_q[x^I] sync's alignment, and the
 // constellation sync's weights and magnitude sums.
 template <typename SF, typename SD>
-EV_DEV void pass_a(const Args& a, int run, int rank, Shared& sh, int tid, int nt) {
+VAE_DEV void pass_a(const Args& a, int run, int rank, Shared& sh, int tid, int nt) {
   const int N = a.m_max * a.L, chunk = (N + kCluster - 1) / kCluster;
   const int n0 = rank * chunk, n1 = n0 + chunk < N ? n0 + chunk : N;
   const SF* out = static_cast<const SF*>(a.out);
@@ -439,7 +421,7 @@ EV_DEV void pass_a(const Args& a, int run, int rank, Shared& sh, int tid, int nt
 // cluster's sums, then the constellation SER errors over this block's slice
 // (metrics/ser.py: ser_constell_shaping).
 template <typename SF, typename Peer>
-EV_DEV void pass_b(const Args& a, const Peer& peer, int run, int rank, Shared& sh, int tid, int nt) {
+VAE_DEV void pass_b(const Args& a, const Peer& peer, int run, int rank, Shared& sh, int tid, int nt) {
   for (int q = tid; q < 4; q += nt) {  // the cluster's |tx| and |out| sums and weights, in rank order
     if (q < 2) {
       double v = 0.0;
@@ -451,7 +433,7 @@ EV_DEV void pass_b(const Args& a, const Peer& peer, int run, int rank, Shared& s
       sh.sum_i[16 + q] = v;
     }
   }
-  EV_SYNC();
+  VAE_SYNC();
   if (tid == 0) {
     const float wf = (float)(sh.sum_i[18] + sh.sum_i[19]);
     sh.scale = ((float)sh.sum_d[18] / wf) / ((float)sh.sum_d[19] / wf);
@@ -459,7 +441,7 @@ EV_DEV void pass_b(const Args& a, const Peer& peer, int run, int rank, Shared& s
     for (int l = 0; l + 1 < a.n_lev; ++l)
       sh.d[l] = (1.0f + 2.0f * sh.nu * var0) * (sh.amps[l] + sh.amps[l + 1]) / 2.0f;
   }
-  EV_SYNC();
+  VAE_SYNC();
   const int N = a.m_max * a.L, chunk = (N + kCluster - 1) / kCluster;
   const int n0 = rank * chunk, n1 = n0 + chunk < N ? n0 + chunk : N;
   const SF* out = static_cast<const SF*>(a.out);
@@ -505,7 +487,7 @@ EV_DEV void pass_b(const Args& a, const Peer& peer, int run, int rank, Shared& s
 // in rank order (a thread each), then each estimator's variants reduced and
 // the pols rolled.
 template <typename Peer>
-EV_DEV void finish(const Args& a, const Peer& peer, int run, Shared& sh, int tid, int nt) {
+VAE_DEV void finish(const Args& a, const Peer& peer, int run, Shared& sh, int tid, int nt) {
   for (int q = tid; q < kAI + kBI + kAD; q += nt) {
     if (q < kAI + kBI) {
       int v = 0;
@@ -517,7 +499,7 @@ EV_DEV void finish(const Args& a, const Peer& peer, int run, Shared& sh, int tid
       sh.sum_d[q - kAI - kBI] = v;
     }
   }
-  EV_SYNC();
+  VAE_SYNC();
   if (tid != 0) return;
   const int* ai = sh.sum_i;
   const int* bi = sh.sum_i + kAI;

@@ -8,15 +8,10 @@
 // two instances can be held to each other at 8 levels; vae_dp_division_check
 // holds the step's branch-free divisions to IEEE division.
 //
-//   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC -DDP_HOST_EMULATION \
-//       -o libdp_host.so dp_host_emulation.cpp
-//
-// tests/test_torch_dp_step_emulation.py builds it, patches ops/_build.py's
-// load / stream to return it, and calls the wrappers' own launch code on CPU
-// tensors against the plain versions.
-#ifndef DP_HOST_EMULATION
-#define DP_HOST_EMULATION
-#endif
+// ops/_build.py: host_library builds it under VAE_HOST_EMULATION;
+// tests/test_torch_dp_step_emulation.py patches ops/_build.py's load / stream
+// to return it, and calls the wrappers' own launch code on CPU tensors against
+// the plain versions.
 #include <math.h>
 #include <stdlib.h>
 #include <string.h>

@@ -63,65 +63,22 @@
 // version's elementwise operations (the library is built with --fmad=false,
 // ops/_build.py; the dot products' fused multiply-adds are explicit).
 //
-// The body also compiles as plain C++ (DP_HOST_EMULATION), where one "thread"
+// The body also compiles as plain C++ (VAE_HOST_EMULATION), where one "thread"
 // (tid 0, nt 1) runs every item of every phase in order, a warp is one lane
 // and a barrier is a no-op; that is how its arithmetic is checked against
 // the plain version without a GPU (csrc/dp_host_emulation.cpp).
 #pragma once
 
-#ifdef DP_HOST_EMULATION
-#include <math.h>
-#include <string.h>
-#define DP_HD inline
-#define DP_DEV inline
-#define DP_SYNC() ((void)0)
-#define DP_CLOCK() 0LL
-#define DP_FMA(a, b, c) fmaf(a, b, c)
-#define DP_DFMA(a, b, c) fma(a, b, c)
-#else
-#include <cuda_bf16.h>
-#define DP_HD __host__ __device__ __forceinline__
-#define DP_DEV __device__ __forceinline__
-#define DP_SYNC() __syncthreads()
-#define DP_CLOCK() clock64()
-#define DP_FMA(a, b, c) __fmaf_rn(a, b, c)
-#define DP_DFMA(a, b, c) __fma_rn(a, b, c)
-#endif
+#include "portable.cuh"
 
 namespace dp {
 
-// Element types of kernel B's out / dec / eq streams: float32 (dec int32),
-// or bfloat16 for all three with stream_bf16 (dec's level indices are exact
-// in bfloat16). put() rounds to nearest even, as torch's .to(bfloat16).
-#ifdef DP_HOST_EMULATION
-struct bf16 {
-  unsigned short bits;
-};
-inline void put(bf16* p, float v) {
-  unsigned int u;
-  memcpy(&u, &v, 4);
-  p->bits = (v != v) ? (unsigned short)0x7fc0 : (unsigned short)((u + 0x7fffu + ((u >> 16) & 1u)) >> 16);
-}
-#else
-typedef __nv_bfloat16 bf16;
-DP_DEV void put(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
-#endif
-DP_DEV void put(float* p, float v) { *p = v; }
-DP_DEV void put(int* p, int v) { *p = v; }
-DP_DEV void put(bf16* p, int v) { put(p, (float)v); }
+using namespace vae;  // bf16 and put(): kernel B's out / dec / eq streams
 
 // Vector loads from shared memory (the arrays read so lie at multiples of 4
 // words, make_layout)
-#ifdef DP_HOST_EMULATION
-struct float2 {
-  float x, y;
-};
-struct float4 {
-  float x, y, z, w;
-};
-#endif
-DP_DEV float2 ld2(const float* p) { return *reinterpret_cast<const float2*>(p); }
-DP_DEV float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+VAE_DEV float2 ld2(const float* p) { return *reinterpret_cast<const float2*>(p); }
+VAE_DEV float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
 
 constexpr int MAX_LEV = 16;       // up to 256-QAM (16 levels per dimension)
 constexpr float EPS_KL = 1e-12f;  // KL log guard (elbo_dp's eps)
@@ -130,8 +87,9 @@ constexpr float ADAM_B2 = 0.999f;
 constexpr float ADAM_EPS = 1e-8f;
 
 // A warp, and the lanes that share one item's sum: G on the card, 1 in
-// emulation (the one "thread" runs every term).
-#ifdef DP_HOST_EMULATION
+// emulation (the one "thread" runs every term). Kept here, not in
+// portable.cuh: cma, dfe and siso emulate the card's lanes instead.
+#ifdef VAE_HOST_EMULATION
 constexpr int kWarp = 1;
 template <int G>
 inline float group_sum(float v) {
@@ -147,27 +105,28 @@ __device__ __forceinline__ float group_sum(float v) {
 }
 #endif
 template <int G>
-DP_HD constexpr int lanes() {
+VAE_HD constexpr int lanes() {
   return G < kWarp ? G : kWarp;
 }
-DP_HD int warp_round(int n) { return (n + kWarp - 1) / kWarp * kWarp; }
+VAE_HD int warp_round(int n) { return (n + kWarp - 1) / kWarp * kWarp; }
 
 // Phase clocks of kernel B: block 0's thread 0 adds the clock64() cycles of
 // each phase of each step (from the previous mark to the barrier that ends the
 // phase) into c[phase]; the launcher's `clocks` receives them summed over the
 // frame (ops/frame_kernel.py: CLOCK_PHASES names them). With on false every
-// mark is one untaken branch.
+// mark is one untaken branch (kept per kernel: cma, dfe and siso compile
+// their clocks in per CLK instead).
 enum Phase { PH_FORWARD, PH_DEMAP, PH_DSC, PH_SCALARS, PH_BACK, PH_GW, PH_ADAM, N_PHASES };
 struct Clock {
   bool on;
   long long t, c[N_PHASES];
 };
-DP_DEV void clk_start(Clock& k) {
-  if (k.on) k.t = DP_CLOCK();
+VAE_DEV void clk_start(Clock& k) {
+  if (k.on) k.t = VAE_CLOCK();
 }
-DP_DEV void clk_mark(Clock& k, int ph) {
+VAE_DEV void clk_mark(Clock& k, int ph) {
   if (k.on) {
-    const long long now = DP_CLOCK();
+    const long long now = VAE_CLOCK();
     k.c[ph] += now - k.t;
     k.t = now;
   }
@@ -181,7 +140,7 @@ struct Dims {
   int n_sym, m, n_lev, n_samp, mh, mh2, n_eff, xs;
 };
 
-DP_HD Dims make_dims(int n_sym, int m, int n_lev) {
+VAE_HD Dims make_dims(int n_sym, int m, int n_lev) {
   Dims d;
   d.n_sym = n_sym;
   d.m = m;
@@ -220,7 +179,7 @@ struct Layout {
   int rd, amps, a2, nua2, P, vc, red, sc, total;
 };
 
-DP_HD Layout make_layout(const Dims& D, int nt) {
+VAE_HD Layout make_layout(const Dims& D, int nt) {
   Layout L;
   int o = 0;
   const int n4 = 4 * D.n_sym, wm = 8 * D.m;
@@ -264,7 +223,7 @@ struct Smem {
   double* rd;
 };
 
-DP_DEV Smem carve(float* base, const Layout& L) {
+VAE_DEV Smem carve(float* base, const Layout& L) {
   Smem s;
   s.x = base + L.x;
   s.w = base + L.w;
@@ -300,8 +259,8 @@ DP_DEV Smem carve(float* base, const Layout& L) {
 
 // Level constants: amps, a^2, nu_sc a^2, the prior P and 1 / P; 2 var and
 // 1 / (2 var) per pol, in double and rounded to float; computed once.
-DP_DEV void load_consts(const Dims& D, const Smem& s, const float* amps, const float* P,
-                        float nu_sc, float var0, float var1, int tid, int nt) {
+VAE_DEV void load_consts(const Dims& D, const Smem& s, const float* amps, const float* P,
+                         float nu_sc, float var0, float var1, int tid, int nt) {
   for (int l = tid; l < D.n_lev; l += nt) {
     const float a = amps[l];
     s.amps[l] = a;
@@ -325,11 +284,11 @@ DP_DEV void load_consts(const Dims& D, const Smem& s, const float* amps, const f
 // The padded input rows: zeros everywhere (once per block; the window loads
 // only ever write [mh, mh + n_samp) of each row), then 4 rows of n_samp
 // samples from x, row stride `stride`.
-DP_DEV void zero_x(const Dims& D, const Smem& s, int tid, int nt) {
+VAE_DEV void zero_x(const Dims& D, const Smem& s, int tid, int nt) {
   for (int i = tid; i < 4 * D.xs; i += nt) s.x[i] = 0.f;
 }
-DP_DEV void load_x(const Dims& D, const Smem& s, const float* x, long long stride, int tid,
-                   int nt) {
+VAE_DEV void load_x(const Dims& D, const Smem& s, const float* x, long long stride, int tid,
+                    int nt) {
   for (int i = tid; i < 4 * D.n_samp; i += nt) {
     const int r = i / D.n_samp, k = i - r * D.n_samp;
     s.x[r * D.xs + D.mh + k] = x[r * stride + k];
@@ -340,8 +299,8 @@ DP_DEV void load_x(const Dims& D, const Smem& s, const float* x, long long strid
 // comp 0 (I) rows (x_I, y_I, -x_Q, -y_Q), comp 1 (Q) rows (x_Q, y_Q, x_I, y_I).
 // Input i of component comp reads padded row xrow(comp, i) with sign
 // xsign(comp, i); sample smp of it sits at that row's index smp + mh.
-DP_HD int xrow(int comp, int i) { return (i & 1) * 2 + ((i >> 1) ^ comp); }
-DP_HD float xsign(int comp, int i) { return (comp == 0 && i >= 2) ? -1.f : 1.f; }
+VAE_HD int xrow(int comp, int i) { return (i & 1) * 2 + ((i >> 1) ^ comp); }
+VAE_HD float xsign(int comp, int i) { return (comp == 0 && i >= 2) ? -1.f : 1.f; }
 
 // a / b for any float a and a float b > 0, to the same float as the IEEE
 // division, from y = 1 / b taken in double once per block or step: the
@@ -353,9 +312,9 @@ DP_HD float xsign(int comp, int i) { return (comp == 0 && i >= 2) ? -1.f : 1.f; 
 // tiny or zero dividends; this has no branch. b is passed in double (a
 // float's exact value) so callers convert a divisor shared by many
 // divisions once. Adam's divisions by its bias corrections.
-DP_DEV float div_exact(float a, double b, double y) {
+VAE_DEV float div_exact(float a, double b, double y) {
   const double ad = a, q = ad * y;
-  return (float)DP_DFMA(DP_DFMA(-q, b, ad), y, q);
+  return (float)VAE_DFMA(VAE_DFMA(-q, b, ad), y, q);
 }
 
 // a / b for float a and float b > 0, to the same float as the IEEE division,
@@ -367,19 +326,20 @@ DP_DEV float div_exact(float a, double b, double y) {
 // pairs of the demapper's operands: tests/test_torch_dp_step_emulation.py).
 // One multiply and two conversions, where div_exact adds two dependent
 // double fused multiply-adds: the level loops' divisions.
-DP_DEV float fdiv(float a, double y) { return (float)((double)a * y); }
+VAE_DEV float fdiv(float a, double y) { return (float)((double)a * y); }
 
 // 1 / b in double to within ~2 ulps, without a branch: the approximate
 // reciprocal and two Newton steps on the card; the division on the host
-// (fdiv gives the same float from either).
-DP_DEV double recip(double b) {
-#ifdef DP_HOST_EMULATION
+// (fdiv gives the same float from either). Kept beside the fdiv that this
+// kernel's own division check holds.
+VAE_DEV double recip(double b) {
+#ifdef VAE_HOST_EMULATION
   return 1.0 / b;
 #else
   double y;
   asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(y) : "d"(b));
-  y = DP_DFMA(y, DP_DFMA(-b, y, 1.0), y);
-  return DP_DFMA(y, DP_DFMA(-b, y, 1.0), y);
+  y = VAE_DFMA(y, VAE_DFMA(-b, y, 1.0), y);
+  return VAE_DFMA(y, VAE_DFMA(-b, y, 1.0), y);
 #endif
 }
 
@@ -387,9 +347,9 @@ DP_DEV double recip(double b) {
 // IEEE division: Markstein's float correction of x * yv, yv = RN(1 / v)
 // (held on 10^7 pairs in tests/test_torch_dp_step_emulation.py; the
 // metric's nonzero (out - a)^2 is far above 2^-100). Three float operations.
-DP_DEV float mdiv(float x, float v, float yv) {
+VAE_DEV float mdiv(float x, float v, float yv) {
   const float q0 = x * yv;
-  return DP_FMA(DP_FMA(-q0, v, x), yv, q0);
+  return VAE_FMA(VAE_FMA(-q0, v, x), yv, q0);
 }
 
 // An item's per-level values between its level loops: registers in the
@@ -399,15 +359,15 @@ DP_DEV float mdiv(float x, float v, float yv) {
 template <int NL>
 struct LevRow {
   float v[NL];
-  DP_DEV LevRow(float*, int) {}
-  DP_DEV float& operator[](int l) { return v[l]; }
+  VAE_DEV LevRow(float*, int) {}
+  VAE_DEV float& operator[](int l) { return v[l]; }
 };
 template <>
 struct LevRow<0> {
   float* row;
   int stride;
-  DP_DEV LevRow(float* r, int st) : row(r), stride(st) {}
-  DP_DEV float& operator[](int l) { return row[l * stride]; }
+  VAE_DEV LevRow(float* r, int st) : row(r), stride(st) {}
+  VAE_DEV float& operator[](int l) { return row[l * stride]; }
 };
 
 // The step, for NL levels (8), or any n_lev up to MAX_LEV (NL 0). Reads s.x,
@@ -415,7 +375,7 @@ struct LevRow<0> {
 // gout, gw, gh in shared memory and the scalars sc = [loss, C_x, C_y, gC_x,
 // gC_y] (C is var_est * n_eff). Ends with a barrier.
 template <int NL>
-DP_DEV void dp_step(const Dims& D, const Smem& s, int tid, int nt, Clock& ck) {
+VAE_DEV void dp_step(const Dims& D, const Smem& s, int tid, int nt, Clock& ck) {
   const int n_sym = D.n_sym, m = D.m, n_lev = NL ? NL : D.n_lev, n_samp = D.n_samp;
   const int mh = D.mh, mh2 = D.mh2, n_eff = D.n_eff, xs = D.xs;
 
@@ -432,14 +392,14 @@ DP_DEV void dp_step(const Dims& D, const Smem& s, int tid, int nt, Clock& ck) {
       const float sg = xsign(comp, i);
       for (int k = 0; k < m; ++k) {
         const float xv = xr[k];
-        p0 = DP_FMA(sg * w0[k], xv, p0);
-        p1 = DP_FMA(sg * w1[k], xv, p1);
+        p0 = VAE_FMA(sg * w0[k], xv, p0);
+        p1 = VAE_FMA(sg * w1[k], xv, p1);
       }
     }
     s.out[comp * n_sym + t] = p0;
     s.out[(2 + comp) * n_sym + t] = p1;
   }
-  DP_SYNC();
+  VAE_SYNC();
   clk_mark(ck, PH_FORWARD);
 
   // ---- demapper per (pol, comp, t): met -> mm, s1, q, argmax, moments, KL.
@@ -492,7 +452,7 @@ DP_DEV void dp_step(const Dims& D, const Smem& s, int tid, int nt, Clock& ck) {
     s.eq[((it / n_sym >> 1) * n_sym + t) * 2 + (it / n_sym & 1)] = eqv;
     s.v[it] = eq2v - eqv * eqv;
   }
-  DP_SYNC();
+  VAE_SYNC();
   clk_mark(ck, PH_DEMAP);
 
   // ---- one pass, two kinds of work (warp-aligned, so the shuffles of the
@@ -522,8 +482,8 @@ DP_DEV void dp_step(const Dims& D, const Smem& s, int tid, int nt, Clock& ck) {
             const float sr = c == 0 ? 1.f : -1.f;
             for (int jf = n & 1; jf <= mh2; jf += 2) {
               const float ev = e[(n + jf) & ~1];  // t = (n + jf) / 2
-              dr = DP_FMA(sr * cr[mh2 - jf], ev, dr);
-              di = DP_FMA(ci[mh2 - jf], ev, di);
+              dr = VAE_FMA(sr * cr[mh2 - jf], ev, dr);
+              di = VAE_FMA(ci[mh2 - jf], ev, di);
             }
           }
           const float rr = s.x[(chi * 2 + 0) * xs + mh2 + n], ri = s.x[(chi * 2 + 1) * xs + mh2 + n];
@@ -561,7 +521,7 @@ DP_DEV void dp_step(const Dims& D, const Smem& s, int tid, int nt, Clock& ck) {
     r[1] = c1;
     r[2] = kl_part;
   }
-  DP_SYNC();
+  VAE_SYNC();
   clk_mark(ck, PH_DSC);
 
   // ---- one warp: the block totals in a fixed order, the E term, the scalars
@@ -602,10 +562,10 @@ DP_DEV void dp_step(const Dims& D, const Smem& s, int tid, int nt, Clock& ck) {
       const float* h1 = s.h + ((1 * 2 + nu) * 2) * m;
       const float a0 = h0[j] * h0[j] + h0[m + j] * h0[m + j];
       const float a1 = h1[j] * h1[j] + h1[m + j] * h1[m + j];
-      s.gvt[q] = DP_FMA(g1, a1, g0 * a0);
+      s.gvt[q] = VAE_FMA(g1, a1, g0 * a0);
     }
   }
-  DP_SYNC();
+  VAE_SYNC();
   clk_mark(ck, PH_SCALARS);
 
   // ================= backward (dL/dloss = 1; dL/dD = sc[3 + chi] u) =================
@@ -627,10 +587,10 @@ DP_DEV void dp_step(const Dims& D, const Smem& s, int tid, int nt, Clock& ck) {
       for (int j = jlo; j < jhi; ++j) {
         const float2 uv = ld2(uc + 2 * (ps + j - mh2));
         const float g_re = gc * uv.x, g_im = gc * uv.y, hrj = hr[j], hij = hi[j];
-        ch1[0] = DP_FMA(g_re, hrj, ch1[0]);
-        ch2[0] = DP_FMA(g_im, hij, ch2[0]);
-        ch1[1] = DP_FMA(g_im, hrj, ch1[1]);
-        ch2[1] = DP_FMA(g_re, hij, ch2[1]);
+        ch1[0] = VAE_FMA(g_re, hrj, ch1[0]);
+        ch2[0] = VAE_FMA(g_im, hij, ch2[0]);
+        ch1[1] = VAE_FMA(g_im, hrj, ch1[1]);
+        ch2[1] = VAE_FMA(g_re, hij, ch2[1]);
       }
     }
     // gVar: sum over the tap window of sum_chi gC_chi |h[chi, nu, j]|^2
@@ -670,7 +630,7 @@ DP_DEV void dp_step(const Dims& D, const Smem& s, int tid, int nt, Clock& ck) {
     const float go[2] = {fdiv(acc[0], r_var), fdiv(acc[1], r_var)};
     *reinterpret_cast<float2*>(s.gout + t * 4 + 2 * nu) = float2{go[0], go[1]};
   }
-  DP_SYNC();
+  VAE_SYNC();
   clk_mark(ck, PH_BACK);
 
   // ---- gw and gh in one pass, each item four fused chains in the plain
@@ -688,10 +648,10 @@ DP_DEV void dp_step(const Dims& D, const Smem& s, int tid, int nt, Clock& ck) {
       for (int t = 0; t < n_sym; ++t) {
         const float4 g = ld4(s.gout + 4 * t);  // (o 0 I, o 0 Q, o 1 I, o 1 Q)
         const float xv0 = x0[2 * t], xv1 = x1[2 * t];
-        a0 = DP_FMA(g.x, xv0, a0);
-        b0 = DP_FMA(g.y, xv1, b0);
-        a1 = DP_FMA(g.z, xv0, a1);
-        b1 = DP_FMA(g.w, xv1, b1);
+        a0 = VAE_FMA(g.x, xv0, a0);
+        b0 = VAE_FMA(g.y, xv1, b0);
+        a1 = VAE_FMA(g.z, xv0, a1);
+        b1 = VAE_FMA(g.w, xv1, b1);
       }
       const float sg0 = xsign(0, i), sg1 = xsign(1, i);
       s.gw[i * m + k] = sg0 * a0 + sg1 * b0;
@@ -705,10 +665,10 @@ DP_DEV void dp_step(const Dims& D, const Smem& s, int tid, int nt, Clock& ck) {
       for (int n = j & 1; n < n_eff; n += 2) {  // n + mh2 - j even: t = (n + mh2 - j) / 2
         const float2 uv = ld2(uc + 2 * n), ev = ld2(e + n + mh2 - j);
         const float g_re = gc * uv.x, g_im = gc * uv.y;
-        ar = DP_FMA(g_re, ev.x, ar);
-        br = DP_FMA(g_im, ev.y, br);
-        ai = DP_FMA(g_im, ev.x, ai);
-        bi = DP_FMA(g_re, ev.y, bi);
+        ar = VAE_FMA(g_re, ev.x, ar);
+        br = VAE_FMA(g_im, ev.y, br);
+        ai = VAE_FMA(g_im, ev.x, ai);
+        bi = VAE_FMA(g_re, ev.y, bi);
       }
       const int o = ((chi * 2 + nu) * 2) * m + j;
       const float sj = s.S[nu * m + j];
@@ -716,15 +676,15 @@ DP_DEV void dp_step(const Dims& D, const Smem& s, int tid, int nt, Clock& ck) {
       s.gh[o + m] = (ai + -bi) + 2.f * gc * s.h[o + m] * sj;
     }
   }
-  DP_SYNC();
+  VAE_SYNC();
   clk_mark(ck, PH_GW);
 }
 
 // One Adam update (optax.adam: b1 .9, b2 .999, eps 1e-8 outside the sqrt,
 // bias correction with t = step + 1) of w (lr_w) and h (lr_h), one parameter
 // per thread, op for op as the plain version's f32 tensor expression.
-DP_DEV void adam(const Smem& s, int np, float lr_w, float lr_h, float bc1, float bc2, int tid,
-                 int nt) {
+VAE_DEV void adam(const Smem& s, int np, float lr_w, float lr_h, float bc1, float bc2, int tid,
+                  int nt) {
   const double bc1d = bc1, bc2d = bc2, rbc1 = s.rd[MAX_LEV + 4], rbc2 = s.rd[MAX_LEV + 5];
   const float omb1 = (float)(1.0 - 0.9), omb2 = (float)(1.0 - 0.999);
   for (int k = tid; k < 2 * np; k += nt) {
@@ -746,10 +706,10 @@ DP_DEV void adam(const Smem& s, int np, float lr_w, float lr_h, float bc1, float
 // layout. x's 4 rows (pol*2 + I/Q) lie x_row floats apart, so the block reads
 // a window of a longer frame row in place. NL: dp_step's.
 template <int NL>
-DP_DEV void step_block(float* smem, int tid, int nt, const float* x, long long x_row,
-                       const float* w, const float* h, const float* amps, const float* P,
-                       const float* var, float nu_sc, int n_sym, int m, int n_lev, float* stats,
-                       float* gw, float* gh, float* q, float* out) {
+VAE_DEV void step_block(float* smem, int tid, int nt, const float* x, long long x_row,
+                        const float* w, const float* h, const float* amps, const float* P,
+                        const float* var, float nu_sc, int n_sym, int m, int n_lev, float* stats,
+                        float* gw, float* gh, float* q, float* out) {
   const Dims D = make_dims(n_sym, m, n_lev);
   const float var0 = var[0], var1 = var[1];
   const Layout L = make_layout(D, nt);
@@ -760,9 +720,9 @@ DP_DEV void step_block(float* smem, int tid, int nt, const float* x, long long x
     s.w[i] = w[i];
     s.h[i] = h[i];
   }
-  DP_SYNC();
+  VAE_SYNC();
   load_x(D, s, x, x_row, tid, nt);
-  DP_SYNC();
+  VAE_SYNC();
   Clock ck;
   ck.on = false;
   dp_step<NL>(D, s, tid, nt, ck);
@@ -793,16 +753,16 @@ DP_DEV void step_block(float* smem, int tid, int nt, const float* x, long long x
 constexpr int N_PREFETCH = 4;
 
 template <int NL, typename SF, typename SD>
-DP_DEV void frame_block(float* smem, int tid, int nt, int r, int R, int m_max, int n_sym,
-                        int stride_sym, int m, int n_lev, long long n_total, const float* rx,
-                        const float* w_in,
-                        const float* h_in, const float* mw_in, const float* vw_in,
-                        const float* mh_in, const float* vh_in, float* w_out, float* h_out,
-                        float* mw_out, float* vw_out, float* mh_out, float* vh_out,
-                        float* losses, float* var_est, SF* out, SD* dec, SF* eq,
-                        float* mm, float* s1, const float* amps, const float* P,
-                        const float* var, const float* nu_sc, const float* lr, long long step0,
-                        double lr_half_step, long long* clocks) {
+VAE_DEV void frame_block(float* smem, int tid, int nt, int r, int R, int m_max, int n_sym,
+                         int stride_sym, int m, int n_lev, long long n_total, const float* rx,
+                         const float* w_in,
+                         const float* h_in, const float* mw_in, const float* vw_in,
+                         const float* mh_in, const float* vh_in, float* w_out, float* h_out,
+                         float* mw_out, float* vw_out, float* mh_out, float* vh_out,
+                         float* losses, float* var_est, SF* out, SD* dec, SF* eq,
+                         float* mm, float* s1, const float* amps, const float* P,
+                         const float* var, const float* nu_sc, const float* lr, long long step0,
+                         double lr_half_step, long long* clocks) {
   const Dims D = make_dims(n_sym, m, n_lev);
   const float var0 = var[2 * r], var1 = var[2 * r + 1], lr_r = lr[r];
   const Layout L = make_layout(D, nt);
@@ -820,7 +780,7 @@ DP_DEV void frame_block(float* smem, int tid, int nt, int r, int R, int m_max, i
     s.vh[i] = vh_in[pofs + i];
   }
   const float* rx_r = rx + (long long)r * 4 * n_total;
-  DP_SYNC();
+  VAE_SYNC();
   load_x(D, s, rx_r, n_total, tid, nt);
   const float ne = (float)D.n_eff;
   // Adam's step scalars, once per step (the last thread: it has the least
@@ -830,7 +790,7 @@ DP_DEV void frame_block(float* smem, int tid, int nt, int r, int R, int m_max, i
   Clock ck;
   ck.on = clocks != nullptr && r == 0 && tid == 0;
   for (int p = 0; p < N_PHASES; ++p) ck.c[p] = 0;
-  DP_SYNC();
+  VAE_SYNC();
   for (int mb = 0; mb < m_max; ++mb) {
     clk_start(ck);
     const long long step = step0 + mb;
@@ -886,7 +846,7 @@ DP_DEV void frame_block(float* smem, int tid, int nt, int r, int R, int m_max, i
         s.x[row * xs + mh + k] = nx_src[row * n_total + k];
       }
     }
-    DP_SYNC();
+    VAE_SYNC();
     clk_mark(ck, PH_ADAM);
   }
   for (int i = tid; i < np; i += nt) {

@@ -4,15 +4,10 @@
 // "thread" (tid 0 of 1) runs every item of every phase, a warp is one lane,
 // barriers are no-ops and the blocks of the runs run one after another.
 //
-//   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC -DNN_HOST_EMULATION
-//       -o libnn_host.so nn_host_emulation.cpp
-//
-// tests/test_torch_nn_step_emulation.py builds it, patches ops/_build.py's
-// load / stream to return it, and calls the wrapper's own launch code on CPU
-// tensors against the plain version.
-#ifndef NN_HOST_EMULATION
-#define NN_HOST_EMULATION
-#endif
+// ops/_build.py: host_library builds it under VAE_HOST_EMULATION;
+// tests/test_torch_nn_step_emulation.py patches ops/_build.py's load / stream
+// to return it, and calls the wrapper's own launch code on CPU tensors against
+// the plain version.
 #include <stdlib.h>
 
 #include "nn_step.cuh"

@@ -69,18 +69,17 @@
 // Sums are in a fixed order (in-thread chains, fixed shuffle trees) and there
 // are no atomics, so a run repeats bit for bit.
 //
-// Compiles as plain C++ with -DNN_HOST_EMULATION (one "thread", a warp of
+// Compiles as plain C++ with -DVAE_HOST_EMULATION (one "thread", a warp of
 // one lane, barriers are no-ops; csrc/nn_host_emulation.cpp), to check its
-// arithmetic without a GPU. It includes siso_step.cuh for AMSGrad and the
-// host / device macros.
+// arithmetic without a GPU. It includes siso_step.cuh for AMSGrad.
 #pragma once
 
-#if defined(NN_HOST_EMULATION) && !defined(SISO_HOST_EMULATION)
-#define SISO_HOST_EMULATION
-#endif
+#include "portable.cuh"
 #include "siso_step.cuh"
 
 namespace nn {
+
+using namespace vae;  // copy_async, copy_async_wait
 
 constexpr float BN_EPS = 1e-5f;
 constexpr int N_STATE = 17;  // w1 w2 h bnp rs, then (m, v, x) of w1, w2, h, bnp
@@ -88,39 +87,23 @@ constexpr int N_EVAL = 5;    // w1 w2 h bnp rs
 constexpr int kBlock = 512;  // threads per block (nn_kernels.cu)
 constexpr int MAX_WARPS = 32;
 
-#ifdef NN_HOST_EMULATION
+// A warp of one lane in emulation (kept here, not in portable.cuh: cma, dfe
+// and siso emulate the card's lanes instead).
+#ifdef VAE_HOST_EMULATION
 constexpr int kWarp = 1;
 inline float warp_sum(float v) { return v; }
-#define NN_CLOCK() 0LL
-#define NN_FMA(a, b, c) fmaf(a, b, c)
-struct float2 {
-  float x, y;
-};
-struct float4 {
-  float x, y, z, w;
-};
-inline void copy_async(float* dst, const float* src) { *dst = *src; }
-inline void copy_async_wait() {}
 #else
 constexpr int kWarp = 32;
 __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
-#define NN_CLOCK() clock64()
-#define NN_FMA(a, b, c) __fmaf_rn(a, b, c)
-// One float from device to shared memory, in flight until copy_async_wait.
-__device__ __forceinline__ void copy_async(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void copy_async_wait() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 #endif
 
 // G consecutive floats from / to shared memory in one vector access (the
 // arrays so accessed lie at multiples of 4 words, make_layout).
 template <int G>
-SISO_DEV void ldv(const float* p, float* o) {
+VAE_DEV void ldv(const float* p, float* o) {
   if constexpr (G == 4) {
     const float4 v = *reinterpret_cast<const float4*>(p);
     o[0] = v.x;
@@ -134,7 +117,7 @@ SISO_DEV void ldv(const float* p, float* o) {
   }
 }
 template <int G>
-SISO_DEV void stv(float* p, const float* v) {
+VAE_DEV void stv(float* p, const float* v) {
   if constexpr (G == 4) {
     float4 w;
     w.x = v[0];
@@ -154,7 +137,8 @@ SISO_DEV void stv(float* p, const float* v) {
 // of each step (from the previous mark to the barrier that ends the phase)
 // into c[phase], in shared memory; the launcher's `clocks` receives them
 // summed over the call (ops/nn_frame_kernel.py: NN_CLOCK_PHASES names them).
-// With on false every mark is one untaken branch.
+// With on false every mark is one untaken branch (kept per kernel: cma, dfe
+// and siso compile their clocks in per CLK instead).
 enum Phase {
   PH_LOAD, PH_CONV1, PH_BN, PH_CONV2, PH_SOFTMAX, PH_ELBO, PH_GQ, PH_GW2, PH_CONV2T, PH_BNELU,
   PH_GW1, PH_AMS, N_PHASES
@@ -164,12 +148,12 @@ struct Clock {
   long long t;
   long long* c;
 };
-SISO_DEV void clk_start(Clock& k) {
-  if (k.on) k.t = NN_CLOCK();
+VAE_DEV void clk_start(Clock& k) {
+  if (k.on) k.t = VAE_CLOCK();
 }
-SISO_DEV void clk_mark(Clock& k, int ph) {
+VAE_DEV void clk_mark(Clock& k, int ph) {
   if (k.on) {
-    const long long now = NN_CLOCK();
+    const long long now = VAE_CLOCK();
     k.c[ph] += now - k.t;
     k.t = now;
   }
@@ -244,10 +228,10 @@ struct Dims {
   bool bn;
 };
 
-SISO_HD int round_up(int a, int b) { return (a + b - 1) / b * b; }
-SISO_HD int bank16(int a) { return (a + 15) / 32 * 32 + 16; }  // least >= a that is 16 mod 32
+VAE_HD int round_up(int a, int b) { return (a + b - 1) / b * b; }
+VAE_HD int bank16(int a) { return (a + 15) / 32 * 32 + 16; }  // least >= a that is 16 mod 32
 
-SISO_HD Dims make_dims(int n_sym, int m, int n_lev, int k1, bool bn) {
+VAE_HD Dims make_dims(int n_sym, int m, int n_lev, int k1, bool bn) {
   Dims d;
   d.n_lev = n_lev;
   d.ch = 2 * n_lev;
@@ -274,10 +258,10 @@ SISO_HD Dims make_dims(int n_sym, int m, int n_lev, int k1, bool bn) {
   return d;
 }
 
-SISO_HD int toff(const Dims& D, int t) { return (t & 1) * D.oo + (t >> 1); }
+VAE_HD int toff(const Dims& D, int t) { return (t & 1) * D.oo + (t >> 1); }
 
 // Sizes (floats per run) of the N_STATE arrays.
-SISO_HD void state_sizes(const Dims& D, int* sz) {
+VAE_HD void state_sizes(const Dims& D, int* sz) {
   const int base[4] = {D.ch * D.k1w, D.ch * D.w2w, 2 * D.m, 2 * D.ch};
   sz[0] = base[0];
   sz[1] = base[1];
@@ -290,7 +274,7 @@ SISO_HD void state_sizes(const Dims& D, int* sz) {
 
 // Shared index of element k (the JAX layout) of state array i: W1' and W2'
 // and their moments are held transposed, (column, channel).
-SISO_HD int sidx(const Dims& D, int i, int k) {
+VAE_HD int sidx(const Dims& D, int i, int k) {
   const int g = i < 5 ? i : (i - 5) / 3;
   if (g > 1) return k;
   const int w = g == 0 ? D.k1w : D.w2w;
@@ -317,13 +301,13 @@ struct Hdr {
   Layout L;
 };
 
-SISO_HD int take(int& o, int n) {
+VAE_HD int take(int& o, int n) {
   const int r = o;
   o += (n + 3) / 4 * 4;
   return r;
 }
 
-SISO_HD Layout make_layout(const Dims& D) {
+VAE_HD Layout make_layout(const Dims& D) {
   Layout L;
   int sz[N_STATE];
   state_sizes(D, sz);
@@ -361,8 +345,8 @@ SISO_HD Layout make_layout(const Dims& D) {
 // reduce-scatter in a fixed order (lane l ends with output l), then
 // write(i, total of output i). In emulation the one lane holds the totals.
 template <class W>
-SISO_DEV void tile_out(float (&v)[32], int lane, W write) {
-#ifdef NN_HOST_EMULATION
+VAE_DEV void tile_out(float (&v)[32], int lane, W write) {
+#ifdef VAE_HOST_EMULATION
   (void)lane;
   for (int i = 0; i < 32; ++i) write(i, v[i]);
 #else
@@ -391,8 +375,8 @@ SISO_DEV void tile_out(float (&v)[32], int lane, W write) {
 // its entropy term -sum q log(q + eps) inside the window t in [mh, N - mh).
 // NL levels unrolled (0: any n_lev up to MAX_LEV, the rest predicated off).
 template <int NL>
-SISO_DEV float softmax_column(const Dims& D, float* q, const float* amps, const float* a2, float* eq,
-                              float* v, int it) {
+VAE_DEV float softmax_column(const Dims& D, float* q, const float* amps, const float* a2, float* eq,
+                             float* v, int it) {
   constexpr int NA = NL ? NL : siso::MAX_LEV;
   const int nl = NL ? NL : D.n_lev, N = D.N, qs = D.qs;
   const int comp = it / N, t = it - comp * N;
@@ -431,8 +415,8 @@ SISO_DEV float softmax_column(const Dims& D, float* q, const float* amps, const 
 // For column it = (comp, t): ge = sum_j (h (*) u)[2t + j - mh2] over the taps
 // that reach [0, n_eff) (comp 0: u_re hr + u_im hi; comp 1: u_im hr - u_re
 // hi) and hsum = the sum of |h_j|^2 over the same taps.
-SISO_DEV void ge_column(const Dims& D, const float* u, const float* h, const float* h2, float* ge,
-                        float* hs, int it) {
+VAE_DEV void ge_column(const Dims& D, const float* u, const float* h, const float* h2, float* ge,
+                       float* hs, int it) {
   const int N = D.N, m = D.m, mh2 = D.mh2, us = D.us;
   const int comp = it / N, t = it - comp * N, ps = 2 * t;
   const int jlo = mh2 - ps > 0 ? mh2 - ps : 0, jhi = D.L - ps < m ? D.L - ps : m;
@@ -443,8 +427,8 @@ SISO_DEV void ge_column(const Dims& D, const float* u, const float* h, const flo
   float acc = 0.f, hsum = 0.f;
   for (int j = jlo; j < jhi; ++j) {
     const int o = (j & 1) * us + ((j - mh2) >> 1);
-    acc = NN_FMA(ua[o], h[j], acc);
-    acc = NN_FMA(sg * ub[o], h[m + j], acc);
+    acc = VAE_FMA(ua[o], h[j], acc);
+    acc = VAE_FMA(sg * ub[o], h[m + j], acc);
     hsum += h2[j];
   }
   ge[it] = acc;
@@ -455,9 +439,9 @@ SISO_DEV void ge_column(const Dims& D, const float* u, const float* h, const flo
 // the softmax VJP in place: gz = q (gq - <q, gq>). dL/dE_q[x] = g_C ge -
 // 2 E_q[x] gv and dL/dVar_q[x] = gv = g_C hsum at sample 2t (ge_column).
 template <int NL>
-SISO_DEV void softmax_vjp_column(const Dims& D, float* q, const float* amps, const float* a2,
-                                 const float* eq, const float* ge, const float* hs, float g_c,
-                                 int it) {
+VAE_DEV void softmax_vjp_column(const Dims& D, float* q, const float* amps, const float* a2,
+                                const float* eq, const float* ge, const float* hs, float g_c,
+                                int it) {
   constexpr int NA = NL ? NL : siso::MAX_LEV;
   const int nl = NL ? NL : D.n_lev, N = D.N, qs = D.qs;
   const int comp = it / N, t = it - comp * N;
@@ -485,8 +469,8 @@ SISO_DEV void softmax_vjp_column(const Dims& D, float* q, const float* amps, con
 // loss in sc[0], the gradients in gw1 / gw2 / gh / gbn and the updated
 // running statistics in rs.
 template <int G, int NL>
-SISO_DEV void nn_step(const Hdr& H, float* base, const float* x, float momentum, int tid, int nt,
-                      Clock& ck) {
+VAE_DEV void nn_step(const Hdr& H, float* base, const float* x, float momentum, int tid, int nt,
+                     Clock& ck) {
   const int lane = tid % kWarp, warp = tid / kWarp, nw = nt / kWarp;
 
   // ---- conv1 + bias, ELU: warp items (channel group, block of kWarp TS
@@ -516,7 +500,7 @@ SISO_DEV void nn_step(const Hdr& H, float* base, const float* x, float momentum,
         for (int s = 0; s < TS; ++s) {
           const float xa = x0[k + kWarp * s], xb = x0[xs + k + kWarp * s];
 #pragma unroll
-          for (int q = 0; q < G; ++q) acc[q][s] = NN_FMA(wb[q], xb, NN_FMA(wa[q], xa, acc[q][s]));
+          for (int q = 0; q < G; ++q) acc[q][s] = VAE_FMA(wb[q], xb, VAE_FMA(wa[q], xa, acc[q][s]));
         }
       }
       float b[G];
@@ -535,7 +519,7 @@ SISO_DEV void nn_step(const Hdr& H, float* base, const float* x, float momentum,
         }
       }
     }
-    SISO_SYNC();
+    VAE_SYNC();
   }
   clk_mark(ck, PH_CONV1);
 
@@ -566,7 +550,7 @@ SISO_DEV void nn_step(const Hdr& H, float* base, const float* x, float momentum,
         rsv[2 * c + 1] = (1.f - momentum) * rsv[2 * c + 1] + momentum * var * unb;
       }
     }
-    SISO_SYNC();
+    VAE_SYNC();
     const float* bnp = base + H.L.state[3];
     float* a = base + H.L.a;
     for (int r = warp; r < 2 * ch; r += nw) {  // rows (channel, plane)
@@ -578,7 +562,7 @@ SISO_DEV void nn_step(const Hdr& H, float* base, const float* x, float momentum,
         a[o0 + n] = xh * gamma + beta;
       }
     }
-    SISO_SYNC();
+    VAE_SYNC();
   }
   clk_mark(ck, PH_BN);
 
@@ -609,7 +593,7 @@ SISO_DEV void nn_step(const Hdr& H, float* base, const float* x, float momentum,
           for (int s = 0; s < TS; ++s) {
             const float av = ad[j * rs + kWarp * s];
 #pragma unroll
-            for (int qq = 0; qq < G2; ++qq) acc[qq][s] = NN_FMA(w[qq], av, acc[qq][s]);
+            for (int qq = 0; qq < G2; ++qq) acc[qq][s] = VAE_FMA(w[qq], av, acc[qq][s]);
           }
         }
       }
@@ -627,7 +611,7 @@ SISO_DEV void nn_step(const Hdr& H, float* base, const float* x, float momentum,
         }
       }
     }
-    SISO_SYNC();
+    VAE_SYNC();
   }
   clk_mark(ck, PH_CONV2);
 
@@ -641,7 +625,7 @@ SISO_DEV void nn_step(const Hdr& H, float* base, const float* x, float momentum,
     float* eq = base + H.L.eq;
     float* v = base + H.L.v;
     for (int it = tid; it < 2 * D.N; it += nt) ent_part += softmax_column<NL>(D, q, amps, a2, eq, v, it);
-    SISO_SYNC();
+    VAE_SYNC();
   }
   clk_mark(ck, PH_SOFTMAX);
 
@@ -664,8 +648,8 @@ SISO_DEV void nn_step(const Hdr& H, float* base, const float* x, float momentum,
       for (int j = (n + mh2) & 1; j < m; j += 2) {  // EqUp is zero at odd samples
         const int tt = (n + mh2 - j) >> 1;
         const float ei = eq[tt], eqq = eq[N + tt];
-        dre = NN_FMA(-h[m + j], eqq, NN_FMA(h[j], ei, dre));
-        dim = NN_FMA(h[j], eqq, NN_FMA(h[m + j], ei, dim));
+        dre = VAE_FMA(-h[m + j], eqq, VAE_FMA(h[j], ei, dre));
+        dim = VAE_FMA(h[j], eqq, VAE_FMA(h[m + j], ei, dim));
       }
       const float xr = x[D.xl + mh + n], xi = x[xs + D.xl + mh + n];
       const float er = xr - dre, ei = xi - dim;
@@ -690,7 +674,7 @@ SISO_DEV void nn_step(const Hdr& H, float* base, const float* x, float momentum,
       red[warp] = c_part;
       red[MAX_WARPS + warp] = ent_part;
     }
-    SISO_SYNC();
+    VAE_SYNC();
     if (warp == 0) {
       float* sc = base + H.L.sc;
       float c = 0.f, ent = 0.f, e = 0.f;
@@ -720,7 +704,7 @@ SISO_DEV void nn_step(const Hdr& H, float* base, const float* x, float momentum,
         for (int it = tid - w0 * kWarp; it < 2 * N; it += nt - w0 * kWarp)
           ge_column(D, u, h, h2, ge, hs, it);
     }
-    SISO_SYNC();
+    VAE_SYNC();
   }
   clk_mark(ck, PH_ELBO);
 
@@ -748,8 +732,8 @@ SISO_DEV void nn_step(const Hdr& H, float* base, const float* x, float momentum,
       for (int i = lane; 2 * i + (j & 1) < n_eff; i += kWarp) {
         const int tt = i + ((j & 1) + mh2 - j) / 2;  // (n + mh2 - j) / 2
         const float ei = eq[tt], eqq = eq[N + tt], uR = ur[i], uI = ur[2 * us + i];
-        ar = NN_FMA(uI, eqq, NN_FMA(uR, ei, ar));
-        ai = NN_FMA(-uR, eqq, NN_FMA(uI, ei, ai));
+        ar = VAE_FMA(uI, eqq, VAE_FMA(uR, ei, ar));
+        ai = VAE_FMA(-uR, eqq, VAE_FMA(uI, ei, ai));
       }
       ar = warp_sum(ar);
       ai = warp_sum(ai);
@@ -758,7 +742,7 @@ SISO_DEV void nn_step(const Hdr& H, float* base, const float* x, float momentum,
         gh[m + j] = g_c * ai + 2.f * g_c * h[m + j] * S[j];
       }
     }
-    SISO_SYNC();
+    VAE_SYNC();
   }
   clk_mark(ck, PH_GQ);
 
@@ -793,7 +777,7 @@ SISO_DEV void nn_step(const Hdr& H, float* base, const float* x, float momentum,
           for (int s = 0; s < CW; ++s) {
             const float av = ar[s][n];
 #pragma unroll
-            for (int qq = 0; qq < G; ++qq) acc[s * G + qq] = NN_FMA(gv[qq], av, acc[s * G + qq]);
+            for (int qq = 0; qq < G; ++qq) acc[s * G + qq] = VAE_FMA(gv[qq], av, acc[s * G + qq]);
           }
         }
         tile_out(acc, lane, [&](int i, float val) {
@@ -812,7 +796,7 @@ SISO_DEV void nn_step(const Hdr& H, float* base, const float* x, float momentum,
         }
       }
     }
-    SISO_SYNC();
+    VAE_SYNC();
   }
   clk_mark(ck, PH_GW2);
 
@@ -839,7 +823,7 @@ SISO_DEV void nn_step(const Hdr& H, float* base, const float* x, float momentum,
           for (int s = 0; s < TS; ++s) {
             const float gv = gz[c * qs + n0 + kWarp * s];
 #pragma unroll
-            for (int qq = 0; qq < G; ++qq) acc[qq][s] = NN_FMA(w[qq], gv, acc[qq][s]);
+            for (int qq = 0; qq < G; ++qq) acc[qq][s] = VAE_FMA(w[qq], gv, acc[qq][s]);
           }
         }
       } else {
@@ -852,7 +836,7 @@ SISO_DEV void nn_step(const Hdr& H, float* base, const float* x, float momentum,
             const float* gr = gz + c * qs + n0 + kWarp * s;
             const float g2 = gr[0], g0 = gr[1];
 #pragma unroll
-            for (int qq = 0; qq < G; ++qq) acc[qq][s] = NN_FMA(w0[qq], g0, NN_FMA(w2[qq], g2, acc[qq][s]));
+            for (int qq = 0; qq < G; ++qq) acc[qq][s] = VAE_FMA(w0[qq], g0, VAE_FMA(w2[qq], g2, acc[qq][s]));
           }
         }
       }
@@ -864,7 +848,7 @@ SISO_DEV void nn_step(const Hdr& H, float* base, const float* x, float momentum,
           for (int qq = 0; qq < G; ++qq) a[(G * g + qq) * rs + p * oo + n] = acc[qq][s];
       }
     }
-    SISO_SYNC();
+    VAE_SYNC();
   }
   clk_mark(ck, PH_CONV2T);
 
@@ -903,7 +887,7 @@ SISO_DEV void nn_step(const Hdr& H, float* base, const float* x, float momentum,
         bnst[4 * c + 3] = s2 * inv_l;
       }
     }
-    SISO_SYNC();
+    VAE_SYNC();
   }
 
   // ---- [BatchNorm input gradient] and the ELU VJP: gh1 = ge elu'(h1), into a;
@@ -926,7 +910,7 @@ SISO_DEV void nn_step(const Hdr& H, float* base, const float* x, float momentum,
         a[o0 + n] = g * dact[o0 + n];
       }
     }
-    SISO_SYNC();
+    VAE_SYNC();
   }
   clk_mark(ck, PH_BNELU);
 
@@ -960,11 +944,11 @@ SISO_DEV void nn_step(const Hdr& H, float* base, const float* x, float momentum,
             for (int s = 0; s < CW; ++s) {
               const float xv = xp[(s & 1) * xs + (s >> 1)];
 #pragma unroll
-              for (int qq = 0; qq < G; ++qq) acc[s * G + qq] = NN_FMA(gv[qq], xv, acc[s * G + qq]);
+              for (int qq = 0; qq < G; ++qq) acc[s * G + qq] = VAE_FMA(gv[qq], xv, acc[s * G + qq]);
             }
           }
         };
-#ifdef NN_HOST_EMULATION
+#ifdef VAE_HOST_EMULATION
         run(0, 2);
         run(1, 2);
 #else
@@ -988,7 +972,7 @@ SISO_DEV void nn_step(const Hdr& H, float* base, const float* x, float momentum,
         }
       }
     }
-    SISO_SYNC();
+    VAE_SYNC();
   }
   clk_mark(ck, PH_GW1);
 }
@@ -996,13 +980,13 @@ SISO_DEV void nn_step(const Hdr& H, float* base, const float* x, float momentum,
 // Kernel H's block for channel tiles of G and NL levels (0: any): run r trains
 // its whole experiment.
 template <int G, int NL>
-SISO_DEV void experiment_run(float* smem, int tid, int nt, int r, const Args& A) {
+VAE_DEV void experiment_run(float* smem, int tid, int nt, int r, const Args& A) {
   Hdr* hp = reinterpret_cast<Hdr*>(smem);
   if (tid == 0) {
     hp->D = make_dims(A.n_sym, A.m, A.n_lev, A.k1, A.batchnorm != 0);
     hp->L = make_layout(hp->D);
   }
-  SISO_SYNC();
+  VAE_SYNC();
   const Hdr& H = *hp;
   float* const base = smem;
   int sz[N_STATE];
@@ -1028,7 +1012,7 @@ SISO_DEV void experiment_run(float* smem, int tid, int nt, int r, const Args& A)
   const int n_groups = H.D.bn ? 4 : 3;  // w1, w2, h [, gamma | beta]
   const float* rx_r = A.rx + (long long)r * A.n_epochs * 2 * A.n_total;
   const long long n_steps = (long long)A.n_epochs * A.n_batches;
-  SISO_SYNC();
+  VAE_SYNC();
   for (int i = tid; i < 2 * H.D.L; i += nt) {  // minibatch 0 into buffer 0
     const int row = i / H.D.L;
     base[H.L.x + row * H.D.xs + H.D.xl + i - row * H.D.L] = rx_r[row * A.n_total + (i - row * H.D.L)];
@@ -1040,7 +1024,7 @@ SISO_DEV void experiment_run(float* smem, int tid, int nt, int r, const Args& A)
       for (int k = tid; k < sz[i]; k += nt) A.ev[i][ofs + k] = base[H.L.state[i] + sidx(H.D, i, k)];
     }
   };
-  SISO_SYNC();
+  VAE_SYNC();
 
   for (int e = 0; e < A.n_epochs; ++e) {
     for (int b = 0; b < A.n_batches; ++b) {
@@ -1080,7 +1064,7 @@ SISO_DEV void experiment_run(float* smem, int tid, int nt, int r, const Args& A)
         }
       }
       copy_async_wait();
-      SISO_SYNC();
+      VAE_SYNC();
       clk_mark(ck, PH_AMS);
     }
     if (e % A.epe == 0 && e / A.epe < A.n_evals) write_slot(e / A.epe);
@@ -1095,7 +1079,7 @@ SISO_DEV void experiment_run(float* smem, int tid, int nt, int r, const Args& A)
 
 // Kernel H's block: run r trains its whole experiment (the launchers'
 // entry): 4-channel tiles where C allows, else 2; 64-QAM's 8 levels unrolled.
-SISO_DEV void experiment_block(float* smem, int tid, int nt, int r, const Args& A) {
+VAE_DEV void experiment_block(float* smem, int tid, int nt, int r, const Args& A) {
   if (A.n_lev == 8)
     experiment_run<4, 8>(smem, tid, nt, r, A);
   else if (2 * A.n_lev % 4 == 0)

@@ -5,18 +5,18 @@
 // "thread" runs every item of every phase, computes every lane's partial of
 // a split sum and each block total's thread and warp partials in the card's
 // order (siso::kThreads threads), barriers are no-ops and the blocks of the
-// runs run one after another.
+// runs run one after another. vae_siso_division_check holds the body's two
+// branch-free division forms to IEEE division.
 //
-//   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC -DSISO_HOST_EMULATION
-//       -o libsiso_host.so siso_host_emulation.cpp
-//
-// tests/test_torch_siso_step_emulation.py builds it, patches ops/_build.py's
-// load / stream to return it, and calls the wrappers' own launch code on CPU
-// tensors against the plain versions.
-#ifndef SISO_HOST_EMULATION
-#define SISO_HOST_EMULATION
-#endif
+// ops/_build.py: host_library builds it under VAE_HOST_EMULATION;
+// tests/test_torch_siso_step_emulation.py patches ops/_build.py's load /
+// stream to return it, and calls the wrappers' own launch code on CPU tensors
+// against the plain versions.
 #include <stdlib.h>
+#include <string.h>
+
+#include <cstdint>
+#include <random>
 
 #include "siso_step.cuh"
 
@@ -29,6 +29,12 @@ bool bad_shape(int n_sym, int m, int n_lev) {
 float* block_smem(int n_sym, int m, int n_lev) {
   const siso::Layout L = siso::make_layout(siso::make_dims(n_sym, m, n_lev));
   return static_cast<float*>(calloc((size_t)L.total, sizeof(float)));
+}
+
+float f_of(uint32_t u) {
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
 }
 
 }  // namespace
@@ -73,6 +79,36 @@ int vae_siso_experiment_launch(int R, int n_epochs, int n_batches, int n_sym, in
           mh_out, vh_out, xh_out, losses, w_ev, h_ev, amps, P, amp_mean, var, lr, step0, clocks);
   free(smem);
   return 0;
+}
+
+// The body's two division forms against IEEE float division (round to
+// nearest) on n draws: fdiv's (float)(a * y) in double with y = RN(1 / b)
+// moved by -4..4 double ulps (a any finite float, zero and denormals
+// included; b > 0 normal in [2^-106, 2^94)), and the metric's Markstein
+// correction of x * RN(1 / v) (x = 0 or in [2^-100, 2^60), v in [2^-40,
+// 2^40)). bad[0], bad[1]: the quotients of each form that differ.
+void vae_siso_division_check(long long n, long long* bad) {
+  std::mt19937_64 g(12345);
+  bad[0] = bad[1] = 0;
+  for (long long i = 0; i < n; ++i) {
+    const uint64_t r = g();
+    uint32_t ua = (uint32_t)r & 0x7fffffffu;
+    if ((ua >> 23) == 0xff) ua = 0;
+    const uint32_t ub = ((uint32_t)(r >> 32) & 0x7fffffu) | ((uint32_t)(21 + (r >> 55) % 200) << 23);
+    const float a = (i & 1) ? -f_of(ua) : f_of(ua), b = f_of(ub), want = a / b;
+    if (isfinite(want))
+      for (int k = -4; k <= 4; ++k) {
+        double y = 1.0 / (double)b;
+        for (int s = 0; s < (k < 0 ? -k : k); ++s) y = nextafter(y, k < 0 ? 0.0 : 1e300);
+        const float got = siso::fdiv(a, y);
+        bad[0] += memcmp(&got, &want, 4) != 0;
+      }
+    const uint32_t ma = (i % 97 == 0) ? 0u : (((uint32_t)r & 0x7fffffu) | ((uint32_t)(27 + (r >> 23) % 160) << 23));
+    const uint32_t mb = ((uint32_t)(r >> 32) & 0x7fffffu) | ((uint32_t)(87 + (r >> 56) % 80) << 23);
+    const float x = f_of(ma), v = f_of(mb), yv = 1.f / v, q0 = x * yv;
+    const float q1 = fmaf(fmaf(-q0, v, x), yv, q0), wq = x / v;
+    bad[1] += memcmp(&q1, &wq, 4) != 0;
+  }
 }
 
 }  // extern "C"

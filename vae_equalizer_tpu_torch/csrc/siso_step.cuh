@@ -56,7 +56,7 @@
 // with --fmad=false, ops/_build.py; the dot products' fused multiply-adds
 // are explicit).
 //
-// The body also compiles as plain C++ (SISO_HOST_EMULATION), where one
+// The body also compiles as plain C++ (VAE_HOST_EMULATION), where one
 // "thread" (tid 0, nt 1) runs every item of every phase in order, computes
 // every lane's partial of a split sum and closes them with the card's
 // butterfly, and forms each block total from the card's per-thread and
@@ -65,30 +65,18 @@
 // checked against the plain version without a GPU
 // (csrc/siso_host_emulation.cpp).
 //
-// Kernel H (nn_step.cuh) includes this file for MAX_LEV, EPS_KL, amsgrad and
-// the SISO_HD / SISO_DEV / SISO_SYNC macros; it has its own ELBO back end.
+// Kernel H (nn_step.cuh) includes this file for MAX_LEV, EPS_KL and amsgrad;
+// it has its own ELBO back end.
 #pragma once
 
-#ifdef SISO_HOST_EMULATION
-#include <math.h>
-
-#include <vector>
-#define SISO_HD inline
-#define SISO_DEV inline
-#define SISO_SYNC() ((void)0)
-#define SISO_CLOCK() 0LL
-#define SISO_FMA(a, b, c) fmaf(a, b, c)
-#define SISO_DFMA(a, b, c) fma(a, b, c)
-#else
-#define SISO_HD __host__ __device__ __forceinline__
-#define SISO_DEV __device__ __forceinline__
-#define SISO_SYNC() __syncthreads()
-#define SISO_CLOCK() clock64()
-#define SISO_FMA(a, b, c) __fmaf_rn(a, b, c)
-#define SISO_DFMA(a, b, c) __fma_rn(a, b, c)
+#include "portable.cuh"
+#ifdef VAE_HOST_EMULATION
+#include <vector>  // Tot
 #endif
 
 namespace siso {
+
+using namespace vae;  // copy_async, copy_async_wait
 
 constexpr int MAX_LEV = 16;       // up to 256-QAM (16 levels per dimension)
 constexpr float EPS_KL = 1e-12f;  // KL log guard (elbo_siso's eps)
@@ -98,46 +86,48 @@ constexpr float AMS_EPS = 1e-8f;
 
 // Threads per block (siso_kernels.cu launches exactly this many; the
 // emulation reproduces their partition), a warp, and the lanes that share
-// one item of a split sum.
+// one item of a split sum. The card's warp in emulation too (kept here, not
+// in portable.cuh: dp, dp_eval and nn emulate a one-lane warp instead).
 constexpr int kThreads = 512;
 constexpr int kWarp = 32;
 constexpr int kWarps = kThreads / kWarp;
 constexpr int GS = 4;   // S[j]: ~n_sym terms
 constexpr int GH = 4;   // gh (re, im) at tap j: ~n_eff / 2 terms, 4 chains
 constexpr int GW = 16;  // gw (c = 0, 1) at tap k: n_sym terms, 4 chains
-#ifdef SISO_HOST_EMULATION
+#ifdef VAE_HOST_EMULATION
 constexpr bool kEmu = true;
 #else
 constexpr bool kEmu = false;
 #endif
 
-SISO_HD int warp_round(int n) { return (n + kWarp - 1) / kWarp * kWarp; }
+VAE_HD int warp_round(int n) { return (n + kWarp - 1) / kWarp * kWarp; }
 // a plane stride >= n and = 16 mod 32: planes read by one warp in one access
 // start 16 banks apart
-SISO_HD int plane_stride(int n) { return (n + 15) / 32 * 32 + 16; }
+VAE_HD int plane_stride(int n) { return (n + 15) / 32 * 32 + 16; }
 
 // Phase clocks (measurement only): thread 0 of run 0's block adds the
 // clock64() cycles of each phase into c[phase]; the launcher's `clocks`
 // receives them summed over the call (ops/elbo_siso_kernel.py:
-// SISO_CLOCK_PHASES names them). Compiled in only for CLK = true.
+// SISO_CLOCK_PHASES names them). Compiled in only for CLK = true (kept per
+// kernel: dp and nn switch theirs at run time instead).
 enum Phase { PH_LOAD, PH_FIR, PH_DEMAP, PH_DSC, PH_BACK, PH_GOUT, PH_GW, N_PHASES };
 template <bool CLK>
 struct Clock {
   bool on;
   long long t, c[N_PHASES];
-  SISO_DEV void start(bool enable) {
+  VAE_DEV void start(bool enable) {
     on = CLK && enable;
     for (int p = 0; p < N_PHASES; ++p) c[p] = 0;
-    if (CLK && on) t = SISO_CLOCK();
+    if (CLK && on) t = VAE_CLOCK();
   }
-  SISO_DEV void mark(int ph) {
+  VAE_DEV void mark(int ph) {
     if (CLK && on) {
-      const long long now = SISO_CLOCK();
+      const long long now = VAE_CLOCK();
       c[ph] += now - t;
       t = now;
     }
   }
-  SISO_DEV void store(long long* out) const {
+  VAE_DEV void store(long long* out) const {
     if (CLK && on)
       for (int p = 0; p < N_PHASES; ++p) out[p] = c[p];
   }
@@ -152,7 +142,7 @@ struct Dims {
   int n_sym, m, n_lev, n_samp, mh, mh2, n_eff, xn, xs, us;
 };
 
-SISO_HD Dims make_dims(int n_sym, int m, int n_lev) {
+VAE_HD Dims make_dims(int n_sym, int m, int n_lev) {
   Dims d;
   d.n_sym = n_sym;
   d.m = m;
@@ -193,7 +183,7 @@ struct Layout {
   int total;
 };
 
-SISO_HD Layout make_layout(const Dims& D) {
+VAE_HD Layout make_layout(const Dims& D) {
   Layout L;
   int o = 0;
   const int n2 = 2 * D.n_sym, pm = 2 * D.m;
@@ -232,7 +222,7 @@ struct Smem {
   double* rd;
 };
 
-SISO_DEV Smem carve(float* base, const Layout& L) {
+VAE_DEV Smem carve(float* base, const Layout& L) {
   Smem s;
   s.rd = reinterpret_cast<double*>(base + L.rd);
   s.x = base + L.x;
@@ -273,36 +263,25 @@ SISO_DEV Smem carve(float* base, const Layout& L) {
 // software path for tiny or zero dividends, and the demapper's far-level
 // posteriors are tiny or zero in every warp; this has no branch, so the
 // level loops schedule as straight-line code.
-SISO_DEV float fdiv(float a, double y) { return (float)((double)a * y); }
+VAE_DEV float fdiv(float a, double y) { return (float)((double)a * y); }
 
 // 1 / b in double to within ~2 ulps, without a branch: the approximate
 // reciprocal and two Newton steps on the card; the division on the host
-// (fdiv gives the same float from either).
-SISO_DEV double recip(double b) {
-#ifdef SISO_HOST_EMULATION
+// (fdiv gives the same float from either). Kept beside the fdiv that this
+// kernel's own division check holds.
+VAE_DEV double recip(double b) {
+#ifdef VAE_HOST_EMULATION
   return 1.0 / b;
 #else
   double y;
   asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(y) : "d"(b));
-  y = SISO_DFMA(y, SISO_DFMA(-b, y, 1.0), y);
-  return SISO_DFMA(y, SISO_DFMA(-b, y, 1.0), y);
+  y = VAE_DFMA(y, VAE_DFMA(-b, y, 1.0), y);
+  return VAE_DFMA(y, VAE_DFMA(-b, y, 1.0), y);
 #endif
 }
-
-// One float from device to shared memory, in flight until copy_async_wait.
-#ifdef SISO_HOST_EMULATION
-inline void copy_async(float* dst, const float* src) { *dst = *src; }
-inline void copy_async_wait() {}
-#else
-__device__ __forceinline__ void copy_async(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void copy_async_wait() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
-#endif
 
 // ---- Split sums and block totals, in the card's order.
-#ifdef SISO_HOST_EMULATION
+#ifdef VAE_HOST_EMULATION
 // The card's xor butterfly over g lanes: at each level lane l adds lane
 // l ^ off's value to its own.
 inline void butterfly(float* v, int g) {
@@ -318,8 +297,8 @@ inline void butterfly(float* v, int g) {
 // the item's N totals (on the card every lane of the group gets the same
 // bits; in emulation the one thread computes every lane's partials).
 template <int G, int N, typename F>
-SISO_DEV void group_sum(int lane, F&& part, float* out) {
-#ifdef SISO_HOST_EMULATION
+VAE_DEV void group_sum(int lane, F&& part, float* out) {
+#ifdef VAE_HOST_EMULATION
   (void)lane;
   float v[N][G];
   for (int l = 0; l < G; ++l) {
@@ -349,7 +328,7 @@ SISO_DEV void group_sum(int lane, F&& part, float* out) {
 // first, first + 1, ... of red. In emulation the contributions are kept in
 // the order they come (units in order, each unit's in the card thread's
 // order) and the card's thread and warp partials are formed from them.
-#ifdef SISO_HOST_EMULATION
+#ifdef VAE_HOST_EMULATION
 template <int K>
 struct Tot {
   struct Part {
@@ -398,7 +377,7 @@ struct Tot {
 
 // A block total after the barrier that follows to_warps: the warps' partials
 // in order (every thread the same bits).
-SISO_DEV float total(const float* red, int slot) {
+VAE_DEV float total(const float* red, int slot) {
   const float* r = red + slot * kWarps;
   float t = r[0];
   for (int wp = 1; wp < kWarps; ++wp) t += r[wp];
@@ -408,11 +387,11 @@ SISO_DEV float total(const float* red, int slot) {
 // The emulation's one thread computes a split sum's every lane at the
 // group's lane 0 and takes every lane's store; on the card lane `which`
 // stores.
-SISO_DEV bool owns(int lane, int which) { return kEmu || lane == which; }
+VAE_DEV bool owns(int lane, int which) { return kEmu || lane == which; }
 
 // Level constants: amps, a^2, the prior P and 1 / P; 1 / var. Once per block.
-SISO_DEV void load_consts(const Dims& D, const Smem& s, const float* amps, const float* P, float var,
-                          int tid, int nt) {
+VAE_DEV void load_consts(const Dims& D, const Smem& s, const float* amps, const float* P, float var,
+                         int tid, int nt) {
   for (int l = tid; l < D.n_lev; l += nt) {
     const float a = amps[l];
     s.amps[l] = a;
@@ -425,8 +404,8 @@ SISO_DEV void load_consts(const Dims& D, const Smem& s, const float* amps, const
 
 // One input buffer (4 planes) whole: the 2 rows of n_samp samples from src
 // (row stride `stride`) at their padded places, zeros elsewhere.
-SISO_DEV void load_x(const Dims& D, float* xb, const float* src, long long stride, int tid,
-                     int nt) {
+VAE_DEV void load_x(const Dims& D, float* xb, const float* src, long long stride, int tid,
+                    int nt) {
   for (int i = tid; i < 4 * D.xs; i += nt) {
     const int pl = i / D.xs, idx = i - pl * D.xs, smp = 2 * idx + (pl & 1) - D.mh;
     xb[i] = (idx < D.xn && smp >= 0 && smp < D.n_samp) ? src[(pl >> 1) * stride + smp] : 0.f;
@@ -435,8 +414,8 @@ SISO_DEV void load_x(const Dims& D, float* xb, const float* src, long long strid
 
 // The samples of the next minibatch into a buffer whose padding is already
 // zero, by cp.async (waited for at the end of the step).
-SISO_DEV void prefetch_x(const Dims& D, float* xb, const float* src, long long stride, int tid,
-                         int nt) {
+VAE_DEV void prefetch_x(const Dims& D, float* xb, const float* src, long long stride, int tid,
+                        int nt) {
   for (int i = tid; i < 2 * D.n_samp; i += nt) {
     const int row = i >= D.n_samp, smp = i - row * D.n_samp, ps = smp + D.mh;
     copy_async(xb + (row * 2 + (ps & 1)) * D.xs + (ps >> 1), src + row * stride + smp);
@@ -447,8 +426,8 @@ SISO_DEV void prefetch_x(const Dims& D, float* xb, const float* src, long long s
 // sqrt, nu_max over the bias-corrected nu, t = step + 1) of n parameters, op
 // for op as the plain version's f32 tensor expression (ops/siso_frame_kernel.py:
 // amsgrad).
-SISO_DEV void amsgrad(float* p, float* mo, float* ve, float* vmax, const float* g, int n, float lr,
-                      float bc1, float bc2, int tid, int nt) {
+VAE_DEV void amsgrad(float* p, float* mo, float* ve, float* vmax, const float* g, int n, float lr,
+                     float bc1, float bc2, int tid, int nt) {
   const float omb1 = (float)(1.0 - 0.9), omb2 = (float)(1.0 - 0.999);
   for (int i = tid; i < n; i += nt) {
     const float gi = g[i];
@@ -464,8 +443,8 @@ SISO_DEV void amsgrad(float* p, float* mo, float* ve, float* vmax, const float* 
 
 // The same update of parameter i with gradient g, the bias-correction
 // divisions by fdiv with the step's reciprocals (the same floats).
-SISO_DEV void amsgrad_one(float* p, float* mo, float* ve, float* vmax, int i, float g, float lr,
-                          const Smem& s) {
+VAE_DEV void amsgrad_one(float* p, float* mo, float* ve, float* vmax, int i, float g, float lr,
+                         const Smem& s) {
   const float omb1 = (float)(1.0 - 0.9), omb2 = (float)(1.0 - 0.999);
   const float mi = AMS_B1 * mo[i] + omb1 * g;
   const float vi = AMS_B2 * ve[i] + (omb2 * g) * g;
@@ -487,8 +466,8 @@ struct Io {
 // The step on input buffer xb. Reads s.w, s.h and the level constants (and
 // for ADAM the step's bias corrections); ends with a barrier.
 template <int NL, bool ADAM, bool CLK>
-SISO_DEV void siso_step(const Dims& D, const Smem& s, const float* xb, float amp_mean, float var,
-                        const Io& io, int tid, int nt, Clock<CLK>& ck) {
+VAE_DEV void siso_step(const Dims& D, const Smem& s, const float* xb, float amp_mean, float var,
+                       const Io& io, int tid, int nt, Clock<CLK>& ck) {
   constexpr int NA = NL ? NL : MAX_LEV;
   const int n_sym = D.n_sym, m = D.m, n_lev = NL ? NL : D.n_lev, n_samp = D.n_samp;
   const int mh = D.mh, mh2 = D.mh2, n_eff = D.n_eff, xs = D.xs, us = D.us;
@@ -509,10 +488,10 @@ SISO_DEV void siso_step(const Dims& D, const Smem& s, const float* xb, float amp
       for (int k = 0; k < m; ++k) {
         const float* p0 = xb + (k & 1) * xs + t + (k >> 1);  // padded sample 2t + k
         const float xv0 = p0[0], xv1 = p0[2 * xs], w0 = s.w[k], w1 = s.w[m + k];
-        a0 = SISO_FMA(w0, xv0, a0);
-        a1 = SISO_FMA(w1, xv1, a1);
-        b0 = SISO_FMA(w0, xv1, b0);
-        b1 = SISO_FMA(-w1, xv0, b1);
+        a0 = VAE_FMA(w0, xv0, a0);
+        a1 = VAE_FMA(w1, xv1, a1);
+        b0 = VAE_FMA(w0, xv1, b0);
+        b1 = VAE_FMA(-w1, xv0, b1);
       }
       const float oi = a0 + a1, oq = b0 + b1;
       s.out[t] = oi;
@@ -526,7 +505,7 @@ SISO_DEV void siso_step(const Dims& D, const Smem& s, const float* xb, float amp
     }
     ab.to_warps(s.red, T_ABS0, tid);
   }
-  SISO_SYNC();
+  VAE_SYNC();
   ck.mark(PH_FIR);
 
   // k_c = amp_mean / mean|out_c|, every thread
@@ -552,7 +531,7 @@ SISO_DEV void siso_step(const Dims& D, const Smem& s, const float* xb, float amp
         for (int l = 0; l < NA; ++l)
           if (l < n_lev) {
             const float dd = nrm - s.amps[l], x = dd * dd, q0 = x * yv;
-            e[l] = SISO_FMA(SISO_FMA(-q0, var, x), yv, q0);
+            e[l] = VAE_FMA(VAE_FMA(-q0, var, x), yv, q0);
             mmv = l == 0 ? e[l] : fminf(mmv, e[l]);
           }
         float s1v = 0.f;
@@ -585,7 +564,7 @@ SISO_DEV void siso_step(const Dims& D, const Smem& s, const float* xb, float amp
     }
     kl.to_warps(s.red, T_KL, tid);
   }
-  SISO_SYNC();
+  VAE_SYNC();
   ck.mark(PH_DEMAP);
 
   // ---- 3. one pass, two kinds of work (warp-aligned): the E-term window
@@ -626,10 +605,10 @@ SISO_DEV void siso_step(const Dims& D, const Smem& s, const float* xb, float amp
             const int j = 2 * a + p;
             if (p == 0 || a < mh) {
               const float hr = s.h[j], hi = s.h[m + j];
-              d[p][0] = SISO_FMA(hr, ei, d[p][0]);
-              d[p][1] = SISO_FMA(hi, eq, d[p][1]);
-              d[p][2] = SISO_FMA(hi, ei, d[p][2]);
-              d[p][3] = SISO_FMA(hr, eq, d[p][3]);
+              d[p][0] = VAE_FMA(hr, ei, d[p][0]);
+              d[p][1] = VAE_FMA(hi, eq, d[p][1]);
+              d[p][2] = VAE_FMA(hi, ei, d[p][2]);
+              d[p][3] = VAE_FMA(hr, eq, d[p][3]);
             }
           }
         }
@@ -647,7 +626,7 @@ SISO_DEV void siso_step(const Dims& D, const Smem& s, const float* xb, float amp
     }
     cc.to_warps(s.red, T_C, tid);
   }
-  SISO_SYNC();
+  VAE_SYNC();
   ck.mark(PH_DSC);
 
   // ---- the scalars, every thread: C = sum (rx_w - D)^2 + E, g_C = n_eff / C,
@@ -681,10 +660,10 @@ SISO_DEV void siso_step(const Dims& D, const Smem& s, const float* xb, float amp
             for (int i = l; i < n_par; i += GH) {
               const float g_re = g_c * ur[i], g_im = g_c * ui[i];
               const float ei = s.eq[t0 + i], eq = s.eq[n_sym + t0 + i];
-              ar = SISO_FMA(g_re, ei, ar);
-              br = SISO_FMA(g_im, eq, br);
-              ai = SISO_FMA(g_im, ei, ai);
-              bi = SISO_FMA(g_re, eq, bi);
+              ar = VAE_FMA(g_re, ei, ar);
+              br = VAE_FMA(g_im, eq, br);
+              ai = VAE_FMA(g_im, ei, ai);
+              bi = VAE_FMA(g_re, eq, bi);
             }
           }
           a[0] = ar;
@@ -717,10 +696,10 @@ SISO_DEV void siso_step(const Dims& D, const Smem& s, const float* xb, float amp
             const int ui = (j & 1) * us + ((ps + j - mh2) >> 1);
             const float g_re = g_c * s.u[ui], g_im = g_c * s.u[2 * us + ui];
             const float hr = s.h[j], hi = s.h[m + j];
-            c1[0] = SISO_FMA(g_re, hr, c1[0]);
-            c2[0] = SISO_FMA(g_im, hi, c2[0]);
-            c1[1] = SISO_FMA(g_im, hr, c1[1]);
-            c2[1] = SISO_FMA(g_re, hi, c2[1]);
+            c1[0] = VAE_FMA(g_re, hr, c1[0]);
+            c2[0] = VAE_FMA(g_im, hi, c2[0]);
+            c1[1] = VAE_FMA(g_im, hr, c1[1]);
+            c2[1] = VAE_FMA(g_re, hi, c2[1]);
             hs += s.hab[j];
           }
           const float gv = g_c * hs;
@@ -759,7 +738,7 @@ SISO_DEV void siso_step(const Dims& D, const Smem& s, const float* xb, float amp
     }
     dot.to_warps(s.red, T_DOT0, tid);
   }
-  SISO_SYNC();
+  VAE_SYNC();
   ck.mark(PH_BACK);
 
   // ---- 5. the normalization VJP gout_c = k_c (gnorm_c - sign(out_c)
@@ -775,7 +754,7 @@ SISO_DEV void siso_step(const Dims& D, const Smem& s, const float* xb, float amp
       s.go[2 * t + 1] = k1 * (s.gn[n_sym + t] - sgq * d1);
     }
   }
-  SISO_SYNC();
+  VAE_SYNC();
   ck.mark(PH_GOUT);
 
   // ---- 6. gw (c, k) = sum_t gout_I[t] xarr(I, c, 2t+k-mh) + gout_Q[t] xarr(Q, c, .):
@@ -797,10 +776,10 @@ SISO_DEV void siso_step(const Dims& D, const Smem& s, const float* xb, float amp
             for (int t = l; t < n_sym; t += GW) {
               const float gi = s.go[2 * t], gq = s.go[2 * t + 1];
               const float xv0 = px0[t], xv1 = px1[t];
-              a0 = SISO_FMA(gi, xv0, a0);
-              b0 = SISO_FMA(gq, xv1, b0);
-              a1 = SISO_FMA(gi, xv1, a1);
-              b1 = SISO_FMA(gq, xv0, b1);
+              a0 = VAE_FMA(gi, xv0, a0);
+              b0 = VAE_FMA(gq, xv1, b0);
+              a1 = VAE_FMA(gi, xv1, a1);
+              b1 = VAE_FMA(gq, xv0, b1);
             }
           }
           a[0] = a0;
@@ -829,7 +808,7 @@ SISO_DEV void siso_step(const Dims& D, const Smem& s, const float* xb, float amp
     }
   }
   if (ADAM) copy_async_wait();
-  SISO_SYNC();
+  VAE_SYNC();
   ck.mark(PH_GW);
 }
 
@@ -837,10 +816,10 @@ SISO_DEV void siso_step(const Dims& D, const Smem& s, const float* xb, float amp
 // h (R, 2, m); outputs loss (R), gw (R, 1, 2, m), gh (R, 2, m),
 // q (R, 2 n_lev, n_sym), out (R, 2, n_sym).
 template <int NL, bool CLK>
-SISO_DEV void step_block(float* smem, int tid, int nt, int r, int n_sym, int m, int n_lev,
-                         const float* x, const float* w, const float* h, const float* amps,
-                         const float* P, float amp_mean, float var, float* loss, float* gw,
-                         float* gh, float* q, float* out, long long* clocks) {
+VAE_DEV void step_block(float* smem, int tid, int nt, int r, int n_sym, int m, int n_lev,
+                        const float* x, const float* w, const float* h, const float* amps,
+                        const float* P, float amp_mean, float var, float* loss, float* gw,
+                        float* gh, float* q, float* out, long long* clocks) {
   const Dims D = make_dims(n_sym, m, n_lev);
   const Smem s = carve(smem, make_layout(D));
   const int np = 2 * m;
@@ -853,7 +832,7 @@ SISO_DEV void step_block(float* smem, int tid, int nt, int r, int n_sym, int m, 
     s.w[i] = w[pofs + i];
     s.h[i] = h[pofs + i];
   }
-  SISO_SYNC();
+  VAE_SYNC();
   ck.mark(PH_LOAD);
   const Io io = {loss + r, out + oofs, q + oofs * n_lev, gh + pofs, gw + pofs, 0.f};
   siso_step<NL, false, CLK>(D, s, s.x, amp_mean, var, io, tid, nt, ck);
@@ -866,16 +845,16 @@ SISO_DEV void step_block(float* smem, int tid, int nt, int r, int n_sym, int m, 
 // last slot after the last epoch. Minibatch k + 1 is copied into the other
 // input buffer while step k runs.
 template <int NL, bool CLK>
-SISO_DEV void experiment_block(float* smem, int tid, int nt, int r, int R, int n_epochs,
-                               int n_batches, int n_sym, int m, int n_lev, long long n_total,
-                               int epe, int n_evals, const float* rx, const float* w_in,
-                               const float* h_in, const float* mw_in, const float* vw_in,
-                               const float* xw_in, const float* mh_in, const float* vh_in,
-                               const float* xh_in, float* w_out, float* h_out, float* mw_out,
-                               float* vw_out, float* xw_out, float* mh_out, float* vh_out,
-                               float* xh_out, float* losses, float* w_ev, float* h_ev,
-                               const float* amps, const float* P, float amp_mean, float var,
-                               float lr, long long step0, long long* clocks) {
+VAE_DEV void experiment_block(float* smem, int tid, int nt, int r, int R, int n_epochs,
+                              int n_batches, int n_sym, int m, int n_lev, long long n_total,
+                              int epe, int n_evals, const float* rx, const float* w_in,
+                              const float* h_in, const float* mw_in, const float* vw_in,
+                              const float* xw_in, const float* mh_in, const float* vh_in,
+                              const float* xh_in, float* w_out, float* h_out, float* mw_out,
+                              float* vw_out, float* xw_out, float* mh_out, float* vh_out,
+                              float* xh_out, float* losses, float* w_ev, float* h_ev,
+                              const float* amps, const float* P, float amp_mean, float var,
+                              float lr, long long step0, long long* clocks) {
   const Dims D = make_dims(n_sym, m, n_lev);
   const Smem s = carve(smem, make_layout(D));
   const int np = 2 * m, xb4 = 4 * D.xs;
@@ -900,7 +879,7 @@ SISO_DEV void experiment_block(float* smem, int tid, int nt, int r, int R, int n
   const int t_sc = nt - 1;
   Clock<CLK> ck;
   ck.start(clocks != nullptr && r == 0 && tid == 0);
-  SISO_SYNC();
+  VAE_SYNC();
   for (int k = 0; k < steps; ++k) {
     const int e = k / n_batches, b = k - e * n_batches;
     if (k + 1 < steps) {

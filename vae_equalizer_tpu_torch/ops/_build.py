@@ -13,6 +13,11 @@ rebuilds:
   * ``dfe`` — ``csrc/dfe_kernel.cu`` (+ ``dfe_step.cuh``): kernel J;
   * ``eval`` — ``csrc/dp_eval_kernel.cu`` (+ ``dp_eval_step.cuh``): kernel K.
 
+Every step header includes ``csrc/portable.cuh``, which also lets it compile
+as plain C++: ``host_library`` builds a library's host emulation
+(``csrc/<stem>_host_emulation.cpp``, the same C interface) with the host's
+C++ compiler, so the CPU tests run the kernels' arithmetic without a card.
+
 The compiles of all libraries that need one start together and run in
 parallel. The libraries are loaded with ``ctypes`` with typed entry points
 (``c_void_p`` for every pointer and the stream, so ctypes passes tensor
@@ -29,6 +34,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
@@ -44,19 +50,22 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 # library -> (compiled source, headers it includes)
 LIBRARIES = {
-    "dp": ("dp_kernels.cu", ("dp_step.cuh",)),
-    "cma": ("cma_kernels.cu", ("cma_step.cuh",)),
-    "siso": ("siso_kernels.cu", ("siso_step.cuh",)),
-    "nn": ("nn_kernels.cu", ("nn_step.cuh", "siso_step.cuh")),
+    "dp": ("dp_kernels.cu", ("dp_step.cuh", "portable.cuh")),
+    "cma": ("cma_kernels.cu", ("cma_step.cuh", "portable.cuh")),
+    "siso": ("siso_kernels.cu", ("siso_step.cuh", "portable.cuh")),
+    "nn": ("nn_kernels.cu", ("nn_step.cuh", "siso_step.cuh", "portable.cuh")),
     "butterfly": ("butterfly_kernel.cu", ()),
-    "dfe": ("dfe_kernel.cu", ("dfe_step.cuh",)),
-    "eval": ("dp_eval_kernel.cu", ("dp_eval_step.cuh",)),
+    "dfe": ("dfe_kernel.cu", ("dfe_step.cuh", "portable.cuh")),
+    "eval": ("dp_eval_kernel.cu", ("dp_eval_step.cuh", "portable.cuh")),
 }
-# --fmad=false: no multiply-add contraction, so the kernels' elementwise math
-# (demapper metric, Adam / AMSGrad, CMA updates) rounds op for op like the plain
-# PyTorch versions
+# --fmad=false on the card and -ffp-contract=off on the host: no multiply-add
+# contraction, so the kernels' elementwise math (demapper metric, Adam /
+# AMSGrad, CMA updates) rounds op for op like the plain PyTorch versions, and
+# the host emulation like the card (the fused multiply-adds are explicit:
+# csrc/portable.cuh, VAE_FMA)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--fmad=false",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_FLAGS = ("-O2", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC", "-DVAE_HOST_EMULATION")
 
 _P, _I, _LL, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_double
 _SIGNATURES = {
@@ -128,63 +137,43 @@ _SIGNATURES = {
 
 # every kernel wrapper with a launch count (``counted``): the wrapper adds one to
 # its ``launches`` where it launches its kernel (``count_launch``); a CUDA graph
-# that captured the launch adds its captured counts at each replay
+# that captured the launch adds its captured count at each replay
 # (``train/harness.py: StepGraphs``)
 COUNTED: list = []
 
 
-def counted(wrapper, by_nlev: bool = False):
-    """Give a kernel wrapper its ``launches`` count (0) and list it in
-    ``COUNTED``; with ``by_nlev`` (kernels A and B, templated on the level
-    count) also ``launches_by_nlev``, its launches by instance (``count_launch``)."""
+def counted(wrapper):
+    """Give a kernel wrapper its ``launches`` count (0) and list it in ``COUNTED``."""
     wrapper.launches = 0
-    if by_nlev:
-        wrapper.launches_by_nlev = {}
     COUNTED.append(wrapper)
     return wrapper
 
 
-def count_launch(wrapper, n_lev: int | None = None) -> None:
-    """One launch of ``wrapper``'s kernel; with ``n_lev``, of its instance for
-    ``n_lev`` levels, as ``csrc/dp_kernels.cu`` picks it: 8, or "generic"."""
+def count_launch(wrapper) -> None:
+    """One launch of ``wrapper``'s kernel."""
     wrapper.launches += 1
-    if n_lev is not None:
-        key = 8 if n_lev == 8 else "generic"
-        wrapper.launches_by_nlev[key] = wrapper.launches_by_nlev.get(key, 0) + 1
 
 
 def launch_state() -> dict:
-    """Every launch count: {(wrapper, None): launches, (wrapper, instance):
-    launches_by_nlev[instance]}."""
-    state = {}
-    for c in COUNTED:
-        state[(c, None)] = c.launches
-        for k, n in getattr(c, "launches_by_nlev", {}).items():
-            state[(c, k)] = n
-    return state
+    """Every launch count: {wrapper: launches}."""
+    return {c: c.launches for c in COUNTED}
 
 
 def set_launch_state(state: dict) -> None:
-    """Put back the counts of ``launch_state`` (instances counted since, dropped)."""
-    for c in COUNTED:
-        c.launches = state[(c, None)]
-        if hasattr(c, "launches_by_nlev"):
-            c.launches_by_nlev = {k: n for (w, k), n in state.items() if w is c and k is not None}
+    """Put back the counts of ``launch_state``."""
+    for c, n in state.items():
+        c.launches = n
 
 
 def launches_since(state: dict) -> dict:
-    """The counts added since ``launch_state`` gave ``state``: {key: n}, nonzero only."""
-    now = launch_state()
-    return {k: n - state.get(k, 0) for k, n in now.items() if n != state.get(k, 0)}
+    """The counts added since ``launch_state`` gave ``state``: {wrapper: n}, nonzero only."""
+    return {c: c.launches - n for c, n in state.items() if c.launches != n}
 
 
 def add_launches(added: dict) -> None:
     """Add counts of ``launches_since``'s form (a graph replay's captured launches)."""
-    for (c, k), n in added.items():
-        if k is None:
-            c.launches += n
-        else:
-            c.launches_by_nlev[k] = c.launches_by_nlev.get(k, 0) + n
+    for c, n in added.items():
+        c.launches += n
 
 
 def _nvcc() -> str:
@@ -194,12 +183,29 @@ def _nvcc() -> str:
     return path
 
 
+def _hashed(directory: pathlib.Path, stem: str, flags: tuple, files: tuple) -> pathlib.Path:
+    """``directory/<stem>_<hash>.so``, the hash of ``flags`` and the bytes of
+    ``files`` (under ``csrc/``), so an edit of either names a new library."""
+    hsh = hashlib.sha256(" ".join(flags).encode())
+    for f in files:
+        hsh.update((CSRC / f).read_bytes())
+    return directory / f"{stem}_{hsh.hexdigest()[:16]}.so"
+
+
 def _lib_path(name: str) -> pathlib.Path:
     src, headers = LIBRARIES[name]
-    hsh = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in (src, *headers):
-        hsh.update((CSRC / f).read_bytes())
-    return BUILD_DIR / f"libvae_{name}_{hsh.hexdigest()[:16]}.so"
+    return _hashed(BUILD_DIR, f"libvae_{name}", NVCC_FLAGS, (src, *headers))
+
+
+def _typed(lib: ctypes.CDLL, name: str) -> dict:
+    """Library ``name``'s entry points in ``lib``, typed from ``_SIGNATURES``."""
+    fns = {}
+    for fn_name, argtypes in _SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        fns[fn_name] = fn
+    return fns
 
 
 def build() -> tuple[dict[str, pathlib.Path], float, str]:
@@ -242,12 +248,36 @@ def load() -> types.SimpleNamespace:
     for lib_name, path in paths.items():
         lib = ctypes.CDLL(str(path))
         entry["libraries"][lib_name] = lib
-        for name, argtypes in _SIGNATURES[lib_name].items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            entry[name] = fn
+        entry.update(_typed(lib, lib_name))
     return types.SimpleNamespace(**entry)
+
+
+@functools.lru_cache(maxsize=None)
+def host_library(name: str) -> ctypes.CDLL:
+    """Library ``name``'s host emulation: ``csrc/<stem>_host_emulation.cpp``
+    (``<stem>_kernel[s].cu``'s twin, the same C interface over the same step
+    header) compiled with ``HOST_FLAGS`` into ``build/kernels/host/``, named
+    by a hash of its sources and flags, and loaded with its ``_SIGNATURES``
+    entry points typed. Raises ``FileNotFoundError`` if the host has no C++
+    compiler."""
+    src, headers = LIBRARIES[name]
+    host_src = re.sub(r"_kernels?\.cu$", "_host_emulation.cpp", src)
+    path = _hashed(BUILD_DIR / "host", f"libvae_{name}_host", HOST_FLAGS, (host_src, *headers))
+    if not path.exists():
+        cxx = shutil.which("g++") or shutil.which("c++") or shutil.which("clang++")
+        if cxx is None:
+            raise FileNotFoundError(f"no C++ compiler found to build csrc/{host_src}")
+        path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        proc = subprocess.run([cxx, *HOST_FLAGS, "-o", str(tmp), str(CSRC / host_src)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{name}: host build of csrc/{host_src} failed ({proc.returncode}):\n"
+                               f"{proc.stderr}\n{proc.stdout}")
+        os.replace(tmp, path)
+    lib = ctypes.CDLL(str(path))
+    _typed(lib, name)
+    return lib
 
 
 def check(rc: int, what: str) -> None:

@@ -23,8 +23,7 @@ file's contraction order (so its rounding stays that of ``dp_step_plain``),
 and closes the block totals with per-warp partials and one warp (no
 atomics, so results repeat bit for bit); grid = R, one block per run, each
 reading its minibatch in place from the frame row, in the kernel's 8-level
-instance at 64-QAM and its generic one at any other level count
-(``vae_dp_loss_and_grad.launches_by_nlev`` counts each).
+instance at 64-QAM and its generic one at any other level count.
 
 Dispatch: a CPU tensor takes ``vae_dp_loss_and_grad_plain`` (the plain
 PyTorch version, also the reference the kernel is checked against on the
@@ -199,11 +198,11 @@ def _launch(w, h, x, amps, var, nu_sc: float, P):
         *(t.data_ptr() for t in (w, h, amps, P, var)), nu_sc, n_sym, m, n_lev,
         *(t.data_ptr() for t in (stats, gw, gh, q, out)), _build.stream(dev))
     _build.check(rc, "vae_dp_step_launch")
-    _build.count_launch(vae_dp_loss_and_grad, n_lev)
+    _build.count_launch(vae_dp_loss_and_grad)
     return stats[..., 0], stats[..., 1:3], gw, gh, q, out
 
 
-_build.counted(vae_dp_loss_and_grad, by_nlev=True)
+_build.counted(vae_dp_loss_and_grad)
 
 
 class VaeDpLoss(torch.autograd.Function):

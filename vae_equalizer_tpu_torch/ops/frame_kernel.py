@@ -31,9 +31,9 @@ widens its error (the JAX package's own note at ``metrics/mi.py:338``).
 
 On the card (``csrc/dp_kernels.cu``): grid = R, one 512-thread block per
 run, in the kernel's 8-level instance at 64-QAM and its generic one at any
-other level count (``vae_dp_frame_train.launches_by_nlev`` counts each); the minibatch loop runs inside the block with w, h and the four Adam
-moments resident in shared memory for the whole frame; the next window's
-samples are loaded from ``rx`` while a step runs. A frame is 100 (990 with
+other level count; the minibatch loop runs inside the block with w, h and
+the four Adam moments resident in shared memory for the whole frame; the
+next window's samples are loaded from ``rx`` while a step runs. A frame is 100 (990 with
 VAEflex's stride 10) dependent steps, so it is bound by the step's latency
 chain (``csrc/dp_step.cuh``: seven barrier-separated phases of ~400 items,
 each item a serial chain), and R runs fill only R of the card's 132 SMs
@@ -261,9 +261,9 @@ def _launch(w, h, opt, rx, amps, var, nu_sc, P, lr, step0, lr_half_step, bl_sym,
         *(t.data_ptr() for t in consts), step0.data_ptr(), float(lr_half_step), int(bool(stream_bf16)),
         None if clocks is None else clocks.data_ptr(), _build.stream(dev))
     _build.check(rc, "vae_dp_frame_launch")
-    _build.count_launch(vae_dp_frame_train, n_lev)
+    _build.count_launch(vae_dp_frame_train)
     opt_new = {k: new[k] for k in ("mw", "vw", "mh", "vh")}
     return new["w"], new["h"], opt_new, losses, var_est, out, dec, eq, mm, s1
 
 
-_build.counted(vae_dp_frame_train, by_nlev=True)
+_build.counted(vae_dp_frame_train)

@@ -223,8 +223,8 @@ class StepGraphs:
 
     Launch counts (``ops/_build.py: counted``): a capture adds nothing; each
     replay adds, per kernel wrapper, the launches that its capture recorded,
-    so a wrapper's ``launches`` (and ``launches_by_nlev``) counts the
-    kernel's executions on the path (captured launches x replays). The warm-up's launches are not counted.
+    so a wrapper's ``launches`` counts the kernel's executions on the path
+    (captured launches x replays). The warm-up's launches are not counted.
     """
 
     def __init__(self, steps: dict, state: list, rng, device, graph: bool):

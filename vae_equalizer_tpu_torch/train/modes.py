@@ -1,9 +1,8 @@
 """Kernel-path support matrix: which ``use_pallas`` modes each DP runner takes.
 
 The JAX package's table (``vae_equalizer_tpu/train/modes.py``), verbatim, so
-both packages accept and refuse the same modes. A mode in the table that the
-port has not brought up yet raises ``NotImplementedError`` in its runner
-instead.
+both packages accept and refuse the same modes; the port runs every mode in
+the table.
 
 Modes (the names are the JAX package's; here each kernel is a hand-written
 CUDA kernel, ``ops/``):
