@@ -931,10 +931,10 @@ def _resume_phases(card: str) -> None:
             return train_dp.run_cma_dp(cfg_c, seed=0, device=DEVICE, runs=CMA_RUNS, use_pallas=True,
                                        **kw)
 
-        full, _ = _counted(cma_dp_kernel, frames, cma)
+        full, _ = _counted(cma_dp_kernel, frames, cma, also=_with_channel(frames))
         _resume_case("c", card, cma, full, _max_diff(cma(), full), tmp / "c.npz", every,
-                     {"progress": _killer(8)}, cma_dp_kernel, lambda f: frames - f, frames=frames,
-                     runs=CMA_RUNS)
+                     {"progress": _killer(8)}, cma_dp_kernel, lambda f: frames - f,
+                     lambda f: _with_channel(frames - f), frames=frames, runs=CMA_RUNS)
 
         # ---- 30d. the AWGN VAE-LE through kernel F, R = 20, 20 epochs, K = 6
         cfg_d = AwgnVaeLeConfig(num_epochs=20)
@@ -1108,44 +1108,46 @@ def _graph_phases(card: str) -> None:
     # wall and the replay's run_s
     D = GRAPH_DEPTH
     cfg_d = dataclasses.replace(cfg, num_frames=D)
+    # (label, kernel, its launches, the DP channel's frames, the call)
     cases = [
-        ("VAE True (A)", vae_dp_loss_and_grad, D * (n_sym // cfg.batch_len),
+        ("VAE True (A)", vae_dp_loss_and_grad, D * (n_sym // cfg.batch_len), D,
          lambda kw: train_dp.train_vae_dp(cfg_d, seed=0, device=DEVICE, use_pallas=True, runs=R,
                                           **kw)),
-        ("VAEflex frame (B)", vae_dp_frame_train, D,
+        ("VAEflex frame (B)", vae_dp_frame_train, D, D,
          lambda kw: train_dp.train_vae_flex_dp(cfg_d, seed=0, device=DEVICE, use_pallas="frame",
                                                runs=R, **kw)),
     ]
     for v, (mode, lr_v, _) in CMA_VARIANTS.items():
         cfg_v = dataclasses.replace(cfg_d, loss_type=v, lr=lr_v)
         cases.append((f"{v} ({'C' if v == 'CMA' else 'D'})",
-                      cma_dp_kernel if v == "CMA" else cma_chunked_frame, D,
+                      cma_dp_kernel if v == "CMA" else cma_chunked_frame, D, D,
                       lambda kw, cfg_v=cfg_v, mode=mode: train_dp.run_cma_dp(
                           cfg_v, seed=0, device=DEVICE, runs=CMA_RUNS, use_pallas=mode, **kw)))
     cfg_le = AwgnVaeLeConfig()
     steps_le = cfg_le.num_epochs * (cfg_le.n_train // cfg_le.batch_len)
-    cases.append(("AWGN VAE-LE True (F)", vae_siso_loss_and_grad, steps_le,
+    cases.append(("AWGN VAE-LE True (F)", vae_siso_loss_and_grad, steps_le, 0,
                   lambda kw: train_awgn.train_vae_le_awgn(cfg_le, seed=0, device=DEVICE,
                                                           runs=AWGN_RUNS, use_pallas=True, **kw)))
     cfg_nn = dataclasses.replace(AwgnVaeNnConfig(), num_epochs=D)
-    cases.append(("AWGN VAE-NN loop (Net)", None, 0,
+    cases.append(("AWGN VAE-NN loop (Net)", None, 0, 0,
                   lambda kw: train_awgn.train_vae_nn_awgn(cfg_nn, seed=0, device=DEVICE,
                                                           runs=NN_RUNS, **kw)))
     cfg_i = dataclasses.replace(AwgnCmaConfig(), num_epochs=10 * D)
-    cases.append(("AWGN CMA (I)", cma_siso_experiment, 1,
+    cases.append(("AWGN CMA (I)", cma_siso_experiment, 1, 0,
                   lambda kw: train_awgn.run_cma_awgn(cfg_i, seed=0, device=DEVICE,
                                                      runs=CMA_AWGN_RUNS, **kw)))
-    for label, kern, n, fn in cases:
+    for label, kern, n, ch, fn in cases:
         t = {}
         graph_fn = lambda fn=fn, t=t: fn({"compiled": True, "timings": t})  # noqa: E731
         if kern is None:  # the plain engine: no kernel of the table is launched
             loop, wall_l = _counted(vae_dp_frame_train, 0, lambda fn=fn: fn({}))
             graph, wall_g = _counted(vae_dp_frame_train, 0, graph_fn)
         else:
-            # kernel B's frame path evaluates each frame with kernel K
-            k = n if kern is vae_dp_frame_train else 0
-            loop, wall_l = _counted(kern, n, lambda fn=fn: fn({}), also=_with_eval(k))
-            graph, wall_g = _counted(kern, 3 * n, graph_fn, also=_with_eval(3 * k))
+            # kernel B's frame path evaluates each frame with kernel K; every
+            # DP path runs the channel (kernel L) once a frame
+            also = _with_eval if kern is vae_dp_frame_train else _with_channel
+            loop, wall_l = _counted(kern, n, lambda fn=fn: fn({}), also=also(ch))
+            graph, wall_g = _counted(kern, 3 * n, graph_fn, also=also(3 * ch))
         diff = same("b", graph, loop)
         for k in ("ser", "mi"):
             if not np.all(np.isfinite(np.asarray(loop[k]))):
@@ -1293,7 +1295,9 @@ def _seqpar_phases(card: str) -> None:
     calls = [step2.call(params, opt, mb)] + [
         sharded_call(cfg_b, 0, device=DEVICE, runs=R, mesh=mesh, flex_windows=name == "VAEflex",
                      stats=stats[name])[1] for name in stats]
-    (st2, vae, flex), wall_sp = _counted(vae_dp_loss_and_grad, 0, lambda: run_ranks(mesh, calls))
+    # rank 0, this process, draws and runs each frame's channel (kernel L)
+    (st2, vae, flex), wall_sp = _counted(vae_dp_loss_and_grad, 0, lambda: run_ranks(mesh, calls),
+                                         also=_with_channel(2 * SP_FRAMES))
     grad_err = max(grad_err, check_step("dp1xsp2", st2, params, opt))
     g.manual_seed(33)
     w_moved = {"w": butterfly_init(cfg.m_est, dev) + 1e-7 * torch.randn(
@@ -1301,7 +1305,7 @@ def _seqpar_phases(card: str) -> None:
     for name, got, runner in (("VAE", vae, train_dp.train_vae_dp),
                               ("VAEflex", flex, train_dp.train_vae_flex_dp)):
         ref, wall = _counted(vae_dp_loss_and_grad, 0, lambda runner=runner: runner(
-            cfg_b, 0, device=DEVICE, runs=R))
+            cfg_b, 0, device=DEVICE, runs=R), also=_with_channel(SP_FRAMES))
         moved = runner(cfg_b, 0, device=DEVICE, runs=R, params_init=w_moved)
         d = np.abs(got["ser"] - ref["ser"]).max(axis=(0, 1))  # per frame
         d_self = np.abs(moved["ser"] - ref["ser"]).max(axis=(0, 1))
@@ -1326,8 +1330,9 @@ def _seqpar_phases(card: str) -> None:
           dp2xsp2_step_wall_s=f"{wall4:.2f}", card=repr(card))
 
     # (c) the dryrun's self-certification on the card
+    # the dryrun's 2 frames sharded (rank 0's channel) and unsharded
     res, wall_c = _counted(vae_dp_loss_and_grad, 0, lambda: dryrun_multichip(
-        2, device=DEVICE, devices=[str(dev)] * 2))
+        2, device=DEVICE, devices=[str(dev)] * 2), also=_with_channel(4))
     _line("32c seqpar dryrun", ok=True, mesh=f"dp{res['n_dp']}xsp{res['n_sp']}",
           d_ser=f"{res['d_ser']:.5f}", tol=f"{res['tol']:.5f}", wall_s=f"{wall_c:.2f}",
           max_grad_rel_err=f"{grad_err:.2e}", card=repr(card))
@@ -1502,8 +1507,9 @@ def _seqpar_option_phases(card: str, vae_loop: dict) -> None:
         calls = [sharded_call(cfg, 0, device=DEVICE, runs=R, mesh=mesh, **kw)[1] for kw in (
             {"compiled": True}, {"chunk_frames": 2},
             {"checkpoint": ckpt, "checkpoint_every": SP_EVERY, "stats": stats})]
-        (comp, chunk, resumed), wall = _counted(vae_dp_loss_and_grad, 0,
-                                                lambda: run_ranks(mesh, calls))
+        (comp, chunk, resumed), wall = _counted(
+            vae_dp_loss_and_grad, 0, lambda: run_ranks(mesh, calls),
+            also=_with_channel(3 * SP_FRAMES - resumed_from))
         diffs = {"compiled": _max_diff(comp, vae_loop), "chunk_frames=2": _max_diff(chunk, vae_loop)}
         if any(diffs.values()):
             raise AssertionError(f"33a: the sharded graph modes vs the loop: {diffs}")
@@ -1580,52 +1586,56 @@ def _run_sharding_phases(card: str, flagship: dict, flagship_wall: float) -> Non
     cfg, le = DpConfig(), AwgnVaeLeConfig()
     cut = dc.replace
     cma = lambda v: cut(cfg, loss_type=v, lr=CMA_VARIANTS[v][1], num_frames=RS_DEPTH)  # noqa: E731
-    # label: (runner, config, arguments, kernel, launches per rank (and unsharded))
+    # label: (runner, config, arguments, kernel, launches per rank (and
+    # unsharded), the DP channel's frames per rank (each draws every run's
+    # levels and runs its own runs' channel))
     cases = {
         "a flagship": (train_dp.train_vae_dp, cfg, dict(runs=8, use_pallas="frame"),
-                       vae_dp_frame_train, cfg.num_frames),
+                       vae_dp_frame_train, cfg.num_frames, cfg.num_frames),
         "b flagship compiled": (train_dp.train_vae_dp, cfg,
                                 dict(runs=8, use_pallas="frame", compiled=True),
-                                vae_dp_frame_train, cfg.num_frames),
+                                vae_dp_frame_train, cfg.num_frames, cfg.num_frames),
         "c VAE True": (train_dp.train_vae_dp, cut(cfg, num_frames=RS_DEPTH),
                        dict(runs=8, use_pallas=True), vae_dp_loss_and_grad,
-                       RS_DEPTH * (cfg.n_frame_max // cfg.batch_len)),
+                       RS_DEPTH * (cfg.n_frame_max // cfg.batch_len), RS_DEPTH),
         **{f"c {v}": (train_dp.run_cma_dp, cma(v), dict(runs=6, use_pallas=CMA_VARIANTS[v][0]),
-                      cma_dp_kernel if v == "CMA" else cma_chunked_frame, RS_DEPTH)
+                      cma_dp_kernel if v == "CMA" else cma_chunked_frame, RS_DEPTH, RS_DEPTH)
            for v in CMA_VARIANTS},
         "c VAE-LE frame": (train_awgn.train_vae_le_awgn, cut(le, num_epochs=RS_EPOCHS),
-                           dict(runs=AWGN_RUNS, use_pallas="frame"), vae_siso_experiment_train, 1),
+                           dict(runs=AWGN_RUNS, use_pallas="frame"), vae_siso_experiment_train,
+                           1, 0),
         "c VAE-LE True": (train_awgn.train_vae_le_awgn, cut(le, num_epochs=RS_DEPTH),
                           dict(runs=AWGN_RUNS, use_pallas=True), vae_siso_loss_and_grad,
-                          RS_DEPTH * (le.n_train // le.batch_len)),
+                          RS_DEPTH * (le.n_train // le.batch_len), 0),
         "c VAE-NN Net": (train_awgn.train_vae_nn_awgn, cut(AwgnVaeNnConfig(), num_epochs=RS_EPOCHS),
-                         dict(runs=NN_RUNS, use_pallas="frame"), vae_nn_experiment_train, 1),
+                         dict(runs=NN_RUNS, use_pallas="frame"), vae_nn_experiment_train, 1, 0),
         "c AWGN CMA": (train_awgn.run_cma_awgn, cut(AwgnCmaConfig(), num_epochs=RS_EPOCHS),
-                       dict(runs=CMA_AWGN_RUNS), cma_siso_experiment, 1),
+                       dict(runs=CMA_AWGN_RUNS), cma_siso_experiment, 1, 0),
     }
     # (a) and (b) against phase 5's run; phase 5's wall is (a)'s unsharded wall
     refs = {"a flagship": flagship, "b flagship compiled": flagship}
     walls = {"a flagship": flagship_wall}
-    for label, (fn, c, kw, kernel, n) in cases.items():
+    for label, (fn, c, kw, kernel, n, ch) in cases.items():
         if label not in refs:
             refs[label], walls[label] = _counted(kernel, n, lambda fn=fn, c=c, kw=kw: fn(
-                c, 0, device=DEVICE, **kw))
+                c, 0, device=DEVICE, **kw), also=_with_channel(ch))
 
     stats = {label: {} for label in cases}
     calls = [runs_call(fn, c, 0, device=DEVICE, mesh=mesh, stats=stats[label], **kw)
-             for label, (fn, c, kw, _, _) in cases.items()]
+             for label, (fn, c, kw, _, _, _) in cases.items()]
     if any(ranks != mesh for ranks, _ in calls):
         raise AssertionError(f"34: a call not split over both ranks: {[r for r, _ in calls]}")
     t0 = time.time()
     outs = dict(zip(cases, run_ranks(mesh, [call for _, call in calls])))
     wall_call = time.time() - t0
     spawn_s = max(r["start"] for r in stats["a flagship"]["ranks"]) - t0
-    for label, (fn, c, kw, kernel, n) in cases.items():
+    for label, (fn, c, kw, kernel, n, ch) in cases.items():
         got, ranks = outs[label], stats[label]["ranks"]
         launches = [r["launches"] for r in ranks]
         # kernel B's frame path evaluates each frame with kernel K
         want = {kernel.__name__: n, **({"vae_dp_frame_eval": n} if kernel is vae_dp_frame_train
-                                       else {})}
+                                       else {}),
+                **{k.__name__: m for k, m in _with_channel(ch) if m}}
         if any(ln != want for ln in launches):
             raise AssertionError(f"34 {label}: launches per rank {launches}, expected {want} on "
                                  "each")
@@ -1847,7 +1857,8 @@ def _awgn_phases(card: str) -> list:
 
 
 def _all_counters() -> tuple:
-    """Every kernel wrapper's launch counter holder, A-K."""
+    """Every kernel wrapper's launch counter holder, A-L."""
+    from vae_equalizer_tpu_torch.ops import channel_kernel as ck
     from vae_equalizer_tpu_torch.ops.butterfly_kernel import vae_le_dp_forward_fused
     from vae_equalizer_tpu_torch.ops.cma_frame_kernel import cma_chunked_frame
     from vae_equalizer_tpu_torch.ops.cma_kernel import cma_dp_kernel
@@ -1862,16 +1873,29 @@ def _all_counters() -> tuple:
 
     return (vae_dp_loss_and_grad, vae_dp_frame_train, cma_dp_kernel, cma_chunked_frame,
             vae_le_dp_forward_fused, vae_siso_loss_and_grad, vae_siso_experiment_train,
-            vae_nn_experiment_train, cma_siso_experiment, dfe_decide, vae_dp_frame_eval)
+            vae_nn_experiment_train, cma_siso_experiment, dfe_decide, vae_dp_frame_eval,
+            ck.dp_levels, ck.dp_fft_input, ck.dp_mix, ck.dp_noise)
 
 
-def _with_eval(frames: int) -> tuple:
+def _with_channel(frames: int, drawn: bool = True) -> tuple:
+    """``_counted``'s ``also`` for ``frames`` frames of the DP channel on the
+    card: kernel L (``ops/channel_kernel.py``) once a frame, its L4 twice;
+    its L1 only where the channel draws the levels (not where a caller's
+    ``draws`` hook gives them)."""
+    from vae_equalizer_tpu_torch.ops import channel_kernel as ck
+
+    return ((ck.dp_levels, frames if drawn else 0), (ck.dp_fft_input, frames), (ck.dp_mix, frames),
+            (ck.dp_noise, 2 * frames))
+
+
+def _with_eval(frames: int, drawn: bool = True) -> tuple:
     """``_counted``'s ``also`` for a DP VAE / VAEflex frame-mode path of
     ``frames`` frames: kernel K evaluates each frame once, all runs in one
-    launch (``train/dp.py: _finish_vae_frame``)."""
+    launch (``train/dp.py: _finish_vae_frame``), after the frame's channel
+    (``_with_channel``)."""
     from vae_equalizer_tpu_torch.ops.eval_kernel import vae_dp_frame_eval
 
-    return ((vae_dp_frame_eval, frames),)
+    return ((vae_dp_frame_eval, frames),) + _with_channel(frames, drawn)
 
 
 _LAST_COUNTS: dict = {}  # the launches the last ``_counted`` call read, by wrapper name
@@ -2384,7 +2408,7 @@ def _step_path_phase(card, cfg, sim, gen, thetas, w0, h0, const, amps, var, P) -
     m_max = cfg.n_frame_max // bl
     n_expect = cfg.num_frames * m_max
     res, wall = _counted(vae_dp_loss_and_grad, n_expect, lambda: train_dp.train_vae_dp(
-        cfg, seed=0, device=DEVICE, use_pallas=True, runs=R))
+        cfg, seed=0, device=DEVICE, use_pallas=True, runs=R), also=_with_channel(cfg.num_frames))
     for k in ("ser", "mi", "var_est"):
         if not np.all(np.isfinite(res[k])):
             raise AssertionError(f"per-step path: non-finite {k}")
@@ -2424,7 +2448,7 @@ def _step_path_phase(card, cfg, sim, gen, thetas, w0, h0, const, amps, var, P) -
     ms = [_time_ms(f) for f in (channel, kernel_steps, adam, evaluate)]
     cfg2 = dataclasses.replace(cfg, num_frames=2)
     _, wall_f = _counted(vae_dp_loss_and_grad, 0, lambda: train_dp.train_vae_dp(
-        cfg2, seed=0, device=DEVICE, use_pallas=False, runs=R))
+        cfg2, seed=0, device=DEVICE, use_pallas=False, runs=R), also=_with_channel(2))
     _line("17 per-step path", ok=True, runs=R, frames=cfg.num_frames, kernel_a_launches=n_expect,
           soft_ser_last20=f"{soft:.5f}", const_ser_last20=f"{float(res['ser'][:, :2, -20:].mean()):.5f}",
           mi_final_min=f"{mi_last.min():.4f}", wall_s=f"{wall:.3f}",
@@ -2592,9 +2616,10 @@ def _vaeflex_phases(card, cfg, sim, gen, w0, h0, const, amps, var, P) -> list:
     run = lambda mode: train_dp.train_vae_flex_dp(cfg5, seed=0, device=DEVICE, use_pallas=mode, runs=R,
                                                   params_init=res["params"],
                                                   draws=lambda frame, r: draws[frame])
-    res_k, wall_k = _counted(vae_dp_loss_and_grad, FLEX_CHECK_FRAMES * n_win, lambda: run(True))
+    res_k, wall_k = _counted(vae_dp_loss_and_grad, FLEX_CHECK_FRAMES * n_win, lambda: run(True),
+                             also=_with_channel(FLEX_CHECK_FRAMES, drawn=False))
     res_b, wall_b = _counted(vae_dp_frame_train, FLEX_CHECK_FRAMES, lambda: run("frame"),
-                             also=_with_eval(FLEX_CHECK_FRAMES))
+                             also=_with_eval(FLEX_CHECK_FRAMES, drawn=False))
     d_ser = np.abs(res_k["ser"] - res_b["ser"])
     d_ser_first = float(np.abs(res_k["ser"][..., 0].mean(0) - res_b["ser"][..., 0].mean(0)).max())
     d_w = float((res_k["params"]["w"] - res_b["params"]["w"]).abs().max())
@@ -2954,6 +2979,140 @@ def _eval_kernel_phase(card: str, launches: int) -> dict:
             **bound}
 
 
+# phase 6c's cases: (label, runs, per run): the flagship's R = 8 at the
+# configured SNR, the SNR curve's 40 runs at 16..23 dB x 5 repeats (the
+# sweep cell's), and 8 runs at two nu (a per-run pmf)
+CHANNEL_CASES = (("r8_shared", 8, None), ("r40_snr", 40, "snr"), ("r8_pmf", 8, "pmf"))
+
+
+def _channel_inputs(cfg, R: int, per_run, dev) -> tuple:
+    """A CHANNEL_CASES case's (per-run linear SNR (R,) on ``dev`` or None,
+    per-run pmf (R, n) or None)."""
+    import numpy as np
+    import torch
+
+    from vae_equalizer_tpu_torch.core import make_constellation
+
+    snr = P = None
+    if per_run == "snr":
+        db = np.repeat(np.arange(16.0, 24.0), R // 8).astype(np.float32)
+        snr = torch.from_numpy((10.0 ** (np.float64(db) / 10.0)).astype(np.float32)).to(dev)
+    if per_run == "pmf":
+        P = np.stack([np.asarray(make_constellation(cfg.mod, (0.0, 0.0270955)[r % 2]).P,
+                                 np.float32) for r in range(R)])
+    return snr, P
+
+
+def _device_kernels(fn, reps: int) -> tuple:
+    """(device ms, device kernels) a call of ``fn`` over ``reps`` calls, from
+    torch.profiler (CUPTI; nan where it shows none); copies and sets left out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.key.startswith(("Memcpy", "Memset"))]
+    us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+             for e in evs)
+    return (1e-3 * us / reps if us > 0 else float("nan")), sum(e.count for e in evs) / reps
+
+
+def _channel_phase(card: str, frames: int) -> dict:
+    """Phase 6c: kernel L (``ops/channel_kernel.py``: the DP channel around
+    cuFFT) against the plain channel (``DpSimulator.draws_plain`` /
+    ``physics_plain``) on the card, at the flagship frame's length, for each
+    of CHANNEL_CASES, on the same generator state: levels and noise, the FFT
+    input, the forward transform, H zf CD and tx bit for bit; the inverse
+    transform unnormalized and scaled by the float32 1 / fft_len bit for bit
+    with the plain ifft; sigma's ulps (0 but at a float32 tie of its float64
+    sum); rx's share of elements bit for bit and its largest gap relative to
+    each run's rms (at most 1e-6). Then each path's device time and kernels
+    a frame (draws and physics; torch.profiler), its CUDA-event time, and
+    kernel L's launches a frame (one each, L4 two).
+    Returns kernel L's JSON entry (the R = 8 case's times), with
+    ``launches`` the frames of phase 5's path (each five launches)."""
+    import numpy as np
+    import torch
+
+    from vae_equalizer_tpu_torch.ops import _build
+    from vae_equalizer_tpu_torch.ops import channel_kernel as ck
+    from vae_equalizer_tpu_torch.train import dp as train_dp
+    from vae_equalizer_tpu_torch.utils import DpConfig
+
+    dev = torch.device(DEVICE)
+    cfg = DpConfig()
+    sim = train_dp._setup(cfg, cfg.n_frame_max // cfg.batch_len * cfg.batch_len, dev)[2]
+    theta = torch.tensor(np.float32(cfg.theta + 3 * cfg.theta_diff), device=dev)
+    scale = np.float32(1.0 / sim.fft_len).item()
+    entry = None
+    for i, (label, R, per_run) in enumerate(CHANNEL_CASES):
+        snr, P = _channel_inputs(cfg, R, per_run, dev)
+        gens = [torch.Generator(device=dev) for _ in range(2)]
+        for g in gens:
+            g.manual_seed(6060 + i)
+        lev, noi = sim.draws_kernel(gens[0], R, P)
+        lev_p, noi_p = sim.draws_plain(gens[1], R, P)
+        z_in = ck.dp_fft_input(lev, sim.sps, sim.up_len, sim.fft_len)
+        up = sim.upsampled_plain(lev)
+        zf, zf_p = torch.fft.fft(z_in, dim=-1), torch.fft.fft(up, n=sim.fft_len, dim=-1)
+        mixed = ck.dp_mix(zf.clone(), theta, *sim._e_host, sim._d0, sim._d1, sim._cd)
+        mixed_p = sim.mix_plain(theta, zf_p)
+        inv = torch.fft.ifft(mixed_p, dim=-1)
+        inv_f = torch.fft.ifft(mixed_p, dim=-1, norm="forward")
+        rx, tx, sig = sim.physics_kernel(theta, lev, noi, snr)
+        rx_p, tx_p, sig_p = sim.physics_plain(theta, lev, noi, snr)
+        exact = {"levels": torch.equal(lev, lev_p), "noise": torch.equal(noi, noi_p),
+                 "fft_input": torch.equal(z_in[..., : sim.up_len], up)
+                 and not bool(z_in[..., sim.up_len:].abs().max() > 0),
+                 "forward": torch.equal(zf, zf_p), "mix": torch.equal(mixed, mixed_p),
+                 "scaling": torch.equal(torch.complex(inv_f.real * scale, inv_f.imag * scale), inv),
+                 "tx": torch.equal(tx, tx_p)}
+        rx_same = float((rx == rx_p).double().mean())
+        ulps = (sig.view(torch.int32) - sig_p.view(torch.int32)).abs()
+        rms = rx_p.square().mean(dim=(1, 2, 3)).sqrt()
+        rx_gap = float(((rx - rx_p).abs().amax(dim=(1, 2, 3)) / rms).max())
+        if not all(exact.values()) or int(ulps.max()) > 1 or rx_gap > 1e-6:
+            raise AssertionError(f"6c {label}: kernel L vs plain: bit for bit {exact}, sigma ulps "
+                                 f"{ulps.tolist()}, rx gap {rx_gap:.3g} of rms (at most 1e-6)")
+
+        def kernel_frame():
+            return sim.physics_kernel(theta, *sim.draws_kernel(gens[0], R, P), snr)
+
+        def plain_frame():
+            return sim.physics_plain(theta, *sim.draws_plain(gens[1], R, P), snr)
+
+        state = _build.launch_state()
+        kernel_frame()
+        launches = {w.__name__: n for w, n in _build.launches_since(state).items()}
+        if launches != {"dp_levels": 1, "dp_fft_input": 1, "dp_mix": 1, "dp_noise": 2}:
+            raise AssertionError(f"6c {label}: kernel L's launches a frame {launches}")
+        dev_ms, kernels = _device_kernels(kernel_frame, 10)
+        dev_ms_p, kernels_p = _device_kernels(plain_frame, 10)
+        ms, ms_p = _time_ms(kernel_frame, reps=20), _time_ms(plain_frame, reps=20)
+        # L1 the uniforms in, the levels out; L2 the levels in, the FFT input out;
+        # L3 the transform in and out; L4 the inverse transform twice (a bound
+        # of its window), the noise in, rx out
+        bound = _bound(0, _nbytes(lev, lev, lev, z_in, zf, zf, inv, inv, noi, rx))
+        _line(f"6c kernel L {label}", ok=True, runs=R, bit_identical=",".join(exact),
+              sigma_ulps_max=int(ulps.max()), sigma_differ=int((ulps > 0).sum()),
+              rx_bit_identical_share=f"{rx_same:.6f}", rx_gap_of_rms=f"{rx_gap:.3g}",
+              device_ms=f"{dev_ms:.4f}", plain_device_ms=f"{dev_ms_p:.4f}", kernels=f"{kernels:.1f}",
+              plain_kernels=f"{kernels_p:.1f}", ms=f"{ms:.4f}",
+              plain_ms=f"{ms_p:.4f}", bound_ms=f"{bound['bound_ms']:.6f}", card=repr(card))
+        if entry is None:
+            entry = {"name": "dp_channel", "route": "cuda",
+                     "source": "vae_equalizer_tpu_torch/csrc/dp_channel_kernel.cu",
+                     "replaces": "none (vae_equalizer_tpu/channels/optical_dp.py, plain jnp)",
+                     "launches": 5 * frames, "max_abs_err": rx_gap, "ms": ms, "plain_ms": ms_p,
+                     **bound}
+    return entry
+
+
 def _warm_frame_args(cfg, sim, gen, const, amps, var, P, R: int, dev) -> tuple:
     """Phase 4b's inputs: (the frames' thetas, kernel B's arguments for one
     full frame of R runs from the state after WARM_FRAMES frames of training
@@ -3097,7 +3256,8 @@ def main() -> int:
     res, wall = _counted(vae_dp_frame_train, cfg.num_frames, lambda: train_dp.train_vae_dp(
         cfg, seed=0, device=DEVICE, use_pallas="frame", runs=R), also=_with_eval(cfg.num_frames))
     flagship, flagship_wall = res, wall  # phase 34's unsharded reference
-    launches_b, launches_k = (_LAST_COUNTS[k] for k in ("vae_dp_frame_train", "vae_dp_frame_eval"))
+    launches_b, launches_k, launches_l = (_LAST_COUNTS[k] for k in (
+        "vae_dp_frame_train", "vae_dp_frame_eval", "dp_mix"))
     for k in ("ser", "mi", "var_est"):
         if not np.all(np.isfinite(res[k])):
             raise AssertionError(f"non-finite {k}")
@@ -3111,7 +3271,7 @@ def main() -> int:
         raise AssertionError(f"final MI {mi_last.min():.3f} <= {MI_MIN} bits")
     sym_s = R * cfg.num_frames * n_sym_frame / wall
     _line("5 main path", ok=True, runs=R, frames=cfg.num_frames, kernel_b_launches=launches_b,
-          kernel_k_launches=launches_k,
+          kernel_k_launches=launches_k, kernel_l_frames=launches_l,
           soft_ser_last20=f"{soft:.5f}", const_ser_last20=f"{float(res['ser'][:, :2, -20:].mean()):.5f}",
           mi_final_min=f"{mi_last.min():.4f}", wall_s=f"{wall:.3f}", sym_per_s=f"{sym_s:.0f}",
           card=repr(card))
@@ -3137,6 +3297,7 @@ def main() -> int:
     _line("6 breakdown", runs=R, channel_ms=f"{ms_ch:.3f}", kernel_b_ms=f"{ms_k:.3f}",
           eval_ms=f"{ms_ev:.3f}", frame_wall_ms=f"{1e3 * wall / cfg.num_frames:.3f}")
     eval_kernel = _eval_kernel_phase(card, launches_k)
+    channel_kernel = _channel_phase(card, launches_l)
 
     # ---- 7. kernel C vs plain: one whole CMA frame (10,000 symbols), R = 5
     # (rtol 1e-4 with an absolute floor of 1e-6 of each tensor's scale:
@@ -3203,7 +3364,8 @@ def main() -> int:
         path_kernel = cma_dp_kernel if v == "CMA" else cma_chunked_frame
         res, wall_v = _counted(path_kernel, cfg.num_frames, lambda cfg_v=cfg_v, mode=mode:
                                train_dp.run_cma_dp(cfg_v, seed=0, device=DEVICE, runs=Rc,
-                                                   use_pallas=mode))
+                                                   use_pallas=mode),
+                               also=_with_channel(cfg.num_frames))
         cma_launches[v] = cfg.num_frames
         for k in ("ser", "mi", "var_est", "taps"):
             if not np.all(np.isfinite(np.asarray(res[k].cpu() if k == "taps" else res[k]))):
@@ -3281,7 +3443,7 @@ def main() -> int:
          "replaces": "vae_equalizer_tpu/ops/cma_frame_kernel.py:404", "launches": cma_launches[v],
          "max_abs_err": d_res[v][0], "ms": d_res[v][1], "plain_ms": d_res[v][2], **d_res[v][3]}
         for v in ("CMAbatch", "CMAflex")
-    ] + [eval_kernel] + flex_kernels + [sweep_kernel] + awgn_kernels + nn_kernels + stream_kernels
+    ] + [eval_kernel, channel_kernel] + flex_kernels + [sweep_kernel] + awgn_kernels + nn_kernels + stream_kernels
         + cma_awgn_kernels + dfe_kernels}
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

@@ -5,10 +5,11 @@ per-symbol CMA recurrence, ``cma_kernel``), kernel D (the CMAbatch /
 CMAflex chunk engine, ``cma_frame_kernel``), kernel E (the DP inference
 pass, ``butterfly_kernel``), kernels F and G (the SISO VAE-LE step and whole
 experiment, ``elbo_siso_kernel``, ``siso_frame_kernel``), kernel H (the
-whole VAE-NN experiment, ``nn_frame_kernel``), and three kernels with no TPU
+whole VAE-NN experiment, ``nn_frame_kernel``), and four kernels with no TPU
 counterpart: I (the whole AWGN CMA experiment, ``cma_siso_kernel``), J
-(the DFE's decision-feedback loop, ``dfe_kernel``) and K (the DP VAE frame's
-eval, ``eval_kernel``)."""
+(the DFE's decision-feedback loop, ``dfe_kernel``), K (the DP VAE frame's
+eval, ``eval_kernel``) and L (the DP channel's work around cuFFT,
+``channel_kernel``, which ``channels/optical_dp.py`` calls)."""
 
 from .butterfly_kernel import vae_le_dp_forward_fused, vae_le_dp_forward_plain
 from .cma_frame_kernel import cma_chunked_frame, cma_chunked_frame_plain

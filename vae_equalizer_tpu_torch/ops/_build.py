@@ -11,7 +11,8 @@ rebuilds:
   * ``nn``  — ``csrc/nn_kernels.cu`` (+ ``nn_step.cuh``, ``siso_step.cuh``): kernel H;
   * ``butterfly`` — ``csrc/butterfly_kernel.cu``: kernel E;
   * ``dfe`` — ``csrc/dfe_kernel.cu`` (+ ``dfe_step.cuh``): kernel J;
-  * ``eval`` — ``csrc/dp_eval_kernel.cu`` (+ ``dp_eval_step.cuh``): kernel K.
+  * ``eval`` — ``csrc/dp_eval_kernel.cu`` (+ ``dp_eval_step.cuh``): kernel K;
+  * ``channel`` — ``csrc/dp_channel_kernel.cu`` (+ ``dp_channel_step.cuh``): kernel L.
 
 Every step header includes ``csrc/portable.cuh``, which also lets it compile
 as plain C++: ``host_library`` builds a library's host emulation
@@ -57,6 +58,7 @@ LIBRARIES = {
     "butterfly": ("butterfly_kernel.cu", ()),
     "dfe": ("dfe_kernel.cu", ("dfe_step.cuh", "portable.cuh")),
     "eval": ("dp_eval_kernel.cu", ("dp_eval_step.cuh", "portable.cuh")),
+    "channel": ("dp_channel_kernel.cu", ("dp_channel_step.cuh", "portable.cuh")),
 }
 # --fmad=false on the card and -ffp-contract=off on the host: no multiply-add
 # contraction, so the kernels' elementwise math (demapper metric, Adam /
@@ -131,6 +133,19 @@ _SIGNATURES = {
         # res_i, clocks (int64 per phase, or null), stream
         "vae_dp_eval_launch": [_I] * 6 + [_P] * 5 + [_LL] * 7 + [_P] + [_LL] * 3
         + [_P, _P, _LL, _P, _LL, _F, _P, _F, _F] + [_I] * 5 + [_P] * 4,
+    },
+    "channel": {
+        # L1: R, per_run, n_lev, u, amps[0], steps, edges, the edges' run stride,
+        # out, stream
+        "dp_levels_launch": [_I, _LL, _I, _P, _F, _P, _P, _LL, _P, _P],
+        # L2: R, n_conv, sps, up_len, fft_len, levels, out, stream
+        "dp_fft_input_launch": [_I] * 5 + [_P] * 3,
+        # L3: R, fft_len, theta (one float32 on the card), e0 and e1 (re, im), d0,
+        # d1, cd, z (in place), fused, stream
+        "dp_mix_launch": [_I, _I, _P] + [_F] * 4 + [_P] * 4 + [_I, _P],
+        # L4: R, fft_len, start, sig_len, n_rx, scale, z, partial, inv_n, sps, snr,
+        # snr per run (or null), recip, noise, rx, sigma, stream
+        "dp_noise_launch": [_I] * 5 + [_F, _P, _P, _D, _I, _F, _P, _I] + [_P] * 4,
     },
 }
 
@@ -286,10 +301,10 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
 
 
-def check_tensor(name: str, t, shape, device) -> None:
-    """A kernel argument must be a contiguous float32 tensor of ``shape`` on ``device``."""
-    if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
-        raise ValueError(f"{name}: needs a contiguous float32 tensor on {device}, got "
+def check_tensor(name: str, t, shape, device, dtype=torch.float32) -> None:
+    """A kernel argument must be a contiguous ``dtype`` tensor of ``shape`` on ``device``."""
+    if t.device != device or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{name}: needs a contiguous {dtype} tensor on {device}, got "
                          f"{t.dtype} on {t.device}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
