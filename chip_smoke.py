@@ -1632,9 +1632,11 @@ def _run_sharding_phases(card: str, flagship: dict, flagship_wall: float) -> Non
     for label, (fn, c, kw, kernel, n, ch) in cases.items():
         got, ranks = outs[label], stats[label]["ranks"]
         launches = [r["launches"] for r in ranks]
-        # kernel B's frame path evaluates each frame with kernel K
-        want = {kernel.__name__: n, **({"vae_dp_frame_eval": n} if kernel is vae_dp_frame_train
-                                       else {}),
+        # kernel B's frame path evaluates each frame with kernel K; B's windows
+        # counter (``ops/frame_kernel.py: WINDOWS``) adds a frame's steps a launch
+        steps = c.n_frame_max // c.batch_len
+        want = {kernel.__name__: n, **({"vae_dp_frame_eval": n, "vae_dp_frame_windows": n * steps}
+                                       if kernel is vae_dp_frame_train else {}),
                 **{k.__name__: m for k, m in _with_channel(ch) if m}}
         if any(ln != want for ln in launches):
             raise AssertionError(f"34 {label}: launches per rank {launches}, expected {want} on "

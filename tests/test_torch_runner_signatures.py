@@ -21,8 +21,8 @@ import vae_equalizer_tpu_torch.train.dfe as pdfe
 PORT_ONLY = {
     "train_vae_le_awgn": ["draws"],
     "train_vae_nn_awgn": ["params_init", "draws"],
-    "train_vae_dp": ["draws"],
-    "train_vae_flex_dp": ["draws"],
+    "train_vae_dp": ["draws", "frame0_losses"],
+    "train_vae_flex_dp": ["draws", "frame0_losses"],
     "run_cma_dp": ["draws"],
     "run_cma_awgn": ["draws"],
     "run_lmmse_dfe": ["draws"],

@@ -43,9 +43,9 @@ import types
 
 import torch
 
-__all__ = ["CSRC", "BUILD_DIR", "COUNTED", "add_launches", "build", "load", "check", "check_tensor",
-           "count_launch", "counted", "device_scalar", "launch_state", "launches_since",
-           "set_launch_state", "stream"]
+__all__ = ["CSRC", "BUILD_DIR", "COUNTED", "Count", "add_launches", "build", "load", "check",
+           "check_tensor", "count_launch", "counted", "device_scalar", "launch_state",
+           "launches_since", "set_launch_state", "stream"]
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
@@ -153,20 +153,30 @@ _SIGNATURES = {
 # every kernel wrapper with a launch count (``counted``): the wrapper adds one to
 # its ``launches`` where it launches its kernel (``count_launch``); a CUDA graph
 # that captured the launch adds its captured count at each replay
-# (``train/harness.py: StepGraphs``)
+# (``train/harness.py: StepGraphs``). A ``Count`` here counts work of a kernel
+# in the same way (kernel B's windows), not launches: sum no entries as kernels.
 COUNTED: list = []
 
 
+class Count:
+    """A program counter in ``COUNTED`` beside the kernel wrappers, read by
+    its ``__name__`` as they are; ``launches`` holds what it counts."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+
+
 def counted(wrapper):
-    """Give a kernel wrapper its ``launches`` count (0) and list it in ``COUNTED``."""
+    """Give a kernel wrapper (or a ``Count``) its ``launches`` count (0) and
+    list it in ``COUNTED``."""
     wrapper.launches = 0
     COUNTED.append(wrapper)
     return wrapper
 
 
-def count_launch(wrapper) -> None:
-    """One launch of ``wrapper``'s kernel."""
-    wrapper.launches += 1
+def count_launch(wrapper, n: int = 1) -> None:
+    """One launch of ``wrapper``'s kernel (or ``n`` more of what a ``Count`` counts)."""
+    wrapper.launches += n
 
 
 def launch_state() -> dict:

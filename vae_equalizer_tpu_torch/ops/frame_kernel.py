@@ -45,8 +45,10 @@ with the block's per-phase clock64() cycles (measurement only).
 
 Dispatch: CPU tensors take ``vae_dp_frame_train_plain`` (a Python loop of
 kernel A's plain step plus ``adam_update``); CUDA tensors launch the kernel
-or raise. The q stream is not emitted (the JAX path runs with
-emit_q=False), so the return drops JAX's q slot.
+or raise. Each launch adds one to ``vae_dp_frame_train.launches`` and its
+m_max windows to ``WINDOWS.launches`` (``ops/_build.py: COUNTED``). The q
+stream is not emitted (the JAX path runs with emit_q=False), so the return
+drops JAX's q slot.
 """
 
 from __future__ import annotations
@@ -57,8 +59,8 @@ import torch
 from . import _build
 from .elbo_kernel import dp_step_plain
 
-__all__ = ["CLOCK_PHASES", "adam_schedule", "adam_update", "frame_clocks", "frame_opt_init",
-           "vae_dp_frame_train", "vae_dp_frame_train_plain"]
+__all__ = ["CLOCK_PHASES", "WINDOWS", "adam_schedule", "adam_update", "frame_clocks",
+           "frame_opt_init", "vae_dp_frame_train", "vae_dp_frame_train_plain"]
 
 # kernel B's step phases, in the order of csrc/dp_step.cuh: enum Phase
 CLOCK_PHASES = ("forward", "demap", "D/S/C", "scalars", "gout", "gw/gh", "Adam/streams/x")
@@ -262,8 +264,12 @@ def _launch(w, h, opt, rx, amps, var, nu_sc, P, lr, step0, lr_half_step, bl_sym,
         None if clocks is None else clocks.data_ptr(), _build.stream(dev))
     _build.check(rc, "vae_dp_frame_launch")
     _build.count_launch(vae_dp_frame_train)
+    _build.count_launch(WINDOWS, m_max)
     opt_new = {k: new[k] for k in ("mw", "vw", "mh", "vh")}
     return new["w"], new["h"], opt_new, losses, var_est, out, dec, eq, mm, s1
 
 
 _build.counted(vae_dp_frame_train)
+# the minibatch windows (dependent steps of all the launch's runs) kernel B's
+# launches ran: m_max a launch, counted as its launches are (replays included)
+WINDOWS = _build.counted(_build.Count("vae_dp_frame_windows"))

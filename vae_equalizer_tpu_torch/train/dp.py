@@ -247,13 +247,31 @@ def _dp_result(hist: dict, var, **extra) -> dict:
 _CONST_NDIM = {"lr": 0, "nu_sc": 0, "var": 1, "P": 1, "pow_mean": 0, "snr_lin": 0, "var_runs": 1}
 
 
+def _frame0_keeper(steps: int, runs: int, device):
+    """``frame0_losses``: ``keep(losses, count)`` copies a frame's per-step
+    losses (steps, runs) into the device buffer ``keep.buf`` where the global
+    step count ``count`` is 0, i.e. in frame 0, and leaves it as it is in
+    every other frame: two small kernels a frame (the test and a ``where``
+    into the buffer), on the device, so a CUDA graph of the frame keeps frame
+    0's losses with no host sync. The buffer holds NaN until frame 0 has run
+    (a call resumed past it)."""
+    buf = torch.full((steps, runs), float("nan"), dtype=torch.float32, device=device)
+
+    def keep(losses, count):
+        with span("dp.losses"):
+            torch.where(count == 0, losses.reshape(buf.shape), buf, out=buf)
+    keep.buf = buf
+    return keep
+
+
 def _frame_kernel_train(cfg, amps, rc, *, runs, runs_batch, stream_bf16, stride_sym, crop, tx_of,
-                        weight_fn, thresh):
+                        weight_fn, thresh, keep=None):
     """``use_pallas="frame"``: a frame's training is one kernel B launch for
     all runs (JAX ``_run_frame_kernel_experiment``), or one per group of
     ``runs_batch`` runs, with the run constants of ``_run_consts``; VAEflex's
     windows crop the eval streams to their central ``crop``
-    (``crop_flex``). The eval takes all runs at once."""
+    (``crop_flex``). The eval takes all runs at once. ``keep``
+    (``_frame0_keeper``) keeps frame 0's losses as B wrote them."""
     R = runs or 1
     rb = runs_batch or R
     if R % rb != 0:
@@ -280,6 +298,8 @@ def _frame_kernel_train(cfg, amps, rc, *, runs, runs_batch, stream_bf16, stride_
                 opt = {k: torch.cat([p[2][k] for p in parts]) for k in parts[0][2]}
                 losses, var_est, out_mb, dec_mb, eq_mb, mm_mb, s1_mb = (
                     cat(i, 1) for i in range(3, 10))
+            if keep is not None:
+                keep(losses, count)
         with span("dp.eval"):
             streams = (a[..., crop] for a in (out_mb, dec_mb, eq_mb, mm_mb, s1_mb))
             out_mb, dec_mb, eq_mb, mm_mb, s1_mb = streams
@@ -291,7 +311,7 @@ def _frame_kernel_train(cfg, amps, rc, *, runs, runs_batch, stream_bf16, stride_
 
 
 def _step_train(cfg, const, amps, P, var, *, use_kernel, n_steps, stride_sym, crop, tx_of,
-                weight_fn, thresh):
+                weight_fn, thresh, keep=None):
     """The per-step modes (JAX's ``lax.scan`` over minibatches): each window
     is one step for all runs, then one Adam update. ``use_kernel`` (True):
     the step is kernel A, launched once for all runs on the window read in
@@ -301,7 +321,7 @@ def _step_train(cfg, const, amps, P, var, *, use_kernel, n_steps, stride_sym, cr
     q and out streams, cropped to ``crop``, are evaluated time-major. Adam
     reads each step's scalars from ``adam_schedule``'s table by the step
     count on the device (``count``), so a CUDA graph of the frame replays
-    every frame at its own steps."""
+    every frame at its own steps. ``keep`` as in ``_frame_kernel_train``."""
     mb_len, hop = cfg.batch_len * cfg.sps, stride_sym * cfg.sps
     sched = adam_schedule(cfg.num_frames * n_steps, thresh, var.device)
     offsets = torch.arange(n_steps, device=var.device)
@@ -333,6 +353,8 @@ def _step_train(cfg, const, amps, P, var, *, use_kernel, n_steps, stride_sym, cr
                 out.append(out_m[..., crop])
             losses, q, out = torch.stack(losses), torch.cat(q, -1), torch.cat(out, -1)
             var_est = torch.stack(var_est, -2)
+            if keep is not None:
+                keep(losses, count)
         with span("dp.eval"):
             packed = _finish_step_frame(losses, q, out, var_est, tx_of(tx), const, amps, P, var,
                                         weight_fn, sigma)
@@ -352,7 +374,7 @@ def _vae_carry(params: dict, shard: RunShard, device) -> tuple:
 
 def _run_vae_experiment(cfg, gen, var, draws, train, *, steps_per_frame, carry, thetas, runs,
                         shard, progress, ckpt, graph_opts, P_draw=None, snr_lin=None,
-                        var_runs=None):
+                        var_runs=None, keep=None):
     """The VAE / VAEflex frame loop for every mode from ``carry``
     (``_vae_carry``) over the frames' angles ``thetas``;
     ``train(params, opt, count, rx, tx, sigma) -> (params, opt, packed)``
@@ -362,7 +384,8 @@ def _run_vae_experiment(cfg, gen, var, draws, train, *, steps_per_frame, carry, 
     ``graph_opts`` ``run_frame_loop``'s compiled / chunk_frames / timings;
     ``P_draw`` (R, n) every run's pmf of the default draws, ``snr_lin`` the
     channel's SNR of each of this process's runs, ``var_runs`` their
-    demapper variance for the result."""
+    demapper variance for the result; ``keep`` the ``_frame0_keeper`` that
+    ``train`` fills, or None."""
     R = shard.count
     rng = ckpt.rng
 
@@ -380,9 +403,13 @@ def _run_vae_experiment(cfg, gen, var, draws, train, *, steps_per_frame, carry, 
         frame_step, carry, (thetas,), _VAE_FIELDS,
         num_frames=cfg.num_frames, runs=None if runs is None else R, progress=progress, ckpt=ckpt,
         host_rows=None if rng is not None else (lambda f: draws(f, R)), **graph_opts)
+    losses0 = None
+    if keep is not None:  # (steps, R) -> (R, steps), one copy to the host a call
+        losses0 = keep.buf.T.cpu().numpy()
     if runs is None:
         params = {k: v[0] for k, v in params.items()}
-    return _dp_result(hist, var, params=params, var_runs=var_runs)
+        losses0 = None if losses0 is None else losses0[0]
+    return _dp_result(hist, var, params=params, var_runs=var_runs, frame0_losses=losses0)
 
 
 def _default_draws(seed: int, device) -> torch.Generator:
@@ -481,7 +508,8 @@ def _vae_setup(loss_type, cfg, seed, device, params_init, use_pallas, draws, run
 
 
 def _vae_runner(loss_type, cfg, seed, device, progress, runs, params_init, use_pallas, draws,
-                runs_batch, stream_bf16, vecs, mesh, checkpoint, checkpoint_every, graph_opts):
+                runs_batch, stream_bf16, vecs, mesh, checkpoint, checkpoint_every, graph_opts,
+                frame0_losses=False):
     """``train_vae_dp`` (batch_len windows back to back) and
     ``train_vae_flex_dp`` (windows every flex_step, central crop)."""
     with span("dp.setup"):
@@ -503,6 +531,7 @@ def _vae_runner(loss_type, cfg, seed, device, progress, runs, params_init, use_p
                       tx_of=lambda tx: tx[..., bl // 2 : bl // 2 + m_max],
                       weight_fn=MarginWeight(m_max))
         kw["thresh"] = float(cfg.n_lrhalf) * n_steps
+        kw["keep"] = _frame0_keeper(n_steps, shard.count, device) if frame0_losses else None
         if use_pallas == "frame":
             train = _frame_kernel_train(cfg, amps, rc, runs=None if runs is None else shard.count,
                                         runs_batch=runs_batch, stream_bf16=stream_bf16, **kw)
@@ -515,8 +544,8 @@ def _vae_runner(loss_type, cfg, seed, device, progress, runs, params_init, use_p
         thetas = _frame_inputs(cfg, device)
     return _run_vae_experiment(cfg, gen, var, draws, train, steps_per_frame=n_steps, carry=carry,
                                thetas=thetas, runs=runs, shard=shard, progress=progress, ckpt=ckpt,
-                               graph_opts=graph_opts,
-                               P_draw=rc["P_draw"], snr_lin=rc["snr_lin"], var_runs=rc["var_runs"])
+                               graph_opts=graph_opts, P_draw=rc["P_draw"], snr_lin=rc["snr_lin"],
+                               var_runs=rc["var_runs"], keep=kw["keep"])
 
 
 @run_sharding
@@ -525,7 +554,7 @@ def train_vae_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progress = N
                  use_pallas=False, checkpoint=None, checkpoint_every: int = 0,
                  timings: dict | None = None, chunk_frames: int = 1, runs_batch: int | None = None,
                  stream_bf16: bool = False, lr_vec=None, snr_vec=None, nu_vec=None,
-                 draws=None) -> dict:
+                 draws=None, frame0_losses: bool = False) -> dict:
     """VAE-LE butterfly, online frame training on the optical DP channel.
 
     ``use_pallas`` (``train/modes.py``; JAX's default False): ``"frame"``
@@ -578,14 +607,23 @@ def train_vae_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progress = N
     ``runs=None`` ignores the mesh; a mesh with an sp axis, or anything but
     a ``Mesh``, raises ``ValueError``.
 
+    ``frame0_losses=True`` also returns frame 0's per-step losses, as the
+    training wrote them (kernel B's ``losses``, or each step's ELBO in the
+    per-step modes): kept on the device by two small kernels a frame
+    (span ``dp.losses``), also under graph replay, and copied to the host
+    once a call; NaN where this call did not run frame 0 (a resume past it).
+    Off, nothing of it runs.
+
     Returns {"ser" (..., 4, F), "mi" (..., 2, F), "var_est" (..., 2, F),
     "var" (2,), "params" {"w", "h"}} with a leading runs axis iff ``runs``,
-    and "var_runs" (runs, 2), the per-run demapper variance, whenever
-    ``snr_vec`` or ``nu_vec`` is set.
+    "var_runs" (runs, 2), the per-run demapper variance, whenever
+    ``snr_vec`` or ``nu_vec`` is set, and "frame0_losses" (..., steps) with
+    ``frame0_losses``.
     """
     return _vae_runner("VAE", cfg, seed, device, progress, runs, params_init, use_pallas, draws,
                        runs_batch, stream_bf16, (lr_vec, snr_vec, nu_vec), mesh, checkpoint,
-                       checkpoint_every, _graph_opts(compiled, chunk_frames, timings))
+                       checkpoint_every, _graph_opts(compiled, chunk_frames, timings),
+                       frame0_losses)
 
 
 @run_sharding
@@ -594,7 +632,7 @@ def train_vae_flex_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progres
                       use_pallas=False, checkpoint=None, checkpoint_every: int = 0,
                       timings: dict | None = None, chunk_frames: int = 1,
                       runs_batch: int | None = None, stream_bf16: bool = False, lr_vec=None,
-                      snr_vec=None, nu_vec=None, draws=None) -> dict:
+                      snr_vec=None, nu_vec=None, draws=None, frame0_losses: bool = False) -> dict:
     """VAEflex: overlapping sliding-window minibatches with a central crop
     (func_VAEflex_DP_MQAM_shaping.py:16-90, JAX ``train_vae_flex_dp``).
 
@@ -605,12 +643,13 @@ def train_vae_flex_dp(cfg: DpConfig, seed: int, device="cuda", progress: Progres
     ``use_pallas``: ``"frame"`` runs all windows (incl. Adam) as one kernel B
     launch with ``stride_sym = flex_step``; ``True`` runs each window of all
     runs as one kernel A launch; ``False`` takes each window's gradient by
-    autograd. Arguments, draws, the graph modes, ``mesh`` and returns as
-    ``train_vae_dp``.
+    autograd. Arguments, draws, the graph modes, ``mesh``, ``frame0_losses``
+    (its steps are the frame's windows) and returns as ``train_vae_dp``.
     """
     return _vae_runner("VAEflex", cfg, seed, device, progress, runs, params_init, use_pallas, draws,
                        runs_batch, stream_bf16, (lr_vec, snr_vec, nu_vec), mesh, checkpoint,
-                       checkpoint_every, _graph_opts(compiled, chunk_frames, timings))
+                       checkpoint_every, _graph_opts(compiled, chunk_frames, timings),
+                       frame0_losses)
 
 
 @run_sharding

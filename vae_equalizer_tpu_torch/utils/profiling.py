@@ -24,6 +24,8 @@ capture, and not at each replay. The spans:
 * ``dp.channel``: a frame's draws and channel physics;
 * ``dp.train``: a frame's training: kernel B's launches and their joins,
   or the per-step modes' steps with Adam;
+* ``dp.losses`` (inside ``dp.train``): with ``frame0_losses``, the copy of
+  frame 0's per-step losses into the runner's device buffer;
 * ``dp.eval``: a frame's eval (sync, SER, MI, packed metrics);
 * ``harness.build`` (``train/harness.py: StepGraphs.build``): warm-up and
   capture, with ``harness.capture``, the capture itself, inside it;
